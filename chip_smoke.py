@@ -6,15 +6,18 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``deeplearning4j_tpu_torch/csrc/``,
-holds each against its plain PyTorch version on the card, then serves a
-``TransformerLM`` at GPT-2 small's published widths (vocab 50257, hidden
-768, 12 layers, 12 heads, ffn 3072, 1024 positions; float32; random
-weights from a seed) through the port's entry points: ``output()`` on 8
-prompts of 1024 tokens (the flash forward kernel) and
-``GenerationSession.generate`` on 8 ragged prompts (the decode kernel).
-It checks the launch counts of that run, holds the cached decode's
-log-probs against a full forward, prints the timings, a ``kernels`` JSON
-line, and last ``{"ok": true, "device": {...}}``.
+holds each against its plain PyTorch version on the card (the flash
+forward B1, the flash backward B2 dq and B3 dk/dv, the decode kernel B4),
+then drives the port's main path at GPT-2 small's published widths (vocab
+50257, hidden 768, 12 layers, 12 heads, ffn 3072, 1024 positions; float32;
+random weights from a seed): it serves a ``TransformerLM`` through
+``output()`` on 8 prompts of 1024 tokens and ``GenerationSession.generate``
+on 8 ragged prompts, and trains one with ``Solver.fit_batch`` (Adam 1e-4)
+on 8 x 1024 tokens. Each path runs with the launch counts set to 0 just
+before it and read just after. It checks those counts, the cached decode's
+log-probs against a full forward, the training score, and the kernel-path
+gradients against the materialised-scores reference; then prints the
+timings, a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits with 2 and prints no result.
@@ -27,6 +30,8 @@ import subprocess
 import sys
 import time
 
+import importlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -35,6 +40,11 @@ from deeplearning4j_tpu_torch.generate import GenerationSession
 from deeplearning4j_tpu_torch.model.zoo import TransformerLM
 from deeplearning4j_tpu_torch import ops as fa
 from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.train import Solver
+
+# the module (ops/__init__ exports a function of this name): the timings call
+# the kernels' wrappers directly, without the delta pass around them
+fa_mod = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
 
 SEED = 1234
 B, H, D = 8, 12, 64          # the serving shapes: batch 8, GPT-2 small's heads
@@ -50,6 +60,18 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the bf16 output, one ulp at |out| < 4 (2^-6); lse stays float32.
 TOL_OUT = {torch.float32: 5e-5, torch.bfloat16: 1.6e-2}
 TOL_LSE = 1e-4
+# Backward kernels vs plain versions, max abs error over the largest |value|
+# of the plain gradient. float32: both sum up to t = 1024 terms in float32,
+# in another order. bfloat16: both round float32 sums to bf16, so they may
+# differ by one bf16 ulp at the largest value (2^-7 of it).
+TOL_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4}
+# Model gradients through the kernels vs through materialised scores and
+# plain autograd, per parameter, max abs error over the parameter's largest
+# |gradient|. Both run in float32; the attention sums differ in order in each
+# of 12 layers, which moves gradients by ~1e-5 of their scale. A gradient that
+# skipped attention (no backward through the kernel) misses by ~1.
+TOL_GRAD_REL = 1e-3
+TRAIN_STEPS = 5
 # Cached decode vs full forward, max abs error of the log-probs. Both run in
 # float32 through different kernels and matrix shapes; float32 rounding
 # moves log-probs near -10.8 by ~1e-5. A bfloat16 model would miss this by
@@ -76,6 +98,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def roofline(flops: float, nbytes: float, dtype) -> tuple:
+    """(bound ms, what binds): the larger of the operations at the peak rate
+    of ``dtype`` and the bytes at the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -85,6 +114,7 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_device() -> str:
+    """Prints and returns the card's name and power limit."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -95,7 +125,7 @@ def phase_device() -> str:
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    return name
+    return smi
 
 
 def phase_build() -> None:
@@ -153,9 +183,7 @@ def phase_flash_forward(gen) -> dict:
         pairs = B * H * T_FULL * (T_FULL + 1) // 2  # (q, k) pairs the causal mask keeps
         flops = 4 * D * pairs
         nbytes = (4 * B * H * T_FULL * D) * q.element_size() + B * H * T_FULL * 4
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-        bound_ms = 1e3 * max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        bound_ms, bound_by = roofline(flops, nbytes, dtype)
         print(f"flash_forward {str(dtype)[6:]} [8,12,1024,64] causal: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
@@ -208,9 +236,7 @@ def phase_flash_decode(gen, decode_pos) -> dict:
         keys = int((pos.long() + 1).sum()) * H  # cached positions this step reads
         nbytes = (2 * keys * D + 2 * B * H * D) * q.element_size() + B * 4
         flops = 4 * D * keys
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-        bound_ms = 1e3 * max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        bound_ms, bound_by = roofline(flops, nbytes, dtype)
         print(f"flash_decode {str(dtype)[6:]} [8,12,1,64] vs L={L} at start_pos="
               f"{decode_pos}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
               f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.2f} MB)")
@@ -218,6 +244,81 @@ def phase_flash_decode(gen, decode_pos) -> dict:
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
     return row
+
+
+def phase_flash_backward(gen) -> dict:
+    """B2 and B3 against their plain versions at the forward phase's cases,
+    then timed at the training path's shape."""
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    cases = [(t, t, c, m) for t in (128, T_FULL) for c in (False, True) for m in (False, True)]
+    cases.append((128, T_FULL, True, True))  # tq < tk, causal bottom-right aligned
+    for dtype in (torch.float32, torch.bfloat16):
+        for tq, tk, causal, masked in cases:
+            q = torch.randn(B, H, tq, D, generator=gen).to("cuda", dtype)
+            k = torch.randn(B, H, tk, D, generator=gen).to("cuda", dtype)
+            v = torch.randn(B, H, tk, D, generator=gen).to("cuda", dtype)
+            g = torch.randn(B, H, tq, D, generator=gen).to("cuda", dtype)
+            mask = _key_mask(gen, tk).cuda() if masked else None
+            out, lse = fa.flash_attention_plain(q, k, v, mask, causal)
+            dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g, mask, causal)
+            delta = torch.sum(g.float() * out.float(), dim=-1)
+            args = (q, k, v, g, lse, delta, mask, causal)
+            p_dq = fa.flash_attention_bwd_dq_plain(*args)
+            p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(*args)
+            torch.cuda.synchronize()
+            errs = {"dq": (dq, p_dq), "dk": (dk, p_dk), "dv": (dv, p_dv)}
+            rel = {n: rel_err(a, b) for n, (a, b) in errs.items()}
+            print(f"flash_backward {str(dtype)[6:]:8s} tq={tq:4d} tk={tk:4d} "
+                  f"causal={causal!s:5s} mask={masked!s:5s}: " + ", ".join(
+                      f"{n} max_abs={max_err(a, b):.3e} rel={rel[n]:.3e}"
+                      for n, (a, b) in errs.items()) + f" (rel tol {TOL_BWD_REL[dtype]:.3g})")
+            check(max(rel.values()) <= TOL_BWD_REL[dtype],
+                  "flash backward disagrees with its plain version")
+            if masked:
+                check(all(bool((x[3] == 0).all()) for x in (dq, dk, dv)),
+                      "a fully masked row must give zero gradients")
+            if dtype == torch.float32:
+                worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], max_err(dq, p_dq))
+                worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], max_err(dk, p_dk),
+                                             max_err(dv, p_dv))
+
+    # timing at the training path's shape: [8, 12, 1024, 64], causal, no mask
+    rows = {n: {"max_abs_err": w} for n, w in worst.items()}
+    pairs = B * H * T_FULL * (T_FULL + 1) // 2  # (q, k) pairs the causal mask keeps
+    n_in = B * H * T_FULL * D  # values in each of q, k, v, g
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (torch.randn(B, H, T_FULL, D, generator=gen).to("cuda", dtype)
+                      for _ in range(4))
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        delta = torch.sum(g.float() * out.float(), dim=-1)
+        args = (q, k, v, g, lse, delta, None, True)
+        scale = D ** -0.5
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), g,
+                                                     retain_graph=True), 10)
+        timed = {
+            # name: (kernel, plain version, products, values written)
+            "flash_bwd_dq": (lambda: fa_mod._flash_bwd_dq_cuda(*args, scale),
+                             lambda: fa.flash_attention_bwd_dq_plain(*args), 3, 1),
+            "flash_bwd_dkv": (lambda: fa_mod._flash_bwd_dkv_cuda(*args, scale),
+                              lambda: fa.flash_attention_bwd_dkv_plain(*args), 4, 2),
+        }
+        for name, (kernel, plain, products, n_out) in timed.items():
+            ms = cuda_ms(kernel, 10)
+            plain_ms = cuda_ms(plain, 3)
+            flops = 2 * products * D * pairs
+            nbytes = (4 + n_out) * n_in * q.element_size() + 2 * B * H * T_FULL * 4
+            bound_ms, bound_by = roofline(flops, nbytes, dtype)
+            print(f"{name} {str(dtype)[6:]} [8,12,1024,64] causal: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, sdpa backward (dq+dk+dv) {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB)")
+            if dtype == torch.float32:
+                rows[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+        del o_lib
+    return rows
 
 
 def phase_model(prompts) -> dict:
@@ -251,9 +352,10 @@ def phase_model(prompts) -> dict:
     counts = dict(fa.LAUNCH_COUNTS)
     steps = MAX_TOKENS - 1  # the first token comes from prefill
     print(f"launches: after output() {after_output}, after generate() {counts}")
-    check(after_output == {"flash_forward": 12, "flash_decode": 0},
+    no_bwd = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    check(after_output == {"flash_forward": 12, "flash_decode": 0, **no_bwd},
           "output() must launch flash_forward once per decoder block (12)")
-    check(counts == {"flash_forward": 12, "flash_decode": 12 * steps},
+    check(counts == {"flash_forward": 12, "flash_decode": 12 * steps, **no_bwd},
           f"generate() must launch flash_decode 12 x {steps} decode steps")
     check(tuple(probs.shape) == (B, 50257, T_FULL) and bool(torch.isfinite(probs).all()),
           "output() must be finite [8, 50257, 1024]")
@@ -310,11 +412,73 @@ def phase_model(prompts) -> dict:
     return counts
 
 
+def phase_train(card: str) -> dict:
+    """The training path: ``Solver.fit_batch`` on one fixed batch of 8 x 1024
+    tokens, labels the ids shifted by one. Returns the launch counts of the
+    timed steps."""
+    lm = TransformerLM(vocab_size=50257, hidden=768, n_layers=12, n_heads=12,
+                       ffn_size=3072, max_len=T_FULL, seed=SEED, dtype="float32")
+    model = lm.init()
+    solver = Solver(model)
+    rs = np.random.RandomState(SEED + 2)
+    ids_np = rs.randint(0, 50257, (B, T_FULL + 1))
+    ids = torch.from_numpy(ids_np[:, :-1]).cuda()
+    labels = torch.from_numpy(ids_np[:, 1:]).cuda()
+    solver.fit_batch(ids, labels)  # warm-up: library handles, allocator pools
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the training path: counts from 0, TRAIN_STEPS steps ----
+    fa.reset_launch_counts()
+    scores, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        before = dict(fa.LAUNCH_COUNTS)
+        t0 = time.perf_counter()
+        score, _ = solver.fit_batch(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        scores.append(float(score))
+        per_step = {n: fa.LAUNCH_COUNTS[n] - before[n] for n in before}
+        check(per_step == {"flash_forward": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                           "flash_decode": 0},
+              f"a training step must launch B1, B2 and B3 once per block (12): {per_step}")
+    counts = dict(fa.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"launches in {TRAIN_STEPS} training steps: {counts}")
+    check(all(np.isfinite(scores)), f"training scores must be finite: {scores}")
+    check(scores[-1] < scores[0], f"the score must fall over the steps: {scores}")
+    ms = float(np.median(step_ms))
+    print(f"training ({card}): Solver.fit_batch [8,1024] Adam(1e-4), {TRAIN_STEPS} steps "
+          f"after one warm-up: median {ms:.2f} ms/step of "
+          f"{[round(t, 2) for t in step_ms]} = {B * T_FULL / ms * 1e3:.1f} tokens/s; "
+          f"scores {[round(x, 5) for x in scores]}; peak memory {peak / 2**30:.2f} GiB")
+
+    # ---- correctness: kernel-path gradients vs materialised scores ----
+    worst = (0.0, "")
+    grads = model.calculate_gradients(ids, labels)
+    fa.set_attention_impl("reference")
+    try:
+        ref = model.calculate_gradients(ids, labels)
+    finally:
+        fa.set_attention_impl("auto")
+    for lname, lg in ref.items():
+        for pname, r in lg.items():
+            e = rel_err(grads[lname][pname], r)
+            check(float(grads[lname][pname].abs().max()) > 0 or float(r.abs().max()) == 0,
+                  f"{lname}.{pname} has no gradient through the kernels")
+            worst = max(worst, (e, f"{lname}.{pname}"))
+    print(f"gradients through the kernels vs the reference: worst rel error "
+          f"{worst[0]:.3e} at {worst[1]} (tol {TOL_GRAD_REL:g})")
+    check(worst[0] <= TOL_GRAD_REL, "kernel-path gradients disagree with the reference")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    name = phase_device()
+    card = phase_device()
+    name = torch.cuda.get_device_name(0)
     phase_build()
     gen = torch.Generator().manual_seed(SEED)
     rs = np.random.RandomState(SEED + 1)
@@ -322,17 +486,25 @@ def main() -> int:
     prompts = [rs.randint(0, 50257, n).tolist() for n in prompt_lens]
     fwd = phase_flash_forward(gen)
     dec = phase_flash_decode(gen, [n + MAX_TOKENS // 2 for n in prompt_lens])
-    counts = phase_model(prompts)
+    bwd = phase_flash_backward(gen)
+    serve = phase_model(prompts)
+    train = phase_train(card)
+    # launches over the main path: serving, then training
+    launches = {n: serve[n] + train[n] for n in serve}
+    src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [
-        dict(name="flash_forward", route="cuda",
-             source="deeplearning4j_tpu_torch/csrc/flash_forward.cu",
-             replaces="deeplearning4j_tpu/ops/flash_attention.py:108",
-             launches=counts["flash_forward"], **fwd),
-        dict(name="flash_decode", route="cuda",
-             source="deeplearning4j_tpu_torch/csrc/flash_decode.cu",
-             replaces="deeplearning4j_tpu/ops/flash_attention.py:697",
-             launches=counts["flash_decode"], **dec),
+        dict(name="flash_forward", route="cuda", source=src + "flash_forward.cu",
+             replaces="deeplearning4j_tpu/ops/flash_attention.py:108", **fwd),
+        dict(name="flash_bwd_dq", route="cuda", source=src + "flash_backward.cu",
+             replaces="deeplearning4j_tpu/ops/flash_attention.py:366", **bwd["flash_bwd_dq"]),
+        dict(name="flash_bwd_dkv", route="cuda", source=src + "flash_backward.cu",
+             replaces="deeplearning4j_tpu/ops/flash_attention.py:420", **bwd["flash_bwd_dkv"]),
+        dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
+             replaces="deeplearning4j_tpu/ops/flash_attention.py:697", **dec),
     ]
+    for kern in kernels:
+        kern["launches"] = launches[kern["name"]]
+        check(kern["launches"] > 0, f"{kern['name']} was not launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

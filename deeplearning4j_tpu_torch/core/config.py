@@ -162,5 +162,5 @@ def _register_all() -> None:
     """Import every module that registers config classes, so that decoding
     a JSON document does not depend on what the caller imported first."""
     for mod in ("nn.conf", "nn.layers", "nn.weights", "nn.input_type",
-                "train.updaters"):
+                "train.schedules", "train.updaters"):
         importlib.import_module(f"{_PORT_PACKAGE}.{mod}")

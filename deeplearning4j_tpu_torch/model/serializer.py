@@ -5,6 +5,7 @@ Reads and writes the JAX package's model zip:
   configuration.json   — core.config JSON of the MultiLayerConfiguration
   coefficients.npy     — flat float param vector in ``ravel_pytree`` order
   state.npz            — non-trainable state leaves
+  updaterState.npz     — updater state leaves (optional)
   meta.json            — model class + framework
 
 ``coefficients.npy`` is one flat vector in the order JAX flattens the
@@ -13,6 +14,15 @@ levels, so ``layer_10`` precedes ``layer_2`` and, within a layer, ``W1``
 precedes ``b1`` (upper case sorts first). ``MultiLayerNetwork.params_flat``
 / ``set_params_flat`` keep that order. Zips this module writes name the
 JAX framework, so the JAX package restores them as its own.
+
+``updaterState.npz`` holds ``leaf_0..leaf_n`` in the order JAX flattens the
+``{layer: optax state}`` dict: layers sorted as strings, then each chain's
+states in order, each state's fields in order, and each ``{param: array}``
+dict sorted by name (for Adam: count, mu by param, nu by param, then the
+learning-rate schedule's count when the rate is a schedule). The port's
+updater states keep optax's layout (``train/updaters.py``), so a zip a JAX
+``Solver`` wrote resumes in the port and the reverse. Only Adam and AdamW
+states are carried so far; any other updater raises.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import json
 import os
 import tempfile
 import zipfile
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -34,6 +44,7 @@ from ..nn.sequential import MultiLayerNetwork
 _CONF = "configuration.json"
 _COEFF = "coefficients.npy"
 _STATE = "state.npz"
+_UPDATER = "updaterState.npz"
 _META = "meta.json"
 
 _FRAMEWORK = "deeplearning4j_tpu"  # the zip format's name, shared by both packages
@@ -55,6 +66,54 @@ def _check_meta(meta: dict, path: str) -> None:
     if framework not in (None, _FRAMEWORK, _PORT_FRAMEWORK):
         raise ValueError(f"{path}: artifact written by framework {framework!r}, "
                          f"not {_FRAMEWORK!r}")
+
+
+def _state_leaves(tree: Any) -> List[np.ndarray]:
+    """The leaves of an updater state in JAX's tree-flatten order: dicts by
+    sorted key, tuples (and optax's NamedTuple states) in order; step
+    counts are int32 scalars."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _state_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [leaf for item in tree for leaf in _state_leaves(item)]
+    if isinstance(tree, int):
+        return [np.asarray(tree, np.int32)]
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return [(t.float() if t.dtype == torch.bfloat16 else t).numpy()]
+    raise TypeError(f"unexpected updater state node {type(tree).__name__}")
+
+
+def _fill_state(template: Any, leaves: Iterator[np.ndarray]) -> Any:
+    """``template`` with its leaves taken in order from ``leaves``: tensors
+    are overwritten in place, counts replaced."""
+    if isinstance(template, dict):
+        filled = {k: _fill_state(template[k], leaves) for k in sorted(template)}
+        return {k: filled[k] for k in template}
+    if isinstance(template, tuple):
+        items = [_fill_state(item, leaves) for item in template]
+        return type(template)(*items) if hasattr(template, "_fields") else tuple(items)
+    if isinstance(template, int):
+        return int(next(leaves))
+    arr = np.asarray(next(leaves))
+    if arr.shape != tuple(template.shape):
+        raise ValueError(f"updater state leaf of shape {arr.shape}, model expects "
+                         f"{tuple(template.shape)}")
+    if arr.dtype not in (np.float16, np.float32, np.float64):
+        arr = arr.astype(np.float32)  # e.g. ml_dtypes bfloat16
+    with torch.no_grad():
+        template.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(template.dtype))
+    return template
+
+
+def _check_carried_updaters(trainer) -> None:
+    from ..train.updaters import Adam, AdamW
+
+    for name, updater in trainer.optim.updaters.items():
+        if type(updater) not in (Adam, AdamW):
+            raise NotImplementedError(
+                f"{name}: carrying {type(updater).__name__} updater state through "
+                "the model zip is not ported yet (Adam and AdamW are)")
 
 
 def load_jax_params(model: MultiLayerNetwork,
@@ -83,10 +142,12 @@ def load_jax_params(model: MultiLayerNetwork,
     return model
 
 
-def restore_multi_layer_network(path: str, device: Device = None) -> MultiLayerNetwork:
+def restore_multi_layer_network(path: str, device: Device = None,
+                                load_updater: bool = False) -> MultiLayerNetwork:
     """Reference: ModelSerializer.restoreMultiLayerNetwork. Builds the
     network from the zip's configuration on ``device`` (default: the
-    current CUDA device) and loads its coefficients."""
+    current CUDA device) and loads its coefficients; with ``load_updater``
+    also its ``Solver`` and the updater state the zip carries."""
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
         if _META in names:
@@ -105,21 +166,42 @@ def restore_multi_layer_network(path: str, device: Device = None) -> MultiLayerN
             if n_leaves != n_expected:
                 raise ValueError(f"{path}: checkpoint has {n_leaves} state leaves, "
                                  f"model expects {n_expected}")
+        if load_updater:
+            if _UPDATER not in names:
+                raise ValueError(f"{path}: load_updater=True but the artifact has no "
+                                 "updater state (it was saved with save_updater=False)")
+            from ..train.solver import Solver
+
+            trainer = Solver(model)
+            _check_carried_updaters(trainer)
+            z = np.load(io.BytesIO(zf.read(_UPDATER)))
+            leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
+            n_expected = len(_state_leaves(trainer.opt_state))
+            if len(leaves) != n_expected:
+                raise ValueError(f"{path}: checkpoint has {len(leaves)} updater state "
+                                 f"leaves, model expects {n_expected}")
+            trainer.opt_state = _fill_state(trainer.opt_state, iter(leaves))
+            model._trainer = trainer
     return model
 
 
-def restore_model(path: str, device: Device = None) -> MultiLayerNetwork:
+def restore_model(path: str, device: Device = None,
+                  load_updater: bool = False) -> MultiLayerNetwork:
     with zipfile.ZipFile(path) as zf:
         meta = json.loads(zf.read(_META))
     _check_meta(meta, path)
-    return restore_multi_layer_network(path, device)
+    return restore_multi_layer_network(path, device, load_updater)
 
 
-def write_model(model: MultiLayerNetwork, path: str) -> None:
+def write_model(model: MultiLayerNetwork, path: str, save_updater: bool = False) -> None:
     """Reference: ModelSerializer.writeModel, in the JAX package's layout.
-    Atomic: the zip is assembled in a temp file beside ``path`` and then
-    renamed onto it."""
+    With ``save_updater`` and a model that has trained, the updater state
+    goes in too. Atomic: the zip is assembled in a temp file beside
+    ``path`` and then renamed onto it."""
     model._check_init()
+    trainer = model._trainer if save_updater else None
+    if trainer is not None:
+        _check_carried_updaters(trainer)
     dirname = os.path.dirname(os.path.abspath(path))
     fd, tmp_path = tempfile.mkstemp(dir=dirname, prefix=".tmp-",
                                     suffix=os.path.basename(path))
@@ -133,6 +215,11 @@ def write_model(model: MultiLayerNetwork, path: str) -> None:
                 buf = io.BytesIO()
                 np.savez(buf)  # no layer of this package carries persistent state
                 zf.writestr(_STATE, buf.getvalue())
+                if trainer is not None:
+                    buf = io.BytesIO()
+                    np.savez(buf, **{f"leaf_{i}": leaf for i, leaf in
+                                     enumerate(_state_leaves(trainer.opt_state))})
+                    zf.writestr(_UPDATER, buf.getvalue())
                 zf.writestr(_META, json.dumps({
                     "model_class": type(model).__name__,
                     "framework": _FRAMEWORK,

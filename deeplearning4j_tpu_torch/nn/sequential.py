@@ -1,5 +1,5 @@
-"""MultiLayerNetwork — the sequential-stack model (port of the inference
-part of ``deeplearning4j_tpu/nn/sequential.py``).
+"""MultiLayerNetwork — the sequential-stack model (port of
+``deeplearning4j_tpu/nn/sequential.py``: inference, gradients and ``fit``).
 
 The network is an ``nn.Module`` holding one :class:`LayerModule` per layer,
 registered under the layer's name, so ``state_dict`` keys read
@@ -12,9 +12,10 @@ State model, as in the JAX package:
                   threaded through :meth:`forward_pure`'s ``rnn_state``
 
 PyTorch runs eagerly, so there is no jitted program per entry point; the
-inference entry points run under ``torch.inference_mode``. The model lives
-on ``device`` (default: the current CUDA device; pass ``device="cpu"`` to
-run on the CPU).
+inference entry points run under ``torch.inference_mode``, and training
+(``fit``, ``calculate_gradients``) records the autograd graph outside it.
+The model lives on ``device`` (default: the current CUDA device; pass
+``device="cpu"`` to run on the CPU).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from ..core.dtypes import as_input, default_device, torch_dtype
+from ..core.listeners import ListenerBus, TrainingListener
 from .conf import MultiLayerConfiguration
 from .layers.base import Layer, LayerContext, LayerModule
 from .layers.output import BaseOutputLayer
@@ -48,6 +50,19 @@ def _layer_reg_score(layer: Layer, params: Dict[str, torch.Tensor],
     return score
 
 
+def grads_of(score: torch.Tensor, params: Dict[str, Dict[str, torch.Tensor]]
+             ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``d score / d params`` in the params' ``{layer: {param: tensor}}``
+    layout (every layer present, as ``jax.grad`` gives it); a parameter the
+    score does not reach gets zeros."""
+    names = [(l, k) for l, lp in params.items() for k in lp]
+    flat = torch.autograd.grad(score, [params[l][k] for l, k in names], allow_unused=True)
+    grads: Dict[str, Dict[str, torch.Tensor]] = {l: {} for l in params}
+    for (l, k), g in zip(names, flat):
+        grads[l][k] = torch.zeros_like(params[l][k]) if g is None else g
+    return grads
+
+
 class MultiLayerNetwork(nn.Module):
     def __init__(self, conf: MultiLayerConfiguration,
                  device: Optional[Union[str, torch.device]] = None) -> None:
@@ -60,6 +75,13 @@ class MultiLayerNetwork(nn.Module):
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
         self.rnn_state: Dict[str, Dict[str, torch.Tensor]] = {}
         self._persistent_keys: Dict[str, Tuple[str, ...]] = {}
+        self.listeners = ListenerBus()
+        self.iteration_count = 0
+        self.epoch_count = 0
+        self.last_batch_size = 0
+        self.score_value = float("nan")
+        self._rng = torch.Generator().manual_seed(conf.seed)
+        self._trainer = None
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -73,6 +95,19 @@ class MultiLayerNetwork(nn.Module):
 
     def layer_names(self) -> List[str]:
         return [self.conf.layer_name(i) for i in range(len(self.layers))]
+
+    def named_param_layers(self) -> List[Tuple[str, Layer]]:
+        """(name, layer) pairs for layers holding trainable params — the
+        updater-block boundaries (used by the Solver's LayerOptimizers)."""
+        return [(self.conf.layer_name(i), l) for i, l in enumerate(self.layers)
+                if l.has_params()]
+
+    def _next_generator(self) -> torch.Generator:
+        """A fresh CPU generator for one training step's dropout draws; the
+        model's own generator (seeded from the config's seed) advances once
+        per step."""
+        seed = int(torch.randint(0, 2**62, (), generator=self._rng))
+        return torch.Generator().manual_seed(seed)
 
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
         """Build every layer's parameters from one CPU ``torch.Generator``
@@ -89,6 +124,7 @@ class MultiLayerNetwork(nn.Module):
             self.state[name] = st
             self._persistent_keys[name] = tuple(st.keys())
         self.rnn_state = {}
+        self._trainer = None
         self._initialized = True
         return self
 
@@ -199,6 +235,40 @@ class MultiLayerNetwork(nn.Module):
                                   label_mask=self._mask(label_mask), train=False)
         return float(s)
 
+    def calculate_gradients(self, features, labels, mask=None, label_mask=None):
+        """Full gradient ``{layer: {param: grad}}`` for the given batch — the
+        grad-check entry point (reference: computeGradientAndScore +
+        Gradient object). Runs the training forward without dropout."""
+        self._check_init()
+        labels_t = as_input(labels, self.dtype, True, self.device)
+        s, _ = self.loss_pure(self.params, self.state, self._input(features), labels_t,
+                              rng=None, mask=self._mask(mask),
+                              label_mask=self._mask(label_mask), train=True)
+        return grads_of(s, self.params)
+
+    # ------------------------------------------------------------------ fit
+    def add_listeners(self, *listeners: TrainingListener) -> None:
+        for l in listeners:
+            self.listeners.add(l)
+
+    # reference spelling
+    def set_listeners(self, *listeners: TrainingListener) -> None:
+        self.listeners.clear()
+        for l in listeners:
+            self.listeners.add(l)
+
+    def fit(self, data, labels=None, *, epochs: int = 1, mask=None, label_mask=None):
+        """Train (reference: MultiLayerNetwork.fit). ``data`` is a features
+        batch with ``labels``, or an iterable of (features, labels) pairs
+        (``DataSet`` and its iterators are not ported yet)."""
+        self._check_init()
+        from ..train.solver import Solver
+
+        if self._trainer is None:
+            self._trainer = Solver(self)
+        self._trainer.fit(data, labels, epochs=epochs, mask=mask, label_mask=label_mask)
+        return self
+
     # ------------------------------------------------------------- params
     def num_params(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))
@@ -239,3 +309,13 @@ class MultiLayerNetwork(nn.Module):
                 chunk = torch.from_numpy(np.ascontiguousarray(vec[off:off + n]))
                 p.copy_(chunk.reshape(p.shape).to(device=p.device, dtype=p.dtype))
                 off += n
+
+
+def _as_batches(data, labels, mask):
+    """Normalize (features, labels) or an iterable of pairs into batch
+    tuples ``(features, labels, mask, label_mask)``."""
+    if labels is not None:
+        yield data, labels, mask, None
+        return
+    for item in data:
+        yield item[0], item[1], None, None

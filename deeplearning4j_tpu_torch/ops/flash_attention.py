@@ -1,7 +1,6 @@
-"""Attention for Hopper: the flash forward and single-query decode kernels,
-their plain PyTorch versions, and the helper seam that picks between them
-(port of the forward and decode parts of
-``deeplearning4j_tpu/ops/flash_attention.py``).
+"""Attention for Hopper: the flash forward, flash backward and single-query
+decode kernels, their plain PyTorch versions, and the helper seam that picks
+between them (port of ``deeplearning4j_tpu/ops/flash_attention.py``).
 
 Inputs are [batch, heads, time, head_dim], as in the JAX package.
 
@@ -9,19 +8,26 @@ Inputs are [batch, heads, time, head_dim], as in the JAX package.
   [b, tk] key-padding mask and optional bottom-right-aligned causal mask;
   returns the output and, on request, the row logsumexp. CUDA source:
   ``csrc/flash_forward.cu``; plain version: :func:`flash_attention_plain`.
+  Under autograd it runs as :class:`_FlashAttention`, whose backward is B2
+  (dq) and B3 (dk, dv), the counterpart of the JAX package's ``_flash``
+  custom VJP. CUDA source: ``csrc/flash_backward.cu``; plain versions:
+  :func:`flash_attention_bwd_dq_plain`, :func:`flash_attention_bwd_dkv_plain`.
 * :func:`flash_decode_attention` — B4, one query row per (batch, head)
   against a static [b, h, L, d] cache, reading only positions
   ``[0, start_pos[b]]``. CUDA source: ``csrc/flash_decode.cu``; plain
-  version: :func:`flash_decode_attention_plain`.
+  version: :func:`flash_decode_attention_plain`. It has no backward, as in
+  the JAX package.
 
 Each wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each launch
 adds one to the wrapper's count in :data:`LAUNCH_COUNTS`.
 
 Semantics shared with the TPU kernels: masked scores are the finite
-``-1e30``; a row with no valid key outputs 0 and its logsumexp is ``+1e30``.
-Both kernels compute in float32 (bf16 inputs are widened on load) and write
-the output in the input dtype.
+``-1e30``; a row with no valid key outputs 0, its logsumexp is ``+1e30``,
+and it gets a zero gradient. The kernels compute in float32 (bf16 inputs
+are widened on load) and write their outputs in the input dtype; the plain
+versions compute in float32, or in float64 for float64 inputs (the
+gradient checks).
 
 The seam (:func:`set_attention_impl`) takes ``"auto"``, ``"flash"`` or
 ``"reference"`` (the counterpart of JAX's ``"xla"``). ``"auto"`` takes the
@@ -29,7 +35,8 @@ kernel wrappers at every length — the TPU's ``max(tq, tk) >= 512``
 threshold was tuned for the TPU and does not carry over — so on the CPU it
 runs their plain versions. ``"flash"`` asks for the kernels themselves and
 raises for CPU tensors. ``"reference"`` runs the materialised-scores
-spellings :func:`mha_attention_reference` / :func:`decode_attention_reference`.
+spellings :func:`mha_attention_reference` / :func:`decode_attention_reference`,
+differentiated by plain autograd.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ _MAX_HEAD_DIM = 128
 
 #: kernel launches by wrapper, counted where the kernel is launched and
 #: nowhere else (plain-version calls do not count)
-LAUNCH_COUNTS: Dict[str, int] = {"flash_forward": 0, "flash_decode": 0}
+LAUNCH_COUNTS: Dict[str, int] = {"flash_forward": 0, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0, "flash_decode": 0}
 
 
 def reset_launch_counts() -> None:
@@ -138,6 +146,29 @@ def decode_attention_reference(q, k, v, start_pos, scale: Optional[float] = None
 # ---------------------------------------------------------------------------
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: float32, or float64 for float64
+    inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _masked_scores(q, k, mask, causal: bool, scale: float) -> torch.Tensor:
+    """``(q·scale)·kᵀ`` [b, h, tq, tk] in the arithmetic type, with masked
+    entries set to ``-1e30``: the key mask, and the bottom-right causal test
+    ``q_i + (tk - tq) >= k_j``."""
+    acc = _acc_dtype(q)
+    tq, tk = q.shape[2], k.shape[2]
+    s = (q.to(acc) * scale) @ k.to(acc).transpose(-1, -2)
+    keep = torch.ones((1, 1, tq, tk), dtype=torch.bool, device=q.device)
+    if mask is not None:
+        keep = keep & (mask[:, None, None, :] > 0)
+    if causal:
+        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        ki = torch.arange(tk, device=q.device)[None, :]
+        keep = keep & (qi >= ki)
+    return torch.where(keep, s, torch.full_like(s, _NEG))
+
+
 def flash_attention_plain(q, k, v, mask=None, causal: bool = False,
                           scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -146,23 +177,55 @@ def flash_attention_plain(q, k, v, mask=None, causal: bool = False,
     [b, h, tq] f32)``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    tq, tk = q.shape[2], k.shape[2]
-    s = (q.float() * scale) @ k.float().transpose(-1, -2)  # [b, h, tq, tk]
-    keep = torch.ones((1, 1, tq, tk), dtype=torch.bool, device=q.device)
-    if mask is not None:
-        keep = keep & (mask[:, None, None, :] > 0)
-    if causal:
-        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
-        ki = torch.arange(tk, device=q.device)[None, :]
-        keep = keep & (qi >= ki)
-    s = torch.where(keep, s, torch.full_like(s, _NEG))
+    s = _masked_scores(q, k, mask, causal, scale)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.where(s > _NEG * 0.5, torch.exp(s - m), torch.zeros_like(s))
     l = torch.sum(p, dim=-1, keepdim=True)
-    out = (p @ v.float()) / torch.clamp_min(l, 1e-30)
+    out = (p @ v.to(s.dtype)) / torch.clamp_min(l, 1e-30)
     lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)),
                       torch.full_like(l, -_NEG))
     return out.to(q.dtype), lse[..., 0]
+
+
+def _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale):
+    """``(p, ds)`` of the backward, materialised: ``p = exp(s - lse)`` on
+    the kept scores and ``ds = p ∘ (g·vᵀ - delta)``."""
+    s = _masked_scores(q, k, mask, causal, scale)
+    acc = s.dtype
+    p = torch.where(s > _NEG * 0.5, torch.exp(s - lse.to(acc)[..., None]),
+                    torch.zeros_like(s))
+    dp = g.to(acc) @ v.to(acc).transpose(-1, -2)
+    return p, p * (dp - delta.to(acc)[..., None])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, mask=None,
+                                 causal: bool = False,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the dq kernel (B2): ``dq = ds·k·scale`` with
+    materialised scores, in float32; returns dq in q's dtype. ``g`` is the
+    output gradient [b, h, tq, dv], ``lse`` the forward's row logsumexp and
+    ``delta = rowsum(g ∘ out)``, both [b, h, tq]."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _, ds = _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale)
+    return ((ds @ k.to(ds.dtype)) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask=None,
+                                  causal: bool = False,
+                                  scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dk/dv kernel (B3): ``dk = dsᵀ·q·scale``
+    and ``dv = pᵀ·g`` with materialised scores, in float32; returns
+    ``(dk in k's dtype, dv in v's dtype)``. Arguments as for
+    :func:`flash_attention_bwd_dq_plain`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale)
+    acc = p.dtype
+    dk = ds.transpose(-1, -2) @ (q.to(acc) * scale)
+    dv = p.transpose(-1, -2) @ g.to(acc)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
@@ -209,20 +272,32 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def _check_qkv_shapes(name: str, q, k, v) -> None:
+    b, h, _, d = q.shape
+    tk = k.shape[2]
+    if k.shape != (b, h, tk, d) or v.shape[:3] != (b, h, tk):
+        raise ValueError(f"{name}: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} disagree")
+
+
+def _cuda_mask(name: str, mask, b: int, tk: int, device) -> Optional[torch.Tensor]:
+    """The [b, tk] key mask as the kernels read it: float32, contiguous."""
+    if mask is None:
+        return None
+    if tuple(mask.shape) != (b, tk) or mask.device != device:
+        raise ValueError(f"{name}: mask must be [b, tk] = {(b, tk)} "
+                         f"on {device}, got {tuple(mask.shape)} on {mask.device}")
+    return mask.to(torch.float32).contiguous()
+
+
 def _flash_forward_cuda(q, k, v, mask, causal, scale):
     _check_cuda_operands("flash_attention", q, k, v)
+    _check_qkv_shapes("flash_attention", q, k, v)
     b, h, tq, d = q.shape
     tk, dv = k.shape[2], v.shape[3]
-    if k.shape != (b, h, tk, d) or v.shape[:3] != (b, h, tk):
-        raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)} disagree")
     out = torch.empty((b, h, tq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    if mask is not None:
-        if tuple(mask.shape) != (b, tk) or mask.device != q.device:
-            raise ValueError(f"flash_attention: mask must be [b, tk] = {(b, tk)} "
-                             f"on {q.device}, got {tuple(mask.shape)} on {mask.device}")
-        mask = mask.to(torch.float32).contiguous()
+    mask = _cuda_mask("flash_attention", mask, b, tk, q.device)
     if b * h * tq == 0:
         return out, lse
     fn = _fn("flash_forward", "dl4j_flash_forward",
@@ -240,6 +315,124 @@ def _flash_forward_cuda(q, k, v, mask, causal, scale):
     return out, lse
 
 
+def _check_bwd_stats(name: str, q, lse, delta) -> None:
+    b, h, tq = q.shape[:3]
+    for label, t in (("lse", lse), ("delta", delta)):
+        if (tuple(t.shape) != (b, h, tq) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {label} must be a contiguous float32 "
+                             f"[b, h, tq] = {(b, h, tq)} tensor on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+_BWD_ARGTYPES = [_P] * 7  # q, k, v, g, lse, delta, mask
+
+
+def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, scale):
+    _check_cuda_operands("flash_attention_bwd_dq", q, k, v, g)
+    _check_qkv_shapes("flash_attention_bwd_dq", q, k, v)
+    b, h, tq, d = q.shape
+    tk, dv = k.shape[2], v.shape[3]
+    if g.shape != (b, h, tq, dv):
+        raise ValueError(f"flash_attention_bwd_dq: g must be {(b, h, tq, dv)}, "
+                         f"got {tuple(g.shape)}")
+    _check_bwd_stats("flash_attention_bwd_dq", q, lse, delta)
+    mask = _cuda_mask("flash_attention_bwd_dq", mask, b, tk, q.device)
+    dq = torch.empty_like(q)
+    if b * h * tq == 0:
+        return dq
+    fn = _fn("flash_backward", "dl4j_flash_bwd_dq",
+             _BWD_ARGTYPES + [_P] + [_I] * 6 + [ctypes.c_float, _I, _I, _P])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 None if mask is None else mask.data_ptr(), dq.data_ptr(),
+                 b, h, tq, tk, d, dv, float(scale), int(bool(causal)),
+                 int(q.dtype == torch.bfloat16), stream)
+    _raise_on("flash_attention_bwd_dq", err)
+    LAUNCH_COUNTS["flash_bwd_dq"] += 1
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, scale):
+    _check_cuda_operands("flash_attention_bwd_dkv", q, k, v, g)
+    _check_qkv_shapes("flash_attention_bwd_dkv", q, k, v)
+    b, h, tq, d = q.shape
+    tk, dv = k.shape[2], v.shape[3]
+    if g.shape != (b, h, tq, dv):
+        raise ValueError(f"flash_attention_bwd_dkv: g must be {(b, h, tq, dv)}, "
+                         f"got {tuple(g.shape)}")
+    _check_bwd_stats("flash_attention_bwd_dkv", q, lse, delta)
+    mask = _cuda_mask("flash_attention_bwd_dkv", mask, b, tk, q.device)
+    dk, dv_out = torch.empty_like(k), torch.empty_like(v)
+    if b * h * tk == 0:
+        return dk, dv_out
+    fn = _fn("flash_backward", "dl4j_flash_bwd_dkv",
+             _BWD_ARGTYPES + [_P, _P] + [_I] * 6 + [ctypes.c_float, _I, _I, _P])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 None if mask is None else mask.data_ptr(), dk.data_ptr(),
+                 dv_out.data_ptr(), b, h, tq, tk, d, dv, float(scale),
+                 int(bool(causal)), int(q.dtype == torch.bfloat16), stream)
+    _raise_on("flash_attention_bwd_dkv", err)
+    LAUNCH_COUNTS["flash_bwd_dkv"] += 1
+    return dk, dv_out
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, mask=None, causal: bool = False,
+                        scale: Optional[float] = None):
+    """The flash backward: ``(dq, dk, dv)`` from the forward's inputs,
+    output and row logsumexp, and the output gradient ``g``. ``delta =
+    rowsum(g ∘ out)`` is computed here in plain PyTorch (the JAX package
+    computes it in XLA, outside its kernels). CUDA tensors launch B2 and
+    B3; CPU tensors run their plain versions."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    g = g.to(q.dtype).contiguous()
+    delta = torch.sum(g.to(_acc_dtype(q)) * out.to(_acc_dtype(q)), dim=-1)
+    if q.device.type == "cuda":
+        dq = _flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, scale)
+        dk, dv = _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, scale)
+    elif q.device.type == "cpu":
+        dq = flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, mask, causal, scale)
+        dk, dv = flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask, causal, scale)
+    else:
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return dq, dk, dv
+
+
+def _flash_forward(q, k, v, mask, causal, scale):
+    if q.device.type == "cuda":
+        return _flash_forward_cuda(q, k, v, mask, causal, scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, mask, causal, scale)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B1 with B2/B3 as its backward — the counterpart of the JAX package's
+    ``_flash`` custom VJP. The forward saves ``q, k, v, mask, out, lse``;
+    the mask, the causal flag and the scale get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal, scale):
+        out, lse = _flash_forward(q, k, v, mask, causal, scale)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, mask,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, mask=None, causal: bool = False,
                     scale: Optional[float] = None, *, return_lse: bool = False):
     """Flash attention over [b, h, t, d] tensors. ``mask`` is a [b, tk]
@@ -248,15 +441,16 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     dtype, and with ``return_lse`` also the row logsumexp [b, h, tq] f32.
 
     CUDA tensors launch the kernel (f32 or bf16, contiguous, head dims
-    <= 128); CPU tensors run :func:`flash_attention_plain`."""
+    <= 128); CPU tensors run :func:`flash_attention_plain`. When grad mode
+    is on and an input requires grad, the call runs as
+    :class:`_FlashAttention`, whose backward launches B2 and B3 (their
+    plain versions on the CPU)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cuda":
-        out, lse = _flash_forward_cuda(q, k, v, mask, causal, scale)
-    elif q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, mask, causal, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = _FlashAttention.apply(q, k, v, mask, bool(causal), float(scale))
     else:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        out, lse = _flash_forward(q, k, v, mask, causal, scale)
     return (out, lse) if return_lse else out
 
 
@@ -323,7 +517,11 @@ def flash_decode_attention(q, k, v, start_pos,
     """Single-query decode attention: q [b, h, 1, d] against the cache
     k [b, h, L, d], v [b, h, L, dv]; row b reads positions
     ``[0, start_pos[b]]``. CUDA tensors launch the kernel; CPU tensors run
-    :func:`flash_decode_attention_plain`."""
+    :func:`flash_decode_attention_plain`. It has no backward (nor has the
+    JAX kernel), so it raises rather than record a graph it would cut."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_decode_attention has no backward; call it under "
+                           "torch.no_grad() or torch.inference_mode()")
     if q.shape[2] != 1:
         raise ValueError("flash_decode_attention is the tq=1 kernel; use "
                          "decode_attention for multi-row queries")

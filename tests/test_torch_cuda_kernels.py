@@ -10,16 +10,25 @@ These tests need a CUDA device and skip without one. Where there is one
 
 Tolerances as in ``chip_smoke.py``: 5e-5 in float32 (same arithmetic,
 another summation order), 1.6e-2 in bfloat16 on the output (one bf16 ulp
-at |out| < 4), 1e-4 on the float32 logsumexp."""
+at |out| < 4), 1e-4 on the float32 logsumexp. The backward kernels are held
+relative to the largest gradient value: 1e-4 in float32 (a sum over up to
+t terms in another order), and one bf16 ulp there (2^-7) in bfloat16,
+where both sides round the same float32 sums to bf16."""
+
+import importlib
 
 import pytest
 import torch
 
 from deeplearning4j_tpu_torch import ops
 
+# the module (ops/__init__ exports a function of this name)
+pfa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
+
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 1.6e-2}
+BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4}
 
 
 @pytest.fixture
@@ -85,6 +94,76 @@ def test_decode_unaligned_rows_take_the_scalar_path(cuda, d):
     ref = ops.flash_decode_attention_plain(q, k, v, start)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max()) <= TOL[torch.float32]
+
+
+def _bwd_inputs(gen, dtype, device, b, h, tq, tk, d, dv, causal, masked):
+    q = _rand(gen, (b, h, tq, d), dtype, device)
+    k = _rand(gen, (b, h, tk, d), dtype, device)
+    v = _rand(gen, (b, h, tk, dv), dtype, device)
+    g = _rand(gen, (b, h, tq, dv), dtype, device)
+    mask = None
+    if masked:
+        mask = (torch.rand((b, tk), generator=gen) > 0.2).float()
+        mask[-1] = 0.0  # a fully masked batch row
+        mask = mask.to(device)
+    out, lse = ops.flash_attention_plain(q, k, v, mask, causal)
+    delta = torch.sum(g.float() * out.float(), dim=-1).contiguous()
+    return q, k, v, g, mask, lse, delta
+
+
+def _rel_err(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk,d,dv,causal,masked", [
+    (129, 129, 36, 32, True, False),
+    (129, 129, 36, 32, False, True),
+    (70, 129, 64, 64, True, True),    # tq < tk, causal bottom-right aligned
+    (129, 70, 16, 16, True, False),   # tq > tk: the first rows see no key
+    (65, 65, 128, 128, False, False),
+])
+def test_flash_backward_matches_plain(cuda, dtype, tq, tk, d, dv, causal, masked):
+    gen = torch.Generator().manual_seed(tq + 7 * tk + d)
+    q, k, v, g, mask, lse, delta = _bwd_inputs(gen, dtype, cuda, 2, 3, tq, tk, d, dv,
+                                               causal, masked)
+    before = dict(ops.LAUNCH_COUNTS)
+    dq = pfa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, d ** -0.5)
+    dk, dv_ = pfa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, d ** -0.5)
+    assert ops.LAUNCH_COUNTS["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert ops.LAUNCH_COUNTS["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    r_dq = ops.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, mask, causal)
+    r_dk, r_dv = ops.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask, causal)
+    torch.cuda.synchronize()
+    assert dq.dtype == dk.dtype == dv_.dtype == dtype
+    for got, ref in ((dq, r_dq), (dk, r_dk), (dv_, r_dv)):
+        assert _rel_err(got, ref) <= BWD_REL_TOL[dtype]
+    if masked:
+        assert bool((dq[-1] == 0).all())  # the fully masked row has no gradient
+    if causal and tq > tk:
+        assert bool((dq[:, :, : tq - tk] == 0).all())
+
+
+def test_cuda_flash_attention_gives_gradients(cuda):
+    """The fault the autograd Function repairs: a CUDA ``flash_attention``
+    output used in a loss must give q, k and v their gradients, equal to
+    plain autograd through the materialised-scores reference."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (_rand(gen, (2, 3, 129, 36), torch.float32, cuda).requires_grad_()
+               for _ in range(3))
+    w = _rand(gen, (2, 3, 129, 36), torch.float32, cuda)
+    mask = torch.ones((2, 129), device=cuda)
+    mask[1, 100:] = 0.0
+    before = dict(ops.LAUNCH_COUNTS)
+    (ops.flash_attention(q, k, v, mask, True) * w).sum().backward()
+    assert ops.LAUNCH_COUNTS["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert ops.LAUNCH_COUNTS["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    got = [t.grad for t in (q, k, v)]
+    assert all(gr is not None for gr in got)
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    (ops.mha_attention_reference(q2, k2, v2, mask, True) * w).sum().backward()
+    for gr, ref in zip(got, (q2.grad, k2.grad, v2.grad)):
+        assert _rel_err(gr, ref) <= BWD_REL_TOL[torch.float32]
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -129,7 +129,8 @@ def test_seam_routes_auto_and_reference():
     auto = pfa.mha_attention(q, k, v, causal=True)
     torch.testing.assert_close(auto, ref, atol=ATOL, rtol=0)
     # CPU calls run the plain versions: no kernel launch is counted
-    assert pfa.LAUNCH_COUNTS == {"flash_forward": 0, "flash_decode": 0}
+    assert pfa.LAUNCH_COUNTS == {"flash_forward": 0, "flash_bwd_dq": 0,
+                                 "flash_bwd_dkv": 0, "flash_decode": 0}
 
 
 def test_int8_cache_scales_not_ported():
