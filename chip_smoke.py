@@ -7,17 +7,22 @@ Run from the repository root with no arguments::
 
 It builds the port's CUDA kernels from ``deeplearning4j_tpu_torch/csrc/``,
 holds each against its plain PyTorch version on the card (the flash
-forward B1, the flash backward B2 dq and B3 dk/dv, the decode kernel B4),
-then drives the port's main path at GPT-2 small's published widths (vocab
-50257, hidden 768, 12 layers, 12 heads, ffn 3072, 1024 positions; float32;
-random weights from a seed): it serves a ``TransformerLM`` through
-``output()`` on 8 prompts of 1024 tokens and ``GenerationSession.generate``
-on 8 ragged prompts, and trains one with ``Solver.fit_batch`` (Adam 1e-4)
-on 8 x 1024 tokens. Each path runs with the launch counts set to 0 just
-before it and read just after. It checks those counts, the cached decode's
-log-probs against a full forward, the training score, and the kernel-path
-gradients against the materialised-scores reference; then prints the
-timings, a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+forward B1, the flash backward B2 dq and B3 dk/dv, the decode kernel B4,
+the grouped expert matmul B5), then drives the port's main paths at GPT-2
+small's published widths (vocab 50257, hidden 768, 12 layers, 12 heads,
+ffn 3072, 1024 positions; float32; random weights from a seed): it serves
+a ``TransformerLM`` through ``output()`` on 8 prompts of 1024 tokens and
+``GenerationSession.generate`` on 8 ragged prompts, trains one with
+``Solver.fit_batch`` (Adam 1e-4) on 8 x 1024 tokens, and runs ``output()``
+and ``Solver.fit_batch`` on the MoE network of
+``tools/moe_profile.py::moe_lm_conf`` (one such block, then 8 experts of
+hidden 1536, top-2, capacity factor 1.25, through B5). Each path runs with
+the launch counts set to 0 just before it and read just after. It checks
+those counts, the cached decode's log-probs against a full forward, the
+training scores, the kernel-path gradients against the materialised-scores
+reference, and the MoE network's outputs and gradients against its sort
+dispatch (``torch.bmm`` over capacity slots); then prints the timings, a
+``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits with 2 and prints no result.
@@ -39,12 +44,15 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.generate import GenerationSession
 from deeplearning4j_tpu_torch.model.zoo import TransformerLM
 from deeplearning4j_tpu_torch import ops as fa
+from deeplearning4j_tpu_torch.nn.sequential import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.tools.moe_profile import MOE_LAYER, moe_lm_conf
 from deeplearning4j_tpu_torch.train import Solver
 
 # the module (ops/__init__ exports a function of this name): the timings call
 # the kernels' wrappers directly, without the delta pass around them
 fa_mod = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
+gm_mod = importlib.import_module("deeplearning4j_tpu_torch.ops.grouped_matmul")
 
 SEED = 1234
 B, H, D = 8, 12, 64          # the serving shapes: batch 8, GPT-2 small's heads
@@ -72,6 +80,15 @@ TOL_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4}
 # skipped attention (no backward through the kernel) misses by ~1.
 TOL_GRAD_REL = 1e-3
 TRAIN_STEPS = 5
+# B5 vs its plain version, max abs error over the largest |value| of the
+# plain output. float32: both sum the same d float32 products, in another
+# order. bfloat16: both sum the exact products of bf16 inputs in float32 and
+# round once to bf16, so they may differ by one bf16 ulp (2^-7 of the
+# largest value).
+TOL_GMM_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4}
+# The MoE layer's widths (the JAX package's MoE dispatch benchmark) and its
+# capacity at 8 x 1024 tokens: ceil(2 * 8192 / 8 * 1.25) = 2560 = m_pad.
+E_MOE, H_MOE, TOPK, CAPACITY = 8, 1536, 2, 2560
 # Cached decode vs full forward, max abs error of the log-probs. Both run in
 # float32 through different kernels and matrix shapes; float32 rounding
 # moves log-probs near -10.8 by ~1e-5. A bfloat16 model would miss this by
@@ -134,8 +151,10 @@ def phase_build() -> None:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for stem, log in sorted(cuda_build.build_logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {stem}: {line.strip()}")
+            if "Compiling entry function" in line:  # the mangled kernel name
+                print(f"  ptxas {stem}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {stem}:   {line.strip()}")
 
 
 def _key_mask(gen, tk: int) -> torch.Tensor:
@@ -473,6 +492,205 @@ def phase_train(card: str) -> dict:
     return counts
 
 
+def _all_counts() -> dict:
+    return {**fa.LAUNCH_COUNTS, **fa.GROUPED_MATMUL_LAUNCH_COUNTS}
+
+
+def phase_moe(card: str):
+    """The MoE network's paths: ``output()`` on [8, 1024] ids without and
+    with a ragged mask, then ``TRAIN_STEPS`` ``Solver.fit_batch`` steps;
+    then its grouped dispatch (B5) against sort dispatch on the same
+    params. Returns the launch counts over both paths and the per-expert
+    row counts the last training step routed."""
+    t0 = time.perf_counter()
+    model = MultiLayerNetwork(moe_lm_conf()).init()  # on the current CUDA device
+    torch.cuda.synchronize()
+    print(f"moe model: one GPT-2-small-width block + MoE (8 experts x hidden 1536, top-2, "
+          f"capacity factor 1.25), {model.num_params()} params, init "
+          f"{time.perf_counter() - t0:.2f} s")
+    rs = np.random.RandomState(SEED + 3)
+    ids_np = rs.randint(0, 50257, (B, T_FULL + 1))
+    ids = torch.from_numpy(ids_np[:, :-1]).cuda()
+    labels = torch.from_numpy(ids_np[:, 1:]).cuda()
+    lens = torch.tensor([T_FULL, 700] + rs.randint(200, T_FULL, B - 2).tolist())
+    mask = (torch.arange(T_FULL)[None, :] < lens[:, None]).float().cuda()
+    real = int(mask.sum())
+    solver = Solver(model)
+    # warm-up at the timed shapes: library handles, allocator pools
+    model.output(ids)
+    model.output(ids, mask)
+    solver.fit_batch(ids, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- output(): counts from 0 for each call ----
+    serve, out_ms = {}, {}
+    for label, m in (("no mask", None), ("ragged mask", mask)):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        probs = model.output(ids, m)
+        torch.cuda.synchronize()
+        out_ms[label] = 1e3 * (time.perf_counter() - t0)
+        counts = _all_counts()
+        check(counts == {"flash_forward": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                         "flash_decode": 0, "grouped_matmul": 2},
+              f"MoE output() must launch B1 once and B5 twice: {counts}")
+        serve = {n: serve.get(n, 0) + c for n, c in counts.items()}
+        check(tuple(probs.shape) == (B, 50257, T_FULL) and bool(torch.isfinite(probs).all()),
+              "MoE output() must be finite [8, 50257, 1024]")
+        sums = probs[:, :, :: 128].sum(dim=1)
+        check(float((sums - 1).abs().max()) < 1e-4, "softmax rows must sum to 1")
+        del probs
+
+    # ---- training: counts from 0, TRAIN_STEPS steps ----
+    fa.reset_launch_counts()
+    scores, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        before = _all_counts()
+        t0 = time.perf_counter()
+        score, _ = solver.fit_batch(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        scores.append(float(score))
+        per_step = {n: c - before[n] for n, c in _all_counts().items()}
+        check(per_step == {"flash_forward": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                           "flash_decode": 0, "grouped_matmul": 4},
+              f"a MoE training step must launch B1, B2, B3 once and B5 4 times: {per_step}")
+    train = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(scores)), f"MoE training scores must be finite: {scores}")
+    check(scores[-1] < scores[0], f"the MoE score must fall over the steps: {scores}")
+    st = model.state[MOE_LAYER]
+    routed = [int(v) for v in st["expert_tokens"].tolist()]
+    kept, dropped = sum(routed), float(st["dropped_tokens"])
+    check(kept + dropped == TOPK * B * T_FULL and float(st["capacity_slots"]) == E_MOE * CAPACITY,
+          f"every assignment is kept or dropped: {routed} + {dropped}")
+    with torch.inference_mode():  # the masked path's state
+        _, new_state, _ = model.forward_pure(model.params, model.state, ids, mask=mask)
+    st_m = new_state[MOE_LAYER]
+    m_kept, m_dropped = float(st_m["expert_tokens"].sum()), float(st_m["dropped_tokens"])
+    check(m_kept + m_dropped == TOPK * real,
+          f"masked: kept {m_kept} + dropped {m_dropped} != 2 x {real} real tokens")
+    ms = float(np.median(step_ms))
+    print(f"moe serving: output() [8,1024] {out_ms['no mask']:.2f} ms, with a ragged mask "
+          f"({real} real tokens) {out_ms['ragged mask']:.2f} ms")
+    print(f"moe training ({card}): Solver.fit_batch [8,1024] Adam(1e-4), {TRAIN_STEPS} steps "
+          f"after one warm-up: median {ms:.2f} ms/step of {[round(t, 2) for t in step_ms]} = "
+          f"{B * T_FULL / ms * 1e3:.1f} tokens/s; scores {[round(x, 5) for x in scores]}; "
+          f"peak memory {peak / 2**30:.2f} GiB; last step routed {routed} (capacity "
+          f"{CAPACITY}), dropped {dropped:.0f} of {TOPK * B * T_FULL}; masked call kept "
+          f"{m_kept:.0f}, dropped {m_dropped:.0f}")
+
+    # ---- correctness: grouped dispatch (B5) vs sort dispatch (torch.bmm) ----
+    sort_model = MultiLayerNetwork(moe_lm_conf("sort")).init()
+    sort_model.load_state_dict(model.state_dict())
+    out_g, out_s = model.output(ids, mask), sort_model.output(ids, mask)
+    e_out = rel_err(out_g, out_s)
+    del out_g, out_s
+    grads = model.calculate_gradients(ids, labels, mask)
+    ref = sort_model.calculate_gradients(ids, labels, mask)
+    worst = (0.0, "")
+    for lname, lg in ref.items():
+        for pname, r in lg.items():
+            g = grads[lname][pname]
+            check(float(g.abs().max()) > 0 or float(r.abs().max()) == 0,
+                  f"{lname}.{pname} has no gradient through grouped dispatch")
+            worst = max(worst, (rel_err(g, r), f"{lname}.{pname}"))
+    print(f"moe grouped vs sort dispatch (ragged mask): output rel error {e_out:.3e} "
+          f"(tol {TOL_BWD_REL[torch.float32]:g}); gradients worst rel error {worst[0]:.3e} "
+          f"at {worst[1]} (tol {TOL_GRAD_REL:g})")
+    check(e_out <= TOL_BWD_REL[torch.float32], "grouped-dispatch outputs disagree with sort")
+    check(worst[0] <= TOL_GRAD_REL, "grouped-dispatch gradients disagree with sort")
+    del sort_model, grads, ref
+    return {n: serve[n] + train[n] for n in serve}, routed
+
+
+def _kept_rows(sizes, m_pad: int, n: int) -> torch.Tensor:
+    """[n] bool: the rows some group keeps (local index < m_pad, row < n)."""
+    kept = torch.zeros(n, dtype=torch.bool)
+    start = 0
+    for s_ in sizes:
+        kept[start: min(start + min(s_, m_pad), n)] = True
+        start += s_
+    return kept
+
+
+def phase_grouped_matmul(gen, routed) -> dict:
+    """B5 against its plain version at ragged shapes and at the MoE layer's
+    two products, then timed at the first, ``[16384, 768] x [8, 768,
+    1536]`` with ``m_pad`` 2560, with the row counts the network routed."""
+    n_rows = TOPK * B * T_FULL
+    cases = [
+        # (label, n, d, h, group sizes, max_group_size, int8 rhs)
+        ("empty groups, groups over m_pad, tail", 1000, 256, 200, (0, 300, 0, 350, 100), 256,
+         False),
+        ("n, d, h off the tiles and vectors", 333, 100, 90, (100, 0, 150), None, False),
+        ("int8 rhs", 512, 128, 192, (200, 300), None, True),
+        ("MoE first product", n_rows, 768, H_MOE, routed, CAPACITY, False),
+        ("MoE second product", n_rows, H_MOE, 768, routed, CAPACITY, False),
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, n, d, h, sizes, mg, q in cases:
+            lhs = torch.randn(n, d, generator=gen).to("cuda", dtype)
+            if q:
+                rhs = torch.randint(-127, 128, (len(sizes), d, h), generator=gen,
+                                    dtype=torch.int8).cuda()
+            else:
+                rhs = (torch.randn(len(sizes), d, h, generator=gen) * d ** -0.5).to("cuda", dtype)
+            gs = torch.tensor(sizes, dtype=torch.int32).cuda()
+            y = fa.grouped_matmul(lhs, gs, rhs, max_group_size=mg)
+            ref = fa.grouped_matmul_plain(lhs, gs, rhs, max_group_size=mg)
+            torch.cuda.synchronize()
+            m_pad = gm_mod._tiling(n, mg, 128)[0]
+            dropped = ~_kept_rows(sizes, m_pad, n).cuda()
+            e = rel_err(y, ref)
+            print(f"grouped_matmul {str(dtype)[6:]:8s} [{n},{d}]x[{len(sizes)},{d},{h}] "
+                  f"m_pad={m_pad} {label}: max_abs={max_err(y, ref):.3e} rel={e:.3e} "
+                  f"(tol {TOL_GMM_REL[dtype]:.3g}); {int(dropped.sum())} rows must be 0")
+            check(e <= TOL_GMM_REL[dtype], "grouped_matmul disagrees with its plain version")
+            check(bool((y[dropped] == 0).all()), "dropped rows and rows past the frontier must be 0")
+            if dtype == torch.float32:
+                worst = max(worst, max_err(y, ref))
+            del lhs, rhs, y, ref
+
+    # timing at the main path's first product
+    n, d, h = n_rows, 768, H_MOE
+    gs = torch.tensor(routed, dtype=torch.int32).cuda()
+    kept = sum(min(s_, CAPACITY) for s_ in routed)
+    lhs32 = torch.randn(n, d, generator=gen).cuda()
+    rhs32 = (torch.randn(E_MOE, d, h, generator=gen) * d ** -0.5).cuda()
+    row = {"max_abs_err": worst}
+    for dtype in (torch.float32, torch.bfloat16):
+        lhs, rhs = lhs32.to(dtype), rhs32.to(dtype)
+        ms = cuda_ms(lambda: fa.grouped_matmul(lhs, gs, rhs, max_group_size=CAPACITY), 20)
+        plain_ms = cuda_ms(lambda: fa.grouped_matmul_plain(lhs, gs, rhs,
+                                                           max_group_size=CAPACITY), 5)
+        buf = gm_mod._to_groups(lhs, gs, CAPACITY)  # [8, 2560, 768], zero-padded
+        lib_ms = cuda_ms(lambda: torch.bmm(buf, rhs), 20)
+        flops = 2 * kept * d * h
+        # kept lhs rows read, rhs read, every output row written, group sizes
+        nbytes = (kept * d + E_MOE * d * h + n * h) * lhs.element_size() + 4 * E_MOE
+        bound_ms, bound_by = roofline(flops, nbytes, dtype)
+        extra = ""
+        if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+            offs = torch.cumsum(gs, 0, dtype=torch.int32)
+            try:
+                gmm_ms = cuda_ms(lambda: torch._grouped_mm(lhs, rhs, offs=offs), 20)
+                extra = f", torch._grouped_mm {gmm_ms:.4f} ms"
+            except Exception as exc:  # a yardstick only: report why it did not run
+                extra = f", torch._grouped_mm not run ({type(exc).__name__}: {str(exc)[:120]})"
+        print(f"grouped_matmul {str(dtype)[6:]} [{n},{d}]x[{E_MOE},{d},{h}] m_pad={CAPACITY}, "
+              f"{kept} kept rows {routed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"padded torch.bmm {lib_ms:.4f} ms{extra}, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if dtype == torch.float32:
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+        del buf
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -489,8 +707,10 @@ def main() -> int:
     bwd = phase_flash_backward(gen)
     serve = phase_model(prompts)
     train = phase_train(card)
-    # launches over the main path: serving, then training
-    launches = {n: serve[n] + train[n] for n in serve}
+    moe, routed = phase_moe(card)
+    gmm = phase_grouped_matmul(gen, routed)
+    # launches over the main paths: serving, training, then the MoE network
+    launches = {n: serve.get(n, 0) + train.get(n, 0) + moe[n] for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [
         dict(name="flash_forward", route="cuda", source=src + "flash_forward.cu",
@@ -501,6 +721,8 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/flash_attention.py:420", **bwd["flash_bwd_dkv"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
              replaces="deeplearning4j_tpu/ops/flash_attention.py:697", **dec),
+        dict(name="grouped_matmul", route="cuda", source=src + "grouped_matmul.cu",
+             replaces="deeplearning4j_tpu/ops/grouped_matmul.py:144", **gmm),
     ]
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]

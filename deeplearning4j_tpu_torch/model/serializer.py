@@ -4,7 +4,10 @@ Reads and writes the JAX package's model zip:
 
   configuration.json   — core.config JSON of the MultiLayerConfiguration
   coefficients.npy     — flat float param vector in ``ravel_pytree`` order
-  state.npz            — non-trainable state leaves
+  state.npz            — non-trainable state leaves (``leaf_0..``), layers
+                         and keys sorted as strings (an MoE layer's
+                         aux_load_balance, capacity_slots, dropped_tokens,
+                         expert_tokens)
   updaterState.npz     — updater state leaves (optional)
   meta.json            — model class + framework
 
@@ -69,7 +72,7 @@ def _check_meta(meta: dict, path: str) -> None:
 
 
 def _state_leaves(tree: Any) -> List[np.ndarray]:
-    """The leaves of an updater state in JAX's tree-flatten order: dicts by
+    """The leaves of an updater or layer state in JAX's tree-flatten order: dicts by
     sorted key, tuples (and optax's NamedTuple states) in order; step
     counts are int32 scalars."""
     if isinstance(tree, dict):
@@ -86,7 +89,8 @@ def _state_leaves(tree: Any) -> List[np.ndarray]:
 
 def _fill_state(template: Any, leaves: Iterator[np.ndarray]) -> Any:
     """``template`` with its leaves taken in order from ``leaves``: tensors
-    are overwritten in place, counts replaced."""
+    are overwritten in place, counts replaced. A leaf of another shape
+    raises."""
     if isinstance(template, dict):
         filled = {k: _fill_state(template[k], leaves) for k in sorted(template)}
         return {k: filled[k] for k in template}
@@ -97,12 +101,12 @@ def _fill_state(template: Any, leaves: Iterator[np.ndarray]) -> Any:
         return int(next(leaves))
     arr = np.asarray(next(leaves))
     if arr.shape != tuple(template.shape):
-        raise ValueError(f"updater state leaf of shape {arr.shape}, model expects "
+        raise ValueError(f"state leaf of shape {arr.shape}, model expects "
                          f"{tuple(template.shape)}")
     if arr.dtype not in (np.float16, np.float32, np.float64):
         arr = arr.astype(np.float32)  # e.g. ml_dtypes bfloat16
     with torch.no_grad():
-        template.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(template.dtype))
+        template.copy_(torch.tensor(arr, dtype=template.dtype))
     return template
 
 
@@ -161,11 +165,13 @@ def restore_multi_layer_network(path: str, device: Device = None,
                 f"stored configuration expects {model.num_params()} params")
         model.set_params_flat(flat)
         if _STATE in names:
-            n_leaves = len(np.load(io.BytesIO(zf.read(_STATE))).files)
-            n_expected = sum(len(s) for s in model.state.values())
-            if n_leaves != n_expected:
-                raise ValueError(f"{path}: checkpoint has {n_leaves} state leaves, "
+            z = np.load(io.BytesIO(zf.read(_STATE)))
+            leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
+            n_expected = len(_state_leaves(model.state))
+            if len(leaves) != n_expected:
+                raise ValueError(f"{path}: checkpoint has {len(leaves)} state leaves, "
                                  f"model expects {n_expected}")
+            model.state = _fill_state(model.state, iter(leaves))
         if load_updater:
             if _UPDATER not in names:
                 raise ValueError(f"{path}: load_updater=True but the artifact has no "
@@ -213,7 +219,8 @@ def write_model(model: MultiLayerNetwork, path: str, save_updater: bool = False)
                 np.save(buf, model.params_flat())
                 zf.writestr(_COEFF, buf.getvalue())
                 buf = io.BytesIO()
-                np.savez(buf)  # no layer of this package carries persistent state
+                np.savez(buf, **{f"leaf_{i}": leaf for i, leaf in
+                                 enumerate(_state_leaves(model.state))})
                 zf.writestr(_STATE, buf.getvalue())
                 if trainer is not None:
                     buf = io.BytesIO()

@@ -7,7 +7,9 @@ runs the shape-inference walk that resolves every layer's nIn, and
 ``MultiLayerConfiguration`` — the same JSON the JAX package writes.
 
 Preprocessor insertion at format boundaries (CNN <-> feed-forward <-> RNN)
-waits for the layers that need it; a walk that would need one raises.
+waits for the layers that need it; a walk that would need one raises. Token
+layers (``MixtureOfExpertsLayer``) take feed-forward and recurrent input as
+it is, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from ..core.config import register_config
 from .activations import Activation
 from .input_type import FeedForwardType, InputType, RecurrentType
 from .layers.base import Layer
-from .layers.output import RnnOutputLayer
+from .layers.moe import MixtureOfExpertsLayer
+from .layers.output import OutputLayer, RnnOutputLayer
 from .weights import Distribution, WeightInit
 
 
@@ -45,6 +48,24 @@ class WorkspaceMode(enum.Enum):
 
     ENABLED = "ENABLED"
     NONE = "NONE"
+
+
+# Layer families for preprocessor insertion (reference: each layer conf's
+# getPreProcessorForInputType). Token layers consume feed-forward [b, f] and
+# recurrent [b, f, t] input natively (MoE treats timesteps as tokens).
+_RNN_LAYERS = (RnnOutputLayer,)
+_FF_LAYERS = (OutputLayer,)
+_TOKEN_LAYERS = (MixtureOfExpertsLayer,)
+
+
+def _needs_preprocessor(layer: Layer, current: InputType) -> bool:
+    if isinstance(layer, _TOKEN_LAYERS):
+        return False
+    if isinstance(layer, _RNN_LAYERS):
+        return not isinstance(current, RecurrentType)
+    if isinstance(layer, _FF_LAYERS):
+        return not isinstance(current, FeedForwardType)
+    return False
 
 
 @register_config
@@ -117,8 +138,7 @@ class ListBuilder:
             resolved: List[Layer] = []
             current = self._input_type
             for layer in layers:
-                if (isinstance(layer, RnnOutputLayer)
-                        and not isinstance(current, RecurrentType)):
+                if _needs_preprocessor(layer, current):
                     raise NotImplementedError(
                         f"{type(layer).__name__} after {type(current).__name__} "
                         "needs a preprocessor; preprocessors are not ported yet")

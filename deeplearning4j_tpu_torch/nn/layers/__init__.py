@@ -1,8 +1,9 @@
 from .attention import TransformerDecoderBlockLayer, dot_product_attention
 from .base import Layer, LayerContext, LayerModule, Params, State
 from .feedforward import EmbeddingSequenceLayer, PositionalEmbeddingLayer
+from .moe import MixtureOfExpertsLayer
 from .norm import LayerNormLayer
-from .output import BaseOutputLayer, RnnOutputLayer
+from .output import BaseOutputLayer, OutputLayer, RnnOutputLayer
 
 __all__ = [
     "BaseOutputLayer",
@@ -11,6 +12,8 @@ __all__ = [
     "LayerContext",
     "LayerModule",
     "LayerNormLayer",
+    "MixtureOfExpertsLayer",
+    "OutputLayer",
     "Params",
     "PositionalEmbeddingLayer",
     "RnnOutputLayer",

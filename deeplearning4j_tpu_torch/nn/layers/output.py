@@ -1,5 +1,5 @@
-"""Output / loss layers (port of ``BaseOutputLayer`` and ``RnnOutputLayer``
-from ``deeplearning4j_tpu/nn/layers/output.py``).
+"""Output / loss layers (port of ``BaseOutputLayer``, ``OutputLayer`` and
+``RnnOutputLayer`` from ``deeplearning4j_tpu/nn/layers/output.py``).
 
 An output layer = a dense projection + a loss; the model calls
 ``compute_loss`` for the score and ``apply`` for ``output()``.
@@ -14,7 +14,7 @@ import torch
 
 from ...core.config import register_config
 from ..activations import Activation
-from ..input_type import InputType, RecurrentType
+from ..input_type import FeedForwardType, InputType, RecurrentType
 from ..losses import LossFunction
 from ..weights import WeightInit, init_weights
 from .base import Layer, LayerContext, Params, State, apply_input_dropout
@@ -30,6 +30,59 @@ class BaseOutputLayer(Layer):
                      ctx: LayerContext,
                      label_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
+
+
+@register_config
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class OutputLayer(BaseOutputLayer):
+    """Dense + loss on feed-forward input [b, nIn] (reference: OutputLayer).
+    Labels are [b, nOut] (or sparse [b]); default activation SOFTMAX."""
+
+    n_in: int = 0
+    n_out: int = 0
+    loss: LossFunction = LossFunction.MCXENT
+    has_bias: bool = True
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return FeedForwardType(size=self.n_out)
+
+    def with_input(self, input_type: InputType) -> "OutputLayer":
+        if self.n_in:
+            return self
+        return dataclasses.replace(self, n_in=input_type.flat_size())
+
+    def has_params(self) -> bool:
+        return True
+
+    def trainable_param_names(self) -> Tuple[str, ...]:
+        return ("W", "b") if self.has_bias else ("W",)
+
+    def init(self, gen: torch.Generator, dtype: torch.dtype,
+             device: Optional[torch.device] = None) -> Params:
+        w = init_weights(gen, (self.n_in, self.n_out),
+                         self.weight_init or WeightInit.XAVIER,
+                         self.n_in, self.n_out, self.weight_init_distribution,
+                         dtype, device)
+        p: Params = {"W": w}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype, device=device)
+        return p
+
+    def preoutput(self, params: Params, x: torch.Tensor, ctx: LayerContext) -> torch.Tensor:
+        x = apply_input_dropout(self, x, ctx)
+        y = x @ params["W"]
+        if self.has_bias:
+            y = y + params["b"]
+        return y
+
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              ctx: LayerContext) -> Tuple[torch.Tensor, State]:
+        act = self.activation or Activation.SOFTMAX
+        return act(self.preoutput(params, x, ctx)), state
+
+    def compute_loss(self, params, x, labels, ctx, label_mask=None):
+        act = self.activation or Activation.SOFTMAX
+        return self.loss.score(labels, self.preoutput(params, x, ctx), act, mask=label_mask)
 
 
 def _rnn_to_ff(a: torch.Tensor) -> torch.Tensor:

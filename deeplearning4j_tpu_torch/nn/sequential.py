@@ -120,7 +120,7 @@ class MultiLayerNetwork(nn.Module):
             name = self.conf.layer_name(i)
             params = layer.init(gen, dtype, self.device) if layer.has_params() else {}
             self.add_module(name, LayerModule(layer, params))
-            st = layer.init_state(dtype)
+            st = {k: v.to(self.device) for k, v in layer.init_state(dtype).items()}
             self.state[name] = st
             self._persistent_keys[name] = tuple(st.keys())
         self.rnn_state = {}
@@ -212,9 +212,17 @@ class MultiLayerNetwork(nn.Module):
         score_dtype = torch.promote_types(self.dtype, torch.float32)
         score = loss.to(score_dtype)
         for i, layer in enumerate(self.layers):
-            lparams = params.get(self.conf.layer_name(i))
+            lname = self.conf.layer_name(i)
+            lparams = params.get(lname)
             if lparams:
                 score = score + _layer_reg_score(layer, lparams, score_dtype)
+            # MoE load-balance aux loss (GShard): the layer computed this
+            # batch's term in its forward and left it in its state
+            bl_w = getattr(layer, "balance_loss_weight", 0.0)
+            if bl_w:
+                aux = new_state.get(lname, {}).get("aux_load_balance")
+                if aux is not None:
+                    score = score + bl_w * aux.to(score_dtype)
         return score, (new_state, new_rnn)
 
     # -------------------------------------------------------------- user API

@@ -159,7 +159,10 @@ class Solver:
                                      conf.gradient_normalization_threshold)
         with torch.no_grad():
             self.opt_state = self.optim.update(grads, self.opt_state, model.params)
-        model.state = new_state
+        # the state keeps values only: an MoE layer's aux term carries this
+        # step's graph, which must not stay alive until the next step
+        model.state = {l: {k: v.detach() for k, v in st.items()}
+                       for l, st in new_state.items()}
         model.last_batch_size = int(x.shape[0])
         if model.listeners.requires_arrays:
             model.listeners.gradient_calculation(model, grads)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card, at
 small ragged shapes the serving path does not reach (odd lengths, head
 dims that are not a multiple of the tile, dv != d, rows that are not
-16-byte aligned), and the wrappers' input checks.
+16-byte aligned; for the grouped matmul B5 empty groups, groups over
+``m_pad``, rows past the frontier and widths that are not whole tiles or
+whole 16-byte vectors), and the wrappers' input checks.
 
 These tests need a CUDA device and skip without one. Where there is one
 (and, as on the chip machine, no JAX for ``tests/conftest.py``)::
@@ -13,7 +15,10 @@ another summation order), 1.6e-2 in bfloat16 on the output (one bf16 ulp
 at |out| < 4), 1e-4 on the float32 logsumexp. The backward kernels are held
 relative to the largest gradient value: 1e-4 in float32 (a sum over up to
 t terms in another order), and one bf16 ulp there (2^-7) in bfloat16,
-where both sides round the same float32 sums to bf16."""
+where both sides round the same float32 sums to bf16. B5 is held relative
+to the largest output value: 1e-4 in float32 (d-term sums in another
+order) and one ulp at the largest value in bfloat16 (2^-7) and float16
+(2^-10), where both sides sum exact products in float32 and round once."""
 
 import importlib
 
@@ -24,6 +29,7 @@ from deeplearning4j_tpu_torch import ops
 
 # the module (ops/__init__ exports a function of this name)
 pfa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
+pgm = importlib.import_module("deeplearning4j_tpu_torch.ops.grouped_matmul")
 
 pytestmark = pytest.mark.cuda
 
@@ -177,3 +183,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ops.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="mask"):
         ops.flash_attention(q, q, q, mask=torch.ones((1, 8)))  # mask on the CPU
+
+
+GMM_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4,
+               torch.float16: 2.0 ** -10 + 1e-4}
+
+
+def _gmm_case(gen, n, d, h, sizes, dtype, device):
+    lhs = _rand(gen, (n, d), dtype, device)
+    rhs = _rand(gen, (len(sizes), d, h), dtype, device)
+    return lhs, torch.tensor(sizes, dtype=torch.int32, device=device), rhs
+
+
+def _group_rows_kept(sizes, m_pad, n):
+    """Boolean [n]: rows some group keeps (local index < m_pad, row < n)."""
+    kept = torch.zeros(n, dtype=torch.bool)
+    start = 0
+    for s in sizes:
+        kept[start: min(start + min(s, m_pad), n)] = True
+        start += s
+    return kept
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,d,h,sizes,max_group", [
+    (300, 72, 130, (0, 150, 90, 5), 100),   # empty group, a group over m_pad=104, tail
+    (77, 33, 17, (20, 0, 40), None),        # d, h not whole 16-byte vectors
+    (1000, 64, 256, (500, 400, 100), 400),  # full groups, m_pad 512
+    (50, 16, 8, (30, 40), None),            # sum(sizes) > n: rows >= n never touched
+])
+def test_grouped_matmul_matches_plain(cuda, dtype, n, d, h, sizes, max_group):
+    gen = torch.Generator().manual_seed(n + d + h)
+    lhs, gs, rhs = _gmm_case(gen, n, d, h, sizes, dtype, cuda)
+    before = ops.GROUPED_MATMUL_LAUNCH_COUNTS["grouped_matmul"]
+    y = ops.grouped_matmul(lhs, gs, rhs, max_group_size=max_group)
+    assert ops.GROUPED_MATMUL_LAUNCH_COUNTS["grouped_matmul"] == before + 1
+    ref = ops.grouped_matmul_plain(lhs, gs, rhs, max_group_size=max_group)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (n, h)
+    assert _rel_err(y, ref) <= GMM_REL_TOL[dtype]
+    m_pad = pgm._tiling(n, max_group, 128)[0]
+    dropped = ~_group_rows_kept(sizes, m_pad, n).to(cuda)
+    assert bool((y[dropped] == 0).all())  # past the frontier or past m_pad: exactly 0
+
+
+def test_grouped_matmul_unaligned_rows_and_int8_rhs(cuda):
+    gen = torch.Generator().manual_seed(11)
+    flat = _rand(gen, (60 * 32 + 1,), torch.float32, cuda)
+    lhs = flat[1:].view(60, 32)  # contiguous, 4 bytes past a 16-byte boundary
+    assert lhs.data_ptr() % 16 != 0
+    gs = torch.tensor([25, 0, 30], dtype=torch.int32, device=cuda)
+    rhs_q = torch.randint(-127, 128, (3, 32, 40), generator=gen, dtype=torch.int8).to(cuda)
+    y = ops.grouped_matmul(lhs, gs, rhs_q)
+    ref = ops.grouped_matmul_plain(lhs, gs, rhs_q.float())
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32
+    assert _rel_err(y, ref) <= GMM_REL_TOL[torch.float32]
+
+
+def test_grouped_matmul_backward_launches_b5_for_dgrad(cuda):
+    """Forward and dgrad launch B5; both gradients equal plain autograd
+    through the plain version (the ``"reference"`` impl)."""
+    gen = torch.Generator().manual_seed(12)
+    lhs, gs, rhs = _gmm_case(gen, 200, 48, 72, (60, 0, 90, 30), torch.float32, cuda)
+    w = _rand(gen, (200, 72), torch.float32, cuda)
+    got = []
+    for impl in ("kernel", "reference"):
+        ops.set_grouped_matmul_impl(impl)
+        try:
+            l, r = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+            before = ops.GROUPED_MATMUL_LAUNCH_COUNTS["grouped_matmul"]
+            (ops.grouped_matmul(l, gs, r, max_group_size=64) * w).sum().backward()
+            launched = ops.GROUPED_MATMUL_LAUNCH_COUNTS["grouped_matmul"] - before
+            got.append((l.grad, r.grad))
+        finally:
+            ops.set_grouped_matmul_impl("auto")
+        assert launched == (2 if impl == "kernel" else 0)
+    for a, b in zip(*got):
+        assert _rel_err(a, b) <= GMM_REL_TOL[torch.float32]
+
+
+def test_grouped_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    lhs = torch.zeros((8, 16), device=cuda)
+    gs = torch.tensor([4, 4], dtype=torch.int32, device=cuda)
+    rhs = torch.zeros((2, 16, 8), device=cuda)
+    with pytest.raises(TypeError):
+        ops.grouped_matmul(lhs.double(), gs, rhs.double())
+    with pytest.raises(ValueError, match="operands"):
+        ops.grouped_matmul(lhs, gs.cpu(), rhs)
