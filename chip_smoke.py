@@ -31,6 +31,8 @@ device it exits with 2 and prints no result.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -58,10 +60,15 @@ SEED = 1234
 B, H, D = 8, 12, 64          # the serving shapes: batch 8, GPT-2 small's heads
 T_FULL = 1024                 # output() prompt length = max_len
 MAX_TOKENS = 64
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 on
-# the CUDA cores (TF32 is off), bf16 dense on the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth; dense TF32 on
+# the tensor cores, of which a float32-accurate product takes three (the
+# 3xTF32 split: the fastest float32-accurate product the card offers, and the
+# float32 bound); float32 on the CUDA cores, printed beside it for
+# continuity; bf16 dense on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12
+CUDA_CORE_F32_FLOPS = 67e12
+PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3, torch.bfloat16: 989e12}
 # Kernel vs plain version, max abs error allowed. float32: both sides
 # compute in float32 and differ only in summation order. bfloat16: both
 # widen the same bf16 inputs to float32, so they differ by the rounding of
@@ -70,8 +77,9 @@ TOL_OUT = {torch.float32: 5e-5, torch.bfloat16: 1.6e-2}
 TOL_LSE = 1e-4
 # Backward kernels vs plain versions, max abs error over the largest |value|
 # of the plain gradient. float32: both sum up to t = 1024 terms in float32,
-# in another order. bfloat16: both round float32 sums to bf16, so they may
-# differ by one bf16 ulp at the largest value (2^-7 of it).
+# in another order, the kernels of 3xTF32 products exact to ~2^-21.
+# bfloat16: both round float32 sums to bf16, so they may differ by one bf16
+# ulp at the largest value (2^-7 of it).
 TOL_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4}
 # Model gradients through the kernels vs through materialised scores and
 # plain autograd, per parameter, max abs error over the parameter's largest
@@ -122,6 +130,13 @@ def roofline(flops: float, nbytes: float, dtype) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def cuda_core_note(flops: float, dtype) -> str:
+    """The float32 CUDA-core bound, printed beside a float32 row's bound."""
+    if dtype != torch.float32:
+        return ""
+    return f"; CUDA-core f32 bound {1e3 * flops / CUDA_CORE_F32_FLOPS:.4f} ms"
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -155,6 +170,28 @@ def phase_build() -> None:
                 print(f"  ptxas {stem}: {line.split(chr(39))[1]}")
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}:   {line.strip()}")
+
+
+def phase_sass() -> None:
+    """The backward kernels run their products on the tensor cores and have
+    no atomics: counted per function in the built library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = cuda_build._lib_path(cuda_build.CSRC / "flash_backward.cu")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HMMA": 0, "atomics": 0}
+        elif fn is not None:
+            counts[fn]["HMMA"] += "HMMA" in line
+            counts[fn]["atomics"] += bool(re.search(r"\b(ATOMG?|ATOMS|RED)\b", line))
+    for fn, c in counts.items():
+        print(f"  sass flash_backward {fn}: {c['HMMA']} HMMA, {c['atomics']} atomics")
+    check(len(counts) == 12 and all(c["HMMA"] > 0 and c["atomics"] == 0
+                                    for c in counts.values()),
+          "every backward kernel must run HMMA and no atomics")
 
 
 def _key_mask(gen, tk: int) -> torch.Tensor:
@@ -205,7 +242,8 @@ def phase_flash_forward(gen) -> dict:
         bound_ms, bound_by = roofline(flops, nbytes, dtype)
         print(f"flash_forward {str(dtype)[6:]} [8,12,1024,64] causal: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+              f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB"
+              f"{cuda_core_note(flops, dtype)})")
         if dtype == torch.float32:
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
@@ -314,8 +352,6 @@ def phase_flash_backward(gen) -> dict:
         scale = D ** -0.5
         qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
         o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), g,
-                                                     retain_graph=True), 10)
         timed = {
             # name: (kernel, plain version, products, values written)
             "flash_bwd_dq": (lambda: fa_mod._flash_bwd_dq_cuda(*args, scale),
@@ -323,8 +359,23 @@ def phase_flash_backward(gen) -> dict:
             "flash_bwd_dkv": (lambda: fa_mod._flash_bwd_dkv_cuda(*args, scale),
                               lambda: fa.flash_attention_bwd_dkv_plain(*args), 4, 2),
         }
+        # B2, B3 and SDPA's backward back to back, three rounds, so that the
+        # comparison is paired (SDPA's bf16 time has moved 10x between calls)
+        rounds = {"flash_bwd_dq": [], "flash_bwd_dkv": [], "sdpa": []}
+        for _ in range(3):
+            for name, (kernel, *_rest) in timed.items():
+                rounds[name].append(cuda_ms(kernel, 10))
+            rounds["sdpa"].append(cuda_ms(lambda: torch.autograd.grad(
+                o_lib, (qs, ks, vs), g, retain_graph=True), 10))
+        med = {n: float(np.median(r)) for n, r in rounds.items()}
+        lib_ms = med["sdpa"]
+        both = med["flash_bwd_dq"] + med["flash_bwd_dkv"]
+        print(f"flash backward {str(dtype)[6:]} [8,12,1024,64] causal, 3 paired rounds (ms): "
+              + "; ".join(f"{n} {[round(x, 4) for x in r]}" for n, r in rounds.items())
+              + f"; medians: B2 + B3 {both:.4f} against sdpa backward {lib_ms:.4f} "
+              f"({both / lib_ms:.2f}x)")
         for name, (kernel, plain, products, n_out) in timed.items():
-            ms = cuda_ms(kernel, 10)
+            ms = med[name]
             plain_ms = cuda_ms(plain, 3)
             flops = 2 * products * D * pairs
             nbytes = (4 + n_out) * n_in * q.element_size() + 2 * B * H * T_FULL * 4
@@ -332,7 +383,7 @@ def phase_flash_backward(gen) -> dict:
             print(f"{name} {str(dtype)[6:]} [8,12,1024,64] causal: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, sdpa backward (dq+dk+dv) {lib_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB)")
+                  f"{nbytes / 1e6:.1f} MB{cuda_core_note(flops, dtype)})")
             if dtype == torch.float32:
                 rows[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
@@ -683,7 +734,7 @@ def phase_grouped_matmul(gen, routed) -> dict:
         print(f"grouped_matmul {str(dtype)[6:]} [{n},{d}]x[{E_MOE},{d},{h}] m_pad={CAPACITY}, "
               f"{kept} kept rows {routed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"padded torch.bmm {lib_ms:.4f} ms{extra}, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB{cuda_core_note(flops, dtype)})")
         if dtype == torch.float32:
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
@@ -698,6 +749,7 @@ def main() -> int:
     card = phase_device()
     name = torch.cuda.get_device_name(0)
     phase_build()
+    phase_sass()
     gen = torch.Generator().manual_seed(SEED)
     rs = np.random.RandomState(SEED + 1)
     prompt_lens = [100, 500] + rs.randint(100, 501, B - 2).tolist()

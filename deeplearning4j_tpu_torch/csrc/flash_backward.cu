@@ -1,5 +1,5 @@
 // Flash attention backward for Hopper (sm_90a), float32 and bfloat16: the
-// dq kernel and the dk/dv kernel.
+// dq kernel and the dk/dv kernel, with their products on the tensor cores.
 //
 // Replaces: deeplearning4j_tpu/ops/flash_attention.py::_dq_kernel and
 // ::_dkv_kernel (the two Pallas TPU kernels launched by _flash_bwd_pallas).
@@ -14,306 +14,558 @@
 //   dq = ds·k·scale            (kernel 1)
 //   dk = dsᵀ·q·scale, dv = pᵀ·g (kernel 2)
 // A fully masked row has lse = +1e30, so it gives zero dq and adds nothing to
-// dk or dv. Outputs are written in the input dtype; bf16 inputs are widened
-// to float32 on load and every sum is in float32.
+// dk or dv. Outputs are written in the input dtype; every sum is in float32.
 //
 // What bounds it on this card: operations. At the training shapes (t = 1024,
 // d = 64, causal) the dq kernel runs three products (s, dp, dq), 6·d flops a
 // kept (q, k) pair, and the dk/dv kernel four (s, dp, dk, dv), 8·d flops a
 // pair, against ~5·t·d values of traffic per (b,h): far above the flops/byte
-// ridge. With TF32 off the limit is the CUDA cores' 67 TFLOP/s in float32.
+// ridge. Float32 accuracy on the tensor cores costs three TF32 products per
+// product (below), so the float32 limit is 3 x flops at the dense TF32 rate
+// (495 TFLOP/s), not the CUDA cores' 67 TFLOP/s.
 //
-// Design: the TPU kernels carry dq (resp. dk, dv) in VMEM scratch across a
-// sequential grid axis. Blocks on Hopper run in parallel and in no order, so
-// each block owns its output tile and loops over the other axis itself, with
-// the sums in registers; no block writes another's rows, so there are no
-// atomics and the gradients are deterministic.
-// * dq: one block owns a 64-row q tile of one (b,h), keeps its q, g, lse and
+// Design.
+// * Ownership, as the TPU kernels' sequential grid axis becomes a loop: a dq
+//   block owns a 64-row q tile of one (b,h), keeps its q and g tiles, lse and
 //   delta in shared memory, and walks the 64-key k/v tiles up to its causal
-//   frontier. No online softmax is needed: lse is given.
-// * dk/dv: one block owns a 64-key k/v tile, and walks the 64-row q tiles
+//   frontier; a dk/dv block owns a 64-key k/v tile and walks 32-row q tiles
 //   from that tile's causal frontier to the end, in the TPU kernel's
-//   transposed orientation (key rows, query columns), so both sums are
-//   plain row-times-tile products.
-// Tiles past the causal frontier are never loaded. Tiles sit in shared
-// memory as float32 with rows padded by one float, so the column walks of
-// the products are free of bank conflicts; 256 threads form a 16x16 grid
-// that owns 4x4 blocks of scores and 4 x DMAX/16 blocks of the outputs, as
-// in the forward kernel. At d = 64 a block holds four 64x65 operand tiles and
-// one (dq) or two (dk/dv) 64x65 score tiles, 84 KB and 100 KB, above the
-// 48 KB static limit: dynamic shared memory, opted into per launch. Products
-// run on the CUDA cores; tensor-core products (wgmma) and TMA loads are
-// later work.
+//   transposed orientation (sᵀ = k·qᵀ, so pᵀ and dsᵀ are the A operands of
+//   pᵀ·g and dsᵀ·q). No block writes another's rows: no atomics, and the
+//   gradients are deterministic. The heaviest tiles start first.
+// * Products: mma.sync m16n8k8 TF32 with float32 accumulators. Four warps,
+//   each owning 16 rows of s, dp and the output sums. A float32 operand x is
+//   split into hi = tf32(x) and lo = tf32(x - hi) (rounded as cvt.rna
+//   rounds, by integer add and mask: see split()), and a·b is
+//   summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (3xTF32, the split PyTorch's
+//   float32 SDPA backward runs): about float32 accuracy, where one TF32 term
+//   keeps three decimal digits. A bf16 value is exact in TF32, so in bf16
+//   s and dp take one term, and ds·k, dsᵀ·q, pᵀ·g two (ds and p are
+//   float32). In float32 the scale is folded into q as it lands in shared
+//   memory, once an element; in bf16 it multiplies s and dk's sum instead,
+//   so that q stays exact in TF32.
+// * No trip through shared memory for p and ds: the m16n8 accumulator holds
+//   columns (2t, 2t+1) where the m16n8k8 A fragment wants (t, t+4). The
+//   order of the reduction axis inside an 8-wide step is free, so the next
+//   product reads logical column t from key 2t and t+4 from key 2t+1, on
+//   both operands: p and ds feed the next mma straight from registers.
+// * Copies: cp.async, two stages of the walked tiles (k, v and the key
+//   validity in the dq kernel; q, g, lse and delta in the dk/dv kernel), so
+//   the next tile's copy runs under this tile's products. 16-byte copies
+//   where the rows allow (else 8 or 4 bytes; bf16 rows of odd length take
+//   plain loads), with zero fill past the ragged edges and up to the
+//   instantiation's width DMAX (32, 64 or 128). Every loop then has a
+//   compile-time trip count: loops that stopped at the next multiple of 8
+//   columns ran slower on the H100, their branches keeping the compiler
+//   from overlapping one step's loads with the last one's products. Rows are
+//   padded to a stride of 4 words mod 32 banks (DMAX + 4 floats, DMAX + 8
+//   bf16), which keeps them 16-byte aligned and makes both fragment reads
+//   conflict-free: row-wise (row g, column t) and column-wise (row 2t or
+//   2t + 1, column g).
+// What bounds it now: the rate at which warps dispatch instructions, not the
+// tensor cores. Around each TF32 mma of the float32 kernels a warp runs
+// shared loads, the four integer and float operations of each split, and
+// the softmax, so they run at about a quarter of the 3xTF32 bound. At d = 64 in float32 a dq block holds 6 tiles of 64 x 68 floats
+// (104 KB, two blocks an SM) and a dk/dv block 2 tiles of 64 rows and 4 of
+// 32 (70 KB, three). At d = 128 the dk/dv kernel walks 16-row q tiles to
+// keep its sums in registers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+#include <type_traits>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kBQ = 64;        // q rows per tile
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kRows = 64;      // rows of the tile a block owns (q rows, or keys)
+constexpr int kThreads = 128;  // 4 warps x 16 rows
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// Load rows [row0, row0 + 64) x cols [0, DMAX) of a [rows, cols] matrix into
-// a [64][stride] float tile, times `mul`; zeros past the edges.
+// shared-memory row stride, in elements: 4 words mod 32 banks, 16-byte rows
 template <typename T, int DMAX>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* __restrict__ src,
-                                          int row0, int rows, int cols, float mul) {
-  for (int e = threadIdx.x; e < 64 * DMAX; e += kThreads) {
-    const int r = e / DMAX, c = e % DMAX;
-    float x = 0.f;
-    if (row0 + r < rows && c < cols) x = to_f32(src[(size_t)(row0 + r) * cols + c]) * mul;
-    dst[r * stride + c] = x;
+__host__ __device__ constexpr int row_stride() { return sizeof(T) == 4 ? DMAX + 4 : DMAX + 8; }
+
+// ---- tensor-core products -------------------------------------------------
+
+// x = hi + lo in TF32 (SPLIT); else x is exact in TF32 (a widened bf16).
+// hi is x rounded as cvt.rna.tf32.f32 rounds a finite value (10 mantissa
+// bits, ties away from zero): half a TF32 ulp added to the magnitude bits,
+// the 13 low bits dropped. lo = x - hi is exact in float32 and gets the same
+// half ulp; the mma ignores an operand's 13 low bits, which completes the
+// rounding. On sm_90 cvt.rna.tf32.f32 itself compiles to a longer sequence
+// with NaN and infinity checks, which made both kernels slower on the H100
+// (tools/flash_backward_variants.py times it).
+template <bool SPLIT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (SPLIT) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
   }
 }
 
-// acc[i][j] = A[ty+16i] · B[tx+16j] over the first n columns of two tiles of
-// row stride S.
-template <int S>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A, const float* B,
-                                         int n, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int c = 0; c < n; ++c) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * S + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = B[(tx + 16 * j) * S + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// c += a·b, skipping the terms of an operand that is exact in TF32
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  if (SA) mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  if (SB) mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 8) of a row-major
+// tile. Lane (g, t) = (lane / 4, lane % 4) holds (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4).
+template <bool SPLIT, int S, typename T>
+__device__ __forceinline__ FragA frag_a(const T* tile, int r0, int c0, int g, int t) {
+  const T* p = tile + (r0 + g) * S + c0 + t;
+  FragA f;
+  split<SPLIT>(to_f32(p[0]), f.hi[0], f.lo[0]);
+  split<SPLIT>(to_f32(p[8 * S]), f.hi[1], f.lo[1]);
+  split<SPLIT>(to_f32(p[4]), f.hi[2], f.lo[2]);
+  split<SPLIT>(to_f32(p[8 * S + 4]), f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A fragment (split: p and ds are float32) from an m16n8 accumulator whose 8
+// columns are the reduction axis of the next product: logical column t is
+// column 2t, t + 4 is 2t + 1
+__device__ __forceinline__ FragA frag_a_acc(const float (&c)[4]) {
+  FragA f;
+  split<true>(c[0], f.hi[0], f.lo[0]);
+  split<true>(c[2], f.hi[1], f.lo[1]);
+  split<true>(c[1], f.hi[2], f.lo[2]);
+  split<true>(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B fragment (k = 8, n = 8) of B = Mᵀ for a row-major tile M, reduction
+// columns [k0, k0 + 8), output rows [n0, n0 + 8): lane (g, t) holds
+// M[n0 + g][k0 + t] and M[n0 + g][k0 + t + 4].
+template <bool SPLIT, int S, typename T>
+__device__ __forceinline__ FragB frag_b_rows(const T* tile, int n0, int k0, int g, int t) {
+  const T* p = tile + (n0 + g) * S + k0 + t;
+  FragB f;
+  split<SPLIT>(to_f32(p[0]), f.hi[0], f.lo[0]);
+  split<SPLIT>(to_f32(p[4]), f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B fragment of B = M for a row-major tile M whose rows are the reduction
+// axis, rows [k0, k0 + 8) in the permuted order of frag_a_acc, columns
+// [n0, n0 + 8): lane (g, t) holds M[k0 + 2t][n0 + g] and M[k0 + 2t + 1][n0 + g].
+template <bool SPLIT, int S, typename T>
+__device__ __forceinline__ FragB frag_b_cols(const T* tile, int k0, int n0, int g, int t) {
+  const T* p = tile + (k0 + 2 * t) * S + n0 + g;
+  FragB f;
+  split<SPLIT>(to_f32(p[0]), f.hi[0], f.lo[0]);
+  split<SPLIT>(to_f32(p[S]), f.hi[1], f.lo[1]);
+  return f;
+}
+
+// ---- asynchronous copies ----------------------------------------------------
+
+// copies BYTES from gmem to smem, or zeros when !valid (src-size 0)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(gmem), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst), "l"(gmem),
+                 "n"(BYTES), "r"(n)
+                 : "memory");
   }
 }
 
-// acc[i][j] += sum_r P[ty+16i][r] * X[r][tx+16j] over r < n: P is a [64][PS]
-// score tile, X a [64][S] operand tile.
-template <int NJ, int S, int PS>
-__device__ __forceinline__ void tile_accum(float (&acc)[4][NJ], const float* P, const float* X,
-                                           int n, int ty, int tx) {
-  for (int r = 0; r < n; ++r) {
-    float pv[4], xv[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = P[(ty + 16 * i) * PS + r];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) xv[j] = X[r * S + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pv[i], xv[j], acc[i][j]);
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <int BYTES, int R, int C, int S, typename T>
+__device__ __forceinline__ void copy_rows_async(T* dst, const T* __restrict__ src, int row0,
+                                                int rows, int cols) {
+  constexpr int E = BYTES / static_cast<int>(sizeof(T));  // elements a copy
+  constexpr int chunks = C / E;                            // copies a row
+  for (int i = threadIdx.x; i < R * chunks; i += kThreads) {
+    const int r = i / chunks, c = (i % chunks) * E;
+    const bool ok = row0 + r < rows && c < cols;  // cols is a multiple of E
+    cp_async<BYTES>(dst + r * S + c, ok ? src + (size_t)(row0 + r) * cols + c : src, ok);
   }
 }
 
-// Write rows [row0 + ty + 16i] x cols [tx + 16j] of acc * mul into a
-// [rows, cols] matrix, inside its edges.
-template <typename T, int NJ>
-__device__ __forceinline__ void store_tile(T* __restrict__ dst, const float (&acc)[4][NJ],
-                                           int row0, int rows, int cols, float mul,
-                                           int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < cols) store(dst + (size_t)r * cols + c, acc[i][j] * mul);
+// Rows [row0, row0 + R) x columns [0, C) of a [rows, cols] matrix into an
+// [R][S] tile, zeros past the edges. vec: bytes a copy, 16, 8 or 4 (the row
+// length and base are multiples of it; asynchronous), or 0 (plain loads,
+// visible after the next barrier).
+template <int R, int C, int S, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ src, int row0, int rows,
+                                          int cols, int vec) {
+  if (vec == 16) {
+    copy_rows_async<16, R, C, S>(dst, src, row0, rows, cols);
+  } else if (vec == 8) {
+    copy_rows_async<8, R, C, S>(dst, src, row0, rows, cols);
+  } else if (vec == 4) {
+    copy_rows_async<4, R, C, S>(dst, src, row0, rows, cols);
+  } else {
+    for (int i = threadIdx.x; i < R * C; i += kThreads) {
+      const int r = i / C, c = i % C;
+      const float x = (row0 + r < rows && c < cols) ? to_f32(src[(size_t)(row0 + r) * cols + c])
+                                                    : 0.f;
+      store(dst + r * S + c, x);
     }
   }
 }
 
-template <int DMAX>
+template <int BYTES, int R, int C, int S>
+__device__ __forceinline__ void scale_own_rows_v(float* tile, float mul) {
+  constexpr int E = BYTES / 4;
+  for (int i = threadIdx.x; i < R * (C / E); i += kThreads) {
+    float* p = tile + (i / (C / E)) * S + (i % (C / E)) * E;
+#pragma unroll
+    for (int e = 0; e < E; ++e) p[e] *= mul;
+  }
+}
+
+// Multiplies by mul the elements of an [R][S] float32 tile that this thread
+// copied with copy_rows<R, C, S> (the same vec, never 0 for float32), once
+// its copies have landed: its own copies are visible to it without a
+// barrier, and each element is scaled once a block.
+template <int R, int C, int S>
+__device__ __forceinline__ void scale_own_rows(float* tile, float mul, int vec) {
+  if (vec == 16) {
+    scale_own_rows_v<16, R, C, S>(tile, mul);
+  } else if (vec == 8) {
+    scale_own_rows_v<8, R, C, S>(tile, mul);
+  } else {
+    scale_own_rows_v<4, R, C, S>(tile, mul);
+  }
+}
+
+// n float32 values from src[i0, i0 + n) into dst, zeros past `end`
+__device__ __forceinline__ void copy_vec_async(float* dst, const float* __restrict__ src, int i0,
+                                               int end, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const bool ok = i0 + i < end;
+    cp_async<4>(dst + i, ok ? src + i0 + i : src, ok);
+  }
+}
+
+template <typename T, int DMAX, int BN>
 constexpr size_t dq_smem_bytes() {
-  // Qs, Gs, Ks, Vs: [64][DMAX+1]; DS: [64][65]; key validity, lse, delta: [64]
-  return sizeof(float) * (4 * 64 * (DMAX + 1) + kBQ * (kBK + 1) + kBK + 2 * kBQ);
+  // q, g: [64][S]; k, v: two stages of [BN][S]; key validity: two stages of
+  // [BN]; lse, delta: [64]
+  return sizeof(T) * (2 * kRows + 4 * BN) * row_stride<T, DMAX>() +
+         sizeof(float) * (2 * BN + 2 * kRows);
 }
 
-template <int DMAX>
+template <typename T, int DMAX, int BN>
 constexpr size_t dkv_smem_bytes() {
-  // Ks, Vs, Qs, Gs: [64][DMAX+1]; P, DS: [64][65]; key validity, lse, delta: [64]
-  return sizeof(float) * (4 * 64 * (DMAX + 1) + 2 * kBK * (kBQ + 1) + kBK + 2 * kBQ);
+  // k, v: [64][S]; q, g: two stages of [BN][S]; key validity: [64]; lse,
+  // delta: two stages of [BN]
+  return sizeof(T) * (2 * kRows + 4 * BN) * row_stride<T, DMAX>() +
+         sizeof(float) * (kRows + 4 * BN);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int BN>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ g, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ mask,
                     T* __restrict__ dq, int h, int tq, int tk, int d, int dv, float scale,
-                    int causal) {
-  constexpr int S = DMAX + 1;
-  constexpr int PS = kBK + 1;
-  constexpr int NJ = DMAX / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // q * scale
-  float* Gs = Qs + kBQ * S;
-  float* Ks = Gs + kBQ * S;
-  float* Vs = Ks + kBK * S;
-  float* DS = Vs + kBK * S;
-  float* Kvalid = DS + kBQ * PS;
-  float* Lrow = Kvalid + kBK;
-  float* Drow = Lrow + kBQ;
+                    int causal, int vec_d, int vec_dv) {
+  constexpr bool kSplit = std::is_same<T, float>::value;  // bf16 is exact in TF32
+  constexpr int S = row_stride<T, DMAX>();
+  constexpr int NK = BN / 8;  // 8-key column tiles of s
+  constexpr int ND = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Gs = Qs + kRows * S;
+  T* Ks = Gs + kRows * S;  // [2][BN][S]
+  T* Vs = Ks + 2 * BN * S;
+  float* Kvalid = reinterpret_cast<float*>(Vs + 2 * BN * S);  // [2][BN]
+  float* Lrow = Kvalid + 2 * BN;
+  float* Drow = Lrow + kRows;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // fragment row and column of this lane
+  const int w0 = (tid >> 5) * 16;           // this warp's first row of the tile
   const int bh = blockIdx.x;
   const int b = bh / h;
   // the last q tiles see the most keys under the causal mask: start them first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int tk_off = tk - tq;
+  // float32 folds the scale into q; bf16 keeps q exact and scales s
+  const float s_mul = kSplit ? 1.f : scale;
 
   const T* kb = k + (size_t)bh * tk * d;
   const T* vb = v + (size_t)bh * tk * dv;
-  load_tile<T, DMAX>(Qs, S, q + (size_t)bh * tq * d, q0, tq, d, scale);
-  load_tile<T, DMAX>(Gs, S, g + (size_t)bh * tq * dv, q0, tq, dv, 1.f);
-  if (tid < kBQ) {
+  int n_tiles = (tk + BN - 1) / BN;
+  if (causal) {
+    const int last = q0 + kRows - 1 + tk_off;  // the last key any row of this tile sees
+    n_tiles = last < 0 ? 0 : min(n_tiles, last / BN + 1);
+  }
+  auto load_kv = [&](int kt, int st) {
+    const int k0 = kt * BN;
+    copy_rows<BN, DMAX, S>(Ks + st * BN * S, kb, k0, tk, d, vec_d);
+    copy_rows<BN, DMAX, S>(Vs + st * BN * S, vb, k0, tk, dv, vec_dv);
+    float* kv = Kvalid + st * BN;
+    if (mask != nullptr) {
+      copy_vec_async(kv, mask + (size_t)b * tk, k0, tk, BN);
+    } else if (tid < BN) {
+      kv[tid] = k0 + tid < tk ? 1.f : 0.f;
+    }
+  };
+
+  copy_rows<kRows, DMAX, S>(Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
+  copy_rows<kRows, DMAX, S>(Gs, g + (size_t)bh * tq * dv, q0, tq, dv, vec_dv);
+  if (tid < kRows) {
     const int r = q0 + tid;
     // rows past tq: lse +1e30 makes p = 0, as the TPU kernel's padding does
     Lrow[tid] = r < tq ? lse[(size_t)bh * tq + r] : -kNeg;
     Drow[tid] = r < tq ? delta[(size_t)bh * tq + r] : 0.f;
   }
-
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  int n_tiles = (tk + kBK - 1) / kBK;
-  if (causal) {
-    const int last = q0 + kBQ - 1 + tk_off;  // the last key any row of this tile sees
-    n_tiles = last < 0 ? 0 : min(n_tiles, last / kBK + 1);
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_commit();
+  if constexpr (kSplit) {  // q · scale, before the first barrier of the loop
+    cp_wait<0>();
+    scale_own_rows<kRows, DMAX, S>(Qs, scale, vec_d);
   }
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's Ks/Vs/DS are consumed
-    load_tile<T, DMAX>(Ks, S, kb, k0, tk, d, 1.f);
-    load_tile<T, DMAX>(Vs, S, vb, k0, tk, dv, 1.f);
-    if (tid < kBK) {
-      const int kj = k0 + tid;
-      Kvalid[tid] = (kj < tk && (mask == nullptr || mask[(size_t)b * tk + kj] > 0.f)) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dot<S>(s, Qs, Ks, d, ty, tx);
-    tile_dot<S>(dp, Gs, Vs, dv, ty, tx);
+  float acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty + 16 * i;
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt & 1, k0 = kt * BN;
+    if (kt + 1 < n_tiles) load_kv(kt + 1, st ^ 1);  // its stage was consumed last round
+    cp_commit();
+    cp_wait<1>();  // this tile's copies (all but the newest group) have landed
+    __syncthreads();
+    const T* Kt = Ks + st * BN * S;
+    const T* Vt = Vs + st * BN * S;
+    const float* kvalid = Kvalid + st * BN;
+
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < ND; ++kd) {  // columns past d are zero
+      const FragA a = frag_a<kSplit, S>(Qs, w0, 8 * kd, gr, tc);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+        mma3<kSplit, kSplit>(s[j], a, frag_b_rows<kSplit, S>(Kt, 8 * j, 8 * kd, gr, tc));
+    }
+#pragma unroll
+    for (int kd = 0; kd < ND; ++kd) {
+      const FragA a = frag_a<kSplit, S>(Gs, w0, 8 * kd, gr, tc);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+        mma3<kSplit, kSplit>(dp[j], a, frag_b_rows<kSplit, S>(Vt, 8 * j, 8 * kd, gr, tc));
+    }
+    // ds into s; accumulator element e is row gr + 8 (e / 2), key 8j + 2tc + e % 2
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = w0 + gr + 8 * (e >> 1);
       const int qi = q0 + rl;
       const float l = Lrow[rl], dl = Drow[rl];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kl = tx + 16 * j;
-        const bool keep = Kvalid[kl] > 0.f && (!causal || qi + tk_off >= k0 + kl);
-        const float sv = keep ? s[i][j] : kNeg;
+      for (int j = 0; j < NK; ++j) {
+        const int kl = 8 * j + 2 * tc + (e & 1);
+        const bool keep = kvalid[kl] > 0.f && (!causal || qi + tk_off >= k0 + kl);
+        const float sv = keep ? s[j][e] * s_mul : kNeg;
         const float p = sv > kNeg * 0.5f ? expf(sv - l) : 0.f;
-        DS[rl * PS + kl] = p * (dp[i][j] - dl);
+        s[j][e] = p * (dp[j][e] - dl);
       }
     }
-    __syncthreads();
-    tile_accum<NJ, S, PS>(acc, DS, Ks, min(kBK, tk - k0), ty, tx);
+    // dq += ds·k (keys past tk have ds = 0 and zero rows of k)
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const FragA a = frag_a_acc(s[kk]);
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        mma3<true, kSplit>(acc[j], a, frag_b_cols<kSplit, S>(Kt, 8 * kk, 8 * j, gr, tc));
+    }
+    __syncthreads();  // this stage is consumed: the next round may refill it
   }
-  store_tile<T, NJ>(dq + (size_t)bh * tq * d, acc, q0, tq, d, scale, ty, tx);
+  cp_wait<0>();  // no copy outlives the block (none is pending unless n_tiles == 0)
+
+  T* out = dq + (size_t)bh * tq * d;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = q0 + w0 + gr + 8 * (e >> 1), c = 8 * j + 2 * tc + (e & 1);
+      if (r < tq && c < d) store(out + (size_t)r * d + c, acc[j][e] * scale);
+    }
+  }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int BN>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ g, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ mask,
                      T* __restrict__ dk, T* __restrict__ dvo, int h, int tq, int tk, int d,
-                     int dv, float scale, int causal) {
-  constexpr int S = DMAX + 1;
-  constexpr int PS = kBQ + 1;
-  constexpr int NJ = DMAX / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBK * S;
-  float* Qs = Vs + kBK * S;      // q * scale
-  float* Gs = Qs + kBQ * S;
-  float* Pt = Gs + kBQ * S;      // pᵀ: key rows, query columns
-  float* DSt = Pt + kBK * PS;    // dsᵀ
-  float* Kvalid = DSt + kBK * PS;
-  float* Lrow = Kvalid + kBK;
-  float* Drow = Lrow + kBQ;
+                     int dv, float scale, int causal, int vec_d, int vec_dv) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int S = row_stride<T, DMAX>();
+  constexpr int NQ = BN / 8;  // 8-query column tiles of sᵀ
+  constexpr int ND = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + kRows * S;
+  T* Qs = Vs + kRows * S;  // [2][BN][S]
+  T* Gs = Qs + 2 * BN * S;
+  float* Kvalid = reinterpret_cast<float*>(Gs + 2 * BN * S);  // [64]
+  float* Lrow = Kvalid + kRows;                               // [2][BN]
+  float* Drow = Lrow + 2 * BN;                                // [2][BN]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int w0 = (tid >> 5) * 16;  // this warp's first key of the tile
   const int bh = blockIdx.x;
   const int b = bh / h;
-  const int k0 = blockIdx.y * kBK;  // the first k tiles see the most q rows: they go first
+  const int k0 = blockIdx.y * kRows;  // the first k tiles see the most q rows: they go first
   const int tk_off = tk - tq;
+  const float s_mul = kSplit ? 1.f : scale;  // as in the dq kernel
 
   const T* qb = q + (size_t)bh * tq * d;
   const T* gb = g + (size_t)bh * tq * dv;
-  load_tile<T, DMAX>(Ks, S, k + (size_t)bh * tk * d, k0, tk, d, 1.f);
-  load_tile<T, DMAX>(Vs, S, v + (size_t)bh * tk * dv, k0, tk, dv, 1.f);
-  if (tid < kBK) {
-    const int kj = k0 + tid;
-    Kvalid[tid] = (kj < tk && (mask == nullptr || mask[(size_t)b * tk + kj] > 0.f)) ? 1.f : 0.f;
-  }
-
-  float dk_acc[4][NJ], dv_acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  const int n_tiles = (tq + kBQ - 1) / kBQ;
+  const float* lb = lse + (size_t)bh * tq;
+  const float* db = delta + (size_t)bh * tq;
+  const int n_tiles = (tq + BN - 1) / BN;
   int first = 0;
   if (causal) {
     const int q_first = k0 - tk_off;  // the first q row that sees key k0
-    first = q_first <= 0 ? 0 : q_first / kBQ;
+    first = q_first <= 0 ? 0 : min(q_first / BN, n_tiles);
   }
+  auto load_qg = [&](int qt, int st) {
+    const int q0 = qt * BN;
+    copy_rows<BN, DMAX, S>(Qs + st * BN * S, qb, q0, tq, d, vec_d);
+    copy_rows<BN, DMAX, S>(Gs + st * BN * S, gb, q0, tq, dv, vec_dv);
+    copy_vec_async(Lrow + st * BN, lb, q0, tq, BN);  // rows past tq: see `l` below
+    copy_vec_async(Drow + st * BN, db, q0, tq, BN);
+  };
+
+  copy_rows<kRows, DMAX, S>(Ks, k + (size_t)bh * tk * d, k0, tk, d, vec_d);
+  copy_rows<kRows, DMAX, S>(Vs, v + (size_t)bh * tk * dv, k0, tk, dv, vec_dv);
+  if (tid < kRows) {
+    const int kj = k0 + tid;
+    Kvalid[tid] = (kj < tk && (mask == nullptr || mask[(size_t)b * tk + kj] > 0.f)) ? 1.f : 0.f;
+  }
+  if (first < n_tiles) load_qg(first, 0);
+  cp_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
   for (int qt = first; qt < n_tiles; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();  // Ks/Vs/Kvalid are loaded; the previous tile's Qs/Gs/Pt/DSt consumed
-    load_tile<T, DMAX>(Qs, S, qb, q0, tq, d, scale);
-    load_tile<T, DMAX>(Gs, S, gb, q0, tq, dv, 1.f);
-    if (tid < kBQ) {
-      const int r = q0 + tid;
-      Lrow[tid] = r < tq ? lse[(size_t)bh * tq + r] : -kNeg;
-      Drow[tid] = r < tq ? delta[(size_t)bh * tq + r] : 0.f;
-    }
+    const int st = (qt - first) & 1, q0 = qt * BN;
+    if (qt + 1 < n_tiles) load_qg(qt + 1, st ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    if constexpr (kSplit) scale_own_rows<BN, DMAX, S>(Qs + st * BN * S, scale, vec_d);
     __syncthreads();
+    const T* Qt = Qs + st * BN * S;
+    const T* Gt = Gs + st * BN * S;
+    const float* Lt = Lrow + st * BN;
+    const float* Dt = Drow + st * BN;
 
-    float st[4][4], dpt[4][4];
-    tile_dot<S>(st, Ks, Qs, d, ty, tx);
-    tile_dot<S>(dpt, Vs, Gs, dv, ty, tx);
+    float s[NQ][4], dp[NQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kl = ty + 16 * i;
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < ND; ++kd) {  // sᵀ = k·(q·scale)ᵀ; columns past d are zero
+      const FragA a = frag_a<kSplit, S>(Ks, w0, 8 * kd, gr, tc);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+        mma3<kSplit, kSplit>(s[j], a, frag_b_rows<kSplit, S>(Qt, 8 * j, 8 * kd, gr, tc));
+    }
+#pragma unroll
+    for (int kd = 0; kd < ND; ++kd) {  // dpᵀ = v·gᵀ
+      const FragA a = frag_a<kSplit, S>(Vs, w0, 8 * kd, gr, tc);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+        mma3<kSplit, kSplit>(dp[j], a, frag_b_rows<kSplit, S>(Gt, 8 * j, 8 * kd, gr, tc));
+    }
+    // pᵀ into s, dsᵀ into dp; element e is key gr + 8 (e / 2), query 8j + 2tc + e % 2
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kl = w0 + gr + 8 * (e >> 1);
       const bool kvalid = Kvalid[kl] > 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ql = tx + 16 * j;
-        const bool keep = kvalid && (!causal || q0 + ql + tk_off >= k0 + kl);
-        const float sv = keep ? st[i][j] : kNeg;
-        const float p = sv > kNeg * 0.5f ? expf(sv - Lrow[ql]) : 0.f;
-        Pt[kl * PS + ql] = p;
-        DSt[kl * PS + ql] = p * (dpt[i][j] - Drow[ql]);
+      for (int j = 0; j < NQ; ++j) {
+        const int ql = 8 * j + 2 * tc + (e & 1);
+        const int qi = q0 + ql;
+        const bool keep = kvalid && (!causal || qi + tk_off >= k0 + kl);
+        const float sv = keep ? s[j][e] * s_mul : kNeg;
+        // rows past tq: lse +1e30 makes p = 0, as the TPU kernel's padding does
+        const float l = qi < tq ? Lt[ql] : -kNeg;
+        const float p = sv > kNeg * 0.5f ? expf(sv - l) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - Dt[ql]);
+      }
+    }
+    // dv += pᵀ·g, dk += dsᵀ·(q·scale) (rows past tq have p = ds = 0 and zero q, g)
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      const FragA ap = frag_a_acc(s[kk]);
+      const FragA ads = frag_a_acc(dp[kk]);
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        mma3<true, kSplit>(dv_acc[j], ap, frag_b_cols<kSplit, S>(Gt, 8 * kk, 8 * j, gr, tc));
+        mma3<true, kSplit>(dk_acc[j], ads, frag_b_cols<kSplit, S>(Qt, 8 * kk, 8 * j, gr, tc));
       }
     }
     __syncthreads();
-    const int qn = min(kBQ, tq - q0);
-    tile_accum<NJ, S, PS>(dv_acc, Pt, Gs, qn, ty, tx);
-    tile_accum<NJ, S, PS>(dk_acc, DSt, Qs, qn, ty, tx);  // Qs carries the scale
   }
-  store_tile<T, NJ>(dk + (size_t)bh * tk * d, dk_acc, k0, tk, d, 1.f, ty, tx);
-  store_tile<T, NJ>(dvo + (size_t)bh * tk * dv, dv_acc, k0, tk, dv, 1.f, ty, tx);
+  cp_wait<0>();
+
+  const size_t base = (size_t)bh * tk;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = k0 + w0 + gr + 8 * (e >> 1), c = 8 * j + 2 * tc + (e & 1);
+      if (r >= tk) continue;
+      if (c < d) store(dk + (base + r) * d + c, dk_acc[j][e] * s_mul);
+      if (c < dv) store(dvo + (base + r) * dv + c, dv_acc[j][e]);
+    }
+  }
 }
 
 struct Args {
@@ -326,34 +578,57 @@ struct Args {
   cudaStream_t stream;
 };
 
+// bytes a copy for rows of `cols` elements at these bases: 16, 8, 4, or 0
+// (plain loads)
+int copy_bytes(int cols, int elem, const void* p0, const void* p1) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p0) | reinterpret_cast<uintptr_t>(p1);
+  for (int vec = 16; vec >= 4; vec /= 2)
+    if ((cols * elem) % vec == 0 && a % vec == 0) return vec;
+  return 0;
+}
+
+// Keys a dq block walks at a time, and q rows a dk/dv block walks at a time
+// (measured on the H100 at [8,12,1024,64] causal: 32 or 64 keys take the
+// same time in dq; 32 q rows beat 16 and 64 in dk/dv, where 64 needs 251
+// registers; tools/flash_backward_variants.py times the alternatives).
+// Skipping the 8-wide tiles that the causal mask hides from a whole warp,
+// on the tiles across the diagonal, made dq slower on the H100: the second
+// copy of the tile body costs more than the products it saves.
+constexpr int kDqWalk = 64;
+constexpr int kDkvWalk = 32;
+
 template <typename T, int DMAX>
 cudaError_t launch_dq(const Args& a) {
-  constexpr size_t bytes = dq_smem_bytes<DMAX>();
+  constexpr int BN = kDqWalk;
+  constexpr size_t bytes = dq_smem_bytes<T, DMAX, BN>();
   // above 48 KB of dynamic shared memory must be opted into (per device)
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DMAX>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DMAX, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.b * a.h, (a.tq + kBQ - 1) / kBQ);
-  flash_bwd_dq_kernel<T, DMAX><<<grid, kThreads, bytes, a.stream>>>(
+  const dim3 grid(a.b * a.h, (a.tq + kRows - 1) / kRows);
+  flash_bwd_dq_kernel<T, DMAX, BN><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), a.lse, a.delta, a.mask, static_cast<T*>(a.out0), a.h, a.tq,
-      a.tk, a.d, a.dv, a.scale, a.causal);
+      a.tk, a.d, a.dv, a.scale, a.causal, copy_bytes(a.d, sizeof(T), a.q, a.k),
+      copy_bytes(a.dv, sizeof(T), a.v, a.g));
   return cudaGetLastError();
 }
 
 template <typename T, int DMAX>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t bytes = dkv_smem_bytes<DMAX>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, DMAX>,
+  constexpr int BN = DMAX > 64 ? 16 : kDkvWalk;  // 32 spills at DMAX = 128
+  constexpr size_t bytes = dkv_smem_bytes<T, DMAX, BN>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, DMAX, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.b * a.h, (a.tk + kBK - 1) / kBK);
-  flash_bwd_dkv_kernel<T, DMAX><<<grid, kThreads, bytes, a.stream>>>(
+  const dim3 grid(a.b * a.h, (a.tk + kRows - 1) / kRows);
+  flash_bwd_dkv_kernel<T, DMAX, BN><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), a.lse, a.delta, a.mask, static_cast<T*>(a.out0),
-      static_cast<T*>(a.out1), a.h, a.tq, a.tk, a.d, a.dv, a.scale, a.causal);
+      static_cast<T*>(a.out1), a.h, a.tq, a.tk, a.d, a.dv, a.scale, a.causal,
+      copy_bytes(a.d, sizeof(T), a.q, a.k), copy_bytes(a.dv, sizeof(T), a.v, a.g));
   return cudaGetLastError();
 }
 
@@ -369,7 +644,8 @@ cudaError_t dispatch(const Args& a) {
 template <bool DQ>
 int run(const Args& a, int is_bf16) {
   const int rows = DQ ? a.tq : a.tk;  // the tiled axis of the grid
-  if (a.b * a.h <= 0 || rows <= 0 || (rows + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
+  if (a.b * a.h <= 0 || rows <= 0 || (rows + kRows - 1) / kRows > 65535)
+    return (int)cudaErrorInvalidValue;
   return (int)(is_bf16 ? dispatch<DQ, __nv_bfloat16>(a) : dispatch<DQ, float>(a));
 }
 

@@ -13,9 +13,10 @@ These tests need a CUDA device and skip without one. Where there is one
 Tolerances as in ``chip_smoke.py``: 5e-5 in float32 (same arithmetic,
 another summation order), 1.6e-2 in bfloat16 on the output (one bf16 ulp
 at |out| < 4), 1e-4 on the float32 logsumexp. The backward kernels are held
-relative to the largest gradient value: 1e-4 in float32 (a sum over up to
-t terms in another order), and one bf16 ulp there (2^-7) in bfloat16,
-where both sides round the same float32 sums to bf16. B5 is held relative
+relative to the largest gradient value: 1e-4 in float32 (sums over up to
+t terms in another order, of 3xTF32 products that are exact to ~2^-21),
+and one bf16 ulp there (2^-7) in bfloat16, where both sides round float32
+sums of the same products to bf16. B5 is held relative
 to the largest output value: 1e-4 in float32 (d-term sums in another
 order) and one ulp at the largest value in bfloat16 (2^-7) and float16
 (2^-10), where both sides sum exact products in float32 and round once."""
@@ -128,6 +129,7 @@ def _rel_err(a, b):
     (70, 129, 64, 64, True, True),    # tq < tk, causal bottom-right aligned
     (129, 70, 16, 16, True, False),   # tq > tk: the first rows see no key
     (65, 65, 128, 128, False, False),
+    (129, 129, 36, 36, True, True),   # bf16 rows of 72 bytes: 8-byte copies, not 16
 ])
 def test_flash_backward_matches_plain(cuda, dtype, tq, tk, d, dv, causal, masked):
     gen = torch.Generator().manual_seed(tq + 7 * tk + d)
@@ -148,6 +150,24 @@ def test_flash_backward_matches_plain(cuda, dtype, tq, tk, d, dv, causal, masked
         assert bool((dq[-1] == 0).all())  # the fully masked row has no gradient
     if causal and tq > tk:
         assert bool((dq[:, :, : tq - tk] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True), (True, True)])
+def test_flash_backward_is_deterministic(cuda, dtype, causal, masked):
+    """Every output tile is written by one block with no atomics, so two
+    launches on the same inputs give bit-identical dq, dk and dv."""
+    gen = torch.Generator().manual_seed(17)
+    q, k, v, g, mask, lse, delta = _bwd_inputs(gen, dtype, cuda, 2, 3, 200, 200, 64, 64,
+                                               causal, masked)
+    runs = []
+    for _ in range(2):
+        dq = pfa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, 0.125)
+        dk, dv_ = pfa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, 0.125)
+        runs.append((dq, dk, dv_))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_cuda_flash_attention_gives_gradients(cuda):
