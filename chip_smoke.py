@@ -21,8 +21,13 @@ the launch counts set to 0 just before it and read just after. It checks
 those counts, the cached decode's log-probs against a full forward, the
 training scores, the kernel-path gradients against the materialised-scores
 reference, and the MoE network's outputs and gradients against its sort
-dispatch (``torch.bmm`` over capacity slots); then prints the timings, a
-``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+dispatch (``torch.bmm`` over capacity slots); it counts HMMA and atomic
+instructions in the attention kernels' SASS. It times each kernel at its
+main path's shape: B1, B2 and B3 in three rounds paired with SDPA's
+forward or backward, and B4 by device time (200 calls replayed from one
+CUDA graph), with the host's time to issue a call printed apart. Then it
+prints the timings, a ``kernels`` JSON line, and last ``{"ok": true,
+"device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits with 2 and prints no result.
@@ -48,6 +53,7 @@ from deeplearning4j_tpu_torch.model.zoo import TransformerLM
 from deeplearning4j_tpu_torch import ops as fa
 from deeplearning4j_tpu_torch.nn.sequential import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.tools import kernel_variants as kv
 from deeplearning4j_tpu_torch.tools.moe_profile import MOE_LAYER, moe_lm_conf
 from deeplearning4j_tpu_torch.train import Solver
 
@@ -60,6 +66,7 @@ SEED = 1234
 B, H, D = 8, 12, 64          # the serving shapes: batch 8, GPT-2 small's heads
 T_FULL = 1024                 # output() prompt length = max_len
 MAX_TOKENS = 64
+LONG_L = 4096                 # the decode kernel's long-cache case: one (b, h) pair of rows
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth; dense TF32 on
 # the tensor cores, of which a float32-accurate product takes three (the
 # 3xTF32 split: the fastest float32-accurate product the card offers, and the
@@ -109,18 +116,17 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
+def host_us(fn, calls: int) -> float:
+    """Host microseconds a call to issue ``fn`` (no synchronisation inside
+    the window; the queue is drained before and after)."""
+    fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
 
 
 def roofline(flops: float, nbytes: float, dtype) -> tuple:
@@ -172,11 +178,11 @@ def phase_build() -> None:
                 print(f"  ptxas {stem}:   {line.strip()}")
 
 
-def phase_sass() -> None:
-    """The backward kernels run their products on the tensor cores and have
-    no atomics: counted per function in the built library's SASS."""
+def _sass_counts(stem: str) -> dict:
+    """HMMA and atomic instructions per function in the SASS of the library
+    built from ``csrc/<stem>.cu``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = cuda_build._lib_path(cuda_build.CSRC / "flash_backward.cu")
+    lib = cuda_build._lib_path(cuda_build.CSRC / f"{stem}.cu")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     counts, fn = {}, None
@@ -188,10 +194,23 @@ def phase_sass() -> None:
             counts[fn]["HMMA"] += "HMMA" in line
             counts[fn]["atomics"] += bool(re.search(r"\b(ATOMG?|ATOMS|RED)\b", line))
     for fn, c in counts.items():
-        print(f"  sass flash_backward {fn}: {c['HMMA']} HMMA, {c['atomics']} atomics")
-    check(len(counts) == 12 and all(c["HMMA"] > 0 and c["atomics"] == 0
-                                    for c in counts.values()),
+        print(f"  sass {stem} {fn}: {c['HMMA']} HMMA, {c['atomics']} atomics")
+    return counts
+
+
+def phase_sass() -> None:
+    """The flash forward and backward kernels run their products on the
+    tensor cores, and no attention kernel has atomics: counted per function
+    (each instantiation) in the built libraries' SASS."""
+    bwd = _sass_counts("flash_backward")
+    check(len(bwd) == 12 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in bwd.values()),
           "every backward kernel must run HMMA and no atomics")
+    fwd = _sass_counts("flash_forward")
+    check(len(fwd) == 6 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in fwd.values()),
+          "every forward kernel must run HMMA and no atomics")
+    dec = _sass_counts("flash_decode")
+    check(len(dec) == 12 and all(c["atomics"] == 0 for c in dec.values()),
+          "the decode kernels must have no atomics")
 
 
 def _key_mask(gen, tk: int) -> torch.Tensor:
@@ -228,20 +247,28 @@ def phase_flash_forward(gen) -> dict:
             if dtype == torch.float32:
                 worst = max(worst, e_out, e_lse)
 
-    # timing at the main path's shape: output() on [8, 1024], causal, no mask
+    # timing at the main path's shape: output() on [8, 1024], causal, no mask;
+    # B1 and SDPA's forward back to back, three rounds, so the comparison is paired
     row = {"max_abs_err": worst}
+    pairs = B * H * T_FULL * (T_FULL + 1) // 2  # (q, k) pairs the causal mask keeps
+    flops = 4 * D * pairs
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(B, H, T_FULL, D, generator=gen).to("cuda", dtype)
                    for _ in range(3))
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10)
-        pairs = B * H * T_FULL * (T_FULL + 1) // 2  # (q, k) pairs the causal mask keeps
-        flops = 4 * D * pairs
+        rounds = {"flash_forward": [], "sdpa": []}
+        for _ in range(3):
+            rounds["flash_forward"].append(
+                kv.ms(lambda: fa.flash_attention(q, k, v, causal=True), 10))
+            rounds["sdpa"].append(
+                kv.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10))
+        ms, lib_ms = (float(np.median(rounds[n])) for n in ("flash_forward", "sdpa"))
+        plain_ms = kv.ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
         nbytes = (4 * B * H * T_FULL * D) * q.element_size() + B * H * T_FULL * 4
         bound_ms, bound_by = roofline(flops, nbytes, dtype)
-        print(f"flash_forward {str(dtype)[6:]} [8,12,1024,64] causal: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        print(f"flash_forward {str(dtype)[6:]} [8,12,1024,64] causal, 3 paired rounds (ms): "
+              + "; ".join(f"{n} {[round(x, 4) for x in r]}" for n, r in rounds.items())
+              + f"; medians: kernel {ms:.4f} ms against sdpa {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.2f}x); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB"
               f"{cuda_core_note(flops, dtype)})")
         if dtype == torch.float32:
@@ -251,6 +278,10 @@ def phase_flash_forward(gen) -> dict:
 
 
 def phase_flash_decode(gen, decode_pos) -> dict:
+    """B4 against its plain version at the serving shape and at one (b, h)
+    pair of rows against a long cache (where the split over a cluster
+    matters), then timed: device time from a CUDA graph of many calls, and
+    apart from it the host's time to issue a call."""
     L = T_FULL
     worst = 0.0
     start = torch.tensor([-1, 0, 37, 511, 1023, 100, 300, 700], dtype=torch.int32).cuda()
@@ -268,6 +299,23 @@ def phase_flash_decode(gen, decode_pos) -> dict:
         check(bool((out[0] == 0).all()), "start_pos -1 must give 0")
         if dtype == torch.float32:
             worst = max(worst, e)
+        # one (b, h) pair of rows against a long cache: all, one or no live key
+        q1 = torch.randn(1, 2, 1, D, generator=gen).to("cuda", dtype)
+        k1 = torch.randn(1, 2, LONG_L, D, generator=gen).to("cuda", dtype)
+        v1 = torch.randn(1, 2, LONG_L, D, generator=gen).to("cuda", dtype)
+        for sp in (-1, 0, LONG_L - 1, LONG_L + 100):
+            pos1 = torch.tensor([sp], dtype=torch.int32).cuda()
+            out = fa.flash_decode_attention(q1, k1, v1, pos1)
+            ref = fa.flash_decode_attention_plain(q1, k1, v1, pos1)
+            torch.cuda.synchronize()
+            e = max_err(out, ref)
+            print(f"flash_decode {str(dtype)[6:]:8s} [1,2,1,{D}] L={LONG_L} start_pos={sp}: "
+                  f"max_abs={e:.3e} (tol {TOL_OUT[dtype]:g})")
+            check(e <= TOL_OUT[dtype] and bool(torch.isfinite(out).all()),
+                  "flash_decode disagrees with its plain version on a long cache")
+            check(sp >= 0 or bool((out == 0).all()), "start_pos -1 must give 0")
+            if dtype == torch.float32:
+                worst = max(worst, e)
 
     # timing at the main path's shape: one decode step at the smoke's
     # mid-generation positions; 4 caches in turn (200 MB in f32) so each
@@ -285,21 +333,40 @@ def phase_flash_decode(gen, decode_pos) -> dict:
             c = caches[next(it) % 4]
             return fn(c[0], c[1])
 
-        ms = cuda_ms(lambda: turn(lambda kk, vv: fa.flash_decode_attention(q, kk, vv, pos)), 200)
-        plain_ms = cuda_ms(lambda: turn(
+        kernel = lambda: turn(lambda kk, vv: fa.flash_decode_attention(q, kk, vv, pos))  # noqa: E731
+        ms = kv.graph_ms(kernel, 200)
+        prof_ms, seen = kv.kernel_ms(kernel, "flash_decode_kernel", 200)
+        check(seen > 0, "the profiler saw no flash_decode kernel")
+        events_ms = kv.ms(kernel, 200)
+        issue_us = host_us(kernel, 200)
+        plain_ms = kv.graph_ms(lambda: turn(
             lambda kk, vv: fa.flash_decode_attention_plain(q, kk, vv, pos)), 50)
-        lib_ms = cuda_ms(lambda: turn(lambda kk, vv: F.scaled_dot_product_attention(
+        lib_ms = kv.graph_ms(lambda: turn(lambda kk, vv: F.scaled_dot_product_attention(
             q, kk, vv, attn_mask=keep)), 200)
         keys = int((pos.long() + 1).sum()) * H  # cached positions this step reads
         nbytes = (2 * keys * D + 2 * B * H * D) * q.element_size() + B * 4
         flops = 4 * D * keys
         bound_ms, bound_by = roofline(flops, nbytes, dtype)
         print(f"flash_decode {str(dtype)[6:]} [8,12,1,64] vs L={L} at start_pos="
-              f"{decode_pos}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.2f} MB)")
+              f"{decode_pos}, device time a call from a CUDA graph of 200: kernel {ms:.5f} ms "
+              f"(profiler, each launch alone: {prof_ms:.5f} ms over {seen} launches), plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+              f"{nbytes / 1e6:.2f} MB); host {issue_us:.1f} us to issue a call; CUDA events "
+              f"around back-to-back calls {events_ms:.5f} ms a call")
         if dtype == torch.float32:
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
+        del caches
+    # the long cache, every position live
+    q1 = torch.randn(1, 2, 1, D, generator=gen).cuda()
+    k1, v1 = (torch.randn(1, 2, LONG_L, D, generator=gen).cuda() for _ in range(2))
+    pos1 = torch.tensor([LONG_L - 1], dtype=torch.int32).cuda()
+    ms1 = kv.graph_ms(lambda: fa.flash_decode_attention(q1, k1, v1, pos1), 200)
+    bound1, _ = roofline(4 * D * 2 * LONG_L, (2 * 2 * LONG_L * D + 4 * D) * 4 + 4,
+                         torch.float32)
+    print(f"flash_decode float32 [1,2,1,{D}] vs L={LONG_L} at start_pos={LONG_L - 1}: kernel "
+          f"{ms1:.5f} ms of device time (CUDA graph), bound {bound1:.5f} ms (bytes; the 4 MB "
+          f"cache stays in L2 between calls)")
     return row
 
 
@@ -364,8 +431,8 @@ def phase_flash_backward(gen) -> dict:
         rounds = {"flash_bwd_dq": [], "flash_bwd_dkv": [], "sdpa": []}
         for _ in range(3):
             for name, (kernel, *_rest) in timed.items():
-                rounds[name].append(cuda_ms(kernel, 10))
-            rounds["sdpa"].append(cuda_ms(lambda: torch.autograd.grad(
+                rounds[name].append(kv.ms(kernel, 10))
+            rounds["sdpa"].append(kv.ms(lambda: torch.autograd.grad(
                 o_lib, (qs, ks, vs), g, retain_graph=True), 10))
         med = {n: float(np.median(r)) for n, r in rounds.items()}
         lib_ms = med["sdpa"]
@@ -376,7 +443,7 @@ def phase_flash_backward(gen) -> dict:
               f"({both / lib_ms:.2f}x)")
         for name, (kernel, plain, products, n_out) in timed.items():
             ms = med[name]
-            plain_ms = cuda_ms(plain, 3)
+            plain_ms = kv.ms(plain, 3)
             flops = 2 * products * D * pairs
             nbytes = (4 + n_out) * n_in * q.element_size() + 2 * B * H * T_FULL * 4
             bound_ms, bound_by = roofline(flops, nbytes, dtype)
@@ -714,11 +781,11 @@ def phase_grouped_matmul(gen, routed) -> dict:
     row = {"max_abs_err": worst}
     for dtype in (torch.float32, torch.bfloat16):
         lhs, rhs = lhs32.to(dtype), rhs32.to(dtype)
-        ms = cuda_ms(lambda: fa.grouped_matmul(lhs, gs, rhs, max_group_size=CAPACITY), 20)
-        plain_ms = cuda_ms(lambda: fa.grouped_matmul_plain(lhs, gs, rhs,
+        ms = kv.ms(lambda: fa.grouped_matmul(lhs, gs, rhs, max_group_size=CAPACITY), 20)
+        plain_ms = kv.ms(lambda: fa.grouped_matmul_plain(lhs, gs, rhs,
                                                            max_group_size=CAPACITY), 5)
         buf = gm_mod._to_groups(lhs, gs, CAPACITY)  # [8, 2560, 768], zero-padded
-        lib_ms = cuda_ms(lambda: torch.bmm(buf, rhs), 20)
+        lib_ms = kv.ms(lambda: torch.bmm(buf, rhs), 20)
         flops = 2 * kept * d * h
         # kept lhs rows read, rhs read, every output row written, group sizes
         nbytes = (kept * d + E_MOE * d * h + n * h) * lhs.element_size() + 4 * E_MOE
@@ -727,7 +794,7 @@ def phase_grouped_matmul(gen, routed) -> dict:
         if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
             offs = torch.cumsum(gs, 0, dtype=torch.int32)
             try:
-                gmm_ms = cuda_ms(lambda: torch._grouped_mm(lhs, rhs, offs=offs), 20)
+                gmm_ms = kv.ms(lambda: torch._grouped_mm(lhs, rhs, offs=offs), 20)
                 extra = f", torch._grouped_mm {gmm_ms:.4f} ms"
             except Exception as exc:  # a yardstick only: report why it did not run
                 extra = f", torch._grouped_mm not run ({type(exc).__name__}: {str(exc)[:120]})"

@@ -24,7 +24,8 @@
 // product (below), so the float32 limit is 3 x flops at the dense TF32 rate
 // (495 TFLOP/s), not the CUDA cores' 67 TFLOP/s.
 //
-// Design.
+// Design (the products, fragments and copies are mma_tf32.cuh's, shared
+// with the forward kernel).
 // * Ownership, as the TPU kernels' sequential grid axis becomes a loop: a dq
 //   block owns a 64-row q tile of one (b,h), keeps its q and g tiles, lse and
 //   delta in shared memory, and walks the 64-key k/v tiles up to its causal
@@ -70,212 +71,15 @@
 // 32 (70 KB, three). At d = 128 the dk/dv kernel walks 16-row q tiles to
 // keep its sums in registers.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
 #include <type_traits>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kRows = 64;      // rows of the tile a block owns (q rows, or keys)
 constexpr int kThreads = 128;  // 4 warps x 16 rows
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// shared-memory row stride, in elements: 4 words mod 32 banks, 16-byte rows
-template <typename T, int DMAX>
-__host__ __device__ constexpr int row_stride() { return sizeof(T) == 4 ? DMAX + 4 : DMAX + 8; }
-
-// ---- tensor-core products -------------------------------------------------
-
-// x = hi + lo in TF32 (SPLIT); else x is exact in TF32 (a widened bf16).
-// hi is x rounded as cvt.rna.tf32.f32 rounds a finite value (10 mantissa
-// bits, ties away from zero): half a TF32 ulp added to the magnitude bits,
-// the 13 low bits dropped. lo = x - hi is exact in float32 and gets the same
-// half ulp; the mma ignores an operand's 13 low bits, which completes the
-// rounding. On sm_90 cvt.rna.tf32.f32 itself compiles to a longer sequence
-// with NaN and infinity checks, which made both kernels slower on the H100
-// (tools/flash_backward_variants.py times it).
-template <bool SPLIT>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if (SPLIT) {
-    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-// c += a·b, skipping the terms of an operand that is exact in TF32
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
-  if (SA) mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
-  if (SB) mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
-}
-
-// A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 8) of a row-major
-// tile. Lane (g, t) = (lane / 4, lane % 4) holds (g, t), (g + 8, t),
-// (g, t + 4), (g + 8, t + 4).
-template <bool SPLIT, int S, typename T>
-__device__ __forceinline__ FragA frag_a(const T* tile, int r0, int c0, int g, int t) {
-  const T* p = tile + (r0 + g) * S + c0 + t;
-  FragA f;
-  split<SPLIT>(to_f32(p[0]), f.hi[0], f.lo[0]);
-  split<SPLIT>(to_f32(p[8 * S]), f.hi[1], f.lo[1]);
-  split<SPLIT>(to_f32(p[4]), f.hi[2], f.lo[2]);
-  split<SPLIT>(to_f32(p[8 * S + 4]), f.hi[3], f.lo[3]);
-  return f;
-}
-
-// A fragment (split: p and ds are float32) from an m16n8 accumulator whose 8
-// columns are the reduction axis of the next product: logical column t is
-// column 2t, t + 4 is 2t + 1
-__device__ __forceinline__ FragA frag_a_acc(const float (&c)[4]) {
-  FragA f;
-  split<true>(c[0], f.hi[0], f.lo[0]);
-  split<true>(c[2], f.hi[1], f.lo[1]);
-  split<true>(c[1], f.hi[2], f.lo[2]);
-  split<true>(c[3], f.hi[3], f.lo[3]);
-  return f;
-}
-
-// B fragment (k = 8, n = 8) of B = Mᵀ for a row-major tile M, reduction
-// columns [k0, k0 + 8), output rows [n0, n0 + 8): lane (g, t) holds
-// M[n0 + g][k0 + t] and M[n0 + g][k0 + t + 4].
-template <bool SPLIT, int S, typename T>
-__device__ __forceinline__ FragB frag_b_rows(const T* tile, int n0, int k0, int g, int t) {
-  const T* p = tile + (n0 + g) * S + k0 + t;
-  FragB f;
-  split<SPLIT>(to_f32(p[0]), f.hi[0], f.lo[0]);
-  split<SPLIT>(to_f32(p[4]), f.hi[1], f.lo[1]);
-  return f;
-}
-
-// B fragment of B = M for a row-major tile M whose rows are the reduction
-// axis, rows [k0, k0 + 8) in the permuted order of frag_a_acc, columns
-// [n0, n0 + 8): lane (g, t) holds M[k0 + 2t][n0 + g] and M[k0 + 2t + 1][n0 + g].
-template <bool SPLIT, int S, typename T>
-__device__ __forceinline__ FragB frag_b_cols(const T* tile, int k0, int n0, int g, int t) {
-  const T* p = tile + (k0 + 2 * t) * S + n0 + g;
-  FragB f;
-  split<SPLIT>(to_f32(p[0]), f.hi[0], f.lo[0]);
-  split<SPLIT>(to_f32(p[S]), f.hi[1], f.lo[1]);
-  return f;
-}
-
-// ---- asynchronous copies ----------------------------------------------------
-
-// copies BYTES from gmem to smem, or zeros when !valid (src-size 0)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(gmem), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst), "l"(gmem),
-                 "n"(BYTES), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-template <int BYTES, int R, int C, int S, typename T>
-__device__ __forceinline__ void copy_rows_async(T* dst, const T* __restrict__ src, int row0,
-                                                int rows, int cols) {
-  constexpr int E = BYTES / static_cast<int>(sizeof(T));  // elements a copy
-  constexpr int chunks = C / E;                            // copies a row
-  for (int i = threadIdx.x; i < R * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * E;
-    const bool ok = row0 + r < rows && c < cols;  // cols is a multiple of E
-    cp_async<BYTES>(dst + r * S + c, ok ? src + (size_t)(row0 + r) * cols + c : src, ok);
-  }
-}
-
-// Rows [row0, row0 + R) x columns [0, C) of a [rows, cols] matrix into an
-// [R][S] tile, zeros past the edges. vec: bytes a copy, 16, 8 or 4 (the row
-// length and base are multiples of it; asynchronous), or 0 (plain loads,
-// visible after the next barrier).
-template <int R, int C, int S, typename T>
-__device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ src, int row0, int rows,
-                                          int cols, int vec) {
-  if (vec == 16) {
-    copy_rows_async<16, R, C, S>(dst, src, row0, rows, cols);
-  } else if (vec == 8) {
-    copy_rows_async<8, R, C, S>(dst, src, row0, rows, cols);
-  } else if (vec == 4) {
-    copy_rows_async<4, R, C, S>(dst, src, row0, rows, cols);
-  } else {
-    for (int i = threadIdx.x; i < R * C; i += kThreads) {
-      const int r = i / C, c = i % C;
-      const float x = (row0 + r < rows && c < cols) ? to_f32(src[(size_t)(row0 + r) * cols + c])
-                                                    : 0.f;
-      store(dst + r * S + c, x);
-    }
-  }
-}
-
-template <int BYTES, int R, int C, int S>
-__device__ __forceinline__ void scale_own_rows_v(float* tile, float mul) {
-  constexpr int E = BYTES / 4;
-  for (int i = threadIdx.x; i < R * (C / E); i += kThreads) {
-    float* p = tile + (i / (C / E)) * S + (i % (C / E)) * E;
-#pragma unroll
-    for (int e = 0; e < E; ++e) p[e] *= mul;
-  }
-}
-
-// Multiplies by mul the elements of an [R][S] float32 tile that this thread
-// copied with copy_rows<R, C, S> (the same vec, never 0 for float32), once
-// its copies have landed: its own copies are visible to it without a
-// barrier, and each element is scaled once a block.
-template <int R, int C, int S>
-__device__ __forceinline__ void scale_own_rows(float* tile, float mul, int vec) {
-  if (vec == 16) {
-    scale_own_rows_v<16, R, C, S>(tile, mul);
-  } else if (vec == 8) {
-    scale_own_rows_v<8, R, C, S>(tile, mul);
-  } else {
-    scale_own_rows_v<4, R, C, S>(tile, mul);
-  }
-}
-
-// n float32 values from src[i0, i0 + n) into dst, zeros past `end`
-__device__ __forceinline__ void copy_vec_async(float* dst, const float* __restrict__ src, int i0,
-                                               int end, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const bool ok = i0 + i < end;
-    cp_async<4>(dst + i, ok ? src + i0 + i : src, ok);
-  }
-}
 
 template <typename T, int DMAX, int BN>
 constexpr size_t dq_smem_bytes() {
@@ -333,18 +137,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   auto load_kv = [&](int kt, int st) {
     const int k0 = kt * BN;
-    copy_rows<BN, DMAX, S>(Ks + st * BN * S, kb, k0, tk, d, vec_d);
-    copy_rows<BN, DMAX, S>(Vs + st * BN * S, vb, k0, tk, dv, vec_dv);
+    copy_rows<kThreads, BN, DMAX, S>(Ks + st * BN * S, kb, k0, tk, d, vec_d);
+    copy_rows<kThreads, BN, DMAX, S>(Vs + st * BN * S, vb, k0, tk, dv, vec_dv);
     float* kv = Kvalid + st * BN;
     if (mask != nullptr) {
-      copy_vec_async(kv, mask + (size_t)b * tk, k0, tk, BN);
+      copy_vec_async<kThreads>(kv, mask + (size_t)b * tk, k0, tk, BN);
     } else if (tid < BN) {
       kv[tid] = k0 + tid < tk ? 1.f : 0.f;
     }
   };
 
-  copy_rows<kRows, DMAX, S>(Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
-  copy_rows<kRows, DMAX, S>(Gs, g + (size_t)bh * tq * dv, q0, tq, dv, vec_dv);
+  copy_rows<kThreads, kRows, DMAX, S>(Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
+  copy_rows<kThreads, kRows, DMAX, S>(Gs, g + (size_t)bh * tq * dv, q0, tq, dv, vec_dv);
   if (tid < kRows) {
     const int r = q0 + tid;
     // rows past tq: lse +1e30 makes p = 0, as the TPU kernel's padding does
@@ -355,7 +159,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   cp_commit();
   if constexpr (kSplit) {  // q · scale, before the first barrier of the loop
     cp_wait<0>();
-    scale_own_rows<kRows, DMAX, S>(Qs, scale, vec_d);
+    scale_own_rows<kThreads, kRows, DMAX, S>(Qs, scale, vec_d);
   }
 
   float acc[ND][4];
@@ -470,14 +274,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   auto load_qg = [&](int qt, int st) {
     const int q0 = qt * BN;
-    copy_rows<BN, DMAX, S>(Qs + st * BN * S, qb, q0, tq, d, vec_d);
-    copy_rows<BN, DMAX, S>(Gs + st * BN * S, gb, q0, tq, dv, vec_dv);
-    copy_vec_async(Lrow + st * BN, lb, q0, tq, BN);  // rows past tq: see `l` below
-    copy_vec_async(Drow + st * BN, db, q0, tq, BN);
+    copy_rows<kThreads, BN, DMAX, S>(Qs + st * BN * S, qb, q0, tq, d, vec_d);
+    copy_rows<kThreads, BN, DMAX, S>(Gs + st * BN * S, gb, q0, tq, dv, vec_dv);
+    copy_vec_async<kThreads>(Lrow + st * BN, lb, q0, tq, BN);  // rows past tq: see `l` below
+    copy_vec_async<kThreads>(Drow + st * BN, db, q0, tq, BN);
   };
 
-  copy_rows<kRows, DMAX, S>(Ks, k + (size_t)bh * tk * d, k0, tk, d, vec_d);
-  copy_rows<kRows, DMAX, S>(Vs, v + (size_t)bh * tk * dv, k0, tk, dv, vec_dv);
+  copy_rows<kThreads, kRows, DMAX, S>(Ks, k + (size_t)bh * tk * d, k0, tk, d, vec_d);
+  copy_rows<kThreads, kRows, DMAX, S>(Vs, v + (size_t)bh * tk * dv, k0, tk, dv, vec_dv);
   if (tid < kRows) {
     const int kj = k0 + tid;
     Kvalid[tid] = (kj < tk && (mask == nullptr || mask[(size_t)b * tk + kj] > 0.f)) ? 1.f : 0.f;
@@ -496,7 +300,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     if (qt + 1 < n_tiles) load_qg(qt + 1, st ^ 1);
     cp_commit();
     cp_wait<1>();
-    if constexpr (kSplit) scale_own_rows<BN, DMAX, S>(Qs + st * BN * S, scale, vec_d);
+    if constexpr (kSplit) scale_own_rows<kThreads, BN, DMAX, S>(Qs + st * BN * S, scale, vec_d);
     __syncthreads();
     const T* Qt = Qs + st * BN * S;
     const T* Gt = Gs + st * BN * S;
@@ -578,15 +382,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-// bytes a copy for rows of `cols` elements at these bases: 16, 8, 4, or 0
-// (plain loads)
-int copy_bytes(int cols, int elem, const void* p0, const void* p1) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p0) | reinterpret_cast<uintptr_t>(p1);
-  for (int vec = 16; vec >= 4; vec /= 2)
-    if ((cols * elem) % vec == 0 && a % vec == 0) return vec;
-  return 0;
-}
-
 // Keys a dq block walks at a time, and q rows a dk/dv block walks at a time
 // (measured on the H100 at [8,12,1024,64] causal: 32 or 64 keys take the
 // same time in dq; 32 q rows beat 16 and 64 in dk/dv, where 64 needs 251
@@ -601,10 +396,8 @@ template <typename T, int DMAX>
 cudaError_t launch_dq(const Args& a) {
   constexpr int BN = kDqWalk;
   constexpr size_t bytes = dq_smem_bytes<T, DMAX, BN>();
-  // above 48 KB of dynamic shared memory must be opted into (per device)
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DMAX, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  static unsigned long long smem_set = 0;  // devices this instantiation is opted in on
+  cudaError_t err = opt_in_smem(flash_bwd_dq_kernel<T, DMAX, BN>, (int)bytes, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.b * a.h, (a.tq + kRows - 1) / kRows);
   flash_bwd_dq_kernel<T, DMAX, BN><<<grid, kThreads, bytes, a.stream>>>(
@@ -619,9 +412,8 @@ template <typename T, int DMAX>
 cudaError_t launch_dkv(const Args& a) {
   constexpr int BN = DMAX > 64 ? 16 : kDkvWalk;  // 32 spills at DMAX = 128
   constexpr size_t bytes = dkv_smem_bytes<T, DMAX, BN>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, DMAX, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(flash_bwd_dkv_kernel<T, DMAX, BN>, (int)bytes, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.b * a.h, (a.tk + kRows - 1) / kRows);
   flash_bwd_dkv_kernel<T, DMAX, BN><<<grid, kThreads, bytes, a.stream>>>(

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled on first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which is then
 loaded with ``ctypes``. No PyTorch header is included, so each file builds
 in seconds. All sources are compiled at once, one ``nvcc`` process per
-file, and each library's name carries a hash of its source and flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+file, and each library's name carries a hash of its source (with the
+``csrc/*.cuh`` headers it includes) and flags, so a changed source or
+header is rebuilt and an unchanged one is loaded as it is.
 
 Libraries go to ``deeplearning4j_tpu_torch/_build/`` (listed in
 ``.gitignore``). Nothing is imported or compiled when this module is
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,8 +50,29 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(r'^#include "([^"]+)"[^\n]*$', re.M)
+
+
+def source_text(src: Path) -> str:
+    """The text of a kernel source with its local ``#include "..."``
+    headers (files under ``csrc/``) written out in place, each once: what
+    the library's hash covers, so that editing a shared header rebuilds
+    every source that includes it."""
+    seen = set()
+
+    def expand(path: Path) -> str:
+        def sub(m):
+            inc = path.parent / m.group(1)
+            if inc in seen:
+                return ""
+            seen.add(inc)
+            return expand(inc)
+        return _LOCAL_INCLUDE.sub(sub, path.read_text())
+    return expand(src)
+
+
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((source_text(src) + " ".join(NVCC_FLAGS)).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 

@@ -6,8 +6,8 @@ Run from the repository root on a machine with a CUDA device::
     python3 -m deeplearning4j_tpu_torch.tools.flash_backward_variants
 
 Builds ``csrc/flash_backward.cu`` as it is and with each variant in
-:data:`VARIANTS` (a text substitution of the source), all at once with the
-package's nvcc flags, into ``_build/variants/``; then, at the training
+:data:`VARIANTS` (a text substitution of the source and its headers, see
+:mod:`.kernel_variants`), all at once; then, at the training
 path's shape ([8, 12, 1024, 64], causal), times each build's two kernels in
 float32 and bfloat16 in turn, three rounds, and prints the median of each
 with the relative error against the plain versions and the registers
@@ -18,12 +18,10 @@ from __future__ import annotations
 
 import ctypes
 import importlib
-import re
-import subprocess
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.tools import kernel_variants as kv
 
 # the module (ops/__init__ exports a function of this name)
 fa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
@@ -44,45 +42,8 @@ VARIANTS = {
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _build(sources):
-    """{name: CDLL}, each source compiled by its own nvcc, all at once."""
-    out_dir = cuda_build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, text) in enumerate(sources.items()):
-        src, lib = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
-        src.write_text(text)
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = sorted({int(n) for n in re.findall(r"(\d+) bytes spill stores", log)} - {0})
-        print(f"{name}: registers a thread {regs} (12 instantiations), spill stores {spills} B")
-        lib_ = ctypes.CDLL(str(lib))
-        lib_.dl4j_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
-        lib_.dl4j_flash_bwd_dkv.argtypes = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
-        libs[name] = lib_
-    return libs
-
-
-def _ms(fn, iters: int = 10) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+SYMBOLS = {"dl4j_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+           "dl4j_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]}
 
 
 def _rel(a, b) -> float:
@@ -93,19 +54,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("flash_backward_variants needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip())
-    base = (cuda_build.CSRC / "flash_backward.cu").read_text()
-    sources = {"as it is": base}
-    for name, subs in VARIANTS.items():
-        text = base
-        for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"variant {name!r}: the source no longer has {old!r}")
-            text = text.replace(old, new)
-        sources[name] = text
-    libs = _build(sources)
+    print(kv.card())
+    libs = kv.build("bwd", kv.variant_sources("flash_backward", VARIANTS), SYMBOLS)
     gen = torch.Generator().manual_seed(1)
     scale = D ** -0.5
     for dtype in (torch.float32, torch.bfloat16):
@@ -135,8 +85,8 @@ def main() -> None:
         times = {name: ([], []) for name in calls}
         for _ in range(ROUNDS):  # every build in turn, so the comparison is paired
             for name, (run_dq, run_dkv, _) in calls.items():
-                times[name][0].append(_ms(run_dq))
-                times[name][1].append(_ms(run_dkv))
+                times[name][0].append(kv.ms(run_dq))
+                times[name][1].append(kv.ms(run_dkv))
         for name, (_, _, errs) in calls.items():
             t_dq, t_dkv = (sorted(t)[ROUNDS // 2] for t in times[name])
             print(f"{str(dtype)[6:]:8s} {name:26s} dq {t_dq:.4f} ms, dk/dv {t_dkv:.4f} ms "

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card, at
 small ragged shapes the serving path does not reach (odd lengths, head
 dims that are not a multiple of the tile, dv != d, rows that are not
-16-byte aligned; for the grouped matmul B5 empty groups, groups over
-``m_pad``, rows past the frontier and widths that are not whole tiles or
-whole 16-byte vectors), and the wrappers' input checks.
+16-byte aligned, one (b, h) pair of rows against a long cache that the
+decode kernel splits over a cluster of blocks; for the grouped matmul B5
+empty groups, groups over ``m_pad``, rows past the frontier and widths
+that are not whole tiles or whole 16-byte vectors), the attention kernels'
+determinism, and the wrappers' input checks.
 
 These tests need a CUDA device and skip without one. Where there is one
 (and, as on the chip machine, no JAX for ``tests/conftest.py``)::
@@ -72,6 +74,55 @@ def test_flash_forward_matches_plain(cuda, dtype, tq, tk, d, dv, causal):
     assert float((lse - ref_lse).abs().max()) <= 1e-4
 
 
+def _fwd_case(gen, dtype, device, b, h, tq, tk, d, dv, masked):
+    q = _rand(gen, (b, h, tq, d), dtype, device)
+    k = _rand(gen, (b, h, tk, d), dtype, device)
+    v = _rand(gen, (b, h, tk, dv), dtype, device)
+    mask = None
+    if masked:
+        mask = (torch.rand((b, tk), generator=gen) > 0.2).float()
+        mask[-1] = 0.0  # a fully masked batch row
+        mask = mask.to(device)
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dtype,tq,tk,d,dv,causal,masked", [
+    (torch.bfloat16, 70, 129, 36, 36, True, True),  # bf16 rows of 72 bytes, ragged edges
+    (torch.float32, 130, 130, 128, 128, True, True),
+    (torch.bfloat16, 130, 130, 128, 128, False, True),
+    (torch.float32, 200, 77, 16, 16, True, False),  # tq > tk: the first rows see no key
+    (torch.bfloat16, 77, 200, 16, 16, True, True),
+    (torch.bfloat16, 65, 65, 37, 37, True, True),   # bf16 rows of odd length: plain loads
+])
+def test_flash_forward_tensor_core_shapes(cuda, dtype, tq, tk, d, dv, causal, masked):
+    """The tensor-core forward at widths and lengths off its tiles: every
+    output within the tolerance, a fully masked batch row 0 with lse
+    +1e30, rows that see no key 0."""
+    gen = torch.Generator().manual_seed(tq + 3 * tk + d)
+    q, k, v, mask = _fwd_case(gen, dtype, cuda, 2, 3, tq, tk, d, dv, masked)
+    out, lse = ops.flash_attention(q, k, v, mask, causal, return_lse=True)
+    ref, ref_lse = ops.flash_attention_plain(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    if masked:
+        assert bool((out[-1] == 0).all()) and bool((lse[-1] == 1e30).all())
+    if causal and tq > tk:
+        assert bool((out[:, :, : tq - tk] == 0).all())
+        assert bool((lse[:, :, : tq - tk] == 1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_is_deterministic(cuda, dtype):
+    """One block owns each output tile, with no atomics: two calls give
+    bit-identical output and lse."""
+    gen = torch.Generator().manual_seed(21)
+    q, k, v, mask = _fwd_case(gen, dtype, cuda, 2, 3, 300, 300, 64, 64, True)
+    runs = [ops.flash_attention(q, k, v, mask, True, return_lse=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,d,dv", [(300, 64, 64), (129, 36, 36), (77, 128, 32)])
 def test_flash_decode_matches_plain(cuda, dtype, L, d, dv):
@@ -86,6 +137,45 @@ def test_flash_decode_matches_plain(cuda, dtype, L, d, dv):
     torch.cuda.synchronize()
     assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
     assert bool((out[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("start_pos", [4095, 0, -1, 5000])
+def test_flash_decode_one_row_long_cache(cuda, dtype, start_pos):
+    """One (b, h) pair of rows against a 4096-long cache: each row is split
+    over a cluster of blocks, of which all, one or none hold live keys."""
+    gen = torch.Generator().manual_seed(4096 + start_pos)
+    q = _rand(gen, (1, 2, 1, 64), dtype, cuda)
+    k = _rand(gen, (1, 2, 4096, 64), dtype, cuda)
+    v = _rand(gen, (1, 2, 4096, 64), dtype, cuda)
+    start = torch.tensor([start_pos], dtype=torch.int32, device=cuda)
+    before = ops.LAUNCH_COUNTS["flash_decode"]
+    out = ops.flash_decode_attention(q, k, v, start)
+    assert ops.LAUNCH_COUNTS["flash_decode"] == before + 1
+    ref = ops.flash_decode_attention_plain(q, k, v, start)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
+    if start_pos < 0:
+        assert bool((out == 0).all())
+    if start_pos == 0:  # the first key alone: its value row comes back
+        assert float((out[0, :, 0].float() - v[0, :, 0].float()).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("b,h,L", [(8, 12, 1024), (1, 2, 4096)])
+def test_flash_decode_is_deterministic(cuda, b, h, L):
+    """Partials are combined in a fixed order, with no atomics: two calls
+    give bit-identical outputs, and each call is one launch."""
+    gen = torch.Generator().manual_seed(b + L)
+    q = _rand(gen, (b, h, 1, 64), torch.float32, cuda)
+    k = _rand(gen, (b, h, L, 64), torch.float32, cuda)
+    v = _rand(gen, (b, h, L, 64), torch.float32, cuda)
+    start = torch.randint(-1, L + 3, (b,), generator=gen, dtype=torch.int32).to(cuda)
+    before = ops.LAUNCH_COUNTS["flash_decode"]
+    runs = [ops.flash_decode_attention(q, k, v, start) for _ in range(2)]
+    assert ops.LAUNCH_COUNTS["flash_decode"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.parametrize("d", [31, 32])

@@ -97,6 +97,58 @@ def test_flash_decode_plain_matches_jax_kernel():
     np.testing.assert_allclose(p.numpy()[1, :, 0], v[1, :, 0], atol=1e-6)
 
 
+def decode_split_combine(q, k, v, start_pos, scale, n_split):
+    """The decode kernel's chunk-and-combine (``csrc/flash_decode.cu``), in
+    float32 on the CPU: block r of a row's cluster of ``n_split`` takes the
+    r-th chunk of ceil(length / n_split) live keys, keeps its partial
+    ``(max, sum, accumulator)``, and rank 0 merges the partials in rank
+    order, a partial with no live key weighted 0."""
+    b, h, _, d = q.shape
+    L = k.shape[2]
+    out = torch.zeros(b, h, v.shape[-1])
+    for bi in range(b):
+        length = max(0, min(int(start_pos[bi]) + 1, L))
+        chunk = -(-length // n_split)
+        parts = []
+        for r in range(n_split):
+            c0 = min(r * chunk, length)
+            c1 = min(c0 + chunk, length)
+            if c0 == c1:
+                parts.append((torch.full((h,), -1e30), torch.zeros(h), torch.zeros(h, v.shape[-1])))
+                continue
+            s = (q[bi, :, 0] * scale)[:, None, :].matmul(k[bi, :, c0:c1].transpose(-1, -2))[:, 0]
+            m = s.amax(-1)
+            p = torch.exp(s - m[:, None])
+            parts.append((m, p.sum(-1), p[:, None, :].matmul(v[bi, :, c0:c1])[:, 0]))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        num, den = torch.zeros(h, v.shape[-1]), torch.zeros(h)
+        for m, l, acc in parts:  # rank order
+            w = torch.where(m > -0.5e30, torch.exp(m - mx), torch.zeros_like(m))
+            num, den = num + w[:, None] * acc, den + w * l
+        out[bi] = num / torch.clamp_min(den, 1e-30)[:, None]
+    return out[:, :, None, :]
+
+
+@pytest.mark.parametrize("n_split", range(1, 9))
+def test_decode_chunk_and_combine_matches_jax_kernel(n_split):
+    """B4's split over up to 8 blocks a row, emulated, against the JAX
+    decode kernel in interpret mode: empty chunks (3 live keys over up to 8
+    blocks), no live key at all (start_pos -1: 0, not NaN), start_pos past
+    the cache (every position), and chunks of uneven live length. L is a
+    multiple of the JAX kernel's block: past L it pads the cache with zero
+    keys, which a start_pos >= L would then count as live."""
+    b, h, L, d = 6, 2, 48, 16
+    q = np.random.RandomState(10).randn(b, h, 1, d).astype(np.float32)
+    _, k, v = _qkv(11, b, h, 1, L, d)
+    start = np.array([-1, 0, 2, 17, 47, 50], np.int32)
+    j = jfa.flash_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(start), block_k=16, interpret=True)
+    got = decode_split_combine(_t(q), _t(k), _t(v), _t(start), d ** -0.5, n_split)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(j), atol=ATOL)
+    assert np.all(got.numpy()[0] == 0.0)
+
+
 def test_decode_reference_multi_row_matches_jax():
     b, h, L, d = 3, 2, 32, 8
     q = np.random.RandomState(5).randn(b, h, 6, d).astype(np.float32)

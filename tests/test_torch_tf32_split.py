@@ -1,6 +1,7 @@
-"""The arithmetic of the flash backward kernels' tensor-core products (B2 and
-B3, ``deeplearning4j_tpu_torch/csrc/flash_backward.cu``), emulated on the
-CPU and held against the port's plain versions.
+"""The arithmetic of the flash kernels' tensor-core products (the forward
+B1, ``deeplearning4j_tpu_torch/csrc/flash_forward.cu``, and the backward
+B2 and B3, ``csrc/flash_backward.cu``), emulated on the CPU and held
+against the port's plain versions.
 
 The kernels run every product as TF32 ``mma``: an operand is rounded to
 TF32 (``cvt.rna.tf32.f32``: 10 mantissa bits, ties away from zero), each
@@ -8,14 +9,16 @@ product of two TF32 values is exact in float32, and the sums are float32.
 A float32 operand ``x`` is split into ``hi = tf32(x)`` and ``lo = tf32(x -
 hi)``, and ``a·b`` is summed as ``a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``
 (3xTF32). A bf16 operand is exact in TF32 and is not split: in bf16, s and
-dp take one term, ds·k, dsᵀ·q and pᵀ·g two.
+dp take one term, ds·k, dsᵀ·q, pᵀ·g and the forward's p·v two. The forward
+also runs its online softmax over the key tiles the kernel walks.
 
-Tolerance: 1e-5 of the largest gradient value, ten times inside the
-kernels' float32 tolerance on the card (1e-4): 3xTF32 drops only
-``a_lo·b_lo`` and the bits below ``lo`` (~2^-21 of each product), and the
-sums differ from the plain version's only in order. What a single TF32
-term gives is recorded (``record_property``), not asserted: about three
-decimal digits."""
+Tolerance: 1e-5 of the largest gradient or output value (and 1e-5
+absolute on the forward's logsumexp), inside the kernels' float32
+tolerances on the card (1e-4 relative for the gradients, 5e-5 absolute on
+outputs of magnitude below 1): 3xTF32 drops only ``a_lo·b_lo`` and the
+bits below ``lo`` (~2^-21 of each product), and the sums differ from the
+plain version's only in order. What a single TF32 term gives is recorded
+(``record_property``), not asserted: about three decimal digits."""
 
 import importlib
 
@@ -146,3 +149,65 @@ def test_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, mas
     assert max(errs.values()) <= TOL_REL, errs
     if masked:  # the fully masked batch row keeps zero gradients
         assert all(bool((x[1] == 0).all()) for x in got)
+
+
+# keys a tile of the forward kernel (tile_keys in flash_forward.cu): 32 in
+# float32, 64 in bf16
+FWD_TILE = {"3xtf32": 32, "1xtf32": 32, "bf16": 64}
+
+
+def kernel_forward(q, k, v, mask, causal, scale, mode):
+    """``(out, lse)`` with the forward kernel's products and its online
+    softmax over its key tiles. ``mode``: ``"3xtf32"`` (float32: three terms
+    for s and for p·v, the scale folded into q), ``"bf16"`` (bf16-exact
+    inputs: one term for s, scaled after the product, two for p·v) or
+    ``"1xtf32"`` (one rounded term everywhere)."""
+    full = mode == "3xtf32"
+    if mode == "bf16":
+        s = mm(q, k.transpose(-1, -2), False, False) * scale
+    else:
+        s = mm(q * scale, k.transpose(-1, -2), full, full)
+    kept = pfa._masked_scores(q, k, mask, causal, scale) > -0.5e30
+    s = torch.where(kept, s, torch.full_like(s, -1e30))
+    m = torch.full(s.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + v.shape[-1:])
+    tile = FWD_TILE[mode]
+    for k0 in range(0, s.shape[-1], tile):
+        st = s[..., k0: k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.where(st > -0.5e30, torch.exp(st - m_new), torch.zeros_like(st))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm(p, v[..., k0: k0 + tile, :], mode != "1xtf32", full)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), torch.full_like(l, 1e30))
+    return out, lse[..., 0]
+
+
+FWD_CASES = CASES + [(100, 150, 32, 48, True, True)]  # 3 or 5 key tiles, the last ragged
+
+
+@pytest.mark.parametrize("mode", ["3xtf32", "bf16"])
+@pytest.mark.parametrize("tq,tk,d,dv,causal,masked", FWD_CASES)
+def test_forward_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, masked,
+                                                        record_property):
+    """The forward's split products and tiled online softmax give the
+    output within 1e-5 of the plain version's largest value and the
+    logsumexp within 1e-5; a single TF32 term is recorded beside them."""
+    q, k, v, _, _, _, mask = _inputs(tq * 10 + tk + 3 * d, tq, tk, d, dv, causal, masked,
+                                     bf16_exact=mode == "bf16")
+    scale = d ** -0.5
+    ref, ref_lse = pfa.flash_attention_plain(q, k, v, mask, causal, scale)
+    out, lse = kernel_forward(q, k, v, mask, causal, scale, mode)
+    one, one_lse = kernel_forward(q, k, v, mask, causal, scale, "1xtf32")
+    err, lse_err = _rel(out, ref), float((lse - ref_lse).abs().max())
+    record_property("split_rel_err", {"out": err, "lse_abs": lse_err})
+    record_property("one_tf32_term_rel_err",
+                    {"out": _rel(one, ref), "lse_abs": float((one_lse - ref_lse).abs().max())})
+    assert err <= TOL_REL and lse_err <= 1e-5, (err, lse_err)
+    if masked:  # the fully masked batch row: 0 and lse +1e30
+        assert bool((out[1] == 0).all()) and bool((lse[1] == 1e30).all())
+    if causal and tq > tk:  # rows that see no key
+        assert bool((out[:, :, : tq - tk] == 0).all())
