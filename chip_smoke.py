@@ -22,12 +22,21 @@ those counts, the cached decode's log-probs against a full forward, the
 training scores, the kernel-path gradients against the materialised-scores
 reference, and the MoE network's outputs and gradients against its sort
 dispatch (``torch.bmm`` over capacity slots); it counts HMMA and atomic
-instructions in the attention kernels' SASS. It times each kernel at its
-main path's shape: B1, B2 and B3 in three rounds paired with SDPA's
-forward or backward, and B4 by device time (200 calls replayed from one
-CUDA graph), with the host's time to issue a call printed apart. Then it
-prints the timings, a ``kernels`` JSON line, and last ``{"ok": true,
-"device": {...}}``.
+instructions in every kernel's SASS. The kernels take float32, bf16, f16
+and f64 with head dims up to 256, and so it also holds every such
+instantiation against its plain version, and drives the entry points
+through them against the materialised-scores seam: a head-dim-256
+``TransformerLM`` (hidden 2048, 8 heads, 2 blocks) through ``output()``,
+gradients, 2 training steps and greedy ``generate()``; the GPT-2-small-width
+LM in float16 through ``output()`` and ``generate()``; a small float64 LM
+through ``output()``, gradients, one Adam step and ``generate()``; and a
+float64 MoE layer through B5. It times each kernel at its main path's
+shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
+backward, B4 by device time (200 calls replayed from one CUDA graph), with
+the host's time to issue a call printed apart, and B5 paired with a padded
+``torch.bmm`` at the routed and a balanced load; and the new
+instantiations at d = 256 and in f16 and f64. Then it prints the timings,
+a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits with 2 and prints no result.
@@ -35,6 +44,7 @@ device it exits with 2 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import shutil
@@ -51,6 +61,9 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.generate import GenerationSession
 from deeplearning4j_tpu_torch.model.zoo import TransformerLM
 from deeplearning4j_tpu_torch import ops as fa
+from deeplearning4j_tpu_torch.nn import (Activation, InputType, LossFunction,
+                                         NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.layers import MixtureOfExpertsLayer, OutputLayer
 from deeplearning4j_tpu_torch.nn.sequential import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import cuda_build
 from deeplearning4j_tpu_torch.tools import kernel_variants as kv
@@ -75,19 +88,29 @@ LONG_L = 4096                 # the decode kernel's long-cache case: one (b, h) 
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
 CUDA_CORE_F32_FLOPS = 67e12
-PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3, torch.bfloat16: 989e12}
+# float64 on the CUDA cores: 67 TFLOP/s with the tensor cores' DMMA, which
+# the float64 kernels do not use, 34 TFLOP/s without (data sheet).
+PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3, torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float64: 34e12}
 # Kernel vs plain version, max abs error allowed. float32: both sides
-# compute in float32 and differ only in summation order. bfloat16: both
-# widen the same bf16 inputs to float32, so they differ by the rounding of
-# the bf16 output, one ulp at |out| < 4 (2^-6); lse stays float32.
-TOL_OUT = {torch.float32: 5e-5, torch.bfloat16: 1.6e-2}
-TOL_LSE = 1e-4
+# compute in float32 and differ only in summation order. bfloat16 and
+# float16: both widen the same 16-bit inputs to float32, so they differ by
+# the rounding of the output, one ulp at |out| < 4 (2^-6 in bf16, 2^-9 in
+# f16); lse stays float32. float64: both compute in float64, in another
+# order (~1e-15 relative).
+TOL_OUT = {torch.float32: 5e-5, torch.bfloat16: 1.6e-2, torch.float16: 2e-3,
+           torch.float64: 1e-10}
+TOL_LSE = {torch.float32: 1e-4, torch.bfloat16: 1e-4, torch.float16: 1e-4,
+           torch.float64: 1e-10}
 # Backward kernels vs plain versions, max abs error over the largest |value|
 # of the plain gradient. float32: both sum up to t = 1024 terms in float32,
 # in another order, the kernels of 3xTF32 products exact to ~2^-21.
-# bfloat16: both round float32 sums to bf16, so they may differ by one bf16
-# ulp at the largest value (2^-7 of it).
-TOL_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4}
+# bfloat16 and float16: both round float32 sums to the 16-bit type, so they
+# may differ by one ulp at the largest value (2^-7 of it in bf16, 2^-10 in
+# f16). float64: float64 sums in another order.
+TOL_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4,
+               torch.float16: 2.0 ** -10 + 1e-4, torch.float64: 1e-10}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 # Model gradients through the kernels vs through materialised scores and
 # plain autograd, per parameter, max abs error over the parameter's largest
 # |gradient|. Both run in float32; the attention sums differ in order in each
@@ -96,11 +119,34 @@ TOL_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4}
 TOL_GRAD_REL = 1e-3
 TRAIN_STEPS = 5
 # B5 vs its plain version, max abs error over the largest |value| of the
-# plain output. float32: both sum the same d float32 products, in another
-# order. bfloat16: both sum the exact products of bf16 inputs in float32 and
-# round once to bf16, so they may differ by one bf16 ulp (2^-7 of the
-# largest value).
-TOL_GMM_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4}
+# plain output. float32: the path's CUDA-core kernel sums the d products by
+# fmaf in k order, as cuBLAS's float32 product in the plain version does;
+# the 3xTF32 tensor-core kernel timed beside it drops a_lo·b_lo and the
+# bits below lo (~2^-21 of each product) and sums in another order, so it
+# does not agree with the plain version bit for bit. bfloat16 and float16:
+# both sum the
+# exact products of the 16-bit inputs in float32 and round once, so they may
+# differ by one ulp at the largest value (2^-7 in bf16, 2^-10 in f16).
+# float64: float64 sums in another order.
+TOL_GMM_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7 + 1e-4,
+               torch.float16: 2.0 ** -10 + 1e-4, torch.float64: 1e-10}
+# The head-dim-256 LM (C1) against the materialised-scores seam, both in
+# float32: output probabilities, max abs error over the largest (as the MoE
+# network's grouped-vs-sort check). The attention sums differ in order and
+# by 3xTF32 rounding (~1e-6 relative), in 2 blocks.
+TOL_OUT_REL = 1e-4
+# The float16 LM against the materialised-scores seam in float16: output and
+# decode-step probabilities, max abs error over the largest. float16 keeps
+# 11 significant bits (unit roundoff 2^-11 = 4.9e-4). The reference rounds
+# the scores, the softmax weights and the attention output to float16 in
+# each of 12 blocks, where the kernels sum in float32 and round once: ~40
+# roundings of 2^-11, which float16 residual adds and LayerNorms carry to
+# the logits, hence 2e-2.
+TOL_F16_REL = 2e-2
+# The float64 paths (LM output, gradients, one Adam step, decode; the MoE
+# layer through B5) against the reference seams: float64 sums in another
+# order, ~1e-15 relative; 1e-10 leaves room for 2 blocks and one step.
+TOL_F64_REL = 1e-10
 # The MoE layer's widths (the JAX package's MoE dispatch benchmark) and its
 # capacity at 8 x 1024 tokens: ceil(2 * 8192 / 8 * 1.25) = 2560 = m_pad.
 E_MOE, H_MOE, TOPK, CAPACITY = 8, 1536, 2, 2560
@@ -144,11 +190,13 @@ def cuda_core_note(flops: float, dtype) -> str:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+    """Largest |a - b|, taken in float64 (so float64 results keep their
+    digits)."""
+    return float((a.double() - b.double()).abs().max())
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+    return max_err(a, b) / max(float(b.double().abs().max()), 1e-30)
 
 
 def phase_device() -> str:
@@ -166,16 +214,35 @@ def phase_device() -> str:
     return smi
 
 
+def _demangle(names: list) -> list:
+    """C++ names of mangled kernel symbols (cu++filt or c++filt), or the
+    symbols as they are when neither tool is found."""
+    tool = (shutil.which("cu++filt") or shutil.which("c++filt")
+            or "/usr/local/cuda/bin/cu++filt")
+    try:
+        out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return names
+    return [re.sub(r"\(anonymous namespace\)::", "", n) for n in out]
+
+
 def phase_build() -> None:
+    """Builds every kernel source and prints each instantiation's ptxas
+    registers, spills and static shared memory."""
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for stem, log in sorted(cuda_build.build_logs.items()):
+        names, stats = [], []
         for line in log.splitlines():
             if "Compiling entry function" in line:  # the mangled kernel name
-                print(f"  ptxas {stem}: {line.split(chr(39))[1]}")
-            elif "registers" in line or "spill" in line:
-                print(f"  ptxas {stem}:   {line.strip()}")
+                names.append(line.split(chr(39))[1])
+                stats.append("")
+            elif names and ("registers" in line or "spill" in line):
+                stats[-1] += " " + line.split(":", 2)[-1].strip()
+        for name, stat in zip(_demangle(names), stats):
+            print(f"  ptxas {stem} {name}:{stat}")
 
 
 def _sass_counts(stem: str) -> dict:
@@ -199,18 +266,32 @@ def _sass_counts(stem: str) -> dict:
 
 
 def phase_sass() -> None:
-    """The flash forward and backward kernels run their products on the
-    tensor cores, and no attention kernel has atomics: counted per function
-    (each instantiation) in the built libraries' SASS."""
+    """The flash forward and backward kernels and B5's tensor-core kernels
+    run their products on the tensor cores, and no kernel has
+    atomics: counted per function (each instantiation) in the built
+    libraries' SASS. Instantiations: B2/B3 and B1 at 3 dtypes x 4 widths
+    (DMAX 32 to 256), B4 at 3 x 4 x 2 load paths, the float64 B1-B4 at 4
+    widths each; B5's tensor-core kernel in bf16, f16 and float32 (3xTF32,
+    timed beside the path's kernel), its float32 CUDA-core kernel (2 load
+    paths) and its float64 one."""
     bwd = _sass_counts("flash_backward")
-    check(len(bwd) == 12 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in bwd.values()),
+    check(len(bwd) == 24 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in bwd.values()),
           "every backward kernel must run HMMA and no atomics")
     fwd = _sass_counts("flash_forward")
-    check(len(fwd) == 6 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in fwd.values()),
+    check(len(fwd) == 12 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in fwd.values()),
           "every forward kernel must run HMMA and no atomics")
     dec = _sass_counts("flash_decode")
-    check(len(dec) == 12 and all(c["atomics"] == 0 for c in dec.values()),
+    check(len(dec) == 24 and all(c["atomics"] == 0 for c in dec.values()),
           "the decode kernels must have no atomics")
+    f64 = _sass_counts("flash_f64")
+    check(len(f64) == 16 and all(c["atomics"] == 0 for c in f64.values()),
+          "the float64 attention kernels must have no atomics")
+    gmm = _sass_counts("grouped_matmul")
+    tc = [c for fn, c in gmm.items() if "grouped_matmul_tc_kernel" in fn]
+    check(len(gmm) == 6 and len(tc) == 3 and all(c["HMMA"] > 0 for c in tc)
+          and all(c["atomics"] == 0 for c in gmm.values()),
+          "B5's tensor-core kernels (bf16, f16 and the float32 3xTF32 one) must run HMMA, "
+          "and no B5 kernel atomics")
 
 
 def _key_mask(gen, tk: int) -> torch.Tensor:
@@ -238,8 +319,8 @@ def phase_flash_forward(gen) -> dict:
             print(f"flash_forward {str(dtype)[6:]:8s} tq={tq:4d} tk={tk:4d} "
                   f"causal={causal!s:5s} mask={masked!s:5s}: out max_abs={e_out:.3e} "
                   f"rel={rel_err(out, p_out):.3e} (tol {TOL_OUT[dtype]:g}), "
-                  f"lse max_abs={e_lse:.3e} (tol {TOL_LSE:g})")
-            check(e_out <= TOL_OUT[dtype] and e_lse <= TOL_LSE,
+                  f"lse max_abs={e_lse:.3e} (tol {TOL_LSE[dtype]:g})")
+            check(e_out <= TOL_OUT[dtype] and e_lse <= TOL_LSE[dtype],
                   "flash_forward disagrees with its plain version")
             if masked:
                 check(bool((out[3] == 0).all()) and bool((lse[3] == 1e30).all()),
@@ -458,6 +539,157 @@ def phase_flash_backward(gen) -> dict:
     return rows
 
 
+def _attention_case(gen, dtype, b, h, tq, tk, d, dv, masked):
+    q = torch.randn(b, h, tq, d, generator=gen).to("cuda", dtype)
+    k = torch.randn(b, h, tk, d, generator=gen).to("cuda", dtype)
+    v = torch.randn(b, h, tk, dv, generator=gen).to("cuda", dtype)
+    g = torch.randn(b, h, tq, dv, generator=gen).to("cuda", dtype)
+    mask = None
+    if masked:
+        lens = torch.randint(1, tk + 1, (b,), generator=gen)
+        mask = (torch.arange(tk)[None, :] < lens[:, None]).float()
+        mask[-1] = 0.0  # a fully masked batch row
+        mask = mask.cuda()
+    return q, k, v, g, mask
+
+
+def phase_new_instantiations(gen) -> None:
+    """The instantiations C1 adds, each against its plain version at ragged
+    shapes: float16 and float64 in B1-B4 (float64 in ``csrc/flash_f64.cu``),
+    and head dims above 128 up to 256 in every dtype. Then timed: B1, B2 and
+    B3 at d = 256 ([1, 8, 2048, 256] causal) in float32, bf16 and f16, and at
+    the training shape in f16 and f64, each beside SDPA's forward or
+    backward in the same dtype; B4 at d = 256 and in f16 and f64 by device
+    time."""
+    cases = [  # (b, h, tq, tk, d, dv, causal, masked)
+        (2, 3, 129, 200, 64, 64, True, True),
+        (2, 3, 200, 333, 256, 256, True, True),
+        (2, 2, 77, 150, 200, 136, False, True),
+    ]
+    for dtype in DTYPES:
+        for b, h, tq, tk, d, dv, causal, masked in cases:
+            if d <= 128 and dtype in (torch.float32, torch.bfloat16):
+                continue  # the forward and backward phases hold these
+            q, k, v, g, mask = _attention_case(gen, dtype, b, h, tq, tk, d, dv, masked)
+            out, lse = fa.flash_attention(q, k, v, mask, causal, return_lse=True)
+            p_out, p_lse = fa.flash_attention_plain(q, k, v, mask, causal)
+            acc = p_lse.dtype
+            delta = torch.sum(g.to(acc) * p_out.to(acc), dim=-1)
+            dq, dk, dv_ = fa.flash_attention_bwd(q, k, v, p_out, p_lse, g, mask, causal)
+            args = (q, k, v, g, p_lse, delta, mask, causal)
+            p_dq = fa.flash_attention_bwd_dq_plain(*args)
+            p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(*args)
+            torch.cuda.synchronize()
+            e_out = float((out.double() - p_out.double()).abs().max())
+            e_lse = float((lse.double() - p_lse.double()).abs().max())
+            rel = {n: rel_err(x.double(), y.double()) for n, x, y in
+                   (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv_, p_dv))}
+            print(f"new instantiation {str(dtype)[6:]:8s} [{b},{h},{tq}/{tk},{d}/{dv}] "
+                  f"causal={causal!s:5s} mask={masked!s:5s}: B1 out max_abs={e_out:.3e} "
+                  f"(tol {TOL_OUT[dtype]:g}) lse max_abs={e_lse:.3e} (tol "
+                  f"{TOL_LSE[dtype]:g}); B2/B3 rel " + ", ".join(
+                      f"{n} {e:.3e}" for n, e in rel.items())
+                  + f" (tol {TOL_BWD_REL[dtype]:.3g})")
+            check(out.dtype == dtype and lse.dtype == acc, "B1 output dtypes")
+            check(e_out <= TOL_OUT[dtype] and e_lse <= TOL_LSE[dtype],
+                  "a new B1 instantiation disagrees with its plain version")
+            check(max(rel.values()) <= TOL_BWD_REL[dtype],
+                  "a new B2/B3 instantiation disagrees with its plain version")
+            if masked:
+                check(bool((out[-1] == 0).all()) and bool((dq[-1] == 0).all()),
+                      "a fully masked row must give 0 and no gradient")
+        for d in (64, 256):
+            if d <= 128 and dtype in (torch.float32, torch.bfloat16):
+                continue
+            L = 333
+            q = torch.randn(5, 3, 1, d, generator=gen).to("cuda", dtype)
+            k = torch.randn(5, 3, L, d, generator=gen).to("cuda", dtype)
+            v = torch.randn(5, 3, L, d, generator=gen).to("cuda", dtype)
+            start = torch.tensor([-1, 0, 100, L - 1, L + 7], dtype=torch.int32).cuda()
+            out = fa.flash_decode_attention(q, k, v, start)
+            ref = fa.flash_decode_attention_plain(q, k, v, start)
+            torch.cuda.synchronize()
+            e = float((out.double() - ref.double()).abs().max())
+            print(f"new instantiation {str(dtype)[6:]:8s} B4 [5,3,1,{d}] L={L} "
+                  f"start_pos={start.tolist()}: max_abs={e:.3e} (tol {TOL_OUT[dtype]:g})")
+            check(e <= TOL_OUT[dtype] and bool((out[0] == 0).all()),
+                  "a new B4 instantiation disagrees with its plain version")
+
+    # timings: B1 and B2 + B3 against SDPA's forward and backward, paired
+    shapes = [((1, 8, 2048, 256), (torch.float32, torch.bfloat16, torch.float16)),
+              ((B, H, T_FULL, D), (torch.float16, torch.float64))]
+    for (b, h, t, d), dtypes in shapes:
+        pairs = b * h * t * (t + 1) // 2
+        for dtype in dtypes:
+            q, k, v, g = (torch.randn(b, h, t, d, generator=gen).to("cuda", dtype)
+                          for _ in range(4))
+            out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+            delta = torch.sum(g.to(lse.dtype) * out.to(lse.dtype), dim=-1)
+            args = (q, k, v, g, lse, delta, None, True, d ** -0.5)
+            qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            timed = {"B1": lambda: fa.flash_attention(q, k, v, causal=True),
+                     "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                     "B2": lambda: fa_mod._flash_bwd_dq_cuda(*args),
+                     "B3": lambda: fa_mod._flash_bwd_dkv_cuda(*args),
+                     "sdpa backward": lambda: torch.autograd.grad(
+                         o_lib, (qs, ks, vs), g, retain_graph=True)}
+            iters = 2 if dtype == torch.float64 else 10
+            rounds = {n: [] for n in timed}
+            for _ in range(3):
+                for n, fn in timed.items():
+                    rounds[n].append(kv.ms(fn, iters))
+            med = {n: float(np.median(r)) for n, r in rounds.items()}
+            bounds = {n: roofline(2 * p * d * pairs, (4 + w) * b * h * t * d * q.element_size(),
+                                  dtype)[0]
+                      for n, p, w in (("B1", 2, 0), ("B2", 3, 1), ("B3", 4, 2))}
+            print(f"new instantiation {str(dtype)[6:]} [{b},{h},{t},{d}] causal, median of 3 "
+                  f"paired rounds (ms): " + ", ".join(f"{n} {m:.4f}" for n, m in med.items())
+                  + "; bounds " + ", ".join(f"{n} {x:.4f}" for n, x in bounds.items())
+                  + f"; B1 {med['B1'] / med['sdpa']:.2f}x sdpa, B2 + B3 "
+                  f"{(med['B2'] + med['B3']) / med['sdpa backward']:.2f}x sdpa backward")
+            del o_lib, qs, ks, vs
+
+    # B4 by device time at the serving positions
+    pos = torch.tensor([132, 532, 230, 410, 378, 310, 299, 450], dtype=torch.int32).cuda()
+    for (b, h, d), dtype in (((8, 8, 256), torch.float32), ((B, H, D), torch.float16),
+                             ((B, H, D), torch.float64)):
+        q = torch.randn(b, h, 1, d, generator=gen).to("cuda", dtype)
+        kk, vv = (torch.randn(b, h, T_FULL, d, generator=gen).to("cuda", dtype)
+                  for _ in range(2))
+        keep = (torch.arange(T_FULL, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+        ms = kv.graph_ms(lambda: fa.flash_decode_attention(q, kk, vv, pos), 200)
+        lib_ms = kv.graph_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=keep),
+                             200)
+        keys = int((pos.long() + 1).sum()) * h
+        bound, by = roofline(4 * d * keys, 2 * keys * d * q.element_size(), dtype)
+        print(f"new instantiation {str(dtype)[6:]} B4 [{b},{h},1,{d}] vs L={T_FULL} at "
+              f"start_pos={pos.tolist()}: kernel {ms:.5f} ms of device time, sdpa "
+              f"{lib_ms:.5f} ms, bound {bound:.5f} ms ({by})")
+
+
+def _with_impl(impl: str, fn):
+    """``fn()`` with the attention seam set to ``impl``, then back to "auto"."""
+    fa.set_attention_impl(impl)
+    try:
+        return fn()
+    finally:
+        fa.set_attention_impl("auto")
+
+
+def _worst_grad(grads, ref, what: str) -> tuple:
+    """(largest per-parameter relative error, its name), checking that every
+    parameter the reference gives a gradient gets one."""
+    worst = (0.0, "")
+    for lname, lg in ref.items():
+        for pname, r in lg.items():
+            g = grads[lname][pname]
+            check(float(g.abs().max()) > 0 or float(r.abs().max()) == 0,
+                  f"{lname}.{pname} has no gradient through {what}")
+            worst = max(worst, (rel_err(g, r), f"{lname}.{pname}"))
+    return worst
+
+
 def phase_model(prompts) -> dict:
     lm = TransformerLM(vocab_size=50257, hidden=768, n_layers=12, n_heads=12,
                        ffn_size=3072, max_len=T_FULL, seed=SEED, dtype="float32")
@@ -591,19 +823,9 @@ def phase_train(card: str) -> dict:
           f"scores {[round(x, 5) for x in scores]}; peak memory {peak / 2**30:.2f} GiB")
 
     # ---- correctness: kernel-path gradients vs materialised scores ----
-    worst = (0.0, "")
     grads = model.calculate_gradients(ids, labels)
-    fa.set_attention_impl("reference")
-    try:
-        ref = model.calculate_gradients(ids, labels)
-    finally:
-        fa.set_attention_impl("auto")
-    for lname, lg in ref.items():
-        for pname, r in lg.items():
-            e = rel_err(grads[lname][pname], r)
-            check(float(grads[lname][pname].abs().max()) > 0 or float(r.abs().max()) == 0,
-                  f"{lname}.{pname} has no gradient through the kernels")
-            worst = max(worst, (e, f"{lname}.{pname}"))
+    ref = _with_impl("reference", lambda: model.calculate_gradients(ids, labels))
+    worst = _worst_grad(grads, ref, "the kernels")
     print(f"gradients through the kernels vs the reference: worst rel error "
           f"{worst[0]:.3e} at {worst[1]} (tol {TOL_GRAD_REL:g})")
     check(worst[0] <= TOL_GRAD_REL, "kernel-path gradients disagree with the reference")
@@ -707,13 +929,7 @@ def phase_moe(card: str):
     del out_g, out_s
     grads = model.calculate_gradients(ids, labels, mask)
     ref = sort_model.calculate_gradients(ids, labels, mask)
-    worst = (0.0, "")
-    for lname, lg in ref.items():
-        for pname, r in lg.items():
-            g = grads[lname][pname]
-            check(float(g.abs().max()) > 0 or float(r.abs().max()) == 0,
-                  f"{lname}.{pname} has no gradient through grouped dispatch")
-            worst = max(worst, (rel_err(g, r), f"{lname}.{pname}"))
+    worst = _worst_grad(grads, ref, "grouped dispatch")
     print(f"moe grouped vs sort dispatch (ragged mask): output rel error {e_out:.3e} "
           f"(tol {TOL_BWD_REL[torch.float32]:g}); gradients worst rel error {worst[0]:.3e} "
           f"at {worst[1]} (tol {TOL_GRAD_REL:g})")
@@ -721,6 +937,193 @@ def phase_moe(card: str):
     check(worst[0] <= TOL_GRAD_REL, "grouped-dispatch gradients disagree with sort")
     del sort_model, grads, ref
     return {n: serve[n] + train[n] for n in serve}, routed
+
+
+def phase_lm_head256() -> dict:
+    """C1, head dim 256: ``TransformerLM(hidden=2048, n_heads=8)``, float32,
+    the d_model and 8 heads of 256 of Gemma 2B (Gemma Team 2024), GPT-2's
+    vocab (50257) and 1024 positions, depth cut to 2 blocks (what the phase
+    adds is the d = 256 instantiations under the entry points, not depth). ``output()`` on [2, 1024], the gradients, 2 ``Solver.fit_batch``
+    steps and ``generate()`` of 16 greedy tokens, each against the
+    materialised-scores seam. Returns the launch counts of its paths."""
+    lm = TransformerLM(vocab_size=50257, hidden=2048, n_layers=2, n_heads=8,
+                       max_len=T_FULL, seed=SEED, dtype="float32")
+    model = lm.init()
+    rs = np.random.RandomState(SEED + 5)
+    ids_np = rs.randint(0, 50257, (2, T_FULL + 1))
+    ids = torch.from_numpy(ids_np[:, :-1]).cuda()
+    labels = torch.from_numpy(ids_np[:, 1:]).cuda()
+    print(f"head-dim-256 model: TransformerLM hidden 2048, 8 heads of 256 (Gemma 2B's head "
+          f"width), 2 blocks (depth cut; Gemma 2B has 18), vocab 50257, "
+          f"{model.num_params()} params, float32")
+    total = {n: 0 for n in fa.LAUNCH_COUNTS}
+
+    def counted(fn):
+        fa.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(fa.LAUNCH_COUNTS)
+        for n, c in got.items():
+            total[n] += c
+        return out, got
+
+    probs, got = counted(lambda: model.output(ids))
+    check(got == {"flash_forward": 2, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_decode": 0},
+          f"output() must launch B1 once a block: {got}")
+    ref = _with_impl("reference", lambda: model.output(ids))
+    e_out = rel_err(probs, ref)
+    check(bool(torch.isfinite(probs).all()) and e_out <= TOL_OUT_REL,
+          f"head-dim-256 output() disagrees with the reference: {e_out:.3e}")
+    del probs, ref
+    grads, got = counted(lambda: model.calculate_gradients(ids, labels))
+    check(got["flash_bwd_dq"] == 2 and got["flash_bwd_dkv"] == 2,
+          f"the gradients must launch B2 and B3 once a block: {got}")
+    worst = _worst_grad(grads, _with_impl("reference", lambda: model.calculate_gradients(
+        ids, labels)), "the d = 256 kernels")
+    check(worst[0] <= TOL_GRAD_REL, "head-dim-256 gradients disagree with the reference")
+    del grads
+    solver = Solver(model)
+    scores = []
+    for _ in range(2):
+        (score, _), got = counted(lambda: solver.fit_batch(ids, labels))
+        check(got == {"flash_forward": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                      "flash_decode": 0}, f"a step must launch B1, B2, B3 once a block: {got}")
+        scores.append(float(score))
+    check(all(np.isfinite(scores)), f"head-dim-256 training scores must be finite: {scores}")
+    prompts = [rs.randint(0, 50257, n).tolist() for n in (300, 700)]
+    session = GenerationSession(model, max_len=T_FULL)
+    toks, got = counted(lambda: session.generate(prompts, 16))
+    check(got["flash_decode"] == 2 * 15, f"generate() must launch B4 2 x 15 times: {got}")
+    ref_toks = _with_impl("reference", lambda: session.generate(prompts, 16))
+    check(toks == ref_toks, f"greedy tokens differ from the reference: {toks} vs {ref_toks}")
+    print(f"head-dim-256 model: output() rel error {e_out:.3e} (tol {TOL_OUT_REL:g}); gradients "
+          f"worst rel error {worst[0]:.3e} at {worst[1]} (tol {TOL_GRAD_REL:g}); 2 steps, "
+          f"scores {[round(x, 5) for x in scores]}; 16 greedy tokens a row equal the "
+          f"reference's; launches {total}")
+    return total
+
+
+def phase_lm_f16(prompts) -> dict:
+    """C1, float16: the GPT-2-small-width LM (12 blocks, 12 heads of 64)
+    with ``dtype="float16"``. ``output()`` on [8, 1024] through B1 and
+    ``generate()`` of 16 greedy tokens through B4, against the
+    materialised-scores seam in float16: the output probabilities, and
+    each decode step's probabilities with both seams fed the generated
+    tokens (prefill takes the reference spelling under both seams). Returns
+    the launch counts of ``output()`` and ``generate()``."""
+    lm = TransformerLM(vocab_size=50257, hidden=768, n_layers=12, n_heads=12, ffn_size=3072,
+                       max_len=T_FULL, seed=SEED, dtype="float16")
+    model = lm.init()
+    ids = np.random.RandomState(SEED + 6).randint(0, 50257, (B, T_FULL))
+    fa.reset_launch_counts()
+    probs = model.output(ids)
+    torch.cuda.synchronize()
+    after_output = dict(fa.LAUNCH_COUNTS)
+    check(after_output["flash_forward"] == 12, f"output() must launch B1 12 times: {after_output}")
+    ref = _with_impl("reference", lambda: model.output(ids))
+    check(probs.dtype == torch.float16 and bool(torch.isfinite(probs).all()),
+          "float16 output() must be finite float16")
+    e_out = rel_err(probs, ref)
+    del probs, ref
+    session = GenerationSession(model, max_len=T_FULL)
+    n_tok = 16
+    fa.reset_launch_counts()
+    toks = session.generate(prompts, n_tok)
+    torch.cuda.synchronize()
+    counts = {n: after_output[n] + c for n, c in fa.LAUNCH_COUNTS.items()}
+    check(fa.LAUNCH_COUNTS["flash_decode"] == 12 * (n_tok - 1),
+          f"generate() must launch B4 12 x {n_tok - 1} times: {dict(fa.LAUNCH_COUNTS)}")
+    ref_toks = _with_impl("reference", lambda: session.generate(prompts, n_tok))
+    carry_k, _, _ = session.prefill(prompts)
+    carry_r, _, _ = session.prefill(prompts)
+    e_dec = 0.0
+    for s_ in range(n_tok - 1):
+        step = [row[s_] for row in toks]
+        carry_k, lk = session.decode(carry_k, step)
+        carry_r, lr = _with_impl("reference", lambda: session.decode(carry_r, step))
+        e_dec = max(e_dec, rel_err(lk.float().exp(), lr.float().exp()))
+    agree = sum(a == b for ra, rb in zip(toks, ref_toks) for a, b in zip(ra, rb))
+    print(f"float16 model (GPT-2-small widths): output() [8,1024] probabilities rel error "
+          f"{e_out:.3e}, decode-step probabilities rel error {e_dec:.3e} (tol {TOL_F16_REL:g}); "
+          f"greedy tokens equal to the reference's: {agree} of {B * n_tok}; launches {counts}")
+    check(e_out <= TOL_F16_REL and e_dec <= TOL_F16_REL,
+          "the float16 model disagrees with the reference seam")
+    return counts
+
+
+def phase_lm_f64() -> dict:
+    """C1, float64: a small LM (vocab 1000, hidden 256, 4 heads of 64, 2
+    blocks, 256 positions) with ``dtype="float64"``, through the float64
+    kernels: ``output()``, the gradients and one ``Solver.fit_batch`` step
+    (two copies of the model, one a seam), and a greedy ``generate()``,
+    against the reference seam to 1e-10. Returns the launch counts."""
+    lm = TransformerLM(vocab_size=1000, hidden=256, n_layers=2, n_heads=4, max_len=256,
+                       seed=SEED, dtype="float64")
+    models = {impl: lm.init() for impl in ("auto", "reference")}
+    rs = np.random.RandomState(SEED + 7)
+    ids_np = rs.randint(0, 1000, (4, 257))
+    ids = torch.from_numpy(ids_np[:, :-1]).cuda()
+    labels = torch.from_numpy(ids_np[:, 1:]).cuda()
+    model = models["auto"]
+    fa.reset_launch_counts()
+    out = model.output(ids)
+    grads = model.calculate_gradients(ids, labels)
+    score, _ = Solver(model).fit_batch(ids, labels)
+    prompts = [rs.randint(0, 1000, n).tolist() for n in (10, 100, 37, 200)]
+    session = GenerationSession(model, max_len=256)
+    toks = session.generate(prompts, 16)
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCH_COUNTS)
+    check(counts == {"flash_forward": 2 + 2 + 2, "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+                     "flash_decode": 2 * 15}, f"float64 launches: {counts}")
+    rm = models["reference"]
+    ref_out = _with_impl("reference", lambda: rm.output(ids))
+    ref_grads = _with_impl("reference", lambda: rm.calculate_gradients(ids, labels))
+    ref_score, _ = _with_impl("reference", lambda: Solver(rm).fit_batch(ids, labels))
+    ref_toks = _with_impl("reference", lambda: GenerationSession(rm, max_len=256).generate(
+        prompts, 16))
+    e_out = rel_err(out, ref_out)
+    worst = _worst_grad(grads, ref_grads, "the float64 kernels")
+    sd, ref_sd = model.state_dict(), rm.state_dict()
+    e_step = max(rel_err(sd[n], ref_sd[n]) for n in ref_sd if ref_sd[n].is_floating_point())
+    e_score = abs(float(score) - float(ref_score)) / abs(float(ref_score))
+    print(f"float64 model: output() rel error {e_out:.3e}, gradients worst {worst[0]:.3e} at "
+          f"{worst[1]}, one Adam step: score {e_score:.3e}, params {e_step:.3e} (tol "
+          f"{TOL_F64_REL:g}); greedy tokens equal: {toks == ref_toks}; launches {counts}")
+    check(out.dtype == torch.float64 and max(e_out, worst[0], e_step, e_score) <= TOL_F64_REL,
+          "the float64 model disagrees with the reference seam")
+    check(toks == ref_toks, "float64 greedy tokens differ from the reference")
+    return counts
+
+
+def phase_moe_f64() -> dict:
+    """C1, float64 through B5: a small MoE network (4 experts of hidden 128,
+    top-2, grouped dispatch) with ``data_type("float64")``, one ``output()``
+    call through B5's float64 kernel against the grouped matmul's plain
+    version (the ``"reference"`` impl), to 1e-10."""
+    conf = (NeuralNetConfiguration.builder().seed(SEED).data_type("float64").list()
+            .layer(MixtureOfExpertsLayer(n_out=96, num_experts=4, hidden=128, top_k=2,
+                                         dispatch_mode="grouped"))
+            .layer(OutputLayer(n_out=10, loss=LossFunction.MCXENT, activation=Activation.SOFTMAX))
+            .set_input_type(InputType.feed_forward(64)).build())
+    net = MultiLayerNetwork(conf).init()
+    x = torch.from_numpy(np.random.RandomState(SEED + 8).randn(512, 64)).cuda()
+    fa.reset_launch_counts()
+    out = net.output(x)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    check(counts["grouped_matmul"] == 2, f"the MoE layer must launch B5 twice: {counts}")
+    fa.set_grouped_matmul_impl("reference")
+    try:
+        ref = net.output(x)
+    finally:
+        fa.set_grouped_matmul_impl("auto")
+    e = rel_err(out, ref)
+    print(f"float64 MoE layer through B5: output() [512, 64] rel error {e:.3e} "
+          f"(tol {TOL_F64_REL:g}); launches {counts}")
+    check(out.dtype == torch.float64 and e <= TOL_F64_REL,
+          "the float64 MoE layer disagrees with the plain grouped matmul")
+    return counts
 
 
 def _kept_rows(sizes, m_pad: int, n: int) -> torch.Tensor:
@@ -733,10 +1136,27 @@ def _kept_rows(sizes, m_pad: int, n: int) -> torch.Tensor:
     return kept
 
 
+def _gmm_3xtf32(lhs, gs, rhs, m_pad: int) -> torch.Tensor:
+    """B5's float32 product as 3xTF32 on the tensor cores (the C entry
+    ``dl4j_grouped_matmul_3xtf32``), kept beside the CUDA-core kernel that
+    the port's path runs: called directly, so no launch is counted."""
+    fn = cuda_build.library("grouped_matmul").dl4j_grouped_matmul_3xtf32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros((lhs.shape[0], rhs.shape[2]), dtype=torch.float32, device="cuda")
+    err = fn(lhs.data_ptr(), gs.data_ptr(), rhs.contiguous().data_ptr(), out.data_ptr(),
+             lhs.shape[0], lhs.shape[1], rhs.shape[2], rhs.shape[0], m_pad, 0,
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the 3xTF32 kernel did not launch: cudaError {err}")
+    return out
+
+
 def phase_grouped_matmul(gen, routed) -> dict:
     """B5 against its plain version at ragged shapes and at the MoE layer's
-    two products, then timed at the first, ``[16384, 768] x [8, 768,
-    1536]`` with ``m_pad`` 2560, with the row counts the network routed."""
+    two products, in float32, bf16, f16 and f64, then timed at the first,
+    ``[16384, 768] x [8, 768, 1536]`` with ``m_pad`` 2560, at two loads: the
+    row counts the network routed, and a balanced load (2048 rows an expert,
+    every row kept). Returns the float32 row at the routed load."""
     n_rows = TOPK * B * T_FULL
     cases = [
         # (label, n, d, h, group sizes, max_group_size, int8 rhs)
@@ -748,7 +1168,7 @@ def phase_grouped_matmul(gen, routed) -> dict:
         ("MoE second product", n_rows, H_MOE, 768, routed, CAPACITY, False),
     ]
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         for label, n, d, h, sizes, mg, q in cases:
             lhs = torch.randn(n, d, generator=gen).to("cuda", dtype)
             if q:
@@ -759,8 +1179,15 @@ def phase_grouped_matmul(gen, routed) -> dict:
             gs = torch.tensor(sizes, dtype=torch.int32).cuda()
             y = fa.grouped_matmul(lhs, gs, rhs, max_group_size=mg)
             ref = fa.grouped_matmul_plain(lhs, gs, rhs, max_group_size=mg)
-            torch.cuda.synchronize()
             m_pad = gm_mod._tiling(n, mg, 128)[0]
+            if dtype == torch.float32:  # the 3xTF32 kernel timed beside the path's
+                y3 = _gmm_3xtf32(lhs, gs, rhs.float(), m_pad)
+                torch.cuda.synchronize()
+                e3 = rel_err(y3, ref)
+                print(f"grouped_matmul float32 3xTF32 [{n},{d}]x[{len(sizes)},{d},{h}] {label}: "
+                      f"rel={e3:.3e} (tol {TOL_GMM_REL[dtype]:.3g})")
+                check(e3 <= TOL_GMM_REL[dtype], "the 3xTF32 kernel disagrees with the plain version")
+            torch.cuda.synchronize()
             dropped = ~_kept_rows(sizes, m_pad, n).cuda()
             e = rel_err(y, ref)
             print(f"grouped_matmul {str(dtype)[6:]:8s} [{n},{d}]x[{len(sizes)},{d},{h}] "
@@ -772,40 +1199,58 @@ def phase_grouped_matmul(gen, routed) -> dict:
                 worst = max(worst, max_err(y, ref))
             del lhs, rhs, y, ref
 
-    # timing at the main path's first product
+    # timing at the main path's first product, at the routed and a balanced load
     n, d, h = n_rows, 768, H_MOE
-    gs = torch.tensor(routed, dtype=torch.int32).cuda()
-    kept = sum(min(s_, CAPACITY) for s_ in routed)
     lhs32 = torch.randn(n, d, generator=gen).cuda()
     rhs32 = (torch.randn(E_MOE, d, h, generator=gen) * d ** -0.5).cuda()
     row = {"max_abs_err": worst}
-    for dtype in (torch.float32, torch.bfloat16):
-        lhs, rhs = lhs32.to(dtype), rhs32.to(dtype)
-        ms = kv.ms(lambda: fa.grouped_matmul(lhs, gs, rhs, max_group_size=CAPACITY), 20)
-        plain_ms = kv.ms(lambda: fa.grouped_matmul_plain(lhs, gs, rhs,
-                                                           max_group_size=CAPACITY), 5)
-        buf = gm_mod._to_groups(lhs, gs, CAPACITY)  # [8, 2560, 768], zero-padded
-        lib_ms = kv.ms(lambda: torch.bmm(buf, rhs), 20)
-        flops = 2 * kept * d * h
-        # kept lhs rows read, rhs read, every output row written, group sizes
-        nbytes = (kept * d + E_MOE * d * h + n * h) * lhs.element_size() + 4 * E_MOE
-        bound_ms, bound_by = roofline(flops, nbytes, dtype)
-        extra = ""
-        if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
-            offs = torch.cumsum(gs, 0, dtype=torch.int32)
-            try:
-                gmm_ms = kv.ms(lambda: torch._grouped_mm(lhs, rhs, offs=offs), 20)
-                extra = f", torch._grouped_mm {gmm_ms:.4f} ms"
-            except Exception as exc:  # a yardstick only: report why it did not run
-                extra = f", torch._grouped_mm not run ({type(exc).__name__}: {str(exc)[:120]})"
-        print(f"grouped_matmul {str(dtype)[6:]} [{n},{d}]x[{E_MOE},{d},{h}] m_pad={CAPACITY}, "
-              f"{kept} kept rows {routed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"padded torch.bmm {lib_ms:.4f} ms{extra}, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB{cuda_core_note(flops, dtype)})")
-        if dtype == torch.float32:
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
-        del buf
+    loads = {"routed": routed, "balanced": [n // E_MOE] * E_MOE}
+    for load, sizes in loads.items():
+        gs = torch.tensor(sizes, dtype=torch.int32).cuda()
+        kept = sum(min(s_, CAPACITY) for s_ in sizes)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            lhs, rhs = lhs32.to(dtype), rhs32.to(dtype)
+            buf = gm_mod._to_groups(lhs, gs, CAPACITY)  # [8, 2560, 768], zero-padded
+            timed = {"kernel": lambda: fa.grouped_matmul(lhs, gs, rhs, max_group_size=CAPACITY),
+                     "bmm": lambda: torch.bmm(buf, rhs)}
+            if dtype == torch.float32:
+                timed["3xTF32"] = lambda: _gmm_3xtf32(lhs, gs, rhs, CAPACITY)
+            rounds = {name: [] for name in timed}
+            for _ in range(3):  # kernel and padded bmm in turn, so the comparison is paired
+                for name, fn in timed.items():
+                    rounds[name].append(kv.ms(fn, 20))
+            ms, lib_ms = (float(np.median(rounds[name])) for name in ("kernel", "bmm"))
+            alt = ""
+            if "3xTF32" in rounds:
+                alt = (f"; the 3xTF32 tensor-core kernel {float(np.median(rounds['3xTF32'])):.4f}"
+                       f" ms (rounds {[round(x, 4) for x in rounds['3xTF32']]})")
+            plain_ms = kv.ms(lambda: fa.grouped_matmul_plain(lhs, gs, rhs,
+                                                               max_group_size=CAPACITY), 5)
+            flops = 2 * kept * d * h
+            # kept lhs rows read, rhs read, every output row written, group sizes
+            nbytes = (kept * d + E_MOE * d * h + n * h) * lhs.element_size() + 4 * E_MOE
+            bound_ms, bound_by = roofline(flops, nbytes, dtype)
+            extra = ""
+            if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+                offs = torch.cumsum(gs, 0, dtype=torch.int32)
+                try:
+                    gmm_ms = kv.ms(lambda: torch._grouped_mm(lhs, rhs, offs=offs), 20)
+                    extra = f", torch._grouped_mm {gmm_ms:.4f} ms"
+                except Exception as exc:  # a yardstick only: report why it did not run
+                    extra = (f", torch._grouped_mm not run ({type(exc).__name__}: "
+                             f"{str(exc)[:120]})")
+            print(f"grouped_matmul {str(dtype)[6:]} [{n},{d}]x[{E_MOE},{d},{h}] "
+                  f"m_pad={CAPACITY}, {load} load, {kept} kept rows {sizes}, 3 paired rounds "
+                  f"(ms): kernel {[round(x, 4) for x in rounds['kernel']]}, padded torch.bmm "
+                  f"{[round(x, 4) for x in rounds['bmm']]}; medians: kernel {ms:.4f} ms, "
+                  f"padded torch.bmm {lib_ms:.4f} ms ({ms / lib_ms:.2f}x){extra}, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB"
+                  f"{cuda_core_note(flops, dtype)}; {bound_ms / ms:.0%} of it){alt}")
+            if dtype == torch.float32 and load == "routed":
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+            del buf
     return row
 
 
@@ -821,15 +1266,27 @@ def main() -> int:
     rs = np.random.RandomState(SEED + 1)
     prompt_lens = [100, 500] + rs.randint(100, 501, B - 2).tolist()
     prompts = [rs.randint(0, 50257, n).tolist() for n in prompt_lens]
-    fwd = phase_flash_forward(gen)
-    dec = phase_flash_decode(gen, [n + MAX_TOKENS // 2 for n in prompt_lens])
-    bwd = phase_flash_backward(gen)
-    serve = phase_model(prompts)
-    train = phase_train(card)
-    moe, routed = phase_moe(card)
-    gmm = phase_grouped_matmul(gen, routed)
-    # launches over the main paths: serving, training, then the MoE network
-    launches = {n: serve.get(n, 0) + train.get(n, 0) + moe[n] for n in moe}
+    t0 = time.perf_counter()
+
+    def timed(label, fn, *args):
+        out = fn(*args)
+        print(f"phase {label} done at {time.perf_counter() - t0:.1f} s")
+        return out
+
+    fwd = timed("B1", phase_flash_forward, gen)
+    dec = timed("B4", phase_flash_decode, gen, [n + MAX_TOKENS // 2 for n in prompt_lens])
+    bwd = timed("B2/B3", phase_flash_backward, gen)
+    timed("new instantiations", phase_new_instantiations, gen)
+    paths = [timed("LM serving", phase_model, prompts), timed("LM training", phase_train, card)]
+    moe, routed = timed("MoE network", phase_moe, card)
+    paths.append(moe)
+    gmm = timed("B5", phase_grouped_matmul, gen, routed)
+    paths += [timed("head-dim-256 LM", phase_lm_head256),
+              timed("float16 LM", phase_lm_f16, prompts),
+              timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64)]
+    # launches over the paths: LM serving and training, the MoE network, and
+    # the head-dim-256, float16, float64 and float64-MoE paths
+    launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [
         dict(name="flash_forward", route="cuda", source=src + "flash_forward.cu",

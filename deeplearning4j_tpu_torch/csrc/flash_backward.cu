@@ -1,5 +1,6 @@
-// Flash attention backward for Hopper (sm_90a), float32 and bfloat16: the
-// dq kernel and the dk/dv kernel, with their products on the tensor cores.
+// Flash attention backward for Hopper (sm_90a), float32, bfloat16 and
+// float16: the dq kernel and the dk/dv kernel, with their products on the
+// tensor cores (float64: flash_f64.cu).
 //
 // Replaces: deeplearning4j_tpu/ops/flash_attention.py::_dq_kernel and
 // ::_dkv_kernel (the two Pallas TPU kernels launched by _flash_bwd_pallas).
@@ -15,6 +16,7 @@
 //   dk = dsᵀ·q·scale, dv = pᵀ·g (kernel 2)
 // A fully masked row has lse = +1e30, so it gives zero dq and adds nothing to
 // dk or dv. Outputs are written in the input dtype; every sum is in float32.
+// Head dims up to 256.
 //
 // What bounds it on this card: operations. At the training shapes (t = 1024,
 // d = 64, causal) the dq kernel runs three products (s, dp, dq), 6·d flops a
@@ -40,11 +42,11 @@
 //   rounds, by integer add and mask: see split()), and a·b is
 //   summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (3xTF32, the split PyTorch's
 //   float32 SDPA backward runs): about float32 accuracy, where one TF32 term
-//   keeps three decimal digits. A bf16 value is exact in TF32, so in bf16
-//   s and dp take one term, and ds·k, dsᵀ·q, pᵀ·g two (ds and p are
-//   float32). In float32 the scale is folded into q as it lands in shared
-//   memory, once an element; in bf16 it multiplies s and dk's sum instead,
-//   so that q stays exact in TF32.
+//   keeps three decimal digits. A bf16 or f16 value is exact in TF32, so in
+//   bf16 and f16 s and dp take one term, and ds·k, dsᵀ·q, pᵀ·g two (ds and p
+//   are float32). In float32 the scale is folded into q as it lands in
+//   shared memory, once an element; in bf16 and f16 it multiplies s and dk's
+//   sum instead, so that q stays exact in TF32.
 // * No trip through shared memory for p and ds: the m16n8 accumulator holds
 //   columns (2t, 2t+1) where the m16n8k8 A fragment wants (t, t+4). The
 //   order of the reduction axis inside an 8-wide step is free, so the next
@@ -55,7 +57,7 @@
 //   the next tile's copy runs under this tile's products. 16-byte copies
 //   where the rows allow (else 8 or 4 bytes; bf16 rows of odd length take
 //   plain loads), with zero fill past the ragged edges and up to the
-//   instantiation's width DMAX (32, 64 or 128). Every loop then has a
+//   instantiation's width DMAX (32, 64, 128 or 256). Every loop then has a
 //   compile-time trip count: loops that stopped at the next multiple of 8
 //   columns ran slower on the H100, their branches keeping the compiler
 //   from overlapping one step's loads with the last one's products. Rows are
@@ -69,7 +71,9 @@
 // the softmax, so they run at about a quarter of the 3xTF32 bound. At d = 64 in float32 a dq block holds 6 tiles of 64 x 68 floats
 // (104 KB, two blocks an SM) and a dk/dv block 2 tiles of 64 rows and 4 of
 // 32 (70 KB, three). At d = 128 the dk/dv kernel walks 16-row q tiles to
-// keep its sums in registers.
+// keep its sums in registers. At d = 256 both kernels walk 16-row (16-key)
+// tiles, 196 KB of shared memory in float32 and one block an SM; the dk/dv
+// kernel's two 16 x 256 sums a warp then outgrow the registers.
 
 #include <type_traits>
 
@@ -104,7 +108,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ delta, const float* __restrict__ mask,
                     T* __restrict__ dq, int h, int tq, int tk, int d, int dv, float scale,
                     int causal, int vec_d, int vec_dv) {
-  constexpr bool kSplit = std::is_same<T, float>::value;  // bf16 is exact in TF32
+  constexpr bool kSplit = std::is_same<T, float>::value;  // bf16, f16 are exact in TF32
   constexpr int S = row_stride<T, DMAX>();
   constexpr int NK = BN / 8;  // 8-key column tiles of s
   constexpr int ND = DMAX / 8;
@@ -388,13 +392,15 @@ struct Args {
 // registers; tools/flash_backward_variants.py times the alternatives).
 // Skipping the 8-wide tiles that the causal mask hides from a whole warp,
 // on the tiles across the diagonal, made dq slower on the H100: the second
-// copy of the tile body costs more than the products it saves.
+// copy of the tile body costs more than the products it saves. At DMAX 256
+// both walk 16 at a time: 64 keys of 256 float32 columns in two stages
+// would not fit in shared memory.
 constexpr int kDqWalk = 64;
 constexpr int kDkvWalk = 32;
 
 template <typename T, int DMAX>
 cudaError_t launch_dq(const Args& a) {
-  constexpr int BN = kDqWalk;
+  constexpr int BN = DMAX > 128 ? 16 : kDqWalk;
   constexpr size_t bytes = dq_smem_bytes<T, DMAX, BN>();
   static unsigned long long smem_set = 0;  // devices this instantiation is opted in on
   cudaError_t err = opt_in_smem(flash_bwd_dq_kernel<T, DMAX, BN>, (int)bytes, smem_set);
@@ -430,38 +436,46 @@ cudaError_t dispatch(const Args& a) {
   if (dmax <= 32) return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
   if (dmax <= 64) return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
   if (dmax <= 128) return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+  if (dmax <= 256) return DQ ? launch_dq<T, 256>(a) : launch_dkv<T, 256>(a);
   return cudaErrorInvalidValue;
 }
 
 template <bool DQ>
-int run(const Args& a, int is_bf16) {
+int run(const Args& a, int dtype) {
   const int rows = DQ ? a.tq : a.tk;  // the tiled axis of the grid
   if (a.b * a.h <= 0 || rows <= 0 || (rows + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
-  return (int)(is_bf16 ? dispatch<DQ, __nv_bfloat16>(a) : dispatch<DQ, float>(a));
+  switch (dtype) {
+    case kF32: return (int)dispatch<DQ, float>(a);
+    case kBF16: return (int)dispatch<DQ, __nv_bfloat16>(a);
+    case kF16: return (int)dispatch<DQ, __half>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Both return cudaGetLastError() after the launch (0 on success). They
 // allocate nothing and launch on `stream`. `mask` may be null (every key
-// valid); lse and delta are float32 [b, h, tq].
+// valid); lse and delta are float32 [b, h, tq]. dtype: 0 float32, 1
+// bfloat16, 2 float16 (mma_tf32.cuh's DType); any other code is
+// cudaErrorInvalidValue.
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                                  const void* lse, const void* delta, const void* mask,
                                  void* dq, int b, int h, int tq, int tk, int d, int dv,
-                                 float scale, int causal, int is_bf16, void* stream) {
+                                 float scale, int causal, int dtype, void* stream) {
   const Args a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const float*>(mask), dq, nullptr, b, h, tq, tk, d, dv, scale,
                causal, static_cast<cudaStream_t>(stream)};
-  return run<true>(a, is_bf16);
+  return run<true>(a, dtype);
 }
 
 extern "C" int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                   const void* lse, const void* delta, const void* mask,
                                   void* dk, void* dv_out, int b, int h, int tq, int tk, int d,
-                                  int dv, float scale, int causal, int is_bf16, void* stream) {
+                                  int dv, float scale, int causal, int dtype, void* stream) {
   const Args a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const float*>(mask), dk, dv_out, b, h, tq, tk, d, dv, scale,
                causal, static_cast<cudaStream_t>(stream)};
-  return run<false>(a, is_bf16);
+  return run<false>(a, dtype);
 }

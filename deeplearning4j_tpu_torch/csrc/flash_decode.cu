@@ -1,5 +1,6 @@
-// Single-query flash decode for Hopper (sm_90a), float32 and bfloat16, with
-// each (batch, head) row split over the keys across a thread-block cluster.
+// Single-query flash decode for Hopper (sm_90a), float32, bfloat16 and
+// float16, head dims up to 256, with each (batch, head) row split over the
+// keys across a thread-block cluster (float64: flash_f64.cu).
 //
 // Replaces: deeplearning4j_tpu/ops/flash_attention.py::_decode_kernel (the
 // Pallas TPU kernel launched by flash_decode_attention).
@@ -24,8 +25,9 @@
 // positions too.
 // * Inside a block, each warp walks its own keys with its own online
 //   softmax, with no barrier until the end. A key row is read by a group of
-//   lanes, 16 bytes a lane where the rows are 16-byte aligned (else the
-//   whole warp reads it, a float a lane), and each lane group issues the K
+//   lanes, 16 bytes a lane where the rows are 16-byte aligned (two 16-byte
+//   chunks a lane for float32 rows of 256; else the whole warp reads it, a
+//   float a lane), and each lane group issues the K
 //   and V loads of kUnroll keys before it uses any of them, so many bytes
 //   are in flight per thread. The score takes shuffles within the group.
 // * Combine, in a fixed order (deterministic, no atomics, no workspace):
@@ -43,6 +45,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
@@ -63,8 +66,10 @@ constexpr int kMinKeysPerBlock = 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half(x); }
 
 // The weight of a partial with max m in a merge whose max is mx: 0 for a
 // partial that saw no live key (its max is still -1e30), never exp(0) = 1.
@@ -72,30 +77,36 @@ __device__ __forceinline__ float merge_weight(float m, float mx) {
   return m > kNeg * 0.5f ? expf(m - mx) : 0.f;
 }
 
-// Lanes that read one key row (LPK), keys a warp reads at once (KPW), and
-// columns a lane owns (NC): a 16-byte chunk of VEC elements a lane, or, on
-// the scalar path (VEC = 1), the whole warp, columns lane + 32 i.
+// Lanes that read one key row (LPK), keys a warp reads at once (KPW),
+// 16-byte chunks a lane reads of a row (CH), and columns a lane owns (NC):
+// chunks li + LPK c of VEC elements each, or, on the scalar path (VEC = 1),
+// the whole warp, columns lane + 32 i.
 template <int DMAX, int VEC>
 struct Layout {
-  static constexpr int LPK = VEC > 1 ? DMAX / VEC : 32;
+  static constexpr int LPK = VEC > 1 ? (DMAX / VEC < 32 ? DMAX / VEC : 32) : 32;
   static constexpr int KPW = 32 / LPK;
+  static constexpr int CH = VEC > 1 ? DMAX / VEC / LPK : 1;
   static constexpr int NC = DMAX / LPK;
   static __device__ __forceinline__ int col(int li, int i) {
-    return VEC > 1 ? li * VEC + i : li + 32 * i;
+    return VEC > 1 ? (li + LPK * (i / VEC)) * VEC + i % VEC : li + 32 * i;
   }
 };
 
 // The NC columns lane `li` owns of one row of width w, as float32, zeros
-// past w. The vector path is one 16-byte load (w is a multiple of VEC).
+// past w. The vector path is CH 16-byte loads (w is a multiple of VEC).
 template <typename T, int DMAX, int VEC>
 struct RowPart {
   using L = Layout<DMAX, VEC>;
-  uint4 raw;            // VEC > 1
+  uint4 raw[L::CH];     // VEC > 1
   float x[L::NC];       // VEC == 1
   __device__ __forceinline__ void load(const T* __restrict__ row, int li, int w) {
     if constexpr (VEC > 1) {
-      raw = li * VEC < w ? __ldg(reinterpret_cast<const uint4*>(row + li * VEC))
-                         : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int c = 0; c < L::CH; ++c) {
+        const int e0 = (li + L::LPK * c) * VEC;
+        raw[c] = e0 < w ? __ldg(reinterpret_cast<const uint4*>(row + e0))
+                        : make_uint4(0u, 0u, 0u, 0u);
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < L::NC; ++i) {
@@ -106,7 +117,7 @@ struct RowPart {
   }
   __device__ __forceinline__ float get(int i) const {
     if constexpr (VEC > 1) {
-      return to_f32(reinterpret_cast<const T*>(&raw)[i]);
+      return to_f32(reinterpret_cast<const T*>(&raw[i / VEC])[i % VEC]);
     } else {
       return x[i];
     }
@@ -317,23 +328,29 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const int* sta
     return by_alignment<T, 64>(q, k, v, start_pos, out, b, h, L, d, dv, scale, split, stream);
   if (dmax <= 128)
     return by_alignment<T, 128>(q, k, v, start_pos, out, b, h, L, d, dv, scale, split, stream);
+  if (dmax <= 256)
+    return by_alignment<T, 256>(q, k, v, start_pos, out, b, h, L, d, dv, scale, split, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success). Allocates
-// nothing; launches on `stream`.
+// nothing; launches on `stream`. dtype: 0 float32, 1 bfloat16, 2 float16;
+// any other code is cudaErrorInvalidValue.
 extern "C" int dl4j_flash_decode(const void* q, const void* k, const void* v,
                                  const void* start_pos, void* out, int b, int h, int L,
-                                 int d, int dv, float scale, int is_bf16, void* stream) {
+                                 int d, int dv, float scale, int dtype, void* stream) {
   if (b * h <= 0 || d <= 0 || dv <= 0) return (int)cudaErrorInvalidValue;
   const int split = choose_split(b * h, L, sm_count());
   if ((long long)split * b * h > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int* sp = static_cast<const int*>(start_pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, sp, out, b, h, L, d, dv, scale, split, s)
-              : dispatch<float>(q, k, v, sp, out, b, h, L, d, dv, scale, split, s);
-  return (int)err;
+  switch (dtype) {
+    case 0: return (int)dispatch<float>(q, k, v, sp, out, b, h, L, d, dv, scale, split, s);
+    case 1:
+      return (int)dispatch<__nv_bfloat16>(q, k, v, sp, out, b, h, L, d, dv, scale, split, s);
+    case 2: return (int)dispatch<__half>(q, k, v, sp, out, b, h, L, d, dv, scale, split, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

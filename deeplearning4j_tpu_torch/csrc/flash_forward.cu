@@ -1,5 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), float32 and bfloat16, with
-// its products on the tensor cores.
+// Flash attention forward for Hopper (sm_90a), float32, bfloat16 and
+// float16, with its products on the tensor cores (float64: flash_f64.cu).
 //
 // Replaces: deeplearning4j_tpu/ops/flash_attention.py::_flash_kernel (the
 // Pallas TPU kernel launched by _flash_forward).
@@ -10,7 +10,8 @@
 // bottom-right (query i sees keys <= i + tk - tq). Masked scores are the
 // finite -1e30; p = s > -0.5e30 ? exp(s - m) : 0; a row with no valid key
 // outputs 0 and gets lse = +1e30 (the backward kernels rely on both). out has
-// the input dtype, lse is float32; every sum is in float32.
+// the input dtype, lse is float32; every sum is in float32. Head dims up to
+// 256.
 //
 // What bounds it on this card: operations. At the serving and training
 // shapes (t = 1024, d = 64, causal) it runs two products, 4·d flops a kept
@@ -32,9 +33,9 @@
 // * Products: mma.sync m16n8k8 TF32. Each warp owns 16 rows of s and of the
 //   output accumulator, both in registers. In float32, s = q·kᵀ and p·v take
 //   three terms each (3xTF32), and the scale is folded into q as it lands in
-//   shared memory. In bf16, q·kᵀ takes one term (a bf16 value is exact in
-//   TF32) and the scale multiplies s, so that q stays exact; p·v takes two
-//   (p_hi·v + p_lo·v), because p is float32 as in the JAX kernel.
+//   shared memory. In bf16 and f16, q·kᵀ takes one term (a bf16 or f16 value
+//   is exact in TF32) and the scale multiplies s, so that q stays exact; p·v
+//   takes two (p_hi·v + p_lo·v), because p is float32 as in the JAX kernel.
 // * The online softmax: lane (g, t) holds rows g and g + 8 of its warp's 16,
 //   two keys of every 8; the row max and row sum take two shuffles across
 //   the lane quad (xor 1, 2). p then feeds p·v as the A operand straight
@@ -44,12 +45,15 @@
 //   validity, so the next tile's copy runs under this tile's products.
 //   16-byte copies where the rows allow (else 8 or 4 bytes; bf16 rows of odd
 //   length take plain loads), zero fill past the ragged edges and up to the
-//   instantiation's width DMAX (32, 64 or 128): every loop has a
+//   instantiation's width DMAX (32, 64, 128 or 256): every loop has a
 //   compile-time trip count.
 // * Tile shape: 64 q rows and 4 warps a block, walking 32-key tiles in
 //   float32 (52 KB of shared memory at d = 64, four blocks an SM) and
-//   64-key tiles in bf16; tools/flash_forward_variants.py times the
-//   alternatives (128 rows and 8 warps was slower in both types).
+//   64-key tiles in bf16 and f16; tools/flash_forward_variants.py times the
+//   alternatives (128 rows and 8 warps was slower in both types). At DMAX
+//   256 every type walks 32-key tiles: 195 KB of shared memory in float32,
+//   one block an SM, and the 16 x 256 output rows of a warp take 128
+//   accumulator registers a thread.
 
 #include <type_traits>
 
@@ -62,17 +66,18 @@ constexpr int kWarps = 4;
 constexpr int kRows = 16 * kWarps;      // q rows a block owns
 constexpr int kThreads = 32 * kWarps;
 
-// Keys a tile: 32 in float32, 64 in bf16 (measured on the H100 at
+// Keys a tile: 32 in float32, 64 in bf16 and f16 (measured on the H100 at
 // [8,12,1024,64] causal by tools/flash_forward_variants.py: 32-key tiles are
 // 6% faster in float32, where they halve the k/v stages and fit four blocks
-// an SM, and 8% slower in bf16).
-template <typename T>
-__host__ __device__ constexpr int tile_keys() { return sizeof(T) == 4 ? 32 : 64; }
+// an SM, and 8% slower in bf16); 32 in every type at DMAX 256, where the
+// shared memory and the registers of 64-key tiles would not fit.
+template <typename T, int DMAX>
+__host__ __device__ constexpr int tile_keys() { return sizeof(T) == 4 || DMAX > 128 ? 32 : 64; }
 
 template <typename T, int DMAX>
 constexpr size_t smem_bytes() {
   // q: [kRows][S]; k, v: two stages of [BN][S]; key validity: two stages of [BN]
-  constexpr int BN = tile_keys<T>();
+  constexpr int BN = tile_keys<T, DMAX>();
   return sizeof(T) * (kRows + 4 * BN) * row_stride<T, DMAX>() + sizeof(float) * 2 * BN;
 }
 
@@ -82,9 +87,9 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ mask, T* __restrict__ out,
                      float* __restrict__ lse, int h, int tq, int tk, int d, int dv, float scale,
                      int causal, int vec_d, int vec_dv) {
-  constexpr bool kSplit = std::is_same<T, float>::value;  // bf16 is exact in TF32
+  constexpr bool kSplit = std::is_same<T, float>::value;  // bf16, f16 are exact in TF32
   constexpr int S = row_stride<T, DMAX>();
-  constexpr int BN = tile_keys<T>();
+  constexpr int BN = tile_keys<T, DMAX>();
   constexpr int NK = BN / 8;  // 8-key column tiles of s
   constexpr int ND = DMAX / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -259,6 +264,7 @@ cudaError_t dispatch(const Args& a) {
   if (dmax <= 32) return launch<T, 32>(a);
   if (dmax <= 64) return launch<T, 64>(a);
   if (dmax <= 128) return launch<T, 128>(a);
+  if (dmax <= 256) return launch<T, 256>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -266,12 +272,19 @@ cudaError_t dispatch(const Args& a) {
 
 // Returns cudaGetLastError() after the launch (0 on success). Allocates
 // nothing; launches on `stream`. `mask` may be null (every key valid).
+// dtype: 0 float32, 1 bfloat16, 2 float16 (mma_tf32.cuh's DType); any other
+// code is cudaErrorInvalidValue.
 extern "C" int dl4j_flash_forward(const void* q, const void* k, const void* v,
                                   const void* mask, void* out, void* lse,
                                   int b, int h, int tq, int tk, int d, int dv,
-                                  float scale, int causal, int is_bf16, void* stream) {
+                                  float scale, int causal, int dtype, void* stream) {
   if (b * h <= 0 || tq <= 0 || (tq + kRows - 1) / kRows > 65535) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const float*>(mask), out, static_cast<float*>(lse),
                b, h, tq, tk, d, dv, scale, causal, static_cast<cudaStream_t>(stream)};
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(a) : dispatch<float>(a));
+  switch (dtype) {
+    case kF32: return (int)dispatch<float>(a);
+    case kBF16: return (int)dispatch<__nv_bfloat16>(a);
+    case kF16: return (int)dispatch<__half>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,11 +1,15 @@
 // Tensor-core products and asynchronous tile copies shared by the flash
-// attention kernels (flash_forward.cu, flash_backward.cu), for sm_90a.
+// attention kernels (flash_forward.cu, flash_backward.cu) and the grouped
+// expert matmul (grouped_matmul.cu), for sm_90a.
 //
 // * mma.sync m16n8k8 TF32 with float32 accumulators. A float32 operand x is
 //   split into hi = tf32(x) and lo = tf32(x - hi), and a·b is summed as
 //   a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (3xTF32): about float32 accuracy,
-//   where one TF32 term keeps three decimal digits. A widened bf16 value is
-//   exact in TF32 and is not split.
+//   where one TF32 term keeps three decimal digits. A widened bf16 or f16
+//   value is exact in TF32 (8 and 11 significant bits, inside TF32's 11, and
+//   an f16 exponent inside float32's) and is not split.
+// * mma.sync m16n8k16 on bf16 or f16 operands with float32 accumulators,
+//   fed by ldmatrix (grouped_matmul.cu).
 // * Fragment loads from row-major shared-memory tiles, and the A fragment
 //   taken straight from an m16n8 accumulator: the accumulator holds columns
 //   (2t, 2t+1) where the A fragment wants (t, t+4), and the order of the
@@ -21,16 +25,25 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half(x); }
+
+// The dtype codes of the C entry points: 0 float32, 1 bfloat16, 2 float16,
+// 3 float64 (flash_f64.cu and the float64 path of grouped_matmul.cu).
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kF64 = 3 };
 
 // shared-memory row stride, in elements: 4 words mod 32 banks, 16-byte rows
 template <typename T, int DMAX>
@@ -128,6 +141,45 @@ __device__ __forceinline__ FragB frag_b_cols(const T* tile, int k0, int n0, int 
   split<SPLIT>(to_f32(p[0]), f.hi[0], f.lo[0]);
   split<SPLIT>(to_f32(p[S]), f.hi[1], f.lo[1]);
   return f;
+}
+
+// ---- 16-bit products (bf16, f16) --------------------------------------------
+
+// c += a·b on m16n8k16: a is the 16x16 row-major A fragment (four registers
+// of two values: rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9), b
+// the 16x8 B fragment (rows 2t, 2t + 1 and 2t + 8, 2t + 9 of column g).
+template <typename T>
+__device__ __forceinline__ void mma_16bit(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
+// Four 8x8 matrices of 16-bit values from shared memory: lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned) and gets
+// r[i] = elements (g, 2t) and (g, 2t + 1) of matrix i; with TRANS,
+// elements (2t, g) and (2t + 1, g).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  if constexpr (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+  }
 }
 
 // ---- asynchronous copies ----------------------------------------------------

@@ -24,10 +24,12 @@ adds one to the wrapper's count in :data:`LAUNCH_COUNTS`.
 
 Semantics shared with the TPU kernels: masked scores are the finite
 ``-1e30``; a row with no valid key outputs 0, its logsumexp is ``+1e30``,
-and it gets a zero gradient. The kernels compute in float32 (bf16 inputs
-are widened on load) and write their outputs in the input dtype; the plain
-versions compute in float32, or in float64 for float64 inputs (the
-gradient checks).
+and it gets a zero gradient. The kernels take float32, bfloat16, float16
+and float64 operands with head dims up to 256. They compute in float32
+(bf16 and f16 inputs are widened on load), or in float64 for float64
+inputs (``csrc/flash_f64.cu``), and write their outputs in the input
+dtype; the row logsumexp is float32, float64 for float64 inputs. The plain
+versions compute likewise, in float32 or float64.
 
 The seam (:func:`set_attention_impl`) takes ``"auto"``, ``"flash"`` or
 ``"reference"`` (the counterpart of JAX's ``"xla"``). ``"auto"`` takes the
@@ -48,7 +50,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 _NEG = -1e30  # finite "-inf": keeps exp/max well-defined for fully-masked rows
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
+#: the kernels' dtype codes (``csrc/mma_tf32.cuh``'s ``DType``), shared with
+#: the grouped matmul; float64 attention goes to ``csrc/flash_f64.cu``
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3}
 
 #: kernel launches by wrapper, counted where the kernel is launched and
 #: nowhere else (plain-version calls do not count)
@@ -231,8 +236,9 @@ def flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask=None,
 def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     dtype = tensors[0].dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: dtype {dtype} not supported (float32, bfloat16)")
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: dtype {dtype} not supported (float32, bfloat16, "
+                        "float16, float64)")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
@@ -259,6 +265,22 @@ def _fn(stem: str, symbol: str, argtypes):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel(stem: str, symbol: str, dtype: torch.dtype, before: list, after: list):
+    """The C entry point of an attention kernel for ``dtype``: ``symbol`` in
+    ``csrc/<stem>.cu`` (float32 scale), or for float64 ``<symbol>_f64`` in
+    ``csrc/flash_f64.cu`` (float64 scale). ``before`` and ``after`` are the
+    argument types around the scale."""
+    if dtype == torch.float64:
+        return _fn("flash_f64", symbol + "_f64", before + [ctypes.c_double] + after)
+    return _fn(stem, symbol, before + [ctypes.c_float] + after)
+
+
+def _stat_dtype(q: torch.Tensor) -> torch.dtype:
+    """The dtype of the row logsumexp and of delta, as the kernels read and
+    write them: float32, float64 for float64 operands."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
 
 
 # The kernels run asynchronously on the current stream and may still read a
@@ -296,20 +318,18 @@ def _flash_forward_cuda(q, k, v, mask, causal, scale):
     b, h, tq, d = q.shape
     tk, dv = k.shape[2], v.shape[3]
     out = torch.empty((b, h, tq, dv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=_stat_dtype(q), device=q.device)
     mask = _cuda_mask("flash_attention", mask, b, tk, q.device)
     if b * h * tq == 0:
         return out, lse
-    fn = _fn("flash_forward", "dl4j_flash_forward",
-             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-              _I, _I, _P])
+    fn = _kernel("flash_forward", "dl4j_flash_forward", q.dtype,
+                 [_P] * 6 + [_I] * 6, [_I, _I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if mask is None else mask.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), b, h, tq, tk, d, dv,
-                 float(scale), int(bool(causal)),
-                 int(q.dtype == torch.bfloat16), stream)
+                 float(scale), int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
     _raise_on("flash_attention", err)
     LAUNCH_COUNTS["flash_forward"] += 1
     return out, lse
@@ -317,10 +337,11 @@ def _flash_forward_cuda(q, k, v, mask, causal, scale):
 
 def _check_bwd_stats(name: str, q, lse, delta) -> None:
     b, h, tq = q.shape[:3]
+    want = _stat_dtype(q)
     for label, t in (("lse", lse), ("delta", delta)):
-        if (tuple(t.shape) != (b, h, tq) or t.dtype != torch.float32
+        if (tuple(t.shape) != (b, h, tq) or t.dtype != want
                 or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{name}: {label} must be a contiguous float32 "
+            raise ValueError(f"{name}: {label} must be a contiguous {want} "
                              f"[b, h, tq] = {(b, h, tq)} tensor on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
@@ -341,15 +362,15 @@ def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, scale):
     dq = torch.empty_like(q)
     if b * h * tq == 0:
         return dq
-    fn = _fn("flash_backward", "dl4j_flash_bwd_dq",
-             _BWD_ARGTYPES + [_P] + [_I] * 6 + [ctypes.c_float, _I, _I, _P])
+    fn = _kernel("flash_backward", "dl4j_flash_bwd_dq", q.dtype,
+                 _BWD_ARGTYPES + [_P] + [_I] * 6, [_I, _I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
                  None if mask is None else mask.data_ptr(), dq.data_ptr(),
                  b, h, tq, tk, d, dv, float(scale), int(bool(causal)),
-                 int(q.dtype == torch.bfloat16), stream)
+                 _KERNEL_DTYPES[q.dtype], stream)
     _raise_on("flash_attention_bwd_dq", err)
     LAUNCH_COUNTS["flash_bwd_dq"] += 1
     return dq
@@ -368,15 +389,15 @@ def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, scale):
     dk, dv_out = torch.empty_like(k), torch.empty_like(v)
     if b * h * tk == 0:
         return dk, dv_out
-    fn = _fn("flash_backward", "dl4j_flash_bwd_dkv",
-             _BWD_ARGTYPES + [_P, _P] + [_I] * 6 + [ctypes.c_float, _I, _I, _P])
+    fn = _kernel("flash_backward", "dl4j_flash_bwd_dkv", q.dtype,
+                 _BWD_ARGTYPES + [_P, _P] + [_I] * 6, [_I, _I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
                  None if mask is None else mask.data_ptr(), dk.data_ptr(),
                  dv_out.data_ptr(), b, h, tq, tk, d, dv, float(scale),
-                 int(bool(causal)), int(q.dtype == torch.bfloat16), stream)
+                 int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
     _raise_on("flash_attention_bwd_dkv", err)
     LAUNCH_COUNTS["flash_bwd_dkv"] += 1
     return dk, dv_out
@@ -438,10 +459,12 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     """Flash attention over [b, h, t, d] tensors. ``mask`` is a [b, tk]
     key-padding mask (1 = keep); ``causal`` is bottom-right aligned
     (query ``i`` sees keys ``<= i + tk - tq``). Returns the output in q's
-    dtype, and with ``return_lse`` also the row logsumexp [b, h, tq] f32.
+    dtype, and with ``return_lse`` also the row logsumexp [b, h, tq]
+    (float32; float64 for float64 inputs).
 
-    CUDA tensors launch the kernel (f32 or bf16, contiguous, head dims
-    <= 128); CPU tensors run :func:`flash_attention_plain`. When grad mode
+    CUDA tensors launch the kernel (float32, bfloat16, float16 or float64,
+    contiguous, head dims <= 256); CPU tensors run
+    :func:`flash_attention_plain`. When grad mode
     is on and an input requires grad, the call runs as
     :class:`_FlashAttention`, whose backward launches B2 and B3 (their
     plain versions on the CPU)."""
@@ -469,20 +492,21 @@ def mha_attention(q, k, v, mask=None, causal: bool = False,
 
 def flash_decode_attention_plain(q, k, v, start_pos,
                                  scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the decode kernel, in float32: row ``b``'s
-    single query attends cache positions ``[0, start_pos[b]]``;
-    ``start_pos < 0`` gives 0."""
+    """Plain PyTorch version of the decode kernel, in float32 (float64 for
+    float64 inputs): row ``b``'s single query attends cache positions
+    ``[0, start_pos[b]]``; ``start_pos < 0`` gives 0."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     L = k.shape[2]
-    s = (q.float() * scale) @ k.float().transpose(-1, -2)  # [b, h, 1, L]
+    acc = _acc_dtype(q)
+    s = (q.to(acc) * scale) @ k.to(acc).transpose(-1, -2)  # [b, h, 1, L]
     k_ids = torch.arange(L, device=q.device)
     keep = k_ids[None, :] <= start_pos.to(device=q.device, dtype=torch.int64)[:, None]
     s = torch.where(keep[:, None, None, :], s, torch.full_like(s, _NEG))
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.where(s > _NEG * 0.5, torch.exp(s - m), torch.zeros_like(s))
     l = torch.sum(p, dim=-1, keepdim=True)
-    return ((p @ v.float()) / torch.clamp_min(l, 1e-30)).to(q.dtype)
+    return ((p @ v.to(acc)) / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
 def _flash_decode_cuda(q, k, v, start_pos, scale):
@@ -500,13 +524,13 @@ def _flash_decode_cuda(q, k, v, start_pos, scale):
     out = torch.empty((b, h, 1, dv), dtype=q.dtype, device=q.device)
     if b * h == 0:
         return out
-    fn = _fn("flash_decode", "dl4j_flash_decode",
-             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+    fn = _kernel("flash_decode", "dl4j_flash_decode", q.dtype,
+                 [_P] * 5 + [_I] * 5, [_I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), start_pos.data_ptr(),
                  out.data_ptr(), b, h, L, d, dv, float(scale),
-                 int(q.dtype == torch.bfloat16), stream)
+                 _KERNEL_DTYPES[q.dtype], stream)
     _raise_on("flash_decode_attention", err)
     LAUNCH_COUNTS["flash_decode"] += 1
     return out

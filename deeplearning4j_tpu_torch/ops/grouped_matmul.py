@@ -28,7 +28,11 @@ is the JAX package's semantics, so the port keeps it on every device.
 
 Operands are cast to ``promote(lhs, rhs)`` (an integer ``rhs``, such as an
 int8 expert slab, to ``lhs``'s dtype first), products accumulate in float32
-for bfloat16/float16 and the output is cast once at the end.
+for bfloat16/float16 and the output is cast once at the end. The kernel
+takes bfloat16 and float16 (tensor-core products of the 16-bit values,
+float32 sums), float32 (CUDA-core fmaf chains in k order, which agree bit
+for bit with cuBLAS's float32 product, so grouped and sort dispatch agree)
+and float64 (CUDA-core products and sums).
 
 The seam (:func:`set_grouped_matmul_impl`) takes ``"auto"`` (the kernel
 wrapper, so the plain version on the CPU), ``"kernel"`` (CUDA tensors only,
@@ -43,13 +47,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .flash_attention import _fn, _raise_on
+from .flash_attention import _KERNEL_DTYPES, _fn, _raise_on
 
 #: kernel launches, counted where the kernel is launched and nowhere else
 LAUNCH_COUNTS: Dict[str, int] = {"grouped_matmul": 0}
 
 _HALF = (torch.bfloat16, torch.float16)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reset_launch_counts() -> None:
@@ -179,12 +182,13 @@ def grouped_matmul_plain(lhs: torch.Tensor, group_sizes: torch.Tensor, rhs: torc
 
 def _gmm_cuda(lhs, rhs, group_sizes, m_pad: int) -> torch.Tensor:
     """Launch B5 on ``lhs``'s stream. Both operands are cast to the output
-    dtype (float32, bfloat16 or float16) and made contiguous; the output is
-    zero-filled here, so dropped rows and rows past the frontier stay 0."""
+    dtype (float32, bfloat16, float16 or float64) and made contiguous; the
+    output is zero-filled here, so dropped rows and rows past the frontier
+    stay 0."""
     out_dtype = torch.promote_types(lhs.dtype, rhs.dtype)
     if out_dtype not in _KERNEL_DTYPES:
         raise TypeError(f"grouped_matmul: dtype {out_dtype} not supported by the "
-                        "kernel (float32, bfloat16, float16)")
+                        "kernel (float32, bfloat16, float16, float64)")
     dev = lhs.device
     if rhs.device != dev or group_sizes.device != dev:
         raise ValueError(f"grouped_matmul: operands on {lhs.device}, {rhs.device} "
@@ -197,16 +201,12 @@ def _gmm_cuda(lhs, rhs, group_sizes, m_pad: int) -> torch.Tensor:
     out = torch.zeros((n, h), dtype=out_dtype, device=dev)
     if n == 0 or h == 0 or e == 0:
         return out
-    # 16-byte loads need 16-byte aligned rows: d and h whole vectors
-    vec = 16 // lhs.element_size()
-    aligned = (d % vec == 0 and h % vec == 0 and lhs.data_ptr() % 16 == 0
-               and rhs.data_ptr() % 16 == 0)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _fn("grouped_matmul", "dl4j_grouped_matmul", [P, P, P, P] + [I] * 7 + [P])
+    fn = _fn("grouped_matmul", "dl4j_grouped_matmul", [P, P, P, P] + [I] * 6 + [P])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(lhs.data_ptr(), sizes.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-                 n, d, h, e, m_pad, _KERNEL_DTYPES[out_dtype], int(aligned), stream)
+                 n, d, h, e, m_pad, _KERNEL_DTYPES[out_dtype], stream)
     _raise_on("grouped_matmul", err)
     LAUNCH_COUNTS["grouped_matmul"] += 1
     return out

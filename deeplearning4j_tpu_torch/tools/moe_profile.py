@@ -38,8 +38,10 @@ from deeplearning4j_tpu_torch.train.updaters import Adam
 B, T_FULL, SEED = 8, 1024, 1234
 VOCAB, D_MODEL = 50257, 768
 MOE_LAYER = "layer_3"
+# the kernels' names, or what every instantiation of one holds (B5's float32,
+# tensor-core and float64 kernels all begin with "grouped_matmul_")
 _KERNELS = ("flash_forward_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-            "grouped_matmul_kernel")
+            "grouped_matmul_")
 
 
 def moe_lm_conf(dispatch_mode: str = "grouped", seed: int = SEED) -> MultiLayerConfiguration:
