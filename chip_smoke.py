@@ -12,7 +12,11 @@ the grouped expert matmul B5), then drives the port's main paths at GPT-2
 small's published widths (vocab 50257, hidden 768, 12 layers, 12 heads,
 ffn 3072, 1024 positions; float32; random weights from a seed): it serves
 a ``TransformerLM`` through ``output()`` on 8 prompts of 1024 tokens and
-``GenerationSession.generate`` on 8 ragged prompts, trains one with
+``GenerationSession.generate`` on 8 ragged prompts (the decode step replayed
+from a CUDA graph), serves the same prompts through the continuous-batching
+``DecodeEngine`` over static, paged, int8 and paged int8 caches and with
+speculative decoding (the target as its own draft, and a 2-block draft),
+checks the device sampler against the CPU's and a softmax, trains one with
 ``Solver.fit_batch`` (Adam 1e-4) on 8 x 1024 tokens, and runs ``output()``
 and ``Solver.fit_batch`` on the MoE network of
 ``tools/moe_profile.py::moe_lm_conf`` (one such block, then 8 experts of
@@ -155,6 +159,18 @@ E_MOE, H_MOE, TOPK, CAPACITY = 8, 1536, 2, 2560
 # moves log-probs near -10.8 by ~1e-5. A bfloat16 model would miss this by
 # an order of magnitude: one bf16 rounding of an activation is ~4e-3 relative.
 TOL_LOGPROB = 2e-3
+# The int8 KV cache against float32, teacher-forced. An int8 slot of absmax
+# a has the step a/127, so each dequantized K or V entry is within a/254 of
+# the float one: 1/254 of its slot's magnitude. Taken linearly, a first-order
+# estimate and not a proof, each of the model's attention layers can move the
+# logits by that share of what attention contributes, once through K and
+# once through V; so the gate is 2 x blocks / 254 of the largest logit spread
+# above the mean (0.094 for 12 blocks). A scale applied twice or not at all
+# moves the log-probs by the whole spread.
+INT8_STEP_REL = 1 / 254
+# The device sampler's chi-square against the softmax over a small fixed
+# vocabulary (8 tokens, 7 degrees of freedom): 24.32 is its 0.999 quantile.
+CHI2_DF7_999 = 24.32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -778,7 +794,354 @@ def phase_model(prompts) -> dict:
           f"{generate_s * 1e3:.1f} ms of {[round(r * 1e3, 1) for r in runs]} = "
           f"{B * MAX_TOKENS / generate_s:.1f} tokens/s; prefill {prefill_ms:.2f} ms; "
           f"decode {decode_ms:.3f} ms/step; peak memory {peak / 2**30:.2f} GiB")
-    return counts
+
+    # ---- the decode graph: a second generate() with other prompts through
+    # the same session (a new carry, so a new graph), and the graph step
+    # against the uncaptured step on two carries from one prefill
+    rs2 = np.random.RandomState(SEED + 3)
+    prompts2 = [rs2.randint(0, 50257, n).tolist() for n in rs2.randint(50, 301, B)]
+    gen2 = session.generate(prompts2, 16)
+    check(not session._graphs, "generate() must release its decode graph")
+    for label, ps, g in (("first", prompts, gen), ("second", prompts2, gen2)):
+        gap = _greedy_gap(model, ps, g)
+        print(f"generate() {label} call through one session ({len(g[0])} tokens a row): "
+              f"worst gap of a greedy token below its position's maximum log-prob, "
+              f"teacher-forced, {gap:.3e} (tol {TOL_LOGPROB:g})")
+        check(gap <= TOL_LOGPROB, f"the {label} generate() is not greedy")
+    carry_g, logits_g, _ = session.prefill(prompts2)
+    carry_e, _, _ = session.prefill(prompts2)
+    toks = torch.argmax(logits_g, dim=-1)
+    worst_ge, same, t_graph, t_eager = 0.0, True, [], []
+    for s_ in range(24):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry_g, lg = session.decode(carry_g, toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            le = session.step(carry_e, toks.to(torch.int32))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if s_ >= 2:  # step 0 runs eagerly, step 1 captures
+            t_graph.append(t1 - t0)
+            t_eager.append(t2 - t1)
+        worst_ge = max(worst_ge, max_err(lg, le))
+        same = same and torch.equal(torch.argmax(lg, -1), torch.argmax(le, -1))
+        toks = torch.argmax(lg, dim=-1)
+    check(session._graphs[B].step is not None, "decode() must replay a graph from step 2")
+    graph_launches = session._graphs[B].step.launches
+    session.release_graphs()
+    print(f"session decode [8, 1]: CUDA graph step vs the uncaptured step on a copy of the "
+          f"carry, 24 steps: logits max_abs {worst_ge:.3e} (tol 1e-6), tokens equal {same}; "
+          f"graph {1e3 * np.median(t_graph):.3f} ms/step, eager "
+          f"{1e3 * np.median(t_eager):.3f} ms/step (medians of 22); a replay launches "
+          f"{graph_launches}")
+    check(worst_ge <= 1e-6 and same, "the graph step disagrees with the eager step")
+    check(graph_launches == {"flash_decode": 12}, "a decode graph must hold 12 B4 launches")
+    return counts, model
+
+
+def phase_sampler() -> None:
+    """The device sampler (``generate/sampling.py``): the hash's bits on the
+    card equal the CPU's, the same draws come out, and a draw over a small
+    fixed vocabulary passes a chi-square against the softmax."""
+    from deeplearning4j_tpu_torch.generate import sampling
+
+    n, temp = 20000, 0.8
+    seeds, steps = np.arange(n), np.full(n, 3)
+    bits_c = sampling.random_bits(seeds, steps, 0, 8, "cpu")
+    bits_g = sampling.random_bits(seeds, steps, 0, 8, "cuda").cpu()
+    check(torch.equal(bits_c, bits_g), "the sampler's bits differ between the CPU and the card")
+    z = torch.tensor([2.0, 1.0, 0.0, -1.0, 0.5, 1.5, -0.5, 0.25])
+
+    def draw(dev):
+        return sampling.sample_tokens(z.to(dev).expand(n, -1), seeds, steps, np.zeros(n, bool),
+                                      torch.full((n,), temp), torch.zeros(n, dtype=torch.int64),
+                                      torch.ones(n)).cpu()
+
+    d_g, d_c = draw("cuda"), draw("cpu")
+    same = float((d_g == d_c).double().mean())
+    freq = np.bincount(d_g.numpy(), minlength=8)
+    expect = n * torch.softmax(z / temp, -1).double().numpy()
+    chi2 = float(((freq - expect) ** 2 / expect).sum())
+    print(f"device sampler: {n} draws over 8 tokens (T {temp}): chi-square {chi2:.3f} "
+          f"(7 dof, 0.999 quantile {CHI2_DF7_999}); bits equal to the CPU's; draws equal to "
+          f"the CPU's: {same:.5f}")
+    check(chi2 < CHI2_DF7_999, "the device sampler does not follow the softmax")
+    check(same >= 0.999, "the card draws other tokens than the CPU from the same keys")
+
+
+def _teacher_forced(model, prompts, streams) -> list:
+    """Per request, the log-probs [len(stream), V] a full ``output()`` over
+    ``prompt + stream[:-1]`` gives at the positions that produced the
+    stream's tokens."""
+    seqs = [p + s[:-1] for p, s in zip(prompts, streams)]
+    ids = np.zeros((len(seqs), max(len(s) for s in seqs)), np.int32)
+    mask = np.zeros(ids.shape, np.float32)
+    for i, s in enumerate(seqs):
+        ids[i, : len(s)] = s
+        mask[i, : len(s)] = 1.0
+    full = model.output(ids, mask)  # [b, V, t]
+    out = [torch.log(torch.clamp_min(full[i, :, len(p) - 1: len(p) - 1 + len(s)], 1e-30)).T
+           for i, (p, s) in enumerate(zip(prompts, streams))]
+    del full
+    return out
+
+
+def _greedy_gap(model, prompts, streams) -> float:
+    """The largest distance of a generated token's log-prob below the
+    maximum at its position, teacher-forced: 0 for an exact greedy stream,
+    up to the decode path's rounding where two tokens nearly tie."""
+    gap = 0.0
+    for lp, s in zip(_teacher_forced(model, prompts, streams), streams):
+        tok = torch.tensor(s, device=lp.device)[:, None]
+        gap = max(gap, float((lp.max(dim=1).values - lp.gather(1, tok)[:, 0]).max()))
+    return gap
+
+
+def _run_engine(eng, prompts, n_tok: int, hook=None):
+    """Submits every prompt at once to ``eng`` for ``n_tok`` greedy tokens;
+    returns (streams, seconds, engine steps). ``hook`` runs on the engine's
+    thread after each step. Every request must end "completed" (the JAX
+    engine's reason for reaching ``max_tokens``) with ``n_tok`` tokens: a
+    step that raised inside the engine ends its requests "failed", which
+    fails the run here."""
+    turns = [0]
+
+    def step_hook():
+        turns[0] += 1
+        if hook is not None:
+            hook()
+
+    eng._step_hook = step_hook
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_tokens=n_tok) for p in prompts]
+    streams = [h.result(timeout=600) for h in handles]
+    dt = time.perf_counter() - t0
+    eng._step_hook = None
+    for h in handles:
+        if h.reason != "completed" or len(h.tokens) != n_tok:
+            last = list(h.events(timeout=1))[-1]
+            raise AssertionError(f"{eng.name}: a request ended {h.reason!r} with "
+                                 f"{len(h.tokens)} tokens: {last.get('error', '')}")
+    return streams, dt, turns[0]
+
+
+def _seam_snapshot(eng) -> dict:
+    """The int8 cache of the carry's first decoder block as the decode
+    attention reads it, copied (the paged one gathered through the table)."""
+    name, st = next((n, s) for n, s in eng._carry.items() if "cache_k" in s)
+    pos = st["pos"].clone()
+    if "block_table" in st:
+        tbl = st["block_table"]
+        planes = {k: fa.paged_gather(st[k], tbl) for k in
+                  ("cache_k", "cache_v", "cache_k_scale", "cache_v_scale")}
+    else:
+        planes = {k: st[k].clone() for k in ("cache_k", "cache_v", "cache_k_scale",
+                                              "cache_v_scale")}
+    return dict(planes, pos=pos, active=torch.from_numpy(eng._active.copy()))
+
+
+def phase_engine(model, prompts, card: str) -> dict:
+    """The continuous-batching ``DecodeEngine`` on the serving phase's
+    GPT-2-small-width LM: 8 slots, ``max_len`` 1024, the 8 ragged prompts
+    submitted at once for 64 greedy tokens each, over (a) the static float32
+    cache, (b) the paged one (``block_size=16``), (c) the int8 cache, (d)
+    paged int8, and (e) speculative decoding with ``k=4``, once with the
+    target as its own draft and once with a 2-block draft at the same
+    widths. Each engine first serves one short warm-up request, so its
+    plain step's CUDA graph is captured before the counted run. Returns the
+    launch counts of the counted runs."""
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import DecodeEngine
+
+    total = {n: 0 for n in fa.LAUNCH_COUNTS}
+    n_blocks = sum(isinstance(l, type(model.layers[2])) for l in model.layers)
+    streams, info = {}, {}
+
+    def run(label, hook=None, **kw):
+        eng = DecodeEngine(model, max_len=T_FULL, slots=B, registry=MetricsRegistry(),
+                           name=label, **kw)
+        try:
+            _run_engine(eng, prompts[:1], 3)  # warm-up: eager step, capture, replay
+            before = eng.stats()["speculative"]
+            fa.reset_launch_counts()
+            peak = [0]
+            snap = {}
+
+            def watch():
+                peak[0] = max(peak[0], eng._kv_cache_bytes)
+                if hook is not None and not snap:
+                    snap.update(hook(eng))
+
+            out, dt, turns = _run_engine(eng, prompts, MAX_TOKENS, watch)
+            torch.cuda.synchronize()
+            got = dict(fa.LAUNCH_COUNTS)
+            for n, c in got.items():
+                total[n] += c
+            st = eng.stats()
+            st["speculative"] = {k: st["speculative"][k] - before[k]
+                                 for k in ("steps", "proposed", "accepted")}
+            decode_ms = 1e3 * eng._h_decode.sum / max(1, eng._h_decode.count)
+            info[label] = dict(s=dt, turns=turns, launches=got, stats=st, peak_kv=peak[0],
+                               decode_ms=decode_ms, snap=snap, eng=eng)
+            streams[label] = out
+            print(f"engine {label} ({card}): {B} x {MAX_TOKENS} tokens in {dt * 1e3:.1f} ms "
+                  f"= {B * MAX_TOKENS / dt:.1f} tokens/s (prefill of the 8 prompts included); "
+                  f"{turns} loop turns, mean decode step {decode_ms:.3f} ms; kv_cache_bytes "
+                  f"gauge peak {peak[0]}; launches {got}")
+            return eng
+        except Exception:
+            eng.shutdown(drain=False)
+            raise
+
+    # (a) static float32: every step a graph replay of 12 B4 launches
+    eng_a = run("static")
+    got, turns = info["static"]["launches"], info["static"]["turns"]
+    check(got["flash_decode"] == n_blocks * turns and got["flash_forward"] == 0,
+          f"the static engine must launch B4 {n_blocks} times a step ({turns} steps): {got}")
+    check(eng_a._graph is not None and eng_a._graph.launches == {"flash_decode": n_blocks},
+          f"the static engine's step must replay a CUDA graph of {n_blocks} B4 launches")
+    # the plain step, uncaptured against graph replay, on the engine's carry
+    # (idle: every row stepped at the positions the run left)
+    rows = np.ones(B, bool)
+    ints, floats = eng_a._step_inputs(rows)
+    ints_d, floats_d = ints.cuda(), floats.cuda()
+
+    def eager_step():
+        return eng_a._decode_rows(ints_d, floats_d).cpu()
+
+    def graph_step():
+        return eng_a._plain_step(ints, floats).cpu()
+
+    times = {"eager": [], "graph": []}
+    with torch.no_grad():
+        for label in ("eager", "graph", "graph", "eager"):
+            fn = eager_step if label == "eager" else graph_step
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times[label].append(time.perf_counter() - t0)
+    eager_ms = 1e3 * float(np.median(times["eager"]))
+    graph_ms_ = 1e3 * float(np.median(times["graph"]))
+    print(f"engine static plain step [8, 1] ({card}): eager {eager_ms:.3f} ms/step = "
+          f"{B / eager_ms * 1e3:.1f} tokens/s, CUDA graph {graph_ms_:.3f} ms/step = "
+          f"{B / graph_ms_ * 1e3:.1f} tokens/s (median of 20 each, paired rounds, sampled "
+          f"tokens read back to the host as the engine does)")
+    eng_a.shutdown()
+
+    # sampled: one request alone and the same in the full batch
+    skw = dict(greedy=False, temperature=0.8, top_k=40, top_p=0.95, seed=7)
+    eng_s = DecodeEngine(model, max_len=T_FULL, slots=B, registry=MetricsRegistry(), name="sampled")
+    try:
+        alone = eng_s.submit(prompts[0], max_tokens=16, **skw).result(timeout=600)
+        batch = [eng_s.submit(p, max_tokens=16) for p in prompts[1:]]
+        mine = eng_s.submit(prompts[0], max_tokens=16, **skw)
+        in_batch = mine.result(timeout=600)
+        for h in batch + [mine]:
+            h.result(timeout=600)
+            check(h.reason == "completed", f"sampled run: a request ended {h.reason!r}")
+    finally:
+        eng_s.shutdown()
+    print(f"sampled request (T 0.8, top-k 40, top-p 0.95, seed 7): alone {alone}, in a batch "
+          f"of 8 {in_batch}")
+    check(alone == in_batch, "a sampled request must draw the same tokens alone and in a batch")
+
+    # (b) paged float32: the same B4 inputs after the gather
+    run("paged", block_size=16).shutdown()
+    got, turns = info["paged"]["launches"], info["paged"]["turns"]
+    check(got["flash_decode"] == n_blocks * turns,
+          f"the paged engine must launch B4 {n_blocks} x {turns}: {got}")
+    check(streams["paged"] == streams["static"],
+          "the paged engine's greedy streams must equal the static engine's")
+    # (c), (d) int8: B4 on the dequantized cache
+    for label, kw in (("int8", {}), ("paged int8", {"block_size": 16})):
+        run(label, hook=_seam_snapshot, cache_dtype="int8", **kw).shutdown()
+        got, turns = info[label]["launches"], info[label]["turns"]
+        check(got["flash_decode"] == n_blocks * turns,
+              f"the {label} engine must launch B4 {n_blocks} x {turns}: {got}")
+        snap = info[label]["snap"]
+        check(bool(snap), f"{label}: no step ran")
+        gen = torch.Generator().manual_seed(SEED + 9)
+        q = torch.randn(B, H, 1, D, generator=gen).cuda()
+        before = fa.LAUNCH_COUNTS["flash_decode"]
+        out = fa.decode_attention(q, snap["cache_k"], snap["cache_v"], snap["pos"],
+                                  k_scale=snap["cache_k_scale"], v_scale=snap["cache_v_scale"])
+        check(fa.LAUNCH_COUNTS["flash_decode"] == before + 1, "int8 tq=1 must reach B4")
+        deq = [snap[k].float() * snap[k + "_scale"][..., None] for k in ("cache_k", "cache_v")]
+        ref = fa.decode_attention_reference(q, deq[0], deq[1], snap["pos"])
+        live = snap["active"].cuda()
+        e = max_err(out[live], ref[live])
+        print(f"{label} seam: B4 on the dequantized cache vs decode_attention_reference, "
+              f"active rows at positions {snap['pos'][live].tolist()}: max_abs {e:.3e} "
+              f"(tol {TOL_OUT[torch.float32]:g})")
+        check(e <= TOL_OUT[torch.float32], f"{label}: B4 disagrees with the reference")
+    check(streams["paged int8"] == streams["int8"],
+          "the paged int8 engine's greedy streams must equal the int8 engine's")
+    # (e) speculative, k = 4
+    blk = model.layers[2]
+    draft = TransformerLM(vocab_size=model.layers[-1].n_out, hidden=blk.n_in, n_layers=2,
+                          n_heads=blk.n_heads, ffn_size=blk.ffn_size, max_len=T_FULL,
+                          seed=SEED + 11, dtype="float32").init()
+    for label, dm, nl in (("spec self-draft", model, n_blocks), ("spec 2-block draft", draft, 2)):
+        eng = run(label, draft_model=dm, speculative_k=4)
+        eng.shutdown()
+        sp = info[label]["stats"]["speculative"]
+        got, turns = info[label]["launches"], info[label]["turns"]
+        spec_steps = sp["steps"]
+        plain_turns = turns - spec_steps
+        check(got["flash_decode"] == 5 * nl * spec_steps + n_blocks * plain_turns,
+              f"{label}: B4 must launch {nl} x 5 a speculative step and {n_blocks} a plain "
+              f"one ({spec_steps}, {plain_turns}): {got}")
+        # a row proposes k = 4 a step: its steps are proposed / 4, and each
+        # emits its accepted tokens plus one from the target
+        row_steps = sp["proposed"] / 4
+        sp["rate"] = sp["accepted"] / sp["proposed"]
+        sp["per_step"] = (sp["accepted"] + row_steps) / row_steps
+        print(f"{label}: acceptance {sp['accepted']} of {sp['proposed']} proposed = "
+              f"{sp['rate']:.4f}, {sp['per_step']:.4f} tokens a row per target forward, over "
+              f"{spec_steps} speculative steps of the batch")
+        info[label]["sp"] = sp
+    check(info["spec self-draft"]["sp"]["per_step"] == 5.0,
+          "the target as its own draft must have every greedy proposal accepted")
+    check(info["spec 2-block draft"]["sp"]["rate"] < 1.0, "a 2-block draft must see rejections")
+    del draft
+
+    # every greedy token near the position's maximum, teacher-forced
+    for label in ("static", "paged", "spec self-draft", "spec 2-block draft"):
+        gap = _greedy_gap(model, prompts, streams[label])
+        print(f"engine {label}: greedy tokens vs a teacher-forced output(): worst gap below the "
+              f"position's maximum log-prob {gap:.3e} (tol {TOL_LOGPROB:g})")
+        check(gap <= TOL_LOGPROB, f"{label}: a greedy token is not the argmax")
+    # int8 against float32, teacher-forced on the float32 stream
+    fp = _teacher_forced(model, prompts, streams["static"])
+    s8 = GenerationSession(model, max_len=T_FULL, cache_dtype="int8")
+    carry, logits, _ = s8.prefill(prompts)
+    lp8 = [logits]
+    for s_ in range(MAX_TOKENS - 1):
+        carry, logits = s8.decode(carry, [row[s_] for row in streams["static"]])
+        lp8.append(logits)
+    lp8 = torch.stack(lp8, dim=1)  # [b, 64, V]
+    gap8 = max(max_err(lp8[i], fp[i]) for i in range(B))
+    spread = max(float((f.max(dim=1).values - f.mean(dim=1)).max()) for f in fp)
+    int8_rel = 2 * n_blocks * INT8_STEP_REL
+    gate8 = int8_rel * spread
+    agree8 = sum(a == b for ra, rb in zip(streams["int8"], streams["static"]) for a, b in zip(ra, rb))
+    print(f"int8 vs float32, teacher-forced on the float32 stream: log-prob max_abs "
+          f"{gap8:.3e}, gate {gate8:.3e} ({int8_rel:.4f} x the largest logit spread above the "
+          f"mean {spread:.4f}); int8 greedy tokens equal to float32's: {agree8} of "
+          f"{B * MAX_TOKENS}")
+    check(gap8 <= gate8, "int8 log-probs outside the quantization bound")
+    del fp, lp8, carry
+    # resident cache bytes
+    sess = GenerationSession(model, max_len=T_FULL)
+    print(f"cache_bytes(8): static float32 {sess.cache_bytes(B)}, int8 {s8.cache_bytes(B)}; "
+          f"kv_cache_bytes gauge peaks: static {info['static']['peak_kv']}, paged "
+          f"{info['paged']['peak_kv']}, int8 {info['int8']['peak_kv']}, paged int8 "
+          f"{info['paged int8']['peak_kv']}, 2-block draft {info['spec 2-block draft']['peak_kv']}")
+    return total
 
 
 def phase_train(card: str) -> dict:
@@ -905,7 +1268,7 @@ def phase_moe(card: str):
     kept, dropped = sum(routed), float(st["dropped_tokens"])
     check(kept + dropped == TOPK * B * T_FULL and float(st["capacity_slots"]) == E_MOE * CAPACITY,
           f"every assignment is kept or dropped: {routed} + {dropped}")
-    with torch.inference_mode():  # the masked path's state
+    with torch.no_grad():  # the masked path's state
         _, new_state, _ = model.forward_pure(model.params, model.state, ids, mask=mask)
     st_m = new_state[MOE_LAYER]
     m_kept, m_dropped = float(st_m["expert_tokens"].sum()), float(st_m["dropped_tokens"])
@@ -1277,15 +1640,19 @@ def main() -> int:
     dec = timed("B4", phase_flash_decode, gen, [n + MAX_TOKENS // 2 for n in prompt_lens])
     bwd = timed("B2/B3", phase_flash_backward, gen)
     timed("new instantiations", phase_new_instantiations, gen)
-    paths = [timed("LM serving", phase_model, prompts), timed("LM training", phase_train, card)]
+    serving, model = timed("LM serving", phase_model, prompts)
+    paths = [serving, timed("LM engine", phase_engine, model, prompts, card)]
+    del model
+    timed("device sampler", phase_sampler)
+    paths.append(timed("LM training", phase_train, card))
     moe, routed = timed("MoE network", phase_moe, card)
     paths.append(moe)
     gmm = timed("B5", phase_grouped_matmul, gen, routed)
     paths += [timed("head-dim-256 LM", phase_lm_head256),
               timed("float16 LM", phase_lm_f16, prompts),
               timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64)]
-    # launches over the paths: LM serving and training, the MoE network, and
-    # the head-dim-256, float16, float64 and float64-MoE paths
+    # launches over the paths: LM serving, the engines and training, the MoE
+    # network, and the head-dim-256, float16, float64 and float64-MoE paths
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

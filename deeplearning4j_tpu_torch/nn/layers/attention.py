@@ -1,5 +1,6 @@
 """Attention layers (port of ``TransformerDecoderBlockLayer`` and the
-static-cache decode path from ``deeplearning4j_tpu/nn/layers/attention.py``).
+cached decode path from ``deeplearning4j_tpu/nn/layers/attention.py``:
+static, int8 and paged KV caches).
 
 Data format follows the recurrent convention [batch, features, time]; heads
 are split internally to [batch, heads, time, head_dim]. Attention goes
@@ -18,6 +19,7 @@ import torch
 
 from ...core.config import register_config
 from ...ops.flash_attention import decode_attention, mha_attention
+from ...ops.paged_attention import paged_cache_write, paged_decode_attention
 from ..activations import Activation
 from ..input_type import InputType, RecurrentType
 from ..weights import WeightInit, init_weights
@@ -30,16 +32,41 @@ def dot_product_attention(q, k, v, mask=None, scaled: bool = True,
     return mha_attention(q, k, v, mask=mask, scale=scale, causal=causal)
 
 
-def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Write ``new`` [b, h, t, d] into the preallocated cache [b, h, L, d]
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write ``new`` [b, h, t, ...] into the preallocated cache [b, h, L, ...]
     at per-row positions ``pos + [0, t)``, in place, with one scatter. As
     with ``lax.dynamic_update_slice``, a start that would run past the end
-    is clamped to ``L - t``. Returns ``cache``."""
-    b, h, t, d = new.shape
+    is clamped to ``L - t``. Rows where ``rows`` is False write back the
+    entries they hold, so their cache stays bit for bit as it was (the
+    in-place counterpart of the JAX engine restoring an inactive row from
+    the carry it kept). Returns ``cache``."""
+    b, h, t = new.shape[:3]
     start = torch.clamp(pos.long(), 0, cache.shape[2] - t)
     idx = start[:, None] + torch.arange(t, device=cache.device)[None, :]  # [b, t]
-    cache.scatter_(2, idx[:, None, :, None].expand(b, h, t, d), new.to(cache.dtype))
+    idx = idx.reshape((b, 1, t) + (1,) * (new.ndim - 3)).expand(new.shape)
+    vals = new.to(cache.dtype)
+    if rows is not None:
+        keep = rows.reshape((b,) + (1,) * (new.ndim - 1))
+        vals = torch.where(keep, vals, torch.gather(cache, 2, idx))
+    cache.scatter_(2, idx, vals)
     return cache
+
+
+# the per-slot scale planes [b, h, L] take the same write as the caches
+_scale_write = _cache_write
+
+
+def quantize_kv_rows(x: torch.Tensor, eps: float = 1e-8):
+    """Symmetric per-(row, head, position) int8 quantization of a K/V
+    write [b, h, t, d]: the scale is the absmax over the head dim, so one
+    float32 scale rides each cached slot. Rounds half to even, as
+    ``jnp.round`` does. Returns ``(q int8, scale float32 [b, h, t])``;
+    dequant is ``q * scale[..., None]``."""
+    xf = x.float()
+    scale = torch.clamp_min(torch.amax(torch.abs(xf), dim=-1), eps) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _cached_attention(q, k_new, v_new, state, mask):
@@ -48,19 +75,42 @@ def _cached_attention(q, k_new, v_new, state, mask):
     (output, new_state). ``mask`` (the prompt's [b, t] validity mask)
     bounds how far ``pos`` advances, so right-padded prefill rows keep
     their true length and later decode steps overwrite the pad slots
-    before anything attends to them. Only the static float cache is
-    ported; paged and int8 caches raise."""
-    if "block_table" in state or "cache_k_scale" in state:
-        raise NotImplementedError("paged and int8 KV caches are not ported yet")
+    before anything attends to them.
+
+    The state's keys pick the cache: ``cache_k_scale``/``cache_v_scale``
+    mark an int8 cache (quantize on write, dequantize in
+    :func:`decode_attention`); ``block_table`` a paged one (shared block
+    pools, written and gathered through the table). ``write_rows`` [b]
+    (set by ``generate.paged.redirect_inactive_writes`` for a static cache)
+    keeps the rows where it is False unchanged. Writes are in place."""
     t = q.shape[2]
     pos = state["pos"]
     valid = t if mask is None else torch.sum(mask > 0, dim=1).to(torch.int32)
-    cache_k = _cache_write(state["cache_k"], k_new, pos)
-    cache_v = _cache_write(state["cache_v"], v_new, pos)
-    # query i at absolute position pos+i attends cache [0, pos+i]; the
-    # single-token step dispatches to the decode kernel
-    o = decode_attention(q, cache_k, cache_v, pos)
-    return o, {"cache_k": cache_k, "cache_v": cache_v, "pos": pos + valid}
+    out = {key: state[key] for key in ("block_table", "write_rows") if key in state}
+    if "cache_k_scale" in state:  # int8 slots + float32 scale planes
+        kq, ks = quantize_kv_rows(k_new)
+        vq, vs = quantize_kv_rows(v_new)
+        planes = {"cache_k": kq, "cache_v": vq, "cache_k_scale": ks, "cache_v_scale": vs}
+    else:
+        planes = {"cache_k": k_new, "cache_v": v_new}
+    if "block_table" in state:  # paged: shared block pools
+        table = state["block_table"]
+        for key, new in planes.items():
+            out[key] = paged_cache_write(state[key], new, table, pos)
+        o = paged_decode_attention(q, out["cache_k"], out["cache_v"], table, pos,
+                                   k_scale=out.get("cache_k_scale"),
+                                   v_scale=out.get("cache_v_scale"))
+    else:
+        rows = state.get("write_rows")
+        for key, new in planes.items():
+            out[key] = _cache_write(state[key], new, pos, rows)
+        # query i at absolute position pos+i attends cache [0, pos+i]; the
+        # single-token step dispatches to the decode kernel
+        o = decode_attention(q, out["cache_k"], out["cache_v"], pos,
+                             k_scale=out.get("cache_k_scale"),
+                             v_scale=out.get("cache_v_scale"))
+    out["pos"] = pos + valid
+    return o, out
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:

@@ -23,6 +23,12 @@ from .grouped_matmul import (
     reset_launch_counts as _reset_grouped_matmul_counts,
     set_grouped_matmul_impl,
 )
+from .paged_attention import (
+    pack_row_blocks,
+    paged_cache_write,
+    paged_decode_attention,
+    paged_gather,
+)
 from .moe_dispatch import (
     DispatchPlan,
     combine_rows,
@@ -62,6 +68,10 @@ __all__ = [
     "make_dispatch_plan",
     "mha_attention",
     "mha_attention_reference",
+    "pack_row_blocks",
+    "paged_cache_write",
+    "paged_decode_attention",
+    "paged_gather",
     "reset_launch_counts",
     "scatter_combine",
     "set_attention_impl",

@@ -138,7 +138,11 @@ def decode_attention_reference(q, k, v, start_pos, scale: Optional[float] = None
     k_ids = torch.arange(L, device=q.device)[None, :]
     limit = start_pos.to(device=q.device, dtype=torch.int64)[:, None, None, None] + q_ids
     keep = k_ids <= limit
-    neg = torch.tensor(_NEG, dtype=scores.dtype, device=scores.device)
+    # filled on the device, not copied from the host (a copy would break a
+    # CUDA graph capture of the decode step); the cast gives what
+    # torch.tensor(_NEG, dtype) gives, -inf in float16
+    neg = torch.full((), _NEG, dtype=torch.promote_types(scores.dtype, torch.float32),
+                     device=scores.device).to(scores.dtype)
     scores = torch.where(keep, scores, neg)
     weights = torch.softmax(scores, dim=-1)
     any_valid = torch.any(scores > _NEG * 0.5, dim=-1, keepdim=True)
@@ -562,10 +566,20 @@ def decode_attention(q, k, v, start_pos, scale: Optional[float] = None,
                      k_scale=None, v_scale=None) -> torch.Tensor:
     """Helper-seam dispatch for KV-cache attention: the decode kernel for a
     single-row query, :func:`decode_attention_reference` for a multi-row
-    query (bucketed prefill, which the JAX package also computes outside
-    any kernel). The int8 cache (``k_scale``/``v_scale``) is not ported yet."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 KV caches are not ported yet")
+    query (bucketed prefill and the speculative verify, which the JAX
+    package also computes outside any kernel).
+
+    ``k_scale``/``v_scale`` ([b, h, L] float32, per slot and head) mark an
+    int8 cache: it is dequantized here (``cache * scale``, in ``q.dtype``,
+    as the JAX seam does) and the dequantized copy takes the same route as
+    a float cache. The JAX package sends int8 to the reference spelling
+    always, its Pallas kernel being float-only; here a single-row query
+    reaches the decode kernel, which computes the same function, so no
+    plain version runs on the card."""
+    if k_scale is not None:
+        k = k.to(q.dtype) * k_scale[..., None].to(q.dtype)
+    if v_scale is not None:
+        v = v.to(q.dtype) * v_scale[..., None].to(q.dtype)
     if q.shape[2] == 1 and _kernel_route(q):
         return flash_decode_attention(q, k, v, start_pos, scale=scale)
     return decode_attention_reference(q, k, v, start_pos, scale=scale)

@@ -483,3 +483,100 @@ def test_grouped_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ops.grouped_matmul(lhs.int(), gs, rhs.int())
     with pytest.raises(ValueError, match="operands"):
         ops.grouped_matmul(lhs, gs.cpu(), rhs)
+
+
+# ---------------------------------------------------------------------------
+# the decode step's CUDA graph, the int8 seam and the device sampler
+# ---------------------------------------------------------------------------
+
+
+def _small_lm(device):
+    from deeplearning4j_tpu_torch.model.zoo import TransformerLM
+
+    return TransformerLM(vocab_size=97, hidden=64, n_layers=2, n_heads=2, max_len=64,
+                         seed=4).init(device=device)
+
+
+@pytest.mark.parametrize("impl", ["auto", "reference"])
+def test_session_decode_graph_matches_the_eager_step(cuda, impl):
+    """``GenerationSession.decode`` runs a carry's first step eagerly, then
+    replays a graph of it: the same logits as the uncaptured step on a copy
+    of the carry, and the graph's 2 B4 launches counted on each replay
+    (none through the materialised-scores seam, which is captured too)."""
+    ops.set_attention_impl(impl)
+    try:
+        _session_graph_case(cuda, impl)
+    finally:
+        ops.set_attention_impl("auto")
+
+
+def _session_graph_case(cuda, impl):
+    from deeplearning4j_tpu_torch.generate import GenerationSession
+
+    session = GenerationSession(_small_lm(cuda), max_len=64)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 20]
+    carry_g, logits, _ = session.prefill(prompts)
+    carry_e, _, _ = session.prefill(prompts)
+    toks = torch.argmax(logits, dim=-1)
+    ops.reset_launch_counts()
+    for _ in range(6):
+        carry_g, lg = session.decode(carry_g, toks)
+        with torch.no_grad():
+            le = session.step(carry_e, toks.to(torch.int32))
+        assert (lg - le).abs().max().item() <= 1e-6
+        toks = torch.argmax(lg, dim=-1)
+    n = 2 if impl == "auto" else 0
+    assert session._graphs[3].step.launches == ({"flash_decode": n} if n else {})
+    assert ops.LAUNCH_COUNTS["flash_decode"] == n * 12  # 6 steps each way
+    session.release_graphs()
+    assert not session._graphs
+
+
+def test_engine_step_graph_keeps_greedy_streams_and_counts(cuda):
+    from deeplearning4j_tpu_torch.generate import GenerationSession
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import DecodeEngine
+
+    model = _small_lm(cuda)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 20]
+    want = GenerationSession(model, max_len=64).generate(prompts, 12)
+    for kw in ({}, {"block_size": 8}, {"cache_dtype": "int8"}):
+        eng = DecodeEngine(model, max_len=64, slots=4, registry=MetricsRegistry(), **kw)
+        turns = []
+        eng._step_hook = lambda: turns.append(1)
+        try:
+            ops.reset_launch_counts()
+            handles = [eng.submit(p, max_tokens=12) for p in prompts]
+            got = [h.result(timeout=120) for h in handles]
+            assert all(h.reason == "completed" for h in handles)
+            assert eng._graph is not None and eng._graph.launches == {"flash_decode": 2}
+            assert ops.LAUNCH_COUNTS["flash_decode"] == 2 * len(turns)
+        finally:
+            eng.shutdown()
+        if "cache_dtype" not in kw:
+            assert got == want
+
+
+def test_int8_seam_reaches_b4(cuda):
+    from deeplearning4j_tpu_torch.nn.layers.attention import quantize_kv_rows
+
+    gen = torch.Generator().manual_seed(8)
+    q = _rand(gen, (2, 3, 1, 64), torch.float32, cuda)
+    kq, ks = quantize_kv_rows(_rand(gen, (2, 3, 40, 64), torch.float32, cuda))
+    vq, vs = quantize_kv_rows(_rand(gen, (2, 3, 40, 64), torch.float32, cuda))
+    pos = torch.tensor([5, 39], dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs)
+    assert ops.LAUNCH_COUNTS["flash_decode"] == 1
+    ref = ops.decode_attention_reference(q, kq.float() * ks[..., None], vq.float() * vs[..., None],
+                                         pos)
+    assert (out - ref).abs().max().item() <= TOL[torch.float32]
+
+
+def test_device_sampler_bits_equal_the_cpu_bits(cuda):
+    from deeplearning4j_tpu_torch.generate import sampling
+
+    seeds, steps = torch.arange(64) * 977, torch.arange(64) % 7
+    for tag in (0, 0x5A, 0x5B):
+        cpu = sampling.random_bits(seeds, steps, tag, 33, "cpu")
+        assert torch.equal(sampling.random_bits(seeds, steps, tag, 33, cuda).cpu(), cpu)

@@ -183,10 +183,3 @@ def test_seam_routes_auto_and_reference():
     # CPU calls run the plain versions: no kernel launch is counted
     assert pfa.LAUNCH_COUNTS == {"flash_forward": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0, "flash_decode": 0}
-
-
-def test_int8_cache_scales_not_ported():
-    q, k, v = (_t(a) for a in _qkv(9, 1, 1, 1, 8, 8))
-    with pytest.raises(NotImplementedError):
-        pfa.decode_attention(q, k, v, torch.zeros(1, dtype=torch.int32),
-                             k_scale=torch.ones(1, 1, 8))

@@ -129,11 +129,6 @@ def test_seeded_sampling_distribution_and_replay():
     assert set(top2.numpy().tolist()) <= {0, 1}
 
 
-def test_int8_cache_not_ported(models):
-    with pytest.raises(NotImplementedError):
-        GenerationSession(models[1], max_len=48, cache_dtype="int8")
-
-
 def test_cache_write_in_place_matches_jax():
     from deeplearning4j_tpu.nn.layers import attention as jax_attention
     from deeplearning4j_tpu_torch.nn.layers import attention as port_attention
