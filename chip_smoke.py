@@ -16,7 +16,14 @@ a ``TransformerLM`` through ``output()`` on 8 prompts of 1024 tokens and
 from a CUDA graph), serves the same prompts through the continuous-batching
 ``DecodeEngine`` over static, paged, int8 and paged int8 caches and with
 speculative decoding (the target as its own draft, and a 2-block draft),
-checks the device sampler against the CPU's and a softmax, trains one with
+serves it over HTTP (``JsonModelServer`` on 127.0.0.1: batched ``output()``
+on ``/v1/serving``, streamed ``/v1/generate`` over the static engine, a
+disaggregated prefill host -> handoff -> paged decode host behind a
+``DisaggCoordinator`` with its unified fallback, a hot swap from a
+``ModelStore`` through deploy, canary and promotion with ``park()`` and
+``unpark()``, and an ``EnginePool`` of two engines), holding every stream
+to the in-process engine's, checks the device sampler against the CPU's
+and a softmax, trains one with
 ``Solver.fit_batch`` (Adam 1e-4) on 8 x 1024 tokens, and runs ``output()``
 and ``Solver.fit_batch`` on the MoE network of
 ``tools/moe_profile.py::moe_lm_conf`` (one such block, then 8 experts of
@@ -49,11 +56,14 @@ device it exits with 2 and prints no result.
 from __future__ import annotations
 
 import ctypes
+import http.client
 import json
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import importlib
@@ -168,6 +178,16 @@ TOL_LOGPROB = 2e-3
 # above the mean (0.094 for 12 blocks). A scale applied twice or not at all
 # moves the log-probs by the whole spread.
 INT8_STEP_REL = 1 / 254
+# POST /v1/serving against output() on the same row, max abs error over the
+# largest probability. The server batches the 8 clients' rows into one
+# forward, output() runs one row: the same float32 arithmetic per row (B1
+# and the layer norms work row by row), but the dense products may take
+# other cuBLAS blockings for another batch (~1e-7 relative).
+TOL_HTTP_REL = 1e-5
+# The hot-swap check's depth (GPT-2 small's widths, 2 of its 12 blocks): two
+# published versions of 2 blocks take 2 x 0.37 GB of disk and load in
+# seconds; 12 blocks would take 2 x 0.65 GB.
+SWAP_LAYERS = 2
 # The device sampler's chi-square against the softmax over a small fixed
 # vocabulary (8 tokens, 7 degrees of freedom): 24.32 is its 0.999 quantile.
 CHI2_DF7_999 = 24.32
@@ -952,7 +972,8 @@ def phase_engine(model, prompts, card: str) -> dict:
     target as its own draft and once with a 2-block draft at the same
     widths. Each engine first serves one short warm-up request, so its
     plain step's CUDA graph is captured before the counted run. Returns the
-    launch counts of the counted runs."""
+    launch counts of the counted runs and the static engine's greedy
+    streams."""
     from deeplearning4j_tpu_torch.obs import MetricsRegistry
     from deeplearning4j_tpu_torch.parallel import DecodeEngine
 
@@ -1141,7 +1162,354 @@ def phase_engine(model, prompts, card: str) -> dict:
           f"kv_cache_bytes gauge peaks: static {info['static']['peak_kv']}, paged "
           f"{info['paged']['peak_kv']}, int8 {info['int8']['peak_kv']}, paged int8 "
           f"{info['paged int8']['peak_kv']}, 2-block draft {info['spec 2-block draft']['peak_kv']}")
-    return total
+    return total, streams["static"]
+
+
+def _http(port: int, path: str, payload=None, *, method: str = "POST",
+          headers=None):
+    """One HTTP call to a local server: (status, headers, body bytes)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        body = None if payload is None else json.dumps(payload).encode()
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _stream(port: int, prompt, n_tok: int):
+    """A streamed ``POST /v1/generate``: (tokens, seconds from sending to
+    the first NDJSON event, the terminal event)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": prompt, "max_tokens": n_tok, "stream": True}).encode())
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"/v1/generate answered {resp.status}: {resp.read()[:200]}")
+        toks, ttft, last = [], None, None
+        for line in resp:
+            if not line.strip():
+                continue
+            ev = json.loads(line)
+            ttft = time.perf_counter() - t0 if ttft is None else ttft
+            if "token" in ev:
+                toks.append(ev["token"])
+            if ev.get("done"):
+                last = ev
+                break
+        check(last is not None and last["reason"] == "completed" and len(toks) == n_tok,
+              f"a stream ended {last} after {len(toks)} tokens")
+        return toks, ttft, last
+    finally:
+        conn.close()
+
+
+def _concurrently(fn, arg_lists):
+    """``fn(*args)`` for every ``args`` on a thread of its own, all started
+    together: the results in order, or the first error raised."""
+    out, errors = [None] * len(arg_lists), []
+
+    def run(i, args):
+        try:
+            out[i] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(arg_lists)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    check(not any(th.is_alive() for th in threads), "a client thread did not finish")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _streams_over_http(port: int, prompts, n_tok: int):
+    """The prompts' streams from one client thread each: (streams, seconds,
+    mean seconds to the first event)."""
+    t0 = time.perf_counter()
+    res = _concurrently(_stream, [(port, p, n_tok) for p in prompts])
+    dt = time.perf_counter() - t0
+    return [r[0] for r in res], dt, float(np.mean([r[1] for r in res]))
+
+
+def _streams_in_process(eng, prompts, n_tok: int):
+    """The same through ``eng.submit``, one consumer thread a handle."""
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_tokens=n_tok) for p in prompts]
+
+    def consume(h):
+        first = None
+        for _ in h.events(timeout=600):
+            first = time.perf_counter() - t0 if first is None else first
+        check(h.reason == "completed", f"{eng.name}: a request ended {h.reason!r}")
+        return list(h.tokens), first
+
+    res = _concurrently(consume, [(h,) for h in handles])
+    dt = time.perf_counter() - t0
+    return [r[0] for r in res], dt, float(np.mean([r[1] for r in res]))
+
+
+def _hist_mean(h, since=(0.0, 0)) -> tuple:
+    """(mean of a histogram child's observations since ``since``, count)."""
+    n = h.count - since[1]
+    return ((h.sum - since[0]) / n if n else float("nan")), n
+
+
+def phase_http(model, prompts, want, card: str) -> dict:
+    """The port's HTTP serving stack on the GPT-2-small-width LM, every
+    server on 127.0.0.1 with port 0, in this process:
+
+    1. ``POST /v1/serving``: 8 concurrent clients send one [1, 16] row of
+       ids each; ``ParallelInference`` batches them (B1 in every block),
+       and each answer must be within ``TOL_HTTP_REL`` of ``output()``.
+    2. ``POST /v1/generate`` over the static ``DecodeEngine``: the 8 ragged
+       prompts from 8 client threads for 64 greedy tokens, streams equal to
+       ``phase_engine``'s ``want``; the in-process engine's tokens/s and
+       time to first token beside the HTTP ones; ``/metrics`` carries the
+       ``dl4j_tpu_generate_*`` series, ``/v1/traces`` the engine's spans.
+    3. Disaggregated: a prefill host (``PrefillEngine``), a decode host (a
+       paged ``DecodeEngine``, ``block_size=16``) and a front host whose
+       generator is a ``DisaggCoordinator``; the same streams, the handoff
+       bytes and milliseconds per request; then one request with the
+       prefill host stopped takes the unified fallback and still matches.
+    4. Hot swap: a ``ModelStore`` in a temporary directory with two
+       published versions (``SWAP_LAYERS`` blocks at GPT-2's widths,
+       different seeds) behind ``/v1/models/lm``; ``deploy(1)``,
+       ``start_canary(2)``, ``promote_canary()`` while two clients keep
+       sending requests, none of which may fail; then ``park()`` must lower
+       ``torch.cuda.memory_allocated`` by at least the live model's
+       parameter bytes, and ``unpark()`` serve again.
+    5. An ``EnginePool`` over two static ``DecodeEngine`` replicas behind
+       ``/v1/generate`` (``pool=``): the same streams.
+
+    Returns the B1/B4 launch counts of the phase (the references of check
+    1 are computed before the counts are set to 0)."""
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry, Tracer
+    from deeplearning4j_tpu_torch.parallel import DecodeEngine, EnginePool
+    from deeplearning4j_tpu_torch.remote import JsonModelServer
+    from deeplearning4j_tpu_torch.serving import (DisaggCoordinator, ModelManager,
+                                                  ModelStore, PrefillEngine, model_bytes)
+
+    rs = np.random.RandomState(SEED + 21)
+    vocab = model.layers[-1].n_out
+    rows = [rs.randint(0, vocab, (1, 16)) for _ in range(B)]
+    refs = [model.output(r)[0].cpu() for r in rows]
+    fa.reset_launch_counts()
+
+    # (1) batched output() over HTTP
+    srv = JsonModelServer(model, registry=MetricsRegistry(), name="http-serving", workers=2,
+                          batch_limit=B).start()
+    try:
+        def call(r):
+            st, _, body = _http(srv.port, "/v1/serving", {"data": r.tolist()})
+            check(st == 200, f"/v1/serving answered {st}")
+            return torch.tensor(json.loads(body)["output"])
+
+        t0 = time.perf_counter()
+        outs = _concurrently(call, [(r,) for r in rows])
+        dt = time.perf_counter() - t0
+        err = max(max_err(o, ref) / float(ref.abs().max()) for o, ref in zip(outs, refs))
+        s = srv.stats()
+        print(f"http /v1/serving ({card}): {B} clients x [1, 16] ids in {dt * 1e3:.1f} ms "
+              f"({s['batches']} forwards, mean batch {s['mean_batch_size']:.2f}); answers vs "
+              f"output() max_abs over the largest probability {err:.3e} (tol {TOL_HTTP_REL:g})")
+        check(all(tuple(o.shape) == (vocab, 16) for o in outs), "/v1/serving answered a wrong shape")
+        check(err <= TOL_HTTP_REL, "/v1/serving disagrees with output()")
+    finally:
+        srv.stop()
+
+    # (2) streamed generation over the static engine
+    tracer = Tracer(sample_rate=1.0)
+    reg = MetricsRegistry()
+    eng = DecodeEngine(model, max_len=T_FULL, slots=B, registry=reg, name="http-static",
+                       tracer=tracer)
+    srv = JsonModelServer(generator=eng, registry=reg, tracer=tracer, name="http-generate").start()
+    try:
+        _stream(srv.port, prompts[0][:8], 3)  # warm-up: eager step, capture, replay
+        local, dt_l, ttft_l = _streams_in_process(eng, prompts, MAX_TOKENS)
+        remote, dt_h, ttft_h = _streams_over_http(srv.port, prompts, MAX_TOKENS)
+        check(local == want, "the in-process streams differ from phase_engine's static streams")
+        check(remote == want, "the HTTP streams differ from the in-process engine's")
+        metrics = _http(srv.port, "/metrics", method="GET")[2].decode()
+        check("dl4j_tpu_generate_tokens_total" in metrics, "/metrics lacks dl4j_tpu_generate_*")
+        tracer.flush()
+        traces = json.loads(_http(srv.port, "/v1/traces?limit=200", method="GET")[2])["traces"]
+        spans = {sp["name"] for tr in traces for sp in tr["spans"]}
+        check({"server.request", "engine.prefill", "engine.decode"} <= spans,
+              f"/v1/traces lacks the engine's spans: {sorted(spans)}")
+        n = B * MAX_TOKENS
+        print(f"http /v1/generate static ({card}): {B} x {MAX_TOKENS} greedy tokens, "
+              f"{n / dt_h:.1f} tokens/s, mean time to first token {ttft_h * 1e3:.1f} ms over "
+              f"HTTP; in process {n / dt_l:.1f} tokens/s, {ttft_l * 1e3:.1f} ms (streams equal "
+              f"to phase_engine's; spans {sorted(spans)})")
+    finally:
+        srv.stop()
+        eng.shutdown()
+
+    # (3) disaggregated prefill -> handoff -> decode, and the fallback
+    reg = MetricsRegistry()
+    pe = PrefillEngine(model, max_len=T_FULL, registry=reg, name="prefill")
+    pre = JsonModelServer(prefill=pe, registry=reg, name="prefill-host").start()
+    dec_eng = DecodeEngine(model, max_len=T_FULL, slots=B, block_size=16, registry=reg,
+                           name="decode")
+    dec = JsonModelServer(generator=dec_eng, registry=reg, name="decode-host").start()
+    coord = DisaggCoordinator([f"http://127.0.0.1:{pre.port}"],
+                              [f"http://127.0.0.1:{dec.port}"], timeout=600.0, workers=B,
+                              registry=reg, name="front")
+    front = JsonModelServer(generator=coord, registry=reg, name="front-host").start()
+    try:
+        _stream(front.port, prompts[0][:8], 3)  # warm-up through both hops
+
+        def per_request(run, n):
+            """``run()``'s result and the handoff figures of its ``n``
+            requests: mean wire bytes, prefill-host and decode-host ms."""
+            since = {k: (h.sum, h.count) for k, h in (("bytes", coord._h_bytes),
+                                                     ("prefill", pe._h_prefill))}
+            copy0 = dict(dec_eng.handoff_copy)
+            out = run()
+            hb, n_ho = _hist_mean(coord._h_bytes, since["bytes"])
+            pms, _ = _hist_mean(pe._h_prefill, since["prefill"])
+            n_cp = dec_eng.handoff_copy["requests"] - copy0["requests"]
+            cms = (dec_eng.handoff_copy["seconds"] - copy0["seconds"]) / max(1, n_cp)
+            check(n_ho == n and n_cp == n, f"{n_ho} handoffs shipped, {n_cp} installed, not {n}")
+            return out, (f"handoff {hb:.0f} bytes on the wire, prefill host {pms * 1e3:.2f} ms "
+                         f"(bucketed prefill + copy to the host), decode host {cms * 1e3:.2f} ms "
+                         f"to rebuild the row on the card")
+
+        # the longest prompt alone, then the 8 together
+        (toks, ttft1, _), alone = per_request(
+            lambda: _stream(front.port, prompts[1], MAX_TOKENS), 1)
+        check(toks == want[1], "the disaggregated stream differs from the unified one")
+        print(f"http disaggregated, one request of {len(prompts[1])} tokens alone ({card}): "
+              f"time to first token {ttft1 * 1e3:.1f} ms; {alone}")
+        (got, dt, ttft), each = per_request(
+            lambda: _streams_over_http(front.port, prompts, MAX_TOKENS), B)
+        check(got == want, "the disaggregated streams differ from the unified ones")
+        print(f"http disaggregated ({card}): {B} x {MAX_TOKENS} greedy tokens, "
+              f"{B * MAX_TOKENS / dt:.1f} tokens/s, mean time to first token {ttft * 1e3:.1f} ms; "
+              f"per request: {each}")
+        pre.stop()
+        toks, _, _ = _stream(front.port, prompts[3], MAX_TOKENS)
+        fb = coord.stats()
+        check(toks == want[3] and fb["fallbacks"] == 1 and fb["handoffs"]["fallback"] == 1,
+              f"the fallback request must match and be counted: {fb['handoffs']}")
+        print(f"http disaggregated fallback ({card}): prefill host stopped, 1 request through "
+              f"the decode host's /v1/generate, stream equal; handoffs {fb['handoffs']}")
+    finally:
+        front.stop()
+        coord.shutdown()
+        dec.stop()
+        dec_eng.shutdown()
+        pre.stop()
+
+    # (4) hot swap from a model store, then park/unpark
+    widths = dict(vocab_size=vocab, hidden=model.layers[2].n_in, n_layers=SWAP_LAYERS,
+                  n_heads=model.layers[2].n_heads, ffn_size=model.layers[2].ffn_size,
+                  max_len=T_FULL, dtype="float32")
+    with tempfile.TemporaryDirectory() as root:
+        store = ModelStore(root)
+        t0 = time.perf_counter()
+        for seed in (SEED + 31, SEED + 32):
+            store.publish("lm", TransformerLM(seed=seed, **widths).init())
+        t_pub = time.perf_counter() - t0
+        reg = MetricsRegistry()
+        mgr = ModelManager(store, "lm", version=2, warmup_example=np.zeros((1, 1)), workers=2,
+                           batch_limit=4, registry=reg)
+        srv = JsonModelServer(managers={"lm": mgr}, registry=reg, name="swap-host").start()
+        # one id a row: the answer (50257 floats of JSON) keeps the clients'
+        # encoding from starving the swap's own thread of the interpreter
+        row = rs.randint(0, vocab, (1, 1)).tolist()
+        stop, answers = threading.Event(), []
+
+        def client():
+            while not stop.is_set():
+                st, hd, _ = _http(srv.port, "/v1/models/lm", {"data": row})
+                answers.append((st, hd.get("X-Model-Version")))
+
+        def await_answers(k):
+            end, n0 = time.monotonic() + 300, len(answers)
+            while len(answers) < n0 + k and time.monotonic() < end:
+                time.sleep(0.01)
+
+        clients = [threading.Thread(target=client) for _ in range(2)]
+        try:
+            for th in clients:
+                th.start()
+            await_answers(4)
+            steps = {}
+            for label, fn in (("deploy(1)", lambda: mgr.deploy(1)),
+                              ("start_canary(2)", lambda: mgr.start_canary(2, weight=0.5)),
+                              ("promote_canary()", mgr.promote_canary)):
+                t0 = time.perf_counter()
+                fn()
+                steps[label] = time.perf_counter() - t0
+                await_answers(4)
+        finally:
+            stop.set()
+            for th in clients:
+                th.join(timeout=600)
+        check(not any(th.is_alive() for th in clients), "a hot-swap client did not finish")
+        codes = sorted({st for st, _ in answers})
+        served = sorted({v for _, v in answers if v})
+        check(codes == [200], f"requests failed across the hot swap: codes {codes}")
+        check(mgr.live_version == "2" and served == ["1", "2"],
+              f"live {mgr.live_version}, versions served {served}")
+        torch.cuda.synchronize()
+        live_bytes = model_bytes(mgr.engine.model)
+        resident = mgr.resident_bytes()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        mgr.park()
+        t_park = time.perf_counter() - t0
+        after = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        mgr.unpark()
+        t_unpark = time.perf_counter() - t0
+        again = torch.cuda.memory_allocated()
+        st, hd, _ = _http(srv.port, "/v1/models/lm", {"data": row})
+        srv.stop()
+        mgr.shutdown()
+    print(f"http hot swap ({card}; depth cut 12 -> {SWAP_LAYERS} blocks at GPT-2 small's "
+          f"widths): 2 versions published in {t_pub:.2f} s; "
+          + ", ".join(f"{k} {v * 1e3:.0f} ms" for k, v in steps.items())
+          + f"; {len(answers)} requests across it, all 200, versions served {served}")
+    print(f"http park/unpark ({card}): memory_allocated {before} -> {after} bytes after park() "
+          f"(-{before - after}; live model's parameters {live_bytes}, resident live + rollback "
+          f"{resident}), {again} after unpark(); park {t_park * 1e3:.1f} ms, unpark "
+          f"{t_unpark * 1e3:.1f} ms (load, checksum, warm-up)")
+    check(before - after >= live_bytes, "park() did not free the live model's parameters")
+    check(st == 200 and hd.get("X-Model-Version") == "2", f"after unpark: {st}, {hd}")
+
+    # (5) a pool of two decode replicas behind /v1/generate
+    reg = MetricsRegistry()
+    reps = [DecodeEngine(model, max_len=T_FULL, slots=B, registry=reg, name=f"pool-r{i}")
+            for i in range(2)]
+    pool = EnginePool(engines=reps, registry=reg, name="http-pool")
+    srv = JsonModelServer(pool=pool, registry=reg, name="pool-host").start()
+    try:
+        for r in reps:  # warm-up: each replica captures its step's graph
+            r.submit(prompts[0][:8], max_tokens=3).result(timeout=600)
+        got, dt, ttft = _streams_over_http(srv.port, prompts, MAX_TOKENS)
+        check(got == want, "the pooled streams differ from the unified ones")
+        done = {r.name: r.stats()["completed"] - 1 for r in reps}
+        print(f"http pool ({card}): 2 static replicas, {B} x {MAX_TOKENS} greedy tokens, "
+              f"{B * MAX_TOKENS / dt:.1f} tokens/s, mean time to first token {ttft * 1e3:.1f} ms, "
+              f"requests per replica {done}; streams equal")
+    finally:
+        srv.stop()
+        pool.shutdown()
+    torch.cuda.synchronize()
+    got = dict(fa.LAUNCH_COUNTS)
+    print(f"http serving launches: {got}")
+    check(got["flash_forward"] > 0 and got["flash_decode"] > 0,
+          "the HTTP paths must launch B1 and B4")
+    return got
 
 
 def phase_train(card: str) -> dict:
@@ -1641,7 +2009,9 @@ def main() -> int:
     bwd = timed("B2/B3", phase_flash_backward, gen)
     timed("new instantiations", phase_new_instantiations, gen)
     serving, model = timed("LM serving", phase_model, prompts)
-    paths = [serving, timed("LM engine", phase_engine, model, prompts, card)]
+    engine, static_streams = timed("LM engine", phase_engine, model, prompts, card)
+    paths = [serving, engine,
+             timed("HTTP serving", phase_http, model, prompts, static_streams, card)]
     del model
     timed("device sampler", phase_sampler)
     paths.append(timed("LM training", phase_train, card))
@@ -1651,8 +2021,9 @@ def main() -> int:
     paths += [timed("head-dim-256 LM", phase_lm_head256),
               timed("float16 LM", phase_lm_f16, prompts),
               timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64)]
-    # launches over the paths: LM serving, the engines and training, the MoE
-    # network, and the head-dim-256, float16, float64 and float64-MoE paths
+    # launches over the paths: LM serving, the engines, HTTP serving and
+    # training, the MoE network, and the head-dim-256, float16, float64 and
+    # float64-MoE paths
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

@@ -1,15 +1,16 @@
-"""Process-wide observability: the metrics registry and distributed
-tracing (copies of the JAX package's ``obs/metrics.py`` and
-``obs/tracing.py``, which use no framework; metric and span names are the
-same).
+"""Process-wide observability: the metrics registry, its Prometheus
+exposition, distributed tracing and the training-listener bridge (copies
+of the JAX package's ``obs/metrics.py``, ``obs/prom.py``,
+``obs/tracing.py`` and ``obs/listener.py``; metric and span names are
+the same).
 
 One registry (default process-global, injectable everywhere) holds the
 serving signals, such as :class:`~deeplearning4j_tpu_torch.parallel.decode.
 DecodeEngine`'s ``dl4j_tpu_generate_*`` series. :class:`Tracer` and
 :class:`TraceSpan` give requests identity (W3C ``traceparent``) and
-parent/child structure, exported to a bounded :class:`TraceStore`. The
-Prometheus exposition, the training-listener bridge and the step profiler
-come with the rest of the serving stack (ROADMAP A4, A10).
+parent/child structure, exported to a bounded :class:`TraceStore`.
+:func:`render_prometheus` gives the 0.0.4 text a server's ``/metrics``
+serves. The step profiler is not ported yet (ROADMAP A10).
 """
 
 from .metrics import (
@@ -24,6 +25,9 @@ from .metrics import (
     set_registry,
     trace,
 )
+from .listener import MetricsListener, MoEMetricsListener, record_moe_metrics
+from .prom import CONTENT_TYPE as PROM_CONTENT_TYPE
+from .prom import render_prometheus
 from .tracing import (
     DEFAULT_SAMPLE_RATE as DEFAULT_TRACE_SAMPLE_RATE,
     TraceContext,
@@ -46,7 +50,10 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricError",
+    "MetricsListener",
     "MetricsRegistry",
+    "MoEMetricsListener",
+    "PROM_CONTENT_TYPE",
     "Span",
     "TraceContext",
     "TraceSpan",
@@ -58,6 +65,8 @@ __all__ = [
     "encode_traceparent",
     "get_registry",
     "get_tracer",
+    "record_moe_metrics",
+    "render_prometheus",
     "set_registry",
     "set_tracer",
     "trace",

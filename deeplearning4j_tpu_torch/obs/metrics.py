@@ -4,10 +4,10 @@ The north star is a fleet serving millions of users, and you cannot
 operate what you cannot measure (PAPERS.md: the TPU-pod reports attribute
 fleet-scale throughput and resilience wins to continuous telemetry over
 input pipelines, collectives, and failure/recovery paths). This module is
-the single source of truth the per-object ``stats()`` dicts read from. A
-copy of ``deeplearning4j_tpu/obs/metrics.py`` (it uses no framework), with
-the metric names unchanged; the Prometheus exposition (``obs/prom.py``)
-comes with the port's HTTP serving stack.
+the single source of truth the per-object ``stats()`` dicts read from, and
+:mod:`~deeplearning4j_tpu_torch.obs.prom` exposes it to scrapers. A copy of
+``deeplearning4j_tpu/obs/metrics.py`` (it uses no framework), with the
+metric names unchanged.
 
 Design constraints, in priority order:
 
@@ -438,9 +438,9 @@ class MetricsRegistry:
 
     # ---- convenience --------------------------------------------------
     def render(self) -> str:
-        raise NotImplementedError(
-            "Prometheus exposition (obs/prom.py) is not ported yet: it comes "
-            "with the HTTP serving stack (ROADMAP A4)")
+        from .prom import render_prometheus
+
+        return render_prometheus(self)
 
 
 # --------------------------------------------------------------------------

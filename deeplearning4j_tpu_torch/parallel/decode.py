@@ -41,8 +41,13 @@ to the trash block and makes static-cache writes write back what the row
 holds, and ``generate.paged.freeze_rows`` commits positions for the active
 rows only.
 
-The disaggregated prefill handoff (``submit_prefilled``) waits for the
-serving stack (ROADMAP A4) and raises.
+* **resume** — ``submit_prefilled`` admits a request whose prefill ran
+  on another host (``serving/disagg.py``'s :class:`PrefillEngine`, of
+  either package): its shipped cache planes ``[1, h, pos, d]`` become a
+  1-row carry that goes into the slot through the same in-place install
+  as a local prefill (static row copy or paged block scatter), so the
+  plain step's CUDA graph keeps the carry tensors it captured. A draft
+  model's cache is prefilled locally.
 
 Observability: the JAX engine's metric names (``dl4j_tpu_generate_*``) in
 the registry; traced requests get ``engine.prefill`` and ``engine.decode``
@@ -170,13 +175,26 @@ class GenerationHandle:
         return list(self.tokens)
 
 
+def prefill_first_token(session: GenerationSession, prompt: Sequence[int],
+                        seed: int, greedy: bool, temperature: float,
+                        top_k: int, top_p: float):
+    """One prompt alone, at its own bucket, into a fresh 1-row carry, and
+    its first token sampled at decode step 0: ``(row, token)``. The
+    engine's local prefill and the prefill tier's
+    (``serving.disagg.PrefillEngine``) both run this, so a resumed stream
+    equals an unbroken one."""
+    row, last, _ = session.prefill([prompt])
+    tok = sample_tokens(last, [seed], [0], [greedy], [temperature], [top_k], [top_p])
+    return row, int(tok[0])
+
+
 class _Request:
     __slots__ = ("prompt", "max_tokens", "eos_id", "handle", "seed",
                  "greedy", "temp", "top_k", "top_p", "spec_k", "trace_ctx",
-                 "t_submit", "t_decode_start")
+                 "t_submit", "t_decode_start", "prefilled")
 
     def __init__(self, prompt, max_tokens, eos_id, handle, seed, greedy,
-                 temp, top_k, top_p, spec_k, trace_ctx) -> None:
+                 temp, top_k, top_p, spec_k, trace_ctx, prefilled=None) -> None:
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.eos_id = eos_id
@@ -190,6 +208,8 @@ class _Request:
         self.trace_ctx = trace_ctx
         self.t_submit = trace_now() if trace_ctx is not None else 0.0
         self.t_decode_start = 0.0
+        # the handoff dict of a disaggregated prefill (submit_prefilled)
+        self.prefilled = prefilled
 
 
 class DecodeEngine:
@@ -306,6 +326,14 @@ class DecodeEngine:
         self._draft_carry = (None if self._spec is None
                              else self._spec.draft.decode_state(self.slots))
         self._aux_kv_bytes = 0 if self._draft_carry is None else carry_bytes(self._draft_carry)
+        # a 1-row target carry's layout, {layer: {key: (shape, dtype)}}: what
+        # a prefill handoff is checked against and rebuilt into
+        self._row_layout = {
+            name: {k: (tuple(v.shape), v.dtype) for k, v in st.items()}
+            for name, st in self.session.decode_state(1).items()}
+        #: prefill handoffs installed (submit_prefilled): count, cache
+        #: bytes and host seconds to rebuild each row on the device
+        self.handoff_copy = {"requests": 0, "bytes": 0, "seconds": 0.0}
         if self._allocator is None:
             # static layout: resident bytes are the preallocated carry
             self._kv_cache_bytes = self._aux_kv_bytes + carry_bytes(self._carry)
@@ -572,6 +600,12 @@ class DecodeEngine:
                        float(top_p),
                        None if speculative_k is None else int(speculative_k),
                        ctx)
+        self._enqueue(req, priority)
+        return handle
+
+    def _enqueue(self, req: _Request, priority: Optional[str]) -> None:
+        """Fail-fast admission of a built request (shut down, draining,
+        open breaker, full window) and its hand-off to the engine loop."""
         with self._lock:
             if self._shutdown or self._draining:
                 raise RuntimeError("DecodeEngine is shut down" if
@@ -588,19 +622,64 @@ class DecodeEngine:
             self._g_inflight.inc()
             self._pending.append(req)
         self._wake.set()
-        return handle
 
     def generate(self, prompt: Sequence[int], **kw) -> List[int]:
         """Blocking convenience: submit + wait for the full token list."""
         return self.submit(prompt, **kw).result()
 
-    def submit_prefilled(self, handoff: dict, **kw) -> GenerationHandle:
-        """Admit a request whose prefill ran on another host (the
-        disaggregated-serving resume path of the JAX engine). Not ported:
-        it comes with ``serving/disagg.py`` (ROADMAP A4)."""
-        raise NotImplementedError(
-            "submit_prefilled (the disaggregated prefill handoff, "
-            "serving/disagg.py) is not ported yet (ROADMAP A4)")
+    def submit_prefilled(
+        self,
+        handoff: dict,
+        *,
+        timeout: Optional[float] = None,
+        deadline: Optional[Deadline] = None,
+        request_id: Optional[str] = None,
+        priority: Optional[str] = None,
+    ) -> GenerationHandle:
+        """Admit a request whose prefill already ran on another host (the
+        disaggregated-serving resume path). ``handoff`` is the dict built
+        by :class:`~deeplearning4j_tpu_torch.serving.disagg.PrefillEngine`
+        (or the JAX package's, through the shared wire format) — prompt,
+        sampled first token, per-layer cache slices and the sampling law.
+        The decode stream continues token-identically to a local
+        :meth:`submit` of the same prompt/sampling."""
+        prompt = [int(t) for t in handoff.get("prompt", ())]
+        if not prompt:
+            raise ValueError("empty prompt in handoff")
+        if len(prompt) >= self.max_len:
+            raise ValueError(
+                f"handoff prompt length {len(prompt)} >= max_len "
+                f"{self.max_len} — no room to generate")
+        hd = handoff.get("cache_dtype")
+        if hd != self.cache_dtype:
+            raise ValueError(
+                f"handoff cache_dtype {hd!r} != engine cache_dtype "
+                f"{self.cache_dtype!r}")
+        if int(handoff.get("pos", -1)) != len(prompt):
+            raise ValueError("handoff pos != prompt length")
+        s = dict(handoff.get("sampling", {}))
+        spec_k = s.get("speculative_k")
+        if spec_k is not None and int(spec_k) < 0:
+            raise ValueError("speculative_k must be >= 0")
+        if deadline is None:
+            deadline = Deadline.after(
+                timeout if timeout is not None else self.default_timeout,
+                clock=self._clock)
+        mt = int(s.get("max_tokens") or self.default_max_tokens)
+        mt = max(1, min(mt, self.max_len - len(prompt)))
+        handle = GenerationHandle(request_id or f"{self.name}-req", deadline)
+        tracer = self.tracer
+        ctx = current_context() if tracer.enabled else None
+        eos = s.get("eos_id")
+        req = _Request(prompt, mt, None if eos is None else int(eos), handle,
+                       int(s.get("seed", 0)) & 0xFFFFFFFF,
+                       bool(s.get("greedy", True)),
+                       float(s.get("temperature", 1.0)),
+                       int(s.get("top_k", 0)), float(s.get("top_p", 1.0)),
+                       None if spec_k is None else int(spec_k), ctx,
+                       prefilled=handoff)
+        self._enqueue(req, priority)
+        return handle
 
     # ----- engine loop ------------------------------------------------
     def _finish(self, req: _Request, reason: str,
@@ -673,17 +752,22 @@ class DecodeEngine:
     def _prefill_into_reserved(self, slot: int, req: _Request) -> None:
         t0 = time.perf_counter()
         tt0 = trace_now() if req.trace_ctx is not None else 0.0
-        # one prompt alone, at its own bucket, into a fresh 1-row carry
-        row, last, _ = self.session.prefill([req.prompt])
-        tok = sample_tokens(last, [req.seed], [0], [req.greedy], [req.temp],
-                            [req.top_k], [req.top_p])
-        first = int(tok[0])
+        if req.prefilled is not None:
+            # disaggregated handoff: the prefill tier already ran the
+            # bucketed prefill and sampled the first token — install its
+            # shipped cache slice instead of recomputing
+            row, first = self._handoff_row(req.prefilled)
+        else:
+            row, first = prefill_first_token(self.session, req.prompt, req.seed,
+                                             req.greedy, req.temp, req.top_k, req.top_p)
         self._install_row(slot, row)
         cap = -1 if req.spec_k is None else min(req.spec_k,
                                                 self.max_speculative_k)
         if self._spec is not None and cap != 0:
             # paired draft cache: same prompt, same slot — proposals must
-            # condition on the same committed prefix the target verifies
+            # condition on the same committed prefix the target verifies.
+            # For handoffs this re-runs the (cheap) draft prefill locally:
+            # the draft cache never crosses the wire.
             drow, _, _ = self._spec.draft.prefill([req.prompt])
             self._spec.draft._write_row(self._draft_carry, drow, slot)
         self._h_prefill.observe(time.perf_counter() - t0)
@@ -712,6 +796,55 @@ class DecodeEngine:
         self._c_tokens.inc()
         req.handle._emit(0, first)
         self._retire_if_done(slot, first, emitted=1)
+
+    def _handoff_row(self, h: dict):
+        """Rebuild a 1-row target carry on the engine's device from a
+        prefill handoff, shape- and dtype-checked against this engine's
+        row layout. Cache planes arrive trimmed to the used positions
+        ``[0, pos)``; the tail is zero-filled exactly like a fresh
+        bucketed prefill leaves it. Returns ``(row, first_token)``; the
+        host-to-device copy is timed into :attr:`handoff_copy`."""
+        t0 = time.perf_counter()
+        pos = int(h["pos"])
+        layers = h.get("layers", {})
+        row, nbytes = {}, 0
+        for name, st in self._row_layout.items():
+            layer = layers.get(name)
+            if layer is None and set(st) - {"pos"}:
+                # pos-only carries (position counters) ship nothing; a
+                # layer WITH cache planes must be on the wire
+                raise ValueError(f"handoff missing cache for layer {name!r}")
+            new_st = {}
+            for key, (shape, dtype) in st.items():
+                if key == "pos":
+                    new_st[key] = torch.full((1,), pos, dtype=dtype, device=self._device)
+                    continue
+                arr = layer.get(key)
+                if arr is None:
+                    raise ValueError(
+                        f"handoff layer {name!r} missing {key!r} — "
+                        "prefill/decode cache_dtype mismatch?")
+                want = shape[:2] + (pos,) + shape[3:]
+                if tuple(arr.shape) != want:
+                    raise ValueError(
+                        f"handoff {name}.{key} shape {tuple(arr.shape)} != "
+                        f"expected {want}")
+                # wire planes are read-only views of the payload: copy
+                # before torch.from_numpy (a bfloat16 plane is a tensor)
+                src = (arr if isinstance(arr, torch.Tensor)
+                       else torch.from_numpy(np.array(arr)))
+                full = torch.zeros(shape, dtype=dtype, device=self._device)
+                full[:, :, :pos] = src.to(self._device)
+                nbytes += src.numel() * src.element_size()
+                new_st[key] = full
+            row[name] = new_st
+        if self._device.type == "cuda":
+            # the timing below covers the copies, not just their launch
+            torch.cuda.synchronize(self._device)
+        self.handoff_copy["requests"] += 1
+        self.handoff_copy["bytes"] += nbytes
+        self.handoff_copy["seconds"] += time.perf_counter() - t0
+        return row, int(h["first_token"])
 
     def _retire_if_done(self, slot: int, last_token: int, emitted: int) -> None:
         req = self._requests[slot]

@@ -269,7 +269,11 @@ def test_submit_validation_and_lifecycle(models):
         eng.submit(list(range(1, MAX_LEN + 2)), max_tokens=2)
     with pytest.raises(ValueError, match="speculative_k"):
         eng.submit([1], speculative_k=-1)
-    with pytest.raises(NotImplementedError, match="A4"):
+    # a handoff is validated before admission (tests/test_torch_disagg.py
+    # holds the resume itself)
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.submit_prefilled({"prompt": []})
+    with pytest.raises(ValueError, match="pos"):
         eng.submit_prefilled({"prompt": [1, 2]})
     assert eng.load_score() == 0.0
     assert eng.bucket_sizes() == [1, 2, 4, 8, 16, 24]
