@@ -41,7 +41,19 @@ through them against the materialised-scores seam: a head-dim-256
 gradients, 2 training steps and greedy ``generate()``; the GPT-2-small-width
 LM in float16 through ``output()`` and ``generate()``; a small float64 LM
 through ``output()``, gradients, one Adam step and ``generate()``; and a
-float64 MoE layer through B5. It times each kernel at its main path's
+float64 MoE layer through B5. Then the CNN and graph paths: the zoo
+``LeNet()`` (``MultiLayerNetwork``, 28x28x1 flat input, both preprocessors
+inserted) through ``output()`` and 20 ``fit`` steps on a batch of 64; the
+zoo ``ResNet50()`` (``ComputationGraph``, He et al. 2015's widths,
+224x224x3, 1000 classes, nothing cut) through ``output()`` and 5
+``GraphSolver.fit_batch`` steps on a batch of 32, with cuDNN's TF32 switch
+at PyTorch's default, its float32 output held against float64 on the CPU
+and every batch norm's running statistics required to move; and the zoo
+``BertEncoder()`` at bert-base's widths through ``output(ids,
+masks=[mask])`` and 5 masked training steps on [8, 512] ids with ragged key
+masks, through B1 (non-causal, key mask) and B2/B3, held against the
+materialised-scores seam (gradients on a 2-block cut). LeNet and ResNet-50
+also compare the "cudnn" conv2d helper with "im2col". It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
 the host's time to issue a call printed apart, and B5 paired with a padded
@@ -55,6 +67,7 @@ device it exits with 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import http.client
 import json
@@ -65,6 +78,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import importlib
 
@@ -73,16 +87,17 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.generate import GenerationSession
-from deeplearning4j_tpu_torch.model.zoo import TransformerLM
+from deeplearning4j_tpu_torch.model.zoo import BertEncoder, LeNet, ResNet50, TransformerLM
 from deeplearning4j_tpu_torch import ops as fa
 from deeplearning4j_tpu_torch.nn import (Activation, InputType, LossFunction,
                                          NeuralNetConfiguration)
-from deeplearning4j_tpu_torch.nn.layers import MixtureOfExpertsLayer, OutputLayer
+from deeplearning4j_tpu_torch.nn.layers import LayerContext, MixtureOfExpertsLayer, OutputLayer
 from deeplearning4j_tpu_torch.nn.sequential import MultiLayerNetwork
-from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.ops import cuda_build, helpers
 from deeplearning4j_tpu_torch.tools import kernel_variants as kv
 from deeplearning4j_tpu_torch.tools.moe_profile import MOE_LAYER, moe_lm_conf
 from deeplearning4j_tpu_torch.train import Solver
+from deeplearning4j_tpu_torch.train.graph_solver import GraphSolver
 
 # the module (ops/__init__ exports a function of this name): the timings call
 # the kernels' wrappers directly, without the delta pass around them
@@ -161,6 +176,21 @@ TOL_F16_REL = 2e-2
 # layer through B5) against the reference seams: float64 sums in another
 # order, ~1e-15 relative; 1e-10 leaves room for 2 blocks and one step.
 TOL_F64_REL = 1e-10
+# The CNN phases. "cudnn" against "im2col" on one network's output(), max
+# abs error over the largest probability: both sum the same float32
+# products in another order in every convolution (~1e-7 relative each).
+TOL_CONV_HELPERS = 1e-5
+# ResNet-50 output() in float32 on the card against the same weights in
+# float64 on the CPU, max abs error over the largest value of the pooled
+# features, the logits and the probabilities: float32 rounding through 53
+# convolutions and batch norms in inference (~1e-6 relative). A TF32
+# convolution keeps 10 mantissa bits (~5e-4 relative a product) and misses
+# this (4.0e-4 on the features, 1.1e-4 on the probabilities of an H100 80GB
+# HBM3 at 700 W with the guard off).
+TOL_F32_VS_F64 = 1e-4
+LENET_BATCH, LENET_STEPS = 64, 20
+RESNET_BATCH = 32
+BERT_BATCH, BERT_T = 8, 512
 # The MoE layer's widths (the JAX package's MoE dispatch benchmark) and its
 # capacity at 8 x 1024 tokens: ceil(2 * 8192 / 8 * 1.25) = 2560 = m_pad.
 E_MOE, H_MOE, TOPK, CAPACITY = 8, 1536, 2, 2560
@@ -1857,6 +1887,258 @@ def phase_moe_f64() -> dict:
     return counts
 
 
+def _helpers_gap(fn) -> float:
+    """``fn()`` under the "cudnn" conv2d helper against under "im2col"."""
+    a = fn()
+    helpers.set_helper("conv2d", "im2col")
+    try:
+        b = fn()
+    finally:
+        helpers.set_helper("conv2d", "cudnn")
+    return rel_err(a, b)
+
+
+@contextlib.contextmanager
+def _cudnn_tf32_default():
+    """cuDNN's TF32 switch at PyTorch's default (on) for the CNN phases
+    (``phase_device`` turns it off for the rest): the port's own guard
+    (``ops/helpers.py::convolution``) must keep the convolutions in
+    float32."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def phase_lenet(card: str) -> dict:
+    """BASELINE config 1: the zoo ``LeNet()`` (28x28x1 ``convolutional_flat``
+    input, 10 classes, both preprocessors inserted) through
+    ``MultiLayerNetwork.output()`` and ``LENET_STEPS`` ``fit`` steps on one
+    seeded batch of 64; then "cudnn" against "im2col" on ``output()``.
+    Returns the launch counts of its path (no attention kernel)."""
+    model = LeNet(seed=SEED).init()  # on the current CUDA device
+    names = [type(l).__name__ for l in model.layers]
+    check(names[0] == "FeedForwardToCnnPreProcessor" and names[5] == "CnnToFeedForwardPreProcessor"
+          and model.num_params() == 1_256_080, f"LeNet layers {names}, {model.num_params()}")
+    rs = np.random.RandomState(SEED + 9)
+    x = torch.from_numpy(rs.rand(LENET_BATCH, 784).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[rs.randint(0, 10, LENET_BATCH)]).cuda()
+    model.output(x)  # warm-up: cuDNN handles, allocator pools
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    probs = model.output(x)
+    torch.cuda.synchronize()
+    out_ms = 1e3 * (time.perf_counter() - t0)
+    check(tuple(probs.shape) == (LENET_BATCH, 10) and bool(torch.isfinite(probs).all())
+          and float((probs.sum(1) - 1).abs().max()) < 1e-5, "LeNet output() rows")
+    scores = []
+    t0 = time.perf_counter()
+    for _ in range(LENET_STEPS):
+        model.fit(x, y)
+        scores.append(model.score_value)
+    step_ms = 1e3 * (time.perf_counter() - t0) / LENET_STEPS
+    counts = _all_counts()
+    check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+          f"LeNet scores must be finite and falling: {scores}")
+    gap = _helpers_gap(lambda: model.output(x))
+    print(f"lenet ({card}): MultiLayerNetwork {model.num_params()} params, output() "
+          f"[{LENET_BATCH},784] {out_ms:.2f} ms, {LENET_STEPS} fit steps {step_ms:.2f} ms/step "
+          f"({LENET_BATCH / step_ms * 1e3:.0f} images/s); scores {scores[0]:.5f} -> "
+          f"{scores[-1]:.5f}; cudnn vs im2col output() gap {gap:.3e} of the largest "
+          f"probability (tol {TOL_CONV_HELPERS:g}); launches {counts}")
+    check(gap <= TOL_CONV_HELPERS, "LeNet output() under cudnn and im2col disagree")
+    return counts
+
+
+def phase_resnet50(card: str) -> dict:
+    """BASELINE config 2: the zoo ``ResNet50()`` at He et al. 2015's widths
+    (224x224x3, stages [3, 4, 6, 3], 1000 classes, 25,557,032 params,
+    ``Adam(1e-3)``), nothing cut, batch ``RESNET_BATCH``: ``output()`` in
+    eval mode and ``TRAIN_STEPS`` ``GraphSolver.fit_batch`` steps, with
+    cuDNN's TF32 switch at its default. Then the precision check (2 images
+    through the card's float32 ``output()`` and the CPU's float64, same
+    weights and statistics) and "cudnn" against "im2col" on ``output()``
+    (batch 4). Returns the launch counts of its path (no attention
+    kernel)."""
+    t0 = time.perf_counter()
+    model = ResNet50(seed=SEED).init()  # on the current CUDA device
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.num_params() == 25_557_032 and len(model.conf.vertices) == 174,
+          f"ResNet-50 has {model.num_params()} params")
+    rs = np.random.RandomState(SEED + 10)
+    x = torch.from_numpy(rs.randn(RESNET_BATCH, 3, 224, 224).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[rs.randint(0, 1000, RESNET_BATCH)]).cuda()
+    bn = [n for n, st in model.state.items() if "mean" in st]
+    stats0 = {n: {k: t.clone() for k, t in model.state[n].items()} for n in bn}
+    solver = GraphSolver(model)
+    model.output(x)  # warm-up: cuDNN handles, allocator pools
+    torch.cuda.synchronize()
+    with _cudnn_tf32_default():
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_out = 3
+        for _ in range(n_out):
+            probs = model.output(x)
+        torch.cuda.synchronize()
+        out_ms = 1e3 * (time.perf_counter() - t0) / n_out
+        check(tuple(probs.shape) == (RESNET_BATCH, 1000) and bool(torch.isfinite(probs).all()),
+              "ResNet-50 output() must be finite [32, 1000]")
+        torch.cuda.reset_peak_memory_stats()
+        scores, step_ms = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            score = solver.fit_batch((x,), (y,))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            scores.append(float(score))
+        counts = _all_counts()
+        peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+          f"ResNet-50 scores must be finite and falling: {scores}")
+    unmoved = [n for n in bn for k in ("mean", "var")
+               if torch.equal(model.state[n][k], stats0[n][k])]
+    check(not unmoved, f"batch-norm running statistics that did not move: {unmoved}")
+    ms = float(np.median(step_ms))
+    print(f"resnet50 ({card}): ComputationGraph {model.num_params()} params, "
+          f"{len(model.conf.vertices)} vertices, {len(bn)} batch norms, init {init_s:.2f} s; "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark}, cudnn.allow_tf32=True (the "
+          f"port's guard keeps float32); output() [{RESNET_BATCH},3,224,224] {out_ms:.2f} ms = "
+          f"{RESNET_BATCH / out_ms * 1e3:.1f} images/s; GraphSolver.fit_batch Adam(1e-3), "
+          f"{TRAIN_STEPS} steps after a warm-up forward: median {ms:.2f} ms/step of "
+          f"{[round(t, 2) for t in step_ms]} = {RESNET_BATCH / ms * 1e3:.1f} images/s; scores "
+          f"{[round(v, 5) for v in scores]}; peak memory {peak / 2**30:.2f} GiB; every batch "
+          f"norm's running mean and var moved; launches {counts}")
+
+    # ---- precision: the card's float32 against float64 on the CPU ----
+    cpu = ResNet50(seed=SEED, dtype="float64").init(device="cpu")
+    cpu.set_params_flat(model.params_flat())
+    cpu.state = {n: {k: t.double().cpu() for k, t in st.items()} for n, st in model.state.items()}
+    # two fresh images: the training batch's own are memorised by now
+    x2 = torch.from_numpy(rs.randn(2, 3, 224, 224).astype(np.float32)).cuda()
+    feats = {}
+
+    def pooled(m, xx):
+        """Pooled features, logits and probabilities of ``output()``'s walk."""
+        with torch.inference_mode():
+            acts, _ = m.forward_pure(m.params, m.state, m._as_inputs((xx,)))
+            fc = m.conf.spec("fc").layer
+            logits = fc.preoutput(m.params["fc"], acts["avgpool"], LayerContext())
+        return [t.double().cpu() for t in (acts["avgpool"], logits, acts["fc"])]
+
+    with _cudnn_tf32_default():
+        feats["card"] = pooled(model, x2)
+        with mock.patch.object(helpers, "_no_tf32", contextlib.nullcontext):
+            feats["tf32"] = pooled(model, x2)  # the guard off: TF32 convolutions
+    feats["cpu"] = pooled(cpu, x2.double().cpu())
+    gaps = [rel_err(a, b) for a, b in zip(feats["card"], feats["cpu"])]
+    tf32 = [rel_err(a, b) for a, b in zip(feats["tf32"], feats["cpu"])]
+    top = feats["cpu"][2].max(dim=1).values.tolist()
+    print(f"resnet50 precision ({card}): 2 images, float32 card output() vs float64 CPU, "
+          f"max error over the largest value: pooled features {gaps[0]:.3e}, logits "
+          f"{gaps[1]:.3e}, probabilities {gaps[2]:.3e} (tol {TOL_F32_VS_F64:g}; top "
+          f"probabilities {[round(v, 5) for v in top]}: an untrained ResNet saturates its "
+          f"softmax in inference); with the TF32 guard off: {tf32[0]:.3e}, {tf32[1]:.3e}, "
+          f"{tf32[2]:.3e}")
+    check(max(gaps) <= TOL_F32_VS_F64,
+          "ResNet-50's float32 output() on the card disagrees with float64")
+    del cpu
+    with _cudnn_tf32_default():
+        gap = _helpers_gap(lambda: model.output(x[:4]))
+    print(f"resnet50 cudnn vs im2col output() [4,3,224,224]: {gap:.3e} of the largest "
+          f"probability (tol {TOL_CONV_HELPERS:g})")
+    check(gap <= TOL_CONV_HELPERS, "ResNet-50 output() under cudnn and im2col disagree")
+    del model, solver
+    return counts
+
+
+def phase_bert(card: str) -> dict:
+    """The zoo ``BertEncoder()`` at bert-base's published widths (Devlin et
+    al. 2018: L 12, H 768, A 12, FFN 3072, vocab 30522, 512 positions),
+    nothing cut, a ``ComputationGraph``: ``output(ids, masks=[mask])`` on
+    [8, 512] with seeded ragged key masks (lengths in [128, 512]) and
+    ``TRAIN_STEPS`` masked ``GraphSolver.fit_batch`` steps on sparse MLM
+    labels, through B1 (non-causal, key mask) and B2/B3. Then the kernel
+    route against the materialised-scores seam: ``output()`` at full size,
+    gradients on a 2-block cut. Returns the launch counts of its path."""
+    t0 = time.perf_counter()
+    model = BertEncoder(seed=SEED).init()  # on the current CUDA device
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.num_params() == 132_324_666 and len(model.conf.vertices) == 88,
+          f"BertEncoder has {model.num_params()} params")
+    rs = np.random.RandomState(SEED + 11)
+    ids = torch.from_numpy(rs.randint(0, 30522, (BERT_BATCH, BERT_T))).cuda()
+    labels = torch.from_numpy(rs.randint(0, 30522, (BERT_BATCH, BERT_T))).cuda()
+    lens = torch.tensor([BERT_T, 128] + rs.randint(128, BERT_T + 1, BERT_BATCH - 2).tolist())
+    mask = (torch.arange(BERT_T)[None, :] < lens[:, None]).float().cuda()
+    real = int(mask.sum())
+    solver = GraphSolver(model)
+    model.output(ids, masks=[mask])  # warm-up
+    solver.fit_batch((ids,), (labels,), masks=(mask,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    probs = model.output(ids, masks=[mask])
+    torch.cuda.synchronize()
+    out_ms = 1e3 * (time.perf_counter() - t0)
+    serve = _all_counts()
+    check(serve == {"flash_forward": 12, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "flash_decode": 0, "grouped_matmul": 0},
+          f"BERT output() must launch B1 once a block: {serve}")
+    check(tuple(probs.shape) == (BERT_BATCH, 30522, BERT_T) and bool(torch.isfinite(probs).all()),
+          "BERT output() must be finite [8, 30522, 512]")
+    scores, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        before = _all_counts()
+        t0 = time.perf_counter()
+        score = solver.fit_batch((ids,), (labels,), masks=(mask,))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        scores.append(float(score))
+        per_step = {n: c - before[n] for n, c in _all_counts().items()}
+        check(per_step == {"flash_forward": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                           "flash_decode": 0, "grouped_matmul": 0},
+              f"a BERT training step must launch B1, B2 and B3 once a block: {per_step}")
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+          f"BERT scores must be finite and falling: {scores}")
+    ms = float(np.median(step_ms))
+    tok = BERT_BATCH * BERT_T
+    print(f"bert-base ({card}): ComputationGraph {model.num_params()} params, "
+          f"{len(model.conf.vertices)} vertices, init {init_s:.2f} s; output(ids, masks) "
+          f"[{BERT_BATCH},{BERT_T}] ({real} unmasked of {tok} positions) {out_ms:.2f} ms = "
+          f"{tok / out_ms * 1e3:.0f} tokens/s; GraphSolver.fit_batch Adam(1e-4) masked, "
+          f"{TRAIN_STEPS} steps after one warm-up: median {ms:.2f} ms/step of "
+          f"{[round(t, 2) for t in step_ms]} = {tok / ms * 1e3:.0f} tokens/s; scores "
+          f"{[round(v, 5) for v in scores]}; peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{counts}")
+
+    # ---- the kernel route against the materialised-scores seam ----
+    del probs
+    probs = model.output(ids, masks=[mask])
+    ref = _with_impl("reference", lambda: model.output(ids, masks=[mask]))
+    e_out = rel_err(probs, ref)
+    del probs, ref, solver, model
+    cut = BertEncoder(seed=SEED, n_layers=2).init()
+    grads = cut.calculate_gradients(ids, labels, mask=[mask])
+    ref_grads = _with_impl("reference", lambda: cut.calculate_gradients(ids, labels,
+                                                                         mask=[mask]))
+    worst = _worst_grad(grads, ref_grads, "the kernels")
+    print(f"bert-base kernels vs the reference seam: output() rel error {e_out:.3e} (tol "
+          f"{TOL_OUT_REL:g}); gradients on a 2-block cut (the same widths, 2 of 12 blocks) "
+          f"worst rel error {worst[0]:.3e} at {worst[1]} (tol {TOL_GRAD_REL:g})")
+    check(e_out <= TOL_OUT_REL, "BERT output() through B1 disagrees with the reference")
+    check(worst[0] <= TOL_GRAD_REL, "BERT gradients through B1-B3 disagree with the reference")
+    return counts
+
+
 def _kept_rows(sizes, m_pad: int, n: int) -> torch.Tensor:
     """[n] bool: the rows some group keeps (local index < m_pad, row < n)."""
     kept = torch.zeros(n, dtype=torch.bool)
@@ -2020,10 +2302,12 @@ def main() -> int:
     gmm = timed("B5", phase_grouped_matmul, gen, routed)
     paths += [timed("head-dim-256 LM", phase_lm_head256),
               timed("float16 LM", phase_lm_f16, prompts),
-              timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64)]
+              timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64),
+              timed("LeNet", phase_lenet, card), timed("ResNet-50", phase_resnet50, card),
+              timed("BERT-base encoder", phase_bert, card)]
     # launches over the paths: LM serving, the engines, HTTP serving and
-    # training, the MoE network, and the head-dim-256, float16, float64 and
-    # float64-MoE paths
+    # training, the MoE network, the head-dim-256, float16, float64 and
+    # float64-MoE paths, and LeNet, ResNet-50 and BERT-base
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

@@ -161,6 +161,7 @@ def from_json(s: str) -> Any:
 def _register_all() -> None:
     """Import every module that registers config classes, so that decoding
     a JSON document does not depend on what the caller imported first."""
-    for mod in ("nn.conf", "nn.layers", "nn.weights", "nn.input_type",
-                "train.schedules", "train.updaters"):
+    for mod in ("nn.conf", "nn.layers", "nn.weights", "nn.input_type", "nn.vertices",
+                "nn.graph_conf", "nn.transferlearning", "train.schedules",
+                "train.updaters"):
         importlib.import_module(f"{_PORT_PACKAGE}.{mod}")

@@ -1,9 +1,10 @@
 from .serializer import (
     load_jax_params,
+    restore_computation_graph,
     restore_model,
     restore_multi_layer_network,
     write_model,
 )
 
-__all__ = ["load_jax_params", "restore_model", "restore_multi_layer_network",
-           "write_model"]
+__all__ = ["load_jax_params", "restore_computation_graph", "restore_model",
+           "restore_multi_layer_network", "write_model"]

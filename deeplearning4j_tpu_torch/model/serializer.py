@@ -3,19 +3,22 @@
 Reads and writes the JAX package's model zip:
 
   configuration.json   — core.config JSON of the MultiLayerConfiguration
+                         or ComputationGraphConfiguration
   coefficients.npy     — flat float param vector in ``ravel_pytree`` order
   state.npz            — non-trainable state leaves (``leaf_0..``), layers
-                         and keys sorted as strings (an MoE layer's
-                         aux_load_balance, capacity_slots, dropped_tokens,
-                         expert_tokens)
+                         and keys sorted as strings (batch norm's mean and
+                         var; an MoE layer's aux_load_balance,
+                         capacity_slots, dropped_tokens, expert_tokens)
   updaterState.npz     — updater state leaves (optional)
   meta.json            — model class + framework
 
 ``coefficients.npy`` is one flat vector in the order JAX flattens the
 ``{layer_name: {param_name: array}}`` dict: keys sorted as strings at both
-levels, so ``layer_10`` precedes ``layer_2`` and, within a layer, ``W1``
-precedes ``b1`` (upper case sorts first). ``MultiLayerNetwork.params_flat``
-/ ``set_params_flat`` keep that order. Zips this module writes name the
+levels, so ``layer_10`` precedes ``layer_2``, a graph's ``fc`` precedes
+``s0b0_a_bn`` and ``s0b10`` precedes ``s0b2``, and, within a layer, ``W1``
+precedes ``b1`` (upper case sorts first). ``params_flat`` /
+``set_params_flat`` of ``MultiLayerNetwork`` and ``ComputationGraph``
+keep that order. Zips this module writes name the
 JAX framework, so the JAX package restores them as its own.
 
 ``updaterState.npz`` holds ``leaf_0..leaf_n`` in the order JAX flattens the
@@ -42,6 +45,7 @@ import torch
 
 from .. import __version__
 from ..core.config import from_json, to_json
+from ..nn.graph import ComputationGraph
 from ..nn.sequential import MultiLayerNetwork
 
 _CONF = "configuration.json"
@@ -55,6 +59,7 @@ _PORT_FRAMEWORK = "deeplearning4j_tpu_torch"
 _KNOWN_MODEL_CLASSES = ("MultiLayerNetwork", "ComputationGraph")
 
 Device = Optional[Union[str, torch.device]]
+Model = Union[MultiLayerNetwork, ComputationGraph]
 
 
 def _check_meta(meta: dict, path: str) -> None:
@@ -63,8 +68,6 @@ def _check_meta(meta: dict, path: str) -> None:
         raise ValueError(
             f"{path}: unknown model_class {cls_name!r} in meta.json "
             f"(expected one of {_KNOWN_MODEL_CLASSES})")
-    if cls_name != "MultiLayerNetwork":
-        raise NotImplementedError(f"{path}: {cls_name} is not ported yet")
     framework = meta.get("framework")
     if framework not in (None, _FRAMEWORK, _PORT_FRAMEWORK):
         raise ValueError(f"{path}: artifact written by framework {framework!r}, "
@@ -120,11 +123,10 @@ def _check_carried_updaters(trainer) -> None:
                 "the model zip is not ported yet (Adam and AdamW are)")
 
 
-def load_jax_params(model: MultiLayerNetwork,
-                    params_np: Dict[str, Dict[str, np.ndarray]]) -> MultiLayerNetwork:
+def load_jax_params(model: Model, params_np: Dict[str, Dict[str, np.ndarray]]) -> Model:
     """Load the JAX package's parameters, given as numpy arrays
-    (``{layer_name: {param_name: array}}``), into a port model built from
-    the same configuration. Returns ``model``."""
+    (``{layer_name: {param_name: array}}``, a graph's keyed by vertex), into
+    a port model built from the same configuration. Returns ``model``."""
     model._check_init()
     mine = model.params
     if set(params_np) - set(mine):
@@ -152,12 +154,23 @@ def restore_multi_layer_network(path: str, device: Device = None,
     network from the zip's configuration on ``device`` (default: the
     current CUDA device) and loads its coefficients; with ``load_updater``
     also its ``Solver`` and the updater state the zip carries."""
+    return _restore(path, MultiLayerNetwork, device, load_updater)
+
+
+def restore_computation_graph(path: str, device: Device = None,
+                              load_updater: bool = False) -> ComputationGraph:
+    """Reference: ModelSerializer.restoreComputationGraph; as
+    :func:`restore_multi_layer_network`, with a ``GraphSolver``."""
+    return _restore(path, ComputationGraph, device, load_updater)
+
+
+def _restore(path: str, cls, device: Device, load_updater: bool) -> Model:
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
         if _META in names:
             _check_meta(json.loads(zf.read(_META)), path)
         conf = from_json(zf.read(_CONF).decode())
-        model = MultiLayerNetwork(conf, device=device).init()
+        model = cls(conf, device=device).init()
         flat = np.load(io.BytesIO(zf.read(_COEFF)))
         if int(flat.size) != model.num_params():
             raise ValueError(
@@ -176,9 +189,12 @@ def restore_multi_layer_network(path: str, device: Device = None,
             if _UPDATER not in names:
                 raise ValueError(f"{path}: load_updater=True but the artifact has no "
                                  "updater state (it was saved with save_updater=False)")
-            from ..train.solver import Solver
+            if cls is ComputationGraph:
+                from ..train.graph_solver import GraphSolver as trainer_cls
+            else:
+                from ..train.solver import Solver as trainer_cls
 
-            trainer = Solver(model)
+            trainer = trainer_cls(model)
             _check_carried_updaters(trainer)
             z = np.load(io.BytesIO(zf.read(_UPDATER)))
             leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
@@ -191,15 +207,16 @@ def restore_multi_layer_network(path: str, device: Device = None,
     return model
 
 
-def restore_model(path: str, device: Device = None,
-                  load_updater: bool = False) -> MultiLayerNetwork:
+def restore_model(path: str, device: Device = None, load_updater: bool = False) -> Model:
     with zipfile.ZipFile(path) as zf:
         meta = json.loads(zf.read(_META))
     _check_meta(meta, path)
+    if meta["model_class"] == "ComputationGraph":
+        return restore_computation_graph(path, device, load_updater)
     return restore_multi_layer_network(path, device, load_updater)
 
 
-def write_model(model: MultiLayerNetwork, path: str, save_updater: bool = False) -> None:
+def write_model(model: Model, path: str, save_updater: bool = False) -> None:
     """Reference: ModelSerializer.writeModel, in the JAX package's layout.
     With ``save_updater`` and a model that has trained, the updater state
     goes in too. Atomic: the zip is assembled in a temp file beside

@@ -2,14 +2,14 @@
 
 The builder collects global defaults (updater, weight init, activation,
 regularization, dropout), ``.list()`` collects layers, ``.set_input_type()``
-runs the shape-inference walk that resolves every layer's nIn, and
+runs the shape-inference walk that resolves every layer's nIn and inserts
+preprocessors at format boundaries (CNN <-> feed-forward <-> RNN), and
 ``.build()`` returns an immutable, JSON-round-trippable
-``MultiLayerConfiguration`` — the same JSON the JAX package writes.
-
-Preprocessor insertion at format boundaries (CNN <-> feed-forward <-> RNN)
-waits for the layers that need it; a walk that would need one raises. Token
-layers (``MixtureOfExpertsLayer``) take feed-forward and recurrent input as
-it is, as in the JAX package.
+``MultiLayerConfiguration`` — the same JSON the JAX package writes. The
+inserted preprocessors are entries of ``layers``, so they take ``layer_N``
+indices: the JAX LeNet's parameters sit at ``layer_1``, ``layer_3``,
+``layer_6`` and ``layer_7``, and so do the port's. ``.graph_builder()``
+starts a ComputationGraph configuration (``nn/graph_conf.py``).
 """
 
 from __future__ import annotations
@@ -20,10 +20,47 @@ from typing import Any, List, Optional, Tuple
 
 from ..core.config import register_config
 from .activations import Activation
-from .input_type import FeedForwardType, InputType, RecurrentType
+from .input_type import (
+    ConvolutionalFlatType,
+    ConvolutionalType,
+    FeedForwardType,
+    InputType,
+    RecurrentType,
+)
+from .layers import (
+    BatchNormalizationLayer,
+    CnnLossLayer,
+    CnnToFeedForwardPreProcessor,
+    CnnToRnnPreProcessor,
+    Convolution1DLayer,
+    Convolution3DLayer,
+    ConvolutionLayer,
+    Cropping2DLayer,
+    Deconvolution2DLayer,
+    DenseLayer,
+    DepthwiseConvolution2DLayer,
+    EmbeddingLayer,
+    FeedForwardToCnnPreProcessor,
+    FeedForwardToRnnPreProcessor,
+    LocalResponseNormalizationLayer,
+    MixtureOfExpertsLayer,
+    OutputLayer,
+    RnnLossLayer,
+    RnnOutputLayer,
+    RnnToFeedForwardPreProcessor,
+    SelfAttentionLayer,
+    SeparableConvolution2DLayer,
+    SpaceToDepthLayer,
+    Subsampling1DLayer,
+    Subsampling3DLayer,
+    SubsamplingLayer,
+    Upsampling1DLayer,
+    Upsampling2DLayer,
+    Upsampling3DLayer,
+    ZeroPadding1DLayer,
+    ZeroPaddingLayer,
+)
 from .layers.base import Layer
-from .layers.moe import MixtureOfExpertsLayer
-from .layers.output import OutputLayer, RnnOutputLayer
 from .weights import Distribution, WeightInit
 
 
@@ -51,21 +88,61 @@ class WorkspaceMode(enum.Enum):
 
 
 # Layer families for preprocessor insertion (reference: each layer conf's
-# getPreProcessorForInputType). Token layers consume feed-forward [b, f] and
-# recurrent [b, f, t] input natively (MoE treats timesteps as tokens).
-_RNN_LAYERS = (RnnOutputLayer,)
-_FF_LAYERS = (OutputLayer,)
+# getPreProcessorForInputType). The recurrent layers of the JAX package's
+# families join these when they are ported.
+_CNN_LAYERS = (
+    ConvolutionLayer, SubsamplingLayer, LocalResponseNormalizationLayer,
+    Deconvolution2DLayer, DepthwiseConvolution2DLayer, SeparableConvolution2DLayer,
+    ZeroPaddingLayer, Cropping2DLayer, SpaceToDepthLayer, Upsampling2DLayer,
+    CnnLossLayer,
+)
+_CNN3D_LAYERS = (Convolution3DLayer, Subsampling3DLayer, Upsampling3DLayer)
+_RNN_LAYERS = (
+    Convolution1DLayer, Subsampling1DLayer, ZeroPadding1DLayer, Upsampling1DLayer,
+    SelfAttentionLayer, RnnOutputLayer, RnnLossLayer,
+)
+_FF_LAYERS = (DenseLayer, OutputLayer, EmbeddingLayer)
+# Token layers consume FF ([b, f]) and recurrent ([b, f, t]) input natively
+# (MoE treats timesteps as extra tokens), so they only need flattening from
+# spatial input.
 _TOKEN_LAYERS = (MixtureOfExpertsLayer,)
 
 
-def _needs_preprocessor(layer: Layer, current: InputType) -> bool:
-    if isinstance(layer, _TOKEN_LAYERS):
-        return False
+def _needs(layer: Layer) -> str:
+    if isinstance(layer, _CNN3D_LAYERS):
+        return "cnn3d"
+    if isinstance(layer, _CNN_LAYERS):
+        return "cnn"
     if isinstance(layer, _RNN_LAYERS):
-        return not isinstance(current, RecurrentType)
+        return "rnn"
+    if isinstance(layer, _TOKEN_LAYERS):
+        return "tokens"
     if isinstance(layer, _FF_LAYERS):
-        return not isinstance(current, FeedForwardType)
-    return False
+        return "ff"
+    return "any"
+
+
+def _preprocessor_for(current: InputType, need: str) -> Optional[Layer]:
+    if need == "cnn":
+        if isinstance(current, ConvolutionalFlatType):
+            return FeedForwardToCnnPreProcessor(
+                height=current.height, width=current.width, channels=current.channels)
+        if isinstance(current, FeedForwardType):
+            raise ValueError(
+                "Cannot feed feed-forward data into a CNN layer without spatial "
+                "dimensions; declare InputType.convolutional_flat(...) instead")
+        return None
+    if need in ("ff", "tokens"):
+        if isinstance(current, ConvolutionalType):
+            return CnnToFeedForwardPreProcessor(
+                height=current.height, width=current.width, channels=current.channels)
+        if need == "ff" and isinstance(current, RecurrentType):
+            return RnnToFeedForwardPreProcessor()
+        return None
+    if need == "rnn" and isinstance(current, ConvolutionalType):
+        return CnnToRnnPreProcessor(
+            height=current.height, width=current.width, channels=current.channels)
+    return None
 
 
 @register_config
@@ -137,17 +214,26 @@ class ListBuilder:
         if self._input_type is not None:
             resolved: List[Layer] = []
             current = self._input_type
+            timesteps = current.timesteps if isinstance(current, RecurrentType) else None
             for layer in layers:
-                if _needs_preprocessor(layer, current):
-                    raise NotImplementedError(
-                        f"{type(layer).__name__} after {type(current).__name__} "
-                        "needs a preprocessor; preprocessors are not ported yet")
-                if not isinstance(current, (RecurrentType, FeedForwardType)):
-                    raise NotImplementedError(
-                        f"input type {type(current).__name__} is not ported yet")
+                need = _needs(layer)
+                pre = _preprocessor_for(current, need)
+                if pre is not None:
+                    resolved.append(pre)
+                    current = pre.output_type(current)
+                if isinstance(current, ConvolutionalFlatType) and need in ("ff", "any"):
+                    current = FeedForwardType(size=current.flat_size())
+                if (need == "rnn" and isinstance(current, FeedForwardType)
+                        and isinstance(layer, (RnnOutputLayer, RnnLossLayer))
+                        and timesteps is not None):
+                    pre2 = FeedForwardToRnnPreProcessor(timesteps=timesteps)
+                    resolved.append(pre2)
+                    current = pre2.output_type(current)
                 layer = layer.with_input(current)
                 resolved.append(layer)
                 current = layer.output_type(current)
+                if isinstance(current, RecurrentType) and current.timesteps is not None:
+                    timesteps = current.timesteps
             layers = resolved
 
         return MultiLayerConfiguration(
@@ -274,6 +360,11 @@ class NeuralNetConfigurationBuilder:
     def list(self) -> ListBuilder:
         return ListBuilder(self)
 
+    def graph_builder(self):
+        from .graph_conf import GraphBuilder
+
+        return GraphBuilder(self)
+
     def _apply_global_defaults(self, layer: Layer) -> Layer:
         """Fold builder-level defaults into layers that did not override them
         (reference: layer confs inherit from NeuralNetConfiguration globals)."""
@@ -294,7 +385,8 @@ class NeuralNetConfigurationBuilder:
             updates["l2_bias"] = self._l2_bias
         if layer.weight_decay is None and self._weight_decay is not None:
             updates["weight_decay"] = self._weight_decay
-        if layer.dropout is None and self._dropout is not None:
+        if (layer.dropout is None and self._dropout is not None
+                and not isinstance(layer, BatchNormalizationLayer)):
             updates["dropout"] = self._dropout
         if layer.updater is None and self._updater is not None:
             updates["updater"] = self._updater

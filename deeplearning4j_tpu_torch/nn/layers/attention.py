@@ -1,6 +1,7 @@
-"""Attention layers (port of ``TransformerDecoderBlockLayer`` and the
-cached decode path from ``deeplearning4j_tpu/nn/layers/attention.py``:
-static, int8 and paged KV caches).
+"""Attention layers (port of ``SelfAttentionLayer``,
+``TransformerDecoderBlockLayer`` and the cached decode path from
+``deeplearning4j_tpu/nn/layers/attention.py``: static, int8 and paged KV
+caches).
 
 Data format follows the recurrent convention [batch, features, time]; heads
 are split internally to [batch, heads, time, head_dim]. Attention goes
@@ -121,6 +122,98 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, t, d = x.shape
     return x.transpose(1, 2).reshape(b, t, h * d)
+
+
+@register_config
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class SelfAttentionLayer(Layer):
+    """Multi-head dot-product self-attention (reference: SelfAttentionLayer).
+    Input/output [b, f, t]. With ``project_input`` learns Wq/Wk/Wv/Wo.
+
+    A full sequence goes through the seam (the flash forward kernel on the
+    card, its backward kernels in training) with the [b, t] key mask of
+    the context. ``causal=True`` masks attention to positions <= the
+    query's and allows the KV-cached decode: with the carry of
+    :meth:`decode_state` in the state, each call writes its K/V into the
+    cache and attends against it."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+    project_input: bool = True
+    causal: bool = False
+
+    def __post_init__(self):
+        if self.n_out and not self.head_size:
+            object.__setattr__(self, "head_size", self.n_out // self.n_heads)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        size = self.n_out if self.project_input else input_type.size
+        return RecurrentType(size=size, timesteps=input_type.timesteps)
+
+    def with_input(self, input_type: InputType) -> "SelfAttentionLayer":
+        out = self
+        if not out.n_in:
+            out = dataclasses.replace(out, n_in=input_type.size)
+        if not out.n_out and not out.project_input:
+            out = dataclasses.replace(out, n_out=input_type.size)
+        if out.n_out and not out.head_size:
+            out = dataclasses.replace(out, head_size=out.n_out // out.n_heads)
+        return out
+
+    def has_params(self) -> bool:
+        return self.project_input
+
+    def trainable_param_names(self) -> Tuple[str, ...]:
+        return ("Wq", "Wk", "Wv", "Wo") if self.project_input else ()
+
+    def init(self, gen: torch.Generator, dtype: torch.dtype,
+             device: Optional[torch.device] = None) -> Params:
+        if not self.project_input:
+            return {}
+        wi = self.weight_init or WeightInit.XAVIER
+        hs = self.n_heads * self.head_size
+
+        def w(n_in, n_out):
+            return init_weights(gen, (n_in, n_out), wi, n_in, n_out, None, dtype, device)
+
+        return {"Wq": w(self.n_in, hs), "Wk": w(self.n_in, hs), "Wv": w(self.n_in, hs),
+                "Wo": w(hs, self.n_out)}
+
+    def decode_state(self, batch: int, max_len: int, dtype: torch.dtype,
+                     device: Optional[torch.device] = None) -> State:
+        if not self.causal:
+            return {}  # bidirectional attention has no incremental decode
+        d = self.head_size if self.project_input else self.n_in // self.n_heads
+        shape = (batch, self.n_heads, max_len, d)
+        return {"cache_k": torch.zeros(shape, dtype=dtype, device=device),
+                "cache_v": torch.zeros(shape, dtype=dtype, device=device),
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              ctx: LayerContext) -> Tuple[torch.Tensor, State]:
+        x = apply_input_dropout(self, x, ctx)
+        xt = x.transpose(1, 2)  # [b, t, f]
+        if self.project_input:
+            q = _split_heads(xt @ params["Wq"], self.n_heads)
+            k = _split_heads(xt @ params["Wk"], self.n_heads)
+            v = _split_heads(xt @ params["Wv"], self.n_heads)
+        else:
+            q = k = v = _split_heads(xt, self.n_heads)
+        if "cache_k" in state:
+            if not self.causal:
+                raise ValueError("KV-cached decode requires causal=True — bidirectional "
+                                 "attention cannot be decoded incrementally")
+            o, new_state = _cached_attention(q, k, v, state, ctx.mask)
+        else:
+            o = dot_product_attention(q, k, v, mask=ctx.mask, causal=self.causal)
+            new_state = state
+        o = _merge_heads(o)
+        if self.project_input:
+            o = o @ params["Wo"]
+        act = self.activation or Activation.IDENTITY
+        return act(o).transpose(1, 2), new_state
 
 
 @register_config

@@ -43,6 +43,9 @@ class LayerContext:
     train: bool = False
     rng: Optional[torch.Generator] = None  # dropout generator (None in inference)
     mask: Optional[torch.Tensor] = None  # sequence mask [batch, time] where applicable
+    # data-parallel context of a distributed trainer (ROADMAP A8, not
+    # ported): None everywhere in the port, so layers take their local path
+    dist: Optional[Any] = None
 
 
 @register_config

@@ -1,8 +1,9 @@
-"""Output / loss layers (port of ``BaseOutputLayer``, ``OutputLayer`` and
-``RnnOutputLayer`` from ``deeplearning4j_tpu/nn/layers/output.py``).
+"""Output / loss layers (port of ``deeplearning4j_tpu/nn/layers/output.py``).
 
-An output layer = a dense projection + a loss; the model calls
-``compute_loss`` for the score and ``apply`` for ``output()``.
+Reference: org.deeplearning4j.nn.conf.layers.{OutputLayer, RnnOutputLayer,
+RnnLossLayer, LossLayer, CnnLossLayer}. An output layer = (an optional
+dense projection) + a loss; the model calls ``compute_loss`` for the
+score and ``apply`` for ``output()``.
 """
 
 from __future__ import annotations
@@ -85,6 +86,26 @@ class OutputLayer(BaseOutputLayer):
         return self.loss.score(labels, self.preoutput(params, x, ctx), act, mask=label_mask)
 
 
+@register_config
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class LossLayer(BaseOutputLayer):
+    """Loss without params (reference: LossLayer). Activation default IDENTITY."""
+
+    loss: LossFunction = LossFunction.MCXENT
+
+    def preoutput(self, params: Params, x: torch.Tensor, ctx: LayerContext) -> torch.Tensor:
+        return x
+
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              ctx: LayerContext) -> Tuple[torch.Tensor, State]:
+        act = self.activation or Activation.IDENTITY
+        return act(x), state
+
+    def compute_loss(self, params, x, labels, ctx, label_mask=None):
+        act = self.activation or Activation.IDENTITY
+        return self.loss.score(labels, x, act, mask=label_mask)
+
+
 def _rnn_to_ff(a: torch.Tensor) -> torch.Tensor:
     """[b, f, t] -> [b*t, f] preserving the reference's flattening order."""
     b, f, t = a.shape
@@ -148,9 +169,62 @@ class RnnOutputLayer(BaseOutputLayer):
         # order as _rnn_to_ff; dense labels are [b, nOut, t]
         lab = _rnn_to_ff(labels) if labels.ndim == 3 else labels.reshape(-1)
         act = self.activation or Activation.SOFTMAX
-        mask = None
-        if label_mask is not None:
-            mask = label_mask.reshape(-1)
-        elif ctx.mask is not None:
-            mask = ctx.mask.reshape(-1)
+        return self.loss.score(lab, pre, act, mask=_step_mask(ctx, label_mask))
+
+
+def _step_mask(ctx: LayerContext, label_mask) -> Optional[torch.Tensor]:
+    """The per-step mask [b*t]: the label mask, else the input's mask."""
+    if label_mask is not None:
+        return label_mask.reshape(-1)
+    if ctx.mask is not None:
+        return ctx.mask.reshape(-1)
+    return None
+
+
+@register_config
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class RnnLossLayer(BaseOutputLayer):
+    """Per-timestep loss without params (reference: RnnLossLayer)."""
+
+    loss: LossFunction = LossFunction.MCXENT
+
+    def preoutput(self, params: Params, x: torch.Tensor, ctx: LayerContext) -> torch.Tensor:
+        return x
+
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              ctx: LayerContext) -> Tuple[torch.Tensor, State]:
+        act = self.activation or Activation.IDENTITY
+        b, f, t = x.shape
+        y = act(_rnn_to_ff(x))
+        return y.reshape(b, t, f).transpose(1, 2), state
+
+    def compute_loss(self, params, x, labels, ctx, label_mask=None):
+        act = self.activation or Activation.IDENTITY
+        return self.loss.score(_rnn_to_ff(labels), _rnn_to_ff(x), act,
+                               mask=_step_mask(ctx, label_mask))
+
+
+@register_config
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class CnnLossLayer(BaseOutputLayer):
+    """Per-pixel loss on CNN output [b, c, h, w] (reference: CnnLossLayer).
+    Labels same shape; mask [b, 1, h, w] or [b, h, w] optional."""
+
+    loss: LossFunction = LossFunction.MCXENT
+
+    def preoutput(self, params: Params, x: torch.Tensor, ctx: LayerContext) -> torch.Tensor:
+        return x
+
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              ctx: LayerContext) -> Tuple[torch.Tensor, State]:
+        act = self.activation or Activation.IDENTITY
+        # activation over the channel axis: move C last, apply, move back
+        return act(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), state
+
+    def compute_loss(self, params, x, labels, ctx, label_mask=None):
+        b, c, h, w = x.shape
+        pre = x.permute(0, 2, 3, 1).reshape(b * h * w, c)
+        lab = labels.permute(0, 2, 3, 1).reshape(b * h * w, c)
+        act = self.activation or Activation.IDENTITY
+        mask = None if label_mask is None else label_mask.reshape(-1)
         return self.loss.score(lab, pre, act, mask=mask)

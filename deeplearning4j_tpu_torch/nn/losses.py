@@ -1,14 +1,11 @@
 """Loss functions (port of ``deeplearning4j_tpu/nn/losses.py``).
 
-The whole ``LossFunction`` enum, so that every config decodes. The score
-is ported for the cross-entropy family the serving slice's models carry
-(``MCXENT``, ``NEGATIVELOGLIKELIHOOD``, ``SPARSE_MCXENT``); the other
-losses raise ``NotImplementedError`` until the training slice ports them.
-
-Semantics kept from the reference: per-example score arrays, an optional
-mask ([batch] after the caller flattens time into batch), a mean over the
-unmasked examples, and softmax + cross-entropy computed from
-pre-activations through log-softmax, in at least float32.
+Parity with the reference's ``org.nd4j.linalg.lossfunctions.LossFunctions``:
+per-example score arrays, an optional per-output ``weights`` vector, an
+optional mask ([batch] after the caller flattens time into batch), a mean
+over the unmasked examples. Softmax + MCXENT and sigmoid + XENT compute from
+pre-activations (log-softmax, logits) for numerical stability; the loss
+math runs in at least float32.
 """
 
 from __future__ import annotations
@@ -95,6 +92,55 @@ def _score_array(kind: LossFunction, labels: torch.Tensor, pre: torch.Tensor,
         if idx.ndim == logp.ndim:  # [batch, 1] -> [batch]
             idx = idx.squeeze(-1)
         return -torch.gather(logp, -1, idx[..., None]).squeeze(-1)
-    raise NotImplementedError(
-        f"loss {kind.name} is not ported yet (the serving slice scores the "
-        "cross-entropy family only)")
+
+    def sum_last(a):
+        return torch.sum(a, dim=tuple(range(1, a.ndim)))
+
+    def weighted(err):
+        return err * weights if weights is not None else err
+
+    if kind is LossFunction.XENT:
+        if act is Activation.SIGMOID:
+            # stable BCE-with-logits
+            per = (torch.clamp_min(pre, 0) - pre * labels
+                   + torch.log1p(torch.exp(-torch.abs(pre))))
+        else:
+            p = torch.clamp(act(pre), _EPS, 1.0 - _EPS)
+            per = -(labels * torch.log(p) + (1 - labels) * torch.log1p(-p))
+        return sum_last(weighted(per))
+
+    out = act(pre)
+    n = out.shape[-1]
+    if kind is LossFunction.MSE:
+        return sum_last(weighted((out - labels) ** 2)) / n
+    if kind is LossFunction.L2:
+        return sum_last(weighted((out - labels) ** 2))
+    if kind is LossFunction.MEAN_ABSOLUTE_ERROR:
+        return sum_last(weighted(torch.abs(out - labels))) / n
+    if kind is LossFunction.L1:
+        return sum_last(weighted(torch.abs(out - labels)))
+    if kind is LossFunction.MEAN_ABSOLUTE_PERCENTAGE_ERROR:
+        pct = torch.abs((labels - out) / torch.clamp_min(torch.abs(labels), _EPS)) * 100.0
+        return sum_last(weighted(pct)) / n
+    if kind is LossFunction.MEAN_SQUARED_LOGARITHMIC_ERROR:
+        per = (torch.log1p(torch.clamp_min(out, -1 + _EPS))
+               - torch.log1p(torch.clamp_min(labels, -1 + _EPS))) ** 2
+        return sum_last(weighted(per)) / n
+    if kind is LossFunction.COSINE_PROXIMITY:
+        on = out / torch.clamp_min(torch.linalg.vector_norm(out, dim=-1, keepdim=True), _EPS)
+        ln = labels / torch.clamp_min(torch.linalg.vector_norm(labels, dim=-1, keepdim=True),
+                                      _EPS)
+        return -sum_last(on * ln)
+    if kind is LossFunction.HINGE:
+        return sum_last(weighted(torch.clamp_min(1.0 - labels * out, 0.0)))
+    if kind is LossFunction.SQUARED_HINGE:
+        return sum_last(weighted(torch.clamp_min(1.0 - labels * out, 0.0) ** 2))
+    if kind is LossFunction.KL_DIVERGENCE:
+        p = torch.clamp(labels, _EPS, 1.0)
+        q = torch.clamp(out, _EPS, 1.0)
+        return sum_last(weighted(p * (torch.log(p) - torch.log(q))))
+    if kind is LossFunction.POISSON:
+        return sum_last(weighted(out - labels * torch.log(torch.clamp_min(out, _EPS))))
+    if kind is LossFunction.WASSERSTEIN:
+        return sum_last(weighted(labels * out))
+    raise ValueError(f"Unhandled loss {kind}")

@@ -10,7 +10,7 @@ import pytest
 from deeplearning4j_tpu.core.config import to_json as jax_to_json
 from deeplearning4j_tpu.model.zoo.transformer_lm import TransformerLM as JaxLM
 from deeplearning4j_tpu.nn import NeuralNetConfiguration as JaxNNC
-from deeplearning4j_tpu.nn.layers import DenseLayer as JaxDense
+from deeplearning4j_tpu.nn.layers import LSTMLayer as JaxLSTM
 from deeplearning4j_tpu.nn.layers import RnnOutputLayer as JaxRnnOut
 
 from deeplearning4j_tpu_torch.core import config as port_config
@@ -74,7 +74,7 @@ def test_enum_paths_decode_without_importing_the_jax_package(monkeypatch):
 
 def test_unknown_class_raises_naming_it():
     conf = (JaxNNC.builder().seed(1).list()
-            .layer(JaxDense(n_in=4, n_out=3))
+            .layer(JaxLSTM(n_in=4, n_out=3))
             .layer(JaxRnnOut(n_in=3, n_out=2)).build())
-    with pytest.raises(KeyError, match="DenseLayer"):
+    with pytest.raises(KeyError, match="LSTMLayer"):
         from_json(jax_to_json(conf))

@@ -61,9 +61,14 @@ def _rows(seed: int = 0):
 
 def test_parallel_inference_matches_jax(ff):
     jm, pm = ff
-    xs = _rows()
-    jpi = JaxPI(jm, batch_limit=8, workers=1, registry=JaxRegistry())
-    ppi = ParallelInference(pm, batch_limit=8, workers=1, registry=MetricsRegistry())
+    xs = _rows()  # 5 single rows and a block of 3: 8 rows, one full batch
+    # The flush timeout holds each worker's first batch open until it has
+    # batch_limit rows, so both batchers serve the 6 requests as one batch
+    # however their worker threads are scheduled (with no wait, a worker
+    # could fire as soon as it woke and split them differently).
+    jpi = JaxPI(jm, batch_limit=8, workers=1, flush_timeout=30.0, registry=JaxRegistry())
+    ppi = ParallelInference(pm, batch_limit=8, workers=1, flush_timeout=30.0,
+                            registry=MetricsRegistry())
     try:
         jf = [jpi.output_async(x) for x in xs]
         pf = [ppi.output_async(x) for x in xs]
@@ -72,9 +77,10 @@ def test_parallel_inference_matches_jax(ff):
             assert isinstance(got, np.ndarray) and got.shape == want.shape
             assert got.dtype == np.float64
             np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-        # one forward over the padded bucket, as in JAX: same counters
+        # one forward over the full bucket, as in JAX: same counters
         for key in ("completed", "batches", "padded_rows", "max_batch_size"):
             assert ppi.stats()[key] == jpi.stats()[key], key
+        assert (ppi.stats()["batches"], ppi.stats()["max_batch_size"]) == (1, 8)
         assert set(ppi.stats()) == set(jpi.stats())
     finally:
         jpi.shutdown()

@@ -281,10 +281,14 @@ def test_build_keeps_token_layers_and_refuses_missing_preprocessors():
          .layer(RnnOutputLayer(n_out=3)).set_input_type(InputType.recurrent(5)))
     conf = b.build()  # MoE takes recurrent input as it is
     assert conf.layers[0].n_in == 5 and conf.layers[1].n_in == 6
-    with pytest.raises(NotImplementedError, match="preprocessor"):
-        (NeuralNetConfiguration.builder().list()
-         .layer(MixtureOfExpertsLayer(n_out=6, num_experts=2, hidden=4))
-         .layer(OutputLayer(n_out=3)).set_input_type(InputType.recurrent(5)).build())
+    # a feed-forward output layer after recurrent input gets the
+    # RnnToFeedForward preprocessor, as in the JAX package
+    conf = (NeuralNetConfiguration.builder().list()
+            .layer(MixtureOfExpertsLayer(n_out=6, num_experts=2, hidden=4))
+            .layer(OutputLayer(n_out=3)).set_input_type(InputType.recurrent(5)).build())
+    assert [type(l).__name__ for l in conf.layers] == [
+        "MixtureOfExpertsLayer", "RnnToFeedForwardPreProcessor", "OutputLayer"]
+    assert conf.layers[2].n_in == 6
 
 
 _V, _T = 30, 10
