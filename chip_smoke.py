@@ -53,7 +53,18 @@ and every batch norm's running statistics required to move; and the zoo
 masks=[mask])`` and 5 masked training steps on [8, 512] ids with ragged key
 masks, through B1 (non-causal, key mask) and B2/B3, held against the
 materialised-scores seam (gradients on a 2-block cut). LeNet and ResNet-50
-also compare the "cudnn" conv2d helper with "im2col". It times each kernel at its main path's
+also compare the "cudnn" conv2d helper with "im2col". Then the recurrent
+slice: the zoo ``TextGenerationLSTM()`` (the GravesLSTM char-RNN: vocab 77,
+hidden 200, 2 peephole layers, TBPTT 50, nothing cut) through 5 ``fit``
+batches of 32 x 200 one-hot characters (4 truncated-BPTT windows each),
+``output()`` against float64 on the CPU, ``rnn_time_step`` one character at
+a time against ``output()``, and ``TextGenerationLSTM.generate`` of 200
+greedy characters on 8 ragged prompts from a CUDA-graphed decode step; a
+``LearnedSelfAttentionLayer`` network (768 wide, 12 heads, 8 queries) on
+[8, 512] ids with ragged key masks through B1-B3, against the seam; and the
+GPT-2-small-width LM with ``gradient_checkpointing`` (loss and gradients
+against the plain step, peak memory) and with ``compute_dtype="bfloat16"``
+(float32 master weights, bf16 B1-B3, against the bf16 seam). It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
 the host's time to issue a call printed apart, and B5 paired with a padded
@@ -69,6 +80,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import http.client
 import json
 import re
@@ -87,17 +99,22 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.generate import GenerationSession
-from deeplearning4j_tpu_torch.model.zoo import BertEncoder, LeNet, ResNet50, TransformerLM
+from deeplearning4j_tpu_torch.model.zoo import (BertEncoder, LeNet, ResNet50, TextGenerationLSTM,
+                                                TransformerLM)
 from deeplearning4j_tpu_torch import ops as fa
 from deeplearning4j_tpu_torch.nn import (Activation, InputType, LossFunction,
                                          NeuralNetConfiguration)
-from deeplearning4j_tpu_torch.nn.layers import LayerContext, MixtureOfExpertsLayer, OutputLayer
+from deeplearning4j_tpu_torch.nn.layers import (EmbeddingSequenceLayer, GlobalPoolingLayer,
+                                                LayerContext, LearnedSelfAttentionLayer,
+                                                MixtureOfExpertsLayer, OutputLayer, PoolingType)
 from deeplearning4j_tpu_torch.nn.sequential import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import cuda_build, helpers
 from deeplearning4j_tpu_torch.tools import kernel_variants as kv
 from deeplearning4j_tpu_torch.tools.moe_profile import MOE_LAYER, moe_lm_conf
+from deeplearning4j_tpu_torch.tools.serving_profile import _device_profile
 from deeplearning4j_tpu_torch.train import Solver
 from deeplearning4j_tpu_torch.train.graph_solver import GraphSolver
+from deeplearning4j_tpu_torch.train.updaters import Adam
 
 # the module (ops/__init__ exports a function of this name): the timings call
 # the kernels' wrappers directly, without the delta pass around them
@@ -218,6 +235,46 @@ TOL_HTTP_REL = 1e-5
 # published versions of 2 blocks take 2 x 0.37 GB of disk and load in
 # seconds; 12 blocks would take 2 x 0.65 GB.
 SWAP_LAYERS = 2
+# The char-RNN (BASELINE.json:9; the JAX package's bench.py:396-433): the zoo
+# TextGenerationLSTM's defaults (vocab 77, hidden 200, 2 GravesLSTM layers,
+# TBPTT 50), batch 32 of 200 characters = 4 windows a batch.
+CHAR_V, CHAR_BATCH, CHAR_T, CHAR_BATCHES = 77, 32, 200, 5
+CHAR_GEN_TOKENS, CHAR_MAX_LEN = 200, 512
+# output() in float32 on the card against the same weights in float64 on the
+# CPU, max abs error over the largest probability: 200 steps of two layers'
+# float32 gates (products of 77-200 terms, ~2^-24 relative each); the
+# forget gate (< 1) damps what a step carries forward, so the error stays
+# near one step's, ~1e-6. A TF32 product (2^-11 = 4.9e-4 a product) misses.
+TOL_LSTM_F32_VS_F64 = 1e-4
+# rnn_time_step one character at a time against output() over the sequence,
+# and greedy characters against a teacher-forced full forward: the same
+# float32 operations, with other matrix shapes (one step's [32, 77] input
+# projection against all 200 steps' [6400, 77]), so cuBLAS may sum in
+# another order: float32 rounding, relative to the largest probability (and
+# on log-probs near -4.3, absolute).
+TOL_STREAM_REL = 1e-5
+TOL_CHAR_LOGPROB = 1e-4
+# The LearnedSelfAttention network (a BERT-width embedding, 12 heads of 64,
+# 8 learned queries over 512 keys, a pooled 10-way softmax), batch 8.
+LSA_VOCAB, LSA_CLASSES, LSA_QUERIES = 30522, 10, 8
+# The bf16 compute_dtype LM against the bf16 materialised-scores seam,
+# output probabilities, max abs error over the largest. The float16 gate
+# (TOL_F16_REL, 2e-2 for 11 significant bits) scaled by bfloat16's 3 fewer
+# bits (2^3): the seam rounds scores, softmax weights and the attention
+# output to bfloat16 (unit roundoff 2^-8) in each of 12 blocks, the kernels
+# round once. The rest of the network runs the same bf16 operations on both
+# sides. Gradients, per parameter over its largest |gradient|: the same
+# roundings, carried back through 12 blocks twice (B2 and B3).
+TOL_BF16_REL = 0.16
+TOL_BF16_GRAD_REL = 0.16
+BF16_STEPS = 3
+# Gradient checkpointing: first loss equal to 1e-6 relative (the same float32
+# forward, recomputed); gradients within 1e-4 of each parameter's largest.
+# B2/B3 own their output tiles (no atomics), but the embeddings' backward
+# accumulates rows with atomics in no fixed order, so two runs without
+# checkpointing may differ too: the phase prints that gap beside the gate.
+TOL_REMAT_LOSS_REL = 1e-6
+TOL_REMAT_GRAD_REL = 1e-4
 # The device sampler's chi-square against the softmax over a small fixed
 # vocabulary (8 tokens, 7 degrees of freedom): 24.32 is its 0.999 quantile.
 CHI2_DF7_999 = 24.32
@@ -921,17 +978,17 @@ def phase_sampler() -> None:
     check(same >= 0.999, "the card draws other tokens than the CPU from the same keys")
 
 
-def _teacher_forced(model, prompts, streams) -> list:
+def _teacher_forced(model, prompts, streams, vocab=None) -> list:
     """Per request, the log-probs [len(stream), V] a full ``output()`` over
     ``prompt + stream[:-1]`` gives at the positions that produced the
-    stream's tokens."""
+    stream's tokens (one-hot encoded over ``vocab`` for a char-RNN)."""
     seqs = [p + s[:-1] for p, s in zip(prompts, streams)]
     ids = np.zeros((len(seqs), max(len(s) for s in seqs)), np.int32)
     mask = np.zeros(ids.shape, np.float32)
     for i, s in enumerate(seqs):
         ids[i, : len(s)] = s
         mask[i, : len(s)] = 1.0
-    full = model.output(ids, mask)  # [b, V, t]
+    full = model.output(ids if vocab is None else _onehot(ids, vocab), mask)  # [b, V, t]
     out = [torch.log(torch.clamp_min(full[i, :, len(p) - 1: len(p) - 1 + len(s)], 1e-30)).T
            for i, (p, s) in enumerate(zip(prompts, streams))]
     del full
@@ -2139,6 +2196,331 @@ def phase_bert(card: str) -> dict:
     return counts
 
 
+def _onehot(ids: np.ndarray, v: int) -> torch.Tensor:
+    """[b, t] character ids -> one-hot [b, v, t] float32 on the card."""
+    return F.one_hot(torch.from_numpy(ids).long().cuda(), v).float().transpose(1, 2)
+
+
+def phase_char_rnn(card: str) -> dict:
+    """The zoo ``TextGenerationLSTM()`` (BASELINE.json:9, the GravesLSTM
+    char-RNN; the JAX package measures it in ``bench.py:396-433``): vocab
+    77, hidden 200, 2 GravesLSTM layers with peepholes, RnnOutputLayer
+    MCXENT/softmax, TBPTT 50/50, RmsProp(1e-3), float32, nothing cut.
+    ``CHAR_BATCHES`` ``Solver.fit`` batches of 32 x 200 one-hot characters
+    (4 TBPTT windows each); ``output()`` on the card against the same
+    weights in float64 on the CPU; ``rnn_time_step`` one character at a
+    time against ``output()``; ``TextGenerationLSTM.generate`` of 200
+    greedy characters on 8 ragged prompts (10-100 characters) through
+    ``GenerationSession``, whose decode step replays a CUDA graph. The
+    recurrence is plain PyTorch: no B kernel launches. Returns the launch
+    counts of its path."""
+    model = TextGenerationLSTM().init()
+    check(model.num_params() == 559_877, f"TextGenerationLSTM has {model.num_params()} params")
+    rs = np.random.RandomState(SEED + 20)
+    ids = rs.randint(0, CHAR_V, (CHAR_BATCH, CHAR_T + 1))
+    x, y = _onehot(ids[:, :-1], CHAR_V), _onehot(ids[:, 1:], CHAR_V)
+    solver = Solver(model)
+    solver.fit(x, y)  # warm-up: library handles, allocator pools
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated()  # weights, moments, batch, earlier phases' leftovers
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the training path: counts from 0, CHAR_BATCHES batches ----
+    fa.reset_launch_counts()
+    scores, batch_ms = [], []
+    for _ in range(CHAR_BATCHES):
+        t0 = time.perf_counter()
+        solver.fit(x, y)
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+        scores.append(model.score_value)
+    train_counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated() - rest
+    check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+          f"char-RNN scores must be finite and falling: {scores}")
+    busy, launches, rows = _device_profile(lambda: solver.fit(x, y))
+    ms = float(np.median(batch_ms))
+    idle = 1 - busy / ms
+    print(f"char-rnn ({card}): TextGenerationLSTM {model.num_params()} params; Solver.fit "
+          f"[{CHAR_BATCH},{CHAR_V},{CHAR_T}] TBPTT {model.conf.tbptt_fwd_length} "
+          f"({CHAR_T // model.conf.tbptt_fwd_length} windows) RmsProp(1e-3), {CHAR_BATCHES} "
+          f"batches after one warm-up: median {ms:.2f} ms/batch of "
+          f"{[round(t, 2) for t in batch_ms]} = {CHAR_BATCH * CHAR_T / ms * 1e3:.0f} chars/s; "
+          f"scores (last window) {[round(v, 5) for v in scores]}; peak memory above resting "
+          f"{peak / 2**20:.1f} MiB; one profiled batch: {launches:.0f} kernel launches, device "
+          f"busy {busy:.2f} ms (idle share {idle:.3f} of the median batch); B launches "
+          f"{train_counts}")
+    for key, kms, count in rows[:5]:
+        print(f"    {kms:9.3f} ms  {count:6.0f}x  {key[:90]}")
+
+    # ---- output() on the card in f32 against float64 on the CPU ----
+    model.output(x)  # warm-up: the inference path's first call
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    probs = model.output(x)
+    torch.cuda.synchronize()
+    out_ms = 1e3 * (time.perf_counter() - t0)
+    check(tuple(probs.shape) == (CHAR_BATCH, CHAR_V, CHAR_T) and bool(torch.isfinite(probs).all()),
+          "char-RNN output() must be finite [32, 77, 200]")
+    ref64 = MultiLayerNetwork(dataclasses.replace(model.conf, dtype="float64"), device="cpu").init()
+    with torch.no_grad():
+        for (_, p64), (_, p) in zip(ref64.named_parameters(), model.named_parameters()):
+            p64.copy_(p.double().cpu())
+    e64 = rel_err(probs.cpu(), ref64.output(x.double().cpu()))
+    print(f"char-rnn output() [{CHAR_BATCH},{CHAR_V},{CHAR_T}] {out_ms:.2f} ms; f32 on the card vs "
+          f"f64 on the CPU: max abs error over the largest probability {e64:.3e} "
+          f"(tol {TOL_LSTM_F32_VS_F64:g})")
+    check(e64 <= TOL_LSTM_F32_VS_F64, "char-RNN f32 output() disagrees with float64")
+
+    # ---- rnn_time_step, one character at a time ----
+    model.rnn_clear_previous_state()
+    t0 = time.perf_counter()
+    steps = [model.rnn_time_step(x[:, :, t]) for t in range(CHAR_T)]
+    torch.cuda.synchronize()
+    stream_ms = 1e3 * (time.perf_counter() - t0) / CHAR_T
+    e_stream = rel_err(torch.stack(steps, dim=2), probs)
+    model.rnn_clear_previous_state()
+    print(f"char-rnn rnn_time_step one character at a time ({stream_ms:.3f} ms a call) vs "
+          f"output(): max abs error over the largest probability {e_stream:.3e} "
+          f"(tol {TOL_STREAM_REL:g})")
+    check(e_stream <= TOL_STREAM_REL, "rnn_time_step disagrees with output()")
+    del probs, steps
+
+    # ---- generation through GenerationSession, the step a CUDA graph ----
+    lens = [10, 100] + rs.randint(10, 101, B - 2).tolist()
+    prompts = [rs.randint(0, CHAR_V, n).tolist() for n in lens]
+    TextGenerationLSTM.generate(model, prompts, 4, max_len=CHAR_MAX_LEN)  # warm-up
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = TextGenerationLSTM.generate(model, prompts, CHAR_GEN_TOKENS, max_len=CHAR_MAX_LEN)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    gen_counts = _all_counts()
+    check(all(len(r) == CHAR_GEN_TOKENS and all(0 <= c < CHAR_V for c in r) for r in gen),
+          "generate() must return 200 valid characters a row")
+    lp = _teacher_forced(model, prompts, gen, vocab=CHAR_V)
+    gap, exact = 0.0, 0
+    for lp_i, s_ in zip(lp, gen):
+        tok = torch.tensor(s_, device=lp_i.device)[:, None]
+        gap = max(gap, float((lp_i.max(dim=1).values - lp_i.gather(1, tok)[:, 0]).max()))
+        exact += int((torch.argmax(lp_i, dim=1) == tok[:, 0]).sum())
+    session = GenerationSession(model, max_len=CHAR_MAX_LEN)
+    carry_g, logits_g, _ = session.prefill(prompts)
+    carry_e, _, _ = session.prefill(prompts)
+    toks = torch.argmax(logits_g, dim=-1)
+    worst_ge, t_graph, t_eager = 0.0, [], []
+    for s_ in range(24):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry_g, lg = session.decode(carry_g, toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            le = session.step(carry_e, toks.to(torch.int32))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if s_ >= 2:  # step 0 runs eagerly, step 1 captures
+            t_graph.append(t1 - t0)
+            t_eager.append(t2 - t1)
+        worst_ge = max(worst_ge, max_err(lg, le))
+        toks = torch.argmax(lg, dim=-1)
+    check(session._graphs[B].step is not None, "decode() must replay a graph from step 2")
+    session.release_graphs()
+    gen_s = sorted(runs)[1]
+    n_chars = B * CHAR_GEN_TOKENS
+    print(f"char-rnn generate: 8 prompts of {sorted(lens)} characters, {CHAR_GEN_TOKENS} greedy "
+          f"characters each, median {gen_s * 1e3:.1f} ms of {[round(r * 1e3, 1) for r in runs]} "
+          f"= {n_chars / gen_s:.0f} chars/s; teacher-forced full forward: {exact} of {n_chars} "
+          f"characters its exact argmax, worst gap below the position's largest log-prob "
+          f"{gap:.3e} (tol {TOL_CHAR_LOGPROB:g}); graph step vs the uncaptured step, 24 steps: "
+          f"logits max_abs {worst_ge:.3e} (tol 1e-6), graph {1e3 * np.median(t_graph):.3f} "
+          f"ms/step, eager {1e3 * np.median(t_eager):.3f} ms/step")
+    check(gap <= TOL_CHAR_LOGPROB, "char-RNN generate() is not greedy")
+    check(worst_ge <= 1e-6, "the char-RNN graph step disagrees with the eager step")
+    check(all(v == 0 for v in gen_counts.values()), f"the recurrence launches no B kernel: "
+          f"{gen_counts}")
+    return train_counts
+
+
+def phase_learned_attention(card: str) -> dict:
+    """``EmbeddingSequenceLayer`` -> ``LearnedSelfAttentionLayer(n_out=768,
+    n_heads=12, n_queries=8)`` -> average pooling -> a 10-way softmax, on
+    [8, 512] ids with seeded ragged key masks (128-512): ``output()`` and 2
+    Adam steps through B1 (tq = 8 learned queries, tk = 512, non-causal,
+    key mask) and B2/B3, held against the materialised-scores seam.
+    Returns the launch counts of its path."""
+    conf = (NeuralNetConfiguration.builder().seed(SEED).updater(Adam(1e-3)).list()
+            .layer(EmbeddingSequenceLayer(n_in=LSA_VOCAB, n_out=768))
+            .layer(LearnedSelfAttentionLayer(n_out=768, n_heads=12, n_queries=LSA_QUERIES))
+            .layer(GlobalPoolingLayer(pooling_type=PoolingType.AVG))
+            .layer(OutputLayer(n_out=LSA_CLASSES, loss=LossFunction.MCXENT,
+                               activation=Activation.SOFTMAX))
+            .set_input_type(InputType.recurrent(LSA_VOCAB)).build())
+    model = MultiLayerNetwork(conf).init()
+    rs = np.random.RandomState(SEED + 21)
+    ids = torch.from_numpy(rs.randint(0, LSA_VOCAB, (BERT_BATCH, BERT_T))).cuda()
+    lens = torch.tensor([BERT_T, 128] + rs.randint(128, BERT_T + 1, BERT_BATCH - 2).tolist())
+    mask = (torch.arange(BERT_T)[None, :] < lens[:, None]).float().cuda()
+    y = F.one_hot(torch.from_numpy(rs.randint(0, LSA_CLASSES, BERT_BATCH)).cuda(),
+                  LSA_CLASSES).float()
+    solver = Solver(model)
+    model.output(ids, mask)  # warm-up
+    Solver(model).fit_batch(ids, y, mask=mask)  # warm-up on a throwaway updater state
+    torch.cuda.synchronize()
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    probs = model.output(ids, mask)
+    torch.cuda.synchronize()
+    out_ms = 1e3 * (time.perf_counter() - t0)
+    check(_all_counts() == {"flash_forward": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_decode": 0, "grouped_matmul": 0},
+          f"output() must launch B1 once: {_all_counts()}")
+    scores, step_ms = [], []
+    for _ in range(2):
+        before = _all_counts()
+        t0 = time.perf_counter()
+        score, _ = solver.fit_batch(ids, y, mask=mask)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        scores.append(float(score))
+        per_step = {n: c - before[n] for n, c in _all_counts().items()}
+        check(per_step == {"flash_forward": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                           "flash_decode": 0, "grouped_matmul": 0},
+              f"a training step must launch B1, B2 and B3 once: {per_step}")
+    counts = _all_counts()
+    check(tuple(probs.shape) == (BERT_BATCH, LSA_CLASSES) and bool(torch.isfinite(probs).all())
+          and all(np.isfinite(scores)), "LearnedSelfAttention outputs and scores must be finite")
+    ref = _with_impl("reference", lambda: model.output(ids, mask))
+    e_out = rel_err(model.output(ids, mask), ref)
+    grads = model.calculate_gradients(ids, y, mask=mask)
+    worst = _worst_grad(grads, _with_impl("reference", lambda: model.calculate_gradients(
+        ids, y, mask=mask)), "the kernels")
+    print(f"learned self-attention ({card}): {model.num_params()} params, [{BERT_BATCH},{BERT_T}] "
+          f"ids, key lengths {sorted(lens.tolist())}, {LSA_QUERIES} queries x 12 heads of 64; "
+          f"output() {out_ms:.2f} ms; 2 Solver.fit_batch Adam(1e-3) {[round(t, 2) for t in step_ms]} "
+          f"ms, scores {[round(v, 5) for v in scores]}; launches {counts}; vs the reference seam: "
+          f"output() rel error {e_out:.3e} (tol {TOL_OUT_REL:g}), gradients worst rel error "
+          f"{worst[0]:.3e} at {worst[1]} (tol {TOL_GRAD_REL:g})")
+    check(e_out <= TOL_OUT_REL, "LearnedSelfAttention output() through B1 disagrees")
+    check(worst[0] <= TOL_GRAD_REL, "LearnedSelfAttention gradients through B1-B3 disagree")
+    return counts
+
+
+def _lm_conf(**changes):
+    conf = TransformerLM(vocab_size=50257, hidden=768, n_layers=12, n_heads=12, ffn_size=3072,
+                         max_len=T_FULL, seed=SEED).conf()
+    return dataclasses.replace(conf, **changes)
+
+
+def _lm_batch():
+    rs = np.random.RandomState(SEED + 2)
+    ids = torch.from_numpy(rs.randint(0, 50257, (B, T_FULL + 1))).cuda()
+    return ids[:, :-1], ids[:, 1:]
+
+
+def _timed_steps(solver, ids, labels, n: int):
+    """(scores, ms of each step, peak bytes allocated above the resting
+    level) of ``n`` ``fit_batch`` steps after one warm-up."""
+    solver.fit_batch(ids, labels)
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scores, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        score, _ = solver.fit_batch(ids, labels)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        scores.append(float(score))
+    return scores, ms, torch.cuda.max_memory_allocated() - rest
+
+
+def phase_remat_and_bf16(card: str) -> dict:
+    """The GPT-2-small-width ``TransformerLM`` of the "LM training" phase on
+    its 8 x 1024 batch, three ways. ``gradient_checkpointing``: float32, the
+    first loss and the gradients with and without it (each block's forward
+    recomputed in the backward), 2 steps each with their peak memory.
+    ``compute_dtype="bfloat16"`` with float32 master weights: ``output()``
+    and ``BF16_STEPS`` steps through bf16 B1-B3, held against the bf16
+    materialised-scores seam, beside the float32 step. Returns the launch
+    counts of the checkpointed and bf16 paths."""
+    ids, labels = _lm_batch()
+    tok = B * T_FULL
+    plain = MultiLayerNetwork(_lm_conf()).init()
+    remat = MultiLayerNetwork(_lm_conf(gradient_checkpointing=True)).init()
+    check(all(torch.equal(a, b) for a, b in zip(plain.parameters(), remat.parameters())),
+          "the two LMs must start from the same weights")
+    fa.reset_launch_counts()
+    g_remat = remat.calculate_gradients(ids, labels)
+    check(fa.LAUNCH_COUNTS["flash_forward"] == 24 and fa.LAUNCH_COUNTS["flash_bwd_dq"] == 12,
+          f"a checkpointed backward runs each block's B1 twice: {dict(fa.LAUNCH_COUNTS)}")
+    g_plain = plain.calculate_gradients(ids, labels)
+    g_plain2 = plain.calculate_gradients(ids, labels)
+    worst = _worst_grad(g_remat, g_plain, "checkpointing")
+    rerun = _worst_grad(g_plain2, g_plain, "the plain path")
+    del g_remat, g_plain, g_plain2
+    s_plain, ms_plain, peak_plain = _timed_steps(Solver(plain), ids, labels, 2)
+    del plain
+    fa.reset_launch_counts()
+    s_remat, ms_remat, peak_remat = _timed_steps(Solver(remat), ids, labels, 2)
+    remat_counts = _all_counts()
+    del remat
+    loss_gap = abs(s_remat[0] - s_plain[0]) / abs(s_plain[0])
+    print(f"gradient checkpointing ({card}): LM [8,1024] f32, Adam(1e-4); first loss after a "
+          f"warm-up step {s_plain[0]:.7f} plain, {s_remat[0]:.7f} checkpointed (rel gap "
+          f"{loss_gap:.3e}, tol {TOL_REMAT_LOSS_REL:g}); gradients worst rel error "
+          f"{worst[0]:.3e} at {worst[1]} (tol {TOL_REMAT_GRAD_REL:g}; two plain runs differ by "
+          f"{rerun[0]:.3e} at {rerun[1]}); step ms plain {[round(t, 2) for t in ms_plain]}, "
+          f"checkpointed {[round(t, 2) for t in ms_remat]}; peak memory above the resting "
+          f"weights and moments: plain {peak_plain / 2**30:.2f} GiB, checkpointed "
+          f"{peak_remat / 2**30:.2f} GiB")
+    check(loss_gap <= TOL_REMAT_LOSS_REL, "checkpointing changed the loss")
+    check(worst[0] <= TOL_REMAT_GRAD_REL, "checkpointing changed the gradients")
+    check(peak_remat < peak_plain, "checkpointing must lower the peak memory")
+
+    bf = MultiLayerNetwork(_lm_conf(compute_dtype="bfloat16")).init()
+    probe_ids = ids[:, :T_FULL]
+    fa.reset_launch_counts()
+    probs = bf.output(probe_ids)
+    torch.cuda.synchronize()
+    bf_out_counts = _all_counts()
+    check(bf_out_counts["flash_forward"] == 12, f"bf16 output() launches B1 12 times: "
+          f"{bf_out_counts}")
+    check(probs.dtype == torch.float32 and bool(torch.isfinite(probs).all()),
+          "bf16 compute output() must be finite float32")
+    raw, _, _ = bf.forward_pure(bf.params, bf.state, bf._input(probe_ids[:1, :16]))
+    check(raw.dtype == torch.bfloat16, "the layers must compute in bfloat16")
+    e_out = rel_err(probs, _with_impl("reference", lambda: bf.output(probe_ids)))
+    del probs
+    grads = bf.calculate_gradients(ids, labels)
+    check({g.dtype for lg in grads.values() for g in lg.values()} == {torch.float32},
+          "master gradients must be float32")
+    worst_bf = _worst_grad(grads, _with_impl("reference", lambda: bf.calculate_gradients(
+        ids, labels)), "the bf16 kernels")
+    del grads
+    bf_counts_before = _all_counts()
+    s_bf, ms_bf, peak_bf = _timed_steps(Solver(bf), ids, labels, BF16_STEPS)
+    bf_counts = {n: c - bf_counts_before[n] for n, c in _all_counts().items()}
+    check(bf_counts["flash_bwd_dkv"] == 12 * (BF16_STEPS + 1), f"bf16 steps launch B3: {bf_counts}")
+    check(all(np.isfinite(s_bf)) and s_bf[-1] < s_bf[0], f"bf16 scores must fall: {s_bf}")
+    check({p.dtype for p in bf.parameters()} == {torch.float32}, "master weights stay float32")
+    ms_b, ms_f = float(np.median(ms_bf)), float(np.median(ms_plain))
+    print(f"bf16 compute_dtype LM ({card}): output() vs the bf16 reference seam rel error "
+          f"{e_out:.3e} (tol {TOL_BF16_REL:g}); gradients worst rel error {worst_bf[0]:.3e} at "
+          f"{worst_bf[1]} (tol {TOL_BF16_GRAD_REL:g}); {BF16_STEPS} steps "
+          f"{[round(t, 2) for t in ms_bf]} ms, median {ms_b:.2f} ms/step = "
+          f"{tok / ms_b * 1e3:.0f} tokens/s beside f32 {ms_f:.2f} ms/step = "
+          f"{tok / ms_f * 1e3:.0f} tokens/s (this phase); scores {[round(v, 5) for v in s_bf]}; "
+          f"peak above resting {peak_bf / 2**30:.2f} GiB")
+    check(e_out <= TOL_BF16_REL, "bf16 output() through B1 disagrees with the bf16 seam")
+    check(worst_bf[0] <= TOL_BF16_GRAD_REL, "bf16 gradients through B1-B3 disagree")
+    return {n: remat_counts[n] + bf_out_counts[n] + c for n, c in bf_counts.items()}
+
+
 def _kept_rows(sizes, m_pad: int, n: int) -> torch.Tensor:
     """[n] bool: the rows some group keeps (local index < m_pad, row < n)."""
     kept = torch.zeros(n, dtype=torch.bool)
@@ -2304,10 +2686,15 @@ def main() -> int:
               timed("float16 LM", phase_lm_f16, prompts),
               timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64),
               timed("LeNet", phase_lenet, card), timed("ResNet-50", phase_resnet50, card),
-              timed("BERT-base encoder", phase_bert, card)]
+              timed("BERT-base encoder", phase_bert, card),
+              timed("TextGenerationLSTM", phase_char_rnn, card),
+              timed("LearnedSelfAttention", phase_learned_attention, card),
+              timed("gradient checkpointing and bf16 compute_dtype LM", phase_remat_and_bf16,
+                    card)]
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
-    # float64-MoE paths, and LeNet, ResNet-50 and BERT-base
+    # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
+    # LearnedSelfAttention network, and the checkpointed and bf16 LMs
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

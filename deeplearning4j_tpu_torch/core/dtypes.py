@@ -68,3 +68,26 @@ def as_input(x, dtype: torch.dtype, keep_int: bool = False,
     if keep_int and not t.is_floating_point():
         return t
     return t.to(dtype)
+
+
+def cast_floats(tree, dtype):
+    """Cast every floating-point tensor of a nested dict / list / tuple to
+    ``dtype``, leaving integer and bool tensors and ``None`` untouched.
+
+    This is the mixed-precision boundary cast: the model keeps float32
+    master parameters and the forward and backward run in
+    ``compute_dtype`` (bfloat16 on the card's tensor cores). The cast is
+    differentiable, so gradients flow back to the master parameters in
+    their own dtype."""
+    want = torch_dtype(dtype)
+
+    def cast(leaf):
+        if isinstance(leaf, dict):
+            return {k: cast(v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            return type(leaf)(cast(v) for v in leaf)
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point() and leaf.dtype != want:
+            return leaf.to(want)
+        return leaf
+
+    return cast(tree)

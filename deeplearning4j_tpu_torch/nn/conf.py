@@ -29,6 +29,7 @@ from .input_type import (
 )
 from .layers import (
     BatchNormalizationLayer,
+    BidirectionalLayer,
     CnnLossLayer,
     CnnToFeedForwardPreProcessor,
     CnnToRnnPreProcessor,
@@ -42,18 +43,26 @@ from .layers import (
     EmbeddingLayer,
     FeedForwardToCnnPreProcessor,
     FeedForwardToRnnPreProcessor,
+    GravesLSTMLayer,
+    LastTimeStepLayer,
+    LearnedSelfAttentionLayer,
     LocalResponseNormalizationLayer,
+    LSTMLayer,
+    MaskZeroLayer,
     MixtureOfExpertsLayer,
     OutputLayer,
+    RecurrentAttentionLayer,
     RnnLossLayer,
     RnnOutputLayer,
     RnnToFeedForwardPreProcessor,
     SelfAttentionLayer,
     SeparableConvolution2DLayer,
+    SimpleRnnLayer,
     SpaceToDepthLayer,
     Subsampling1DLayer,
     Subsampling3DLayer,
     SubsamplingLayer,
+    TimeDistributedLayer,
     Upsampling1DLayer,
     Upsampling2DLayer,
     Upsampling3DLayer,
@@ -88,8 +97,7 @@ class WorkspaceMode(enum.Enum):
 
 
 # Layer families for preprocessor insertion (reference: each layer conf's
-# getPreProcessorForInputType). The recurrent layers of the JAX package's
-# families join these when they are ported.
+# getPreProcessorForInputType), as the JAX package's.
 _CNN_LAYERS = (
     ConvolutionLayer, SubsamplingLayer, LocalResponseNormalizationLayer,
     Deconvolution2DLayer, DepthwiseConvolution2DLayer, SeparableConvolution2DLayer,
@@ -99,7 +107,10 @@ _CNN_LAYERS = (
 _CNN3D_LAYERS = (Convolution3DLayer, Subsampling3DLayer, Upsampling3DLayer)
 _RNN_LAYERS = (
     Convolution1DLayer, Subsampling1DLayer, ZeroPadding1DLayer, Upsampling1DLayer,
-    SelfAttentionLayer, RnnOutputLayer, RnnLossLayer,
+    LSTMLayer, GravesLSTMLayer, SimpleRnnLayer, BidirectionalLayer,
+    MaskZeroLayer, TimeDistributedLayer, SelfAttentionLayer,
+    LearnedSelfAttentionLayer, RecurrentAttentionLayer,
+    RnnOutputLayer, RnnLossLayer, LastTimeStepLayer,
 )
 _FF_LAYERS = (DenseLayer, OutputLayer, EmbeddingLayer)
 # Token layers consume FF ([b, f]) and recurrent ([b, f, t]) input natively
@@ -367,7 +378,9 @@ class NeuralNetConfigurationBuilder:
 
     def _apply_global_defaults(self, layer: Layer) -> Layer:
         """Fold builder-level defaults into layers that did not override them
-        (reference: layer confs inherit from NeuralNetConfiguration globals)."""
+        (reference: layer confs inherit from NeuralNetConfiguration globals).
+        Wrapper layers (Bidirectional etc.) get defaults pushed into their
+        underlying layer too."""
         updates = {}
         if layer.activation is None and self._activation is not None:
             updates["activation"] = self._activation
@@ -390,6 +403,10 @@ class NeuralNetConfigurationBuilder:
             updates["dropout"] = self._dropout
         if layer.updater is None and self._updater is not None:
             updates["updater"] = self._updater
+        for wrapper_field in ("fwd", "underlying"):
+            inner = getattr(layer, wrapper_field, None)
+            if isinstance(inner, Layer):
+                updates[wrapper_field] = self._apply_global_defaults(inner)
         if not updates:
             return layer
         return dataclasses.replace(layer, **updates)

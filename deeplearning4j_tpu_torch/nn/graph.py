@@ -14,6 +14,11 @@ vertex, registered under the vertex's name, so ``params`` reads
 * ``state``  — persistent non-trainable state (batch norm's running
   ``mean``/``var``), written back by each training step
 
+``compute_dtype`` and ``gradient_checkpointing`` act as in
+``MultiLayerNetwork``: the walk runs on parameters and inputs cast to the
+compute dtype while regularization reads the master parameters, and each
+layer vertex of a training walk runs under ``torch.utils.checkpoint``.
+
 Inference runs under ``torch.inference_mode``; training records the
 autograd graph. The model lives on ``device`` (default: the current CUDA
 device; pass ``device="cpu"`` to run on the CPU).
@@ -27,10 +32,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.dtypes import as_input, default_device, torch_dtype
+from ..core.dtypes import as_input, cast_floats, default_device, torch_dtype
 from ..core.listeners import ListenerBus, TrainingListener
 from .graph_conf import ComputationGraphConfiguration, VertexSpec
-from .layers.base import Layer, LayerContext, LayerModule
+from .layers.base import Layer, LayerContext, LayerModule, apply_layer
 from .layers.output import BaseOutputLayer
 from .sequential import _layer_reg_score, grads_of
 
@@ -41,12 +46,6 @@ class ComputationGraph(nn.Module):
     def __init__(self, conf: ComputationGraphConfiguration,
                  device: Optional[Union[str, torch.device]] = None) -> None:
         super().__init__()
-        if conf.compute_dtype and torch_dtype(conf.compute_dtype) != torch_dtype(conf.dtype):
-            raise NotImplementedError(
-                "ComputationGraph with compute_dtype (mixed precision) is not ported yet")
-        if conf.gradient_checkpointing:
-            raise NotImplementedError(
-                "ComputationGraph with gradient_checkpointing is not ported yet")
         self.conf = conf
         self.device = default_device(device)
         self.state: Tensors = {}
@@ -83,6 +82,13 @@ class ComputationGraph(nn.Module):
             as_input(x, self.dtype, self.keeps_int_input(names[i]) if i < len(names) else False,
                      self.device)
             for i, x in enumerate(xs))
+
+    def _to_compute(self, params, inputs):
+        """Mixed-precision boundary (see MultiLayerNetwork._to_compute)."""
+        cd = self.conf.compute_dtype
+        if not cd or torch_dtype(cd) == self.dtype:
+            return params, inputs
+        return cast_floats(params, cd), [cast_floats(x, cd) for x in inputs]
 
     def _as_labels(self, ys) -> tuple:
         return tuple(as_input(y, self.dtype, True, self.device) for y in ys)
@@ -159,6 +165,8 @@ class ComputationGraph(nn.Module):
         :meth:`loss_pure`. With ``labels``, each output layer that has labels
         computes its loss (and runs its forward only if another vertex reads
         it). Returns (activations, new_state, losses)."""
+        params, inputs = self._to_compute(params, inputs)
+        remat = self.conf.gradient_checkpointing and train
         acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs, inputs))
         vmasks: Dict[str, Optional[torch.Tensor]] = {}
         if masks is not None:
@@ -189,7 +197,7 @@ class ComputationGraph(nn.Module):
                 if spec.name not in self._consumed:
                     new_state[spec.name] = {k: v for k, v in lstate.items() if k in persistent}
                     continue
-            y, lstate_out = spec.layer.apply(lparams, lstate, x, ctx)
+            y, lstate_out = apply_layer(spec.layer, lparams, lstate, x, ctx, remat=remat)
             new_state[spec.name] = {k: v for k, v in lstate_out.items() if k in persistent}
             vmasks[spec.name] = (None if in_mask is None
                                  else spec.layer.feed_forward_mask(in_mask, None))
@@ -208,7 +216,7 @@ class ComputationGraph(nn.Module):
                   labels: Sequence[torch.Tensor], *, rng: Optional[torch.Generator] = None,
                   masks=None, label_masks=None, train: bool = True):
         """Weighted sum of output-layer losses + regularization (on the
-        parameters) + each MoE layer's load-balance term. Returns
+        master parameters) + each MoE layer's load-balance term. Returns
         (score, new_state)."""
         _, new_state, losses = self._run(params, state, inputs, train=train, rng=rng,
                                          masks=masks, labels=labels,

@@ -1,4 +1,10 @@
-from .attention import SelfAttentionLayer, TransformerDecoderBlockLayer, dot_product_attention
+from .attention import (
+    LearnedSelfAttentionLayer,
+    RecurrentAttentionLayer,
+    SelfAttentionLayer,
+    TransformerDecoderBlockLayer,
+    dot_product_attention,
+)
 from .base import Layer, LayerContext, LayerModule, Params, State
 from .conv import (
     Convolution1DLayer,
@@ -41,6 +47,17 @@ from .pooling import (
     Upsampling3DLayer,
     ZeroPadding1DLayer,
     ZeroPaddingLayer,
+)
+from .recurrent import (
+    BidirectionalLayer,
+    BidirectionalMode,
+    GravesLSTMLayer,
+    GRULayer,
+    LastTimeStepLayer,
+    LSTMLayer,
+    MaskZeroLayer,
+    SimpleRnnLayer,
+    TimeDistributedLayer,
 )
 from .preprocessors import (
     CnnToFeedForwardPreProcessor,

@@ -304,3 +304,199 @@ class TransformerDecoderBlockLayer(Layer):
         act = self.activation or Activation.GELU
         ffn = act(h2 @ params["W1"] + params["b1"]) @ params["W2"] + params["b2"]
         return (r1 + ffn).transpose(1, 2), new_state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class LearnedSelfAttentionLayer(Layer):
+    """Attention with learned query vectors (reference:
+    LearnedSelfAttentionLayer): the output has ``n_queries`` time steps
+    whatever the input's length. The queries attend, non-causally, over
+    the input under its [b, t] key mask through the seam: the flash
+    forward kernel with tq = n_queries, and its backward kernels in
+    training."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+    n_queries: int = 1
+    project_input: bool = True
+
+    def __post_init__(self):
+        if self.n_out and not self.head_size:
+            object.__setattr__(self, "head_size", self.n_out // self.n_heads)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        size = self.n_out if self.project_input else input_type.size
+        return RecurrentType(size=size, timesteps=self.n_queries)
+
+    def with_input(self, input_type: InputType) -> "LearnedSelfAttentionLayer":
+        out = self
+        if not out.n_in:
+            out = dataclasses.replace(out, n_in=input_type.size)
+        if not out.n_out and not out.project_input:
+            out = dataclasses.replace(out, n_out=input_type.size)
+        if out.n_out and not out.head_size:
+            out = dataclasses.replace(out, head_size=out.n_out // out.n_heads)
+        return out
+
+    def has_params(self) -> bool:
+        return True
+
+    def trainable_param_names(self) -> Tuple[str, ...]:
+        return ("Q",) + (("Wq", "Wk", "Wv", "Wo") if self.project_input else ())
+
+    def init(self, gen: torch.Generator, dtype: torch.dtype,
+             device: Optional[torch.device] = None) -> Params:
+        wi = self.weight_init or WeightInit.XAVIER
+        hs = self.n_heads * self.head_size if self.project_input else self.n_in
+
+        def w(n_in, n_out, fan_in, fan_out):
+            return init_weights(gen, (n_in, n_out), wi, fan_in, fan_out, None, dtype, device)
+
+        p: Params = {}
+        if self.project_input:
+            p.update({"Wq": w(hs, hs, hs, hs), "Wk": w(self.n_in, hs, self.n_in, hs),
+                      "Wv": w(self.n_in, hs, self.n_in, hs),
+                      "Wo": w(hs, self.n_out, hs, self.n_out)})
+        p["Q"] = w(self.n_queries, hs, hs, hs)
+        return p
+
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              ctx: LayerContext) -> Tuple[torch.Tensor, State]:
+        x = apply_input_dropout(self, x, ctx)
+        b = x.shape[0]
+        xt = x.transpose(1, 2)  # [b, t, f]
+        queries = params["Q"].expand((b,) + tuple(params["Q"].shape))
+        if self.project_input:
+            q = _split_heads(queries @ params["Wq"], self.n_heads)
+            k = _split_heads(xt @ params["Wk"], self.n_heads)
+            v = _split_heads(xt @ params["Wv"], self.n_heads)
+        else:
+            q = _split_heads(queries, self.n_heads)
+            k = v = _split_heads(xt, self.n_heads)
+        o = _merge_heads(dot_product_attention(q, k, v, mask=ctx.mask))
+        if self.project_input:
+            o = o @ params["Wo"]
+        act = self.activation or Activation.IDENTITY
+        return act(o).transpose(1, 2), state
+
+    def feed_forward_mask(self, mask, input_type):
+        return None  # the output steps are the learned queries: all valid
+
+
+@register_config
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class RecurrentAttentionLayer(Layer):
+    """Recurrent cell attending over the input sequence at each step
+    (reference: RecurrentAttentionLayer): h_t = act(x_t W + h_{t-1} RW +
+    attn(h_{t-1}, X) Wa + b). The attention is plain tensor arithmetic in
+    the loop (no kernel), masked with the dtype's most negative finite
+    value, as in the JAX package.
+
+    ``h`` threads through the state (rnnTimeStep semantics).
+    ``causal=True`` restricts step t's attention to inputs [0, t], the mode
+    incremental decode needs: the carry of :meth:`decode_state` also
+    caches the inputs seen so far (``cache_x``, written at ``pos`` with
+    ``dynamic_update_slice``'s clamping), so a one-step call attends over
+    everything seen so far. The written cache is a new tensor; a decode
+    session copies it into the carry."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    causal: bool = False
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return RecurrentType(size=self.n_out, timesteps=input_type.timesteps)
+
+    def with_input(self, input_type: InputType) -> "RecurrentAttentionLayer":
+        if self.n_in:
+            return self
+        return dataclasses.replace(self, n_in=input_type.size)
+
+    def has_params(self) -> bool:
+        return True
+
+    def trainable_param_names(self) -> Tuple[str, ...]:
+        return ("W", "RW", "Wa", "b")
+
+    def init(self, gen: torch.Generator, dtype: torch.dtype,
+             device: Optional[torch.device] = None) -> Params:
+        wi = self.weight_init or WeightInit.XAVIER
+        n_in, n = self.n_in, self.n_out
+
+        def w(a, c):
+            return init_weights(gen, (a, c), wi, a, c, None, dtype, device)
+
+        return {"W": w(n_in, n), "RW": w(n, n), "Wa": w(n_in, n),
+                "b": torch.full((n,), self.bias_init, dtype=dtype, device=device)}
+
+    def decode_state(self, batch: int, max_len: int, dtype: torch.dtype,
+                     device: Optional[torch.device] = None) -> State:
+        if not self.causal:
+            return {}  # future-peeking attention has no incremental decode
+        return {"h": torch.zeros((batch, self.n_out), dtype=dtype, device=device),
+                "cache_x": torch.zeros((batch, max_len, self.n_in), dtype=dtype,
+                                       device=device),
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              ctx: LayerContext) -> Tuple[torch.Tensor, State]:
+        x = apply_input_dropout(self, x, ctx)
+        b, f, t = x.shape
+        act = self.activation or Activation.TANH
+        x_proj = x.permute(2, 0, 1) @ params["W"] + params["b"]  # [t, b, o]
+        mask = ctx.mask
+        cache = state.get("cache_x")
+        if cache is not None and not self.causal:
+            raise ValueError("cached decode requires causal=True — a step "
+                             "cannot attend inputs that do not exist yet")
+        xt = x.transpose(1, 2)  # [b, t, f]
+        pos = None
+        if cache is None:
+            keys = xt
+        else:
+            pos = state["pos"].to(torch.int32)
+            start = torch.clamp(pos.long(), 0, cache.shape[1] - t)
+            idx = (start[:, None] + torch.arange(t, device=x.device)[None, :])
+            keys = cache.scatter(1, idx[:, :, None].expand(b, t, f), xt.to(cache.dtype))
+        t_keys = keys.shape[1]
+        neg = torch.finfo(x.dtype).min
+        wa, rw = params["Wa"], params["RW"]
+        ids = torch.arange(t_keys, dtype=torch.int32, device=x.device)[None, :]
+        # freeze h through right-pad steps only on the cached (prefill) path;
+        # the padding-key mask applies only when the keys are this call's
+        # input (cached keys are masked by the causal frontier instead)
+        use_m = mask is not None and cache is not None
+        key_valid = mask > 0 if mask is not None and cache is None else None
+        m_t = mask.transpose(0, 1).to(x.dtype) if use_m else None
+
+        def step(h, i):
+            scores = torch.bmm(keys, (h @ wa.T)[:, :, None])[:, :, 0] / math.sqrt(f)
+            if key_valid is not None:
+                scores = torch.where(key_valid, scores, neg)
+            if self.causal:
+                limit = i if pos is None else pos[:, None] + i
+                scores = torch.where(ids <= limit, scores, neg)
+            w = torch.softmax(scores, dim=-1)
+            attended = torch.bmm(w[:, None, :], keys)[:, 0, :]  # [b, f]
+            h_new = act(x_proj[i] + h @ rw + attended @ wa)
+            if m_t is not None:
+                mm = m_t[i][:, None]
+                h_new = mm * h_new + (1.0 - mm) * h
+            return h_new
+
+        h = state.get("h")
+        if h is None:
+            h = torch.zeros((b, self.n_out), dtype=x.dtype, device=x.device)
+        hs = []
+        for i in range(t):
+            h = step(h, i)
+            hs.append(h)
+        out_state: State = {"h": h}
+        if cache is not None:
+            valid = (t if mask is None else torch.sum(mask > 0, dim=1).to(torch.int32))
+            out_state.update({"cache_x": keys, "pos": pos + valid})
+        return torch.stack(hs, dim=2), out_state

@@ -144,3 +144,32 @@ def apply_input_dropout(cfg: Layer, x: torch.Tensor, ctx: LayerContext) -> torch
         return x
     keep = torch.rand(x.shape, generator=ctx.rng).to(x.device) < retain
     return torch.where(keep, x / retain, torch.zeros_like(x))
+
+
+def apply_layer(layer: Layer, lparams: Params, lstate: State, x: torch.Tensor,
+                ctx: LayerContext, *, remat: bool = False) -> Tuple[torch.Tensor, State]:
+    """Layer apply, optionally under ``torch.utils.checkpoint``: the backward
+    then recomputes this layer's intermediates (attention probabilities,
+    the FFN hidden, the recurrence's gates) instead of holding them.
+
+    Dropout draws from ``ctx.rng``, an explicit CPU generator, whose state
+    ``torch.utils.checkpoint`` does not restore. The recompute therefore
+    draws from a copy of the generator as it stood before the layer, so it
+    draws the masks of the forward, and the forward itself draws from
+    ``ctx.rng``, which later layers go on drawing from."""
+    if not remat:
+        return layer.apply(lparams, lstate, x, ctx)
+    from torch.utils.checkpoint import checkpoint
+
+    rng_start = ctx.rng.get_state() if ctx.rng is not None else None
+    calls = [0]
+
+    def fn(xx):
+        rng = ctx.rng
+        if calls[0] and rng_start is not None:
+            rng = torch.Generator()
+            rng.set_state(rng_start)
+        calls[0] += 1
+        return layer.apply(lparams, lstate, xx, dataclasses.replace(ctx, rng=rng))
+
+    return checkpoint(fn, x, use_reentrant=False)

@@ -8,8 +8,18 @@ registered under the layer's name, so ``state_dict`` keys read
 State model, as in the JAX package:
 * ``params``    — {layer_name: {param_name: tensor}} (live ``nn.Parameter``s)
 * ``state``     — persistent non-trainable state per layer
-* ``rnn_state`` — the incremental-decode carry (KV caches, positions),
-                  threaded through :meth:`forward_pure`'s ``rnn_state``
+* ``rnn_state`` — the transient carry: the recurrent (h, c) of
+                  :meth:`rnn_time_step` and truncated BPTT, the
+                  incremental-decode KV caches and positions; threaded
+                  through :meth:`forward_pure`'s ``rnn_state``, never
+                  carried across ``fit`` batches
+
+With ``compute_dtype`` set (``"bfloat16"``), the forward and backward run
+in that dtype on cast copies of the parameters, which stay in ``dtype``
+(the master weights); regularization reads the master parameters, the
+score is at least float32 and ``output()`` returns ``dtype``. With
+``gradient_checkpointing``, each layer of a training forward runs under
+``torch.utils.checkpoint`` (``layers.base.apply_layer``).
 
 PyTorch runs eagerly, so there is no jitted program per entry point; the
 inference entry points run under ``torch.inference_mode``, and training
@@ -26,10 +36,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.dtypes import as_input, default_device, torch_dtype
+from ..core.dtypes import as_input, cast_floats, default_device, torch_dtype
 from ..core.listeners import ListenerBus, TrainingListener
 from .conf import MultiLayerConfiguration
-from .layers.base import Layer, LayerContext, LayerModule
+from .input_type import RecurrentType
+from .layers.base import Layer, LayerContext, LayerModule, apply_layer
 from .layers.output import BaseOutputLayer
 
 
@@ -93,6 +104,15 @@ class MultiLayerNetwork(nn.Module):
         """True when the first layer consumes integer indices (embedding)."""
         return bool(self.layers) and getattr(self.layers[0], "consumes_indices", False)
 
+    def _to_compute(self, params, x):
+        """Mixed-precision boundary: params and input cast to
+        ``compute_dtype`` while the master params stay in ``dtype``. A no-op
+        when ``compute_dtype`` is unset or equals ``dtype``; idempotent."""
+        cd = self.conf.compute_dtype
+        if not cd or torch_dtype(cd) == self.dtype:
+            return params, x
+        return cast_floats(params, cd), cast_floats(x, cd)
+
     def layer_names(self) -> List[str]:
         return [self.conf.layer_name(i) for i in range(len(self.layers))]
 
@@ -152,6 +172,8 @@ class MultiLayerNetwork(nn.Module):
     ):
         """Forward through layers [0, upto). Returns (out, new_state,
         new_rnn_state). Decode caches in ``rnn_state`` are written in place."""
+        params, x = self._to_compute(params, x)
+        remat = self.conf.gradient_checkpointing and train
         new_state: Dict[str, Dict[str, torch.Tensor]] = {}
         new_rnn: Dict[str, Dict[str, torch.Tensor]] = {}
         cur_mask = mask
@@ -164,7 +186,8 @@ class MultiLayerNetwork(nn.Module):
             if rnn_state is not None and name in rnn_state:
                 lstate.update(rnn_state[name])
             ctx = LayerContext(train=train, rng=rng, mask=cur_mask)
-            y, lstate_out = layer.apply(params.get(name, {}), lstate, x, ctx)
+            y, lstate_out = apply_layer(layer, params.get(name, {}), lstate, x, ctx,
+                                        remat=remat)
             persistent = self._persistent_keys.get(name, ())
             new_state[name] = {k: v for k, v in lstate_out.items() if k in persistent}
             transient = {k: v for k, v in lstate_out.items() if k not in persistent}
@@ -189,15 +212,19 @@ class MultiLayerNetwork(nn.Module):
         return as_input(mask, self.dtype, False, self.device)
 
     def loss_pure(self, params, state, x, labels, *, rng=None, mask=None,
-                  label_mask=None, train: bool = True):
+                  label_mask=None, rnn_state=None, train: bool = True):
         """Score = loss + regularization (reference: computeGradientAndScore).
         Returns (score, (new_state, new_rnn_state))."""
         out_layer = self.layers[-1]
         if not isinstance(out_layer, BaseOutputLayer):
             raise ValueError("Last layer must be an output/loss layer to compute a score")
+        # regularization reads the master (uncast) params; the compute-dtype
+        # cast applies to the forward math only
+        master_params = params
+        params, x = self._to_compute(params, x)
         feat, new_state, new_rnn = self.forward_pure(
             params, state, x, train=train, rng=rng, mask=mask,
-            upto=len(self.layers) - 1)
+            rnn_state=rnn_state, upto=len(self.layers) - 1)
         cur_mask = mask
         it = self.conf.input_type
         if it is not None and cur_mask is not None:
@@ -213,7 +240,7 @@ class MultiLayerNetwork(nn.Module):
         score = loss.to(score_dtype)
         for i, layer in enumerate(self.layers):
             lname = self.conf.layer_name(i)
-            lparams = params.get(lname)
+            lparams = master_params.get(lname)
             if lparams:
                 score = score + _layer_reg_score(layer, lparams, score_dtype)
             # MoE load-balance aux loss (GShard): the layer computed this
@@ -276,6 +303,39 @@ class MultiLayerNetwork(nn.Module):
             self._trainer = Solver(self)
         self._trainer.fit(data, labels, epochs=epochs, mask=mask, label_mask=label_mask)
         return self
+
+    # ------------------------------------------------------- rnn streaming
+    def rnn_time_step(self, x, mask=None) -> torch.Tensor:
+        """Stateful streaming inference (reference: rnnTimeStep): the
+        recurrent state (h, c) carries across calls. A 2-D [b, f] input to a
+        network that takes sequences is one time step, and so is the
+        [b, f] output."""
+        self._check_init()
+        x = self._input(x)
+        single_step = False
+        if x.ndim == 2 and self._expects_sequence_input():
+            x = x[:, :, None]
+            single_step = True
+        with torch.no_grad():
+            out, _, new_rnn = self.forward_pure(
+                self.params, self.state, x, mask=self._mask(mask),
+                rnn_state=self.rnn_state if self.rnn_state else None)
+        self.rnn_state = new_rnn
+        if single_step and out.ndim == 3:
+            out = out[:, :, -1]
+        return out
+
+    def rnn_clear_previous_state(self) -> None:
+        self.rnn_state = {}
+
+    def rnn_get_previous_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return self.rnn_state
+
+    def rnn_set_previous_state(self, state) -> None:
+        self.rnn_state = state
+
+    def _expects_sequence_input(self) -> bool:
+        return isinstance(self.conf.input_type, RecurrentType)
 
     # ------------------------------------------------------------- params
     def num_params(self) -> int:

@@ -13,9 +13,14 @@ Built-in registrations:
           and "im2col" (padding, ``F.unfold`` and one matrix product: the
           plain, independent spelling that checks the first).
 
-The recurrent-sequence helpers (``lstm``) register here with the
-recurrent layers. PyTorch runs eagerly, so a switch has no compiled
-program to invalidate.
+  lstm:   "scan" (the default) and "unrolled" — the JAX package's names for
+          its one compiled loop and its unrolled Python loop. PyTorch runs
+          eagerly, so both are a loop over the time-major inputs, one step
+          at a time; the names stay so that a selection made for the JAX
+          package works here. There is no "cudnn" entry: cuDNN's LSTM has
+          no peepholes, another gate order and no masked-step carry.
+
+PyTorch runs eagerly, so a switch has no compiled program to invalidate.
 
 Every convolution of the port goes through :func:`convolution`, which
 keeps float32 convolutions in float32: cuDNN may run float32 in TF32
@@ -209,3 +214,40 @@ register_helper("conv2d", "im2col", _conv2d_im2col)
 def conv2d(x, w, strides, padding, dilation, dn):
     """Layer entry point: dispatch through the active conv2d helper."""
     return get_helper("conv2d")(x, w, strides, padding, dilation, dn)
+
+
+# ---------------------------------------------------------------------------
+# recurrent sequence helpers — signature: (inputs, step_fn, carry) ->
+# (carry_final, stacked_outputs). ``inputs`` is a time-major tensor or a
+# tuple of them; the cell math (gates, masking, peepholes) stays with the
+# layer's step_fn.
+# ---------------------------------------------------------------------------
+
+def _time_slices(inputs, t: int):
+    if isinstance(inputs, (tuple, list)):
+        return type(inputs)(a[t] for a in inputs)
+    return inputs[t]
+
+
+def _n_steps(inputs) -> int:
+    return (inputs[0] if isinstance(inputs, (tuple, list)) else inputs).shape[0]
+
+
+def rnn_loop(inputs, step_fn, carry):
+    """Run ``step_fn(carry, inputs[t]) -> (carry, out)`` for every t of the
+    time-major ``inputs``; returns the last carry and the outputs stacked
+    on a leading time axis (the loop ``lax.scan`` compiles)."""
+    outs = []
+    for t in range(_n_steps(inputs)):
+        carry, out = step_fn(carry, _time_slices(inputs, t))
+        outs.append(out)
+    return carry, torch.stack(outs, dim=0)
+
+
+register_helper("lstm", "scan", rnn_loop, default=True)
+register_helper("lstm", "unrolled", rnn_loop)
+
+
+def rnn_sequence(inputs, step_fn, carry):
+    """Layer entry point: dispatch through the active lstm helper."""
+    return get_helper("lstm")(inputs, step_fn, carry)

@@ -10,7 +10,8 @@ package's jitted step is. PyTorch runs eagerly, so there is no compiled
 step to cache and no buffer to donate: parameters and updater moments are
 updated in place under ``torch.no_grad()``, and the JAX package's
 ``lax.scan`` fast path (:meth:`Solver.fit_scan`) is the same Python loop as
-:meth:`Solver.fit`.
+:meth:`Solver.fit`. Under truncated BPTT, :meth:`Solver.fit` cuts each
+sequence batch into windows and carries the recurrent state across them.
 
 Per-layer updater overrides (reference: UpdaterBlock boundaries) are
 honored: each layer gets its own transformation chain; frozen layers get
@@ -140,18 +141,19 @@ class Solver:
         self.opt_state = self.optim.init(model.params)
 
     def fit_batch(self, x, y, mask=None, label_mask=None,
-                  rnn_state=None) -> Tuple[torch.Tensor, Optional[dict]]:
-        """One training step. Returns ``(score, None)``: the score is a 0-dim
-        tensor on the model's device, read only when the caller asks."""
-        if rnn_state is not None:
-            raise NotImplementedError("stateful (TBPTT) steps need nn/layers/recurrent.py, "
-                                      "which is not ported yet")
+                  rnn_state=None) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
+        """One training step. Returns ``(score, new_rnn_state)``: the score is
+        a 0-dim tensor on the model's device, read only when the caller
+        asks. With ``rnn_state`` (a TBPTT window; ``{}`` for the first) the
+        recurrent layers start from that carry, and the returned carry is
+        where this step left them, detached from its graph."""
         model = self.model
         x = model._input(x)
         y = as_input(y, model.dtype, True, model.device)
-        score, (new_state, _) = model.loss_pure(
+        score, (new_state, new_rnn) = model.loss_pure(
             model.params, model.state, x, y, rng=model._next_generator(),
-            mask=model._mask(mask), label_mask=model._mask(label_mask), train=True)
+            mask=model._mask(mask), label_mask=model._mask(label_mask),
+            rnn_state=rnn_state, train=True)
         grads = grads_of(score, model.params)
         score = score.detach()
         conf = model.conf
@@ -166,7 +168,8 @@ class Solver:
         model.last_batch_size = int(x.shape[0])
         if model.listeners.requires_arrays:
             model.listeners.gradient_calculation(model, grads)
-        return score, None
+        return score, {l: {k: v.detach() for k, v in st.items()}
+                       for l, st in new_rnn.items()}
 
     def fit_scan(self, features, labels) -> torch.Tensor:
         """Multi-step training over a stack of batches ([n_batches, batch,
@@ -199,10 +202,9 @@ class Solver:
                 if (model.conf.backprop_type is BackpropType.TRUNCATED_BPTT
                         and getattr(feats, "ndim", 0) == 3
                         and feats.shape[2] > model.conf.tbptt_fwd_length):
-                    raise NotImplementedError("truncated BPTT needs "
-                                              "nn/layers/recurrent.py, which is not "
-                                              "ported yet")
-                score, _ = self.fit_batch(feats, labs, msk, lmsk)
+                    score = self._fit_tbptt(feats, labs, msk, lmsk)
+                else:
+                    score, _ = self.fit_batch(feats, labs, msk, lmsk)
                 last_score = score
                 model.iteration_count += 1
                 if sync_every_iter:
@@ -213,3 +215,25 @@ class Solver:
             model.epoch_count += 1
         if last_score is not None:
             model.score_value = float(last_score)
+
+    def _fit_tbptt(self, feats, labs, msk, lmsk) -> torch.Tensor:
+        """Truncated BPTT (reference: doTruncatedBPTT): windows of
+        ``tbptt_fwd_length`` steps (the last may be shorter), one update
+        each; the recurrent carry passes from window to window, detached,
+        and starts from zeros in every batch. ``tbptt_back_length`` is not
+        read, as in the JAX package: the gradient spans the window."""
+        model = self.model
+        feats = model._input(feats)
+        labs = as_input(labs, model.dtype, True, model.device)
+        t_total = feats.shape[2]
+        length = model.conf.tbptt_fwd_length
+        rnn_state: dict = {}
+        last_score = None
+        for start in range(0, t_total, length):
+            end = min(start + length, t_total)
+            lw = labs[:, :, start:end] if labs.ndim == 3 else labs
+            mw = None if msk is None else msk[:, start:end]
+            lmw = None if lmsk is None else lmsk[:, start:end]
+            last_score, rnn_state = self.fit_batch(feats[:, :, start:end], lw, mw, lmw,
+                                                   rnn_state=rnn_state)
+        return last_score
