@@ -64,7 +64,20 @@ greedy characters on 8 ragged prompts from a CUDA-graphed decode step; a
 [8, 512] ids with ragged key masks through B1-B3, against the seam; and the
 GPT-2-small-width LM with ``gradient_checkpointing`` (loss and gradients
 against the plain step, peak memory) and with ``compute_dtype="bfloat16"``
-(float32 master weights, bf16 B1-B3, against the bf16 seam). It times each kernel at its main path's
+(float32 master weights, bf16 B1-B3, against the bf16 seam). Then the
+data slice: the bf16 ``compute_dtype`` LM's generation (the graphed session,
+the engine over static, paged, int8 and paged int8 caches and speculative
+``k=4``, through B4, each greedy token held against a full bf16
+``output()``); the zoo ``LeNet()`` trained by ``model.fit`` from
+``MnistDataSetIterator(64, train=True, num_examples=12800)`` and evaluated on
+the 2048 test digits against the JAX package's accuracy on the CPU; and
+``bench.py``'s ResNet-50 from files (512 seeded 256x256x3 P6 files ->
+``ImageRecordReader(output_dtype="uint8")`` -> ``RecordReaderDataSetIterator``
+-> ``AsyncDataSetIterator(device_put_fn=device_put_dataset,
+device_buffers=2)`` -> crop and flip on the card -> ``GraphSolver.fit_iterator``
+on ``ResNet50(num_classes=8, compute_dtype="bfloat16")``), its first batch
+held bit-equal to the decoded files and the host library required to load.
+It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
 the host's time to issue a call printed apart, and B5 paired with a padded
@@ -278,6 +291,19 @@ TOL_REMAT_GRAD_REL = 1e-4
 # The device sampler's chi-square against the softmax over a small fixed
 # vocabulary (8 tokens, 7 degrees of freedom): 24.32 is its 0.999 quantile.
 CHI2_DF7_999 = 24.32
+# bf16 compute_dtype generation: a greedy token's log-prob below its
+# position's maximum in a full bf16 forward (bf16 keeps 3 fewer mantissa
+# bits than the gates of the float32 decode, TOL_LOGPROB 2e-3)
+TOL_BF16_LOGPROB = 2e-2
+# LeNet from MnistDataSetIterator: the JAX package's accuracy with the same
+# recipe on the CPU (tools/jax_lenet_mnist_accuracy.py, seed 1234: 0.99072265625)
+# less 0.05, and never below 0.5
+LENET_JAX_ACCURACY = 0.99072265625
+LENET_ACC_GATE = max(0.5, LENET_JAX_ACCURACY - 0.05)
+LENET_TRAIN = 12800
+FILE_PASSES = 2               # timed passes over the 512 files after the warm-up pass
+#: tokens/s of each float32 engine of phase_engine, for the bf16 phase's print
+ENGINE_TPS = {}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -978,31 +1004,56 @@ def phase_sampler() -> None:
     check(same >= 0.999, "the card draws other tokens than the CPU from the same keys")
 
 
-def _teacher_forced(model, prompts, streams, vocab=None) -> list:
+def _teacher_forced(model, prompts, streams, vocab=None, cache_dtype=None) -> list:
     """Per request, the log-probs [len(stream), V] a full ``output()`` over
     ``prompt + stream[:-1]`` gives at the positions that produced the
-    stream's tokens (one-hot encoded over ``vocab`` for a char-RNN)."""
+    stream's tokens (one-hot encoded over ``vocab`` for a char-RNN). With
+    ``cache_dtype="int8"`` the same full forward runs on a fresh int8 decode
+    carry: every position's K and V are quantized into the cache and each
+    query attends over their dequantized values, as in the int8 engine's
+    prefill and decode steps."""
     seqs = [p + s[:-1] for p, s in zip(prompts, streams)]
     ids = np.zeros((len(seqs), max(len(s) for s in seqs)), np.int32)
     mask = np.zeros(ids.shape, np.float32)
     for i, s in enumerate(seqs):
         ids[i, : len(s)] = s
         mask[i, : len(s)] = 1.0
-    full = model.output(ids if vocab is None else _onehot(ids, vocab), mask)  # [b, V, t]
+    if cache_dtype is None:
+        full = model.output(ids if vocab is None else _onehot(ids, vocab), mask)  # [b, V, t]
+    else:
+        carry = GenerationSession(model, max_len=ids.shape[1],
+                                  cache_dtype=cache_dtype).decode_state(len(seqs))
+        with torch.no_grad():
+            full, _, _ = model.forward_pure(
+                model.params, model.state, torch.from_numpy(ids).to(model.device),
+                train=False, rng=None, mask=torch.from_numpy(mask).to(model.device, model.dtype),
+                rnn_state=carry)
+        del carry
+        full = full.float()
     out = [torch.log(torch.clamp_min(full[i, :, len(p) - 1: len(p) - 1 + len(s)], 1e-30)).T
            for i, (p, s) in enumerate(zip(prompts, streams))]
     del full
     return out
 
 
-def _greedy_gap(model, prompts, streams) -> float:
+def _greedy_gap(model, prompts, streams, lps=None, bf16_ties: bool = False) -> float:
     """The largest distance of a generated token's log-prob below the
-    maximum at its position, teacher-forced: 0 for an exact greedy stream,
-    up to the decode path's rounding where two tokens nearly tie."""
+    maximum at its position, teacher-forced (``lps``, when given, are
+    ``_teacher_forced``'s log-probs): 0 for an exact greedy stream, up to
+    the decode path's rounding where two tokens nearly tie. With
+    ``bf16_ties`` each position's distance is first less one bfloat16 ulp
+    of its maximum: a decode that returns its log-probs in bfloat16 ties
+    every token within one ulp of the largest, and argmax takes the first."""
     gap = 0.0
-    for lp, s in zip(_teacher_forced(model, prompts, streams), streams):
+    if lps is None:
+        lps = _teacher_forced(model, prompts, streams)
+    for lp, s in zip(lps, streams):
         tok = torch.tensor(s, device=lp.device)[:, None]
-        gap = max(gap, float((lp.max(dim=1).values - lp.gather(1, tok)[:, 0]).max()))
+        top = lp.max(dim=1).values
+        g = top - lp.gather(1, tok)[:, 0]
+        if bf16_ties:
+            g = g - torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+        gap = max(gap, float(g.max()))
     return gap
 
 
@@ -1094,6 +1145,7 @@ def phase_engine(model, prompts, card: str) -> dict:
             decode_ms = 1e3 * eng._h_decode.sum / max(1, eng._h_decode.count)
             info[label] = dict(s=dt, turns=turns, launches=got, stats=st, peak_kv=peak[0],
                                decode_ms=decode_ms, snap=snap, eng=eng)
+            ENGINE_TPS[label] = B * MAX_TOKENS / dt
             streams[label] = out
             print(f"engine {label} ({card}): {B} x {MAX_TOKENS} tokens in {dt * 1e3:.1f} ms "
                   f"= {B * MAX_TOKENS / dt:.1f} tokens/s (prefill of the 8 prompts included); "
@@ -2521,6 +2573,278 @@ def phase_remat_and_bf16(card: str) -> dict:
     return {n: remat_counts[n] + bf_out_counts[n] + c for n, c in bf_counts.items()}
 
 
+def phase_bf16_generation(prompts, card: str) -> dict:
+    """Generation over the GPT-2-small-width LM with
+    ``compute_dtype="bfloat16"`` (float32 master weights): the session's
+    graphed decode, then the engine over static, paged, int8 and paged int8
+    caches and speculative decoding (``k=4``, the target as its own draft),
+    each on the 8 prompts for 64 greedy tokens. A float cache holds the
+    master dtype, so the decode computes in the promoted float32 from the
+    first block's attention on, as the JAX package does, and B4 runs its
+    float32 instantiation; an int8 cache is dequantized in the query's
+    bfloat16, as in JAX, so that step stays in bfloat16 (B4's bf16
+    instantiation in every block, bf16 log-probs). Every request
+    must complete, B4 must launch on every path, static must equal paged,
+    and each greedy token's log-prob must be within ``TOL_BF16_LOGPROB`` of
+    the maximum of a full bf16 forward on its prefix (for an int8 stream,
+    the forward over an int8 cache, ``_teacher_forced(cache_dtype="int8")``,
+    after one ulp where the int8 step's log-probs are bfloat16).
+    Returns the launch counts of its runs."""
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import DecodeEngine
+
+    bf = MultiLayerNetwork(_lm_conf(compute_dtype="bfloat16")).init()
+    n_blocks = sum(isinstance(l, type(bf.layers[2])) for l in bf.layers)
+    total = {n: 0 for n in _all_counts()}
+    streams, rates = {}, {}
+
+    def add(counts):
+        for n, c in counts.items():
+            total[n] += c
+
+    sess = GenerationSession(bf, max_len=T_FULL)
+    sess.generate(prompts[:1], 2)  # warm-up: eager step, graph capture
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams["session"] = sess.generate(prompts, MAX_TOKENS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = _all_counts()
+    add(got)
+    rates["session"] = B * MAX_TOKENS / dt
+    check(got["flash_decode"] == n_blocks * (MAX_TOKENS - 1),
+          f"the bf16 session must launch B4 {n_blocks} x {MAX_TOKENS - 1}: {got}")
+    del sess
+    for label, kw in (("static", {}), ("paged", {"block_size": 16}),
+                      ("int8", {"cache_dtype": "int8"}),
+                      ("paged int8", {"cache_dtype": "int8", "block_size": 16}),
+                      ("spec self-draft", {"draft_model": bf, "speculative_k": 4})):
+        eng = DecodeEngine(bf, max_len=T_FULL, slots=B, registry=MetricsRegistry(),
+                           name=f"bf16 {label}", **kw)
+        try:
+            _run_engine(eng, prompts[:1], 3)  # warm-up: eager step, capture, replay
+            fa.reset_launch_counts()
+            out, dt, turns = _run_engine(eng, prompts, MAX_TOKENS)
+            torch.cuda.synchronize()
+            got = _all_counts()
+        finally:
+            eng.shutdown()
+        add(got)
+        streams[label], rates[label] = out, B * MAX_TOKENS / dt
+        check(got["flash_decode"] >= n_blocks * turns > 0,
+              f"the bf16 {label} engine must launch B4 each step: {got}, {turns} steps")
+        print(f"bf16 engine {label} ({card}): {B} x {MAX_TOKENS} tokens in {dt * 1e3:.1f} ms = "
+              f"{rates[label]:.1f} tokens/s beside the float32 engine's "
+              f"{ENGINE_TPS.get(label, float('nan')):.1f} (same run); {turns} loop turns; "
+              f"launches {got}")
+    check(streams["paged"] == streams["static"], "bf16: paged streams must equal static")
+    check(streams["paged int8"] == streams["int8"], "bf16: paged int8 must equal int8")
+    # every greedy token against a full bf16 forward on its prefix, within
+    # TOL_BF16_LOGPROB of the position's maximum; the int8 streams against
+    # the same forward over an int8 cache (K and V quantized and dequantized
+    # as the engine's). An int8 step dequantizes its cache in the query's
+    # bfloat16, as the JAX package does, so nothing promotes it to float32
+    # and its log-probs come out in bfloat16, read here from one step: where
+    # they do, tokens within one ulp of the maximum tie (about 0.0625 at a
+    # log-prob near -10), and the gate is taken after that ulp.
+    s8 = GenerationSession(bf, max_len=T_FULL, cache_dtype="int8")
+    with torch.no_grad():
+        carry, _, _ = s8.prefill(prompts[:1])
+        int8_dtype = s8.step(carry, torch.zeros(1, dtype=torch.int32, device="cuda")).dtype
+    del s8, carry
+    gaps, raw = {}, {}
+    for label, st in streams.items():
+        int8 = "int8" in label
+        lps = _teacher_forced(bf, prompts, st, cache_dtype="int8" if int8 else None)
+        ties = int8 and int8_dtype == torch.bfloat16
+        gaps[label] = _greedy_gap(bf, prompts, st, lps, bf16_ties=ties)
+        if ties:
+            raw[label] = _greedy_gap(bf, prompts, st, lps)
+        del lps
+    agree = {label: sum(a == b for ra, rb in zip(st, streams["static"]) for a, b in zip(ra, rb))
+             for label, st in streams.items()}
+    print(f"bf16 compute_dtype generation ({card}): session {rates['session']:.1f} tokens/s "
+          f"(float32 session: see the serving phase); greedy tokens vs a full bf16 forward "
+          f"(over an int8 cache for the int8 streams): worst gap below the position's maximum "
+          f"log-prob {gaps} (tol {TOL_BF16_LOGPROB:g}; the int8 step's log-probs are "
+          f"{str(int8_dtype)[6:]}, so the int8 gaps are after one ulp of the maximum, before it "
+          f"{raw}); tokens equal to the static engine's of {B * MAX_TOKENS}: {agree}; "
+          f"launches {total}")
+    for label, gap in gaps.items():
+        check(gap <= TOL_BF16_LOGPROB, f"bf16 {label}: a greedy token is not the argmax")
+    check(total["flash_decode"] > 0, "bf16 generation must run through B4")
+    del bf
+    return total
+
+
+def phase_lenet_iterator(card: str) -> dict:
+    """BASELINE config 1 as ``bench.py`` runs it: the zoo ``LeNet()``
+    trained by ``model.fit(MnistDataSetIterator(64, train=True,
+    num_examples=12800), epochs=1)`` (200 steps over the procedural digits,
+    each batch copied to the card by the step), then
+    ``model.evaluate(MnistDataSetIterator(64, train=False))`` (2048 digits)
+    against ``LENET_ACC_GATE``; beside it 20 ``fit`` steps on one batch
+    already on the card (after a short warm-up fit of another LeNet).
+    Returns the launch counts of the fit (no attention kernel)."""
+    from deeplearning4j_tpu_torch.data.mnist import MnistDataSetIterator
+
+    t0 = time.perf_counter()
+    train = MnistDataSetIterator(LENET_BATCH, train=True, num_examples=LENET_TRAIN)
+    test = MnistDataSetIterator(LENET_BATCH, train=False)
+    data_s = time.perf_counter() - t0
+    # warm-up on a throwaway LeNet: cuDNN plans and the allocator's pools
+    LeNet(seed=SEED + 1).init().fit(MnistDataSetIterator(LENET_BATCH, num_examples=640))
+    model = LeNet(seed=SEED).init()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(train, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = _all_counts()
+    check(model.iteration_count == LENET_TRAIN // LENET_BATCH and np.isfinite(model.score_value),
+          f"LeNet fit(iterator): {model.iteration_count} steps, score {model.score_value}")
+    t0 = time.perf_counter()
+    ev = model.evaluate(test)
+    eval_s = time.perf_counter() - t0
+    acc = ev.accuracy()
+    # beside it: the synthetic-batch step of the LeNet phase, on this model
+    x = torch.from_numpy(train.data.features[:LENET_BATCH]).cuda()
+    y = torch.from_numpy(train.data.labels[:LENET_BATCH]).cuda()
+    model.fit(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LENET_STEPS):
+        model.fit(x, y)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / LENET_STEPS
+    print(f"lenet from MnistDataSetIterator ({card}): digits made in {data_s:.2f} s "
+          f"({train.provenance}); fit(iterator) {LENET_TRAIN // LENET_BATCH} steps of "
+          f"{LENET_BATCH} in {fit_s:.2f} s = {LENET_TRAIN / fit_s:.0f} images/s beside "
+          f"{LENET_BATCH / step_ms * 1e3:.0f} images/s for a batch already on the card "
+          f"({step_ms:.3f} ms/step); final score {model.score_value:.5f}; evaluate() of "
+          f"{int(ev.confusion.sum())} test digits in {eval_s:.2f} s: accuracy {acc:.5f} "
+          f"(gate {LENET_ACC_GATE:.5f} = the JAX package's {LENET_JAX_ACCURACY} on the CPU "
+          f"less 0.05); launches {counts}")
+    check(acc >= LENET_ACC_GATE, f"LeNet accuracy {acc} below the gate {LENET_ACC_GATE}")
+    del model
+    return counts
+
+
+def phase_resnet_files(card: str) -> dict:
+    """``bench.py``'s ``measure_resnet50_e2e_fit`` at its own sizes: 512
+    seeded 256x256x3 P6 files in 8 class directories, read by
+    ``ImageRecordReader(output_dtype="uint8")`` into
+    ``RecordReaderDataSetIterator(batch_size=128)``, copied by
+    ``AsyncDataSetIterator(device_put_fn=device_put_dataset,
+    device_buffers=2)`` on its prefetch thread, cropped to 224 and flipped
+    on the card by ``MappedDataSetIterator``, and trained by
+    ``GraphSolver.fit_iterator`` on ``ResNet50(num_classes=8,
+    compute_dtype="bfloat16")``: one warm-up pass, then ``FILE_PASSES``
+    timed passes, beside the same model's step on one synthetic batch on the
+    card. The first batch the consumer receives must be a CUDA tensor
+    bit-equal to the decoded files, copied on the prefetch thread; the
+    scores finite; the host library loaded. Returns the launch counts of
+    the timed passes (no attention kernel)."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.core.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.data.iterators import AsyncDataSetIterator, device_put_dataset
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry
+    from deeplearning4j_tpu_torch.tools import data_profile as dp
+
+    check(native.available(), "the host library (native/dl4jtpu_native.cpp) must load on the "
+          "card's machine: the numpy fallback would hide it")
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        t0 = time.perf_counter()
+        dp.write_ppm_tree(root)
+        write_s = time.perf_counter() - t0
+        threads = []
+
+        def put(ds):
+            threads.append(threading.current_thread().name)
+            return device_put_dataset(ds)
+
+        probe = AsyncDataSetIterator(dp.image_batches(root), device_put_fn=put,
+                                     device_buffers=2, registry=MetricsRegistry())
+        first = probe.next()
+        probe.close()
+        host = next(iter(dp.image_batches(root)))
+        check(first.features.is_cuda and first.features.dtype == torch.uint8
+              and tuple(first.features.shape) == (dp.FILE_BATCH, dp.RAW, dp.RAW, 3),
+              f"the first batch must arrive on the card as uint8: {first.features.dtype} "
+              f"{tuple(first.features.shape)} on {first.features.device}")
+        check(torch.equal(first.features.cpu(), torch.from_numpy(host.features))
+              and torch.equal(first.labels.cpu(), torch.from_numpy(host.labels)),
+              "the first batch on the card must equal the decoded files bit for bit")
+        check(bool(threads) and all(n.startswith("dsi-") for n in threads),
+              f"device_put_dataset must run on the prefetch thread: {threads}")
+        del first, host
+
+        model = ResNet50(seed=SEED, num_classes=dp.N_CLASSES, compute_dtype="bfloat16").init()
+        solver = GraphSolver(model)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+        def one_pass():
+            it, prefetch = dp.file_pipeline(root, gen, registry=MetricsRegistry())
+            try:
+                score = solver.fit_iterator(it, epochs=1)
+            finally:
+                prefetch.close()
+            return score, prefetch.stats()
+
+        warm = CollectScoresListener()
+        model.add_listeners(warm)
+        one_pass()                    # warm-up: cuDNN plans, the page cache
+        model.listeners.remove(warm)
+        check(len(warm.scores) == dp.N_IMAGES // dp.FILE_BATCH
+              and all(np.isfinite(warm.scores)), f"warm-up pass scores {warm.scores}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        pass_s, scores, stats = [], [], None
+        for _ in range(FILE_PASSES):
+            t0 = time.perf_counter()
+            score, stats = one_pass()
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+            scores.append(float(score))
+        counts = _all_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(scores)), f"ResNet-50 from files: scores {scores}")
+        rs = np.random.RandomState(SEED + 12)
+        x = torch.from_numpy(rs.rand(dp.FILE_BATCH, 3, dp.OUT, dp.OUT).astype(np.float32)).cuda()
+        y = torch.from_numpy(np.eye(dp.N_CLASSES, dtype=np.float32)[
+            rs.randint(0, dp.N_CLASSES, dp.FILE_BATCH)]).cuda()
+        solver.fit_batch((x,), (y,))
+        torch.cuda.synchronize()
+        steps = dp.N_IMAGES // dp.FILE_BATCH
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            solver.fit_batch((x,), (y,))
+        torch.cuda.synchronize()
+        synth_s = time.perf_counter() - t0
+        files_ips = dp.N_IMAGES / float(np.median(pass_s))
+        synth_ips = dp.N_IMAGES / synth_s
+        keep = ("prefetch_hit_rate", "consumer_starvation_s", "producer_blocked_s", "batches",
+                "fetches", "queue_high_water")
+        print(f"resnet50 from files ({card}): {dp.N_IMAGES} P6 files {dp.RAW}x{dp.RAW}x3 in "
+              f"{dp.N_CLASSES} classes written in {write_s:.2f} s; native.available()="
+              f"{native.available()}; bf16 compute, batch {dp.FILE_BATCH}, uint8 to the card on "
+              f"the prefetch thread, crop {dp.OUT} + flip on the card; {FILE_PASSES} timed "
+              f"passes {[round(t, 3) for t in pass_s]} s = {files_ips:.1f} images/s from files "
+              f"beside {synth_ips:.1f} images/s on a synthetic batch on the card ({steps} "
+              f"steps, same batch and dtype): the input path costs "
+              f"{1 - files_ips / synth_ips:.3f} of the synthetic rate; last pass stats "
+              f"{ {k: stats[k] for k in keep} }; scores {[round(v, 5) for v in scores]}; peak "
+              f"memory {peak / 2**30:.2f} GiB; launches {counts}")
+        del model, solver, x, y
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def _kept_rows(sizes, m_pad: int, n: int) -> torch.Tensor:
     """[n] bool: the rows some group keeps (local index < m_pad, row < n)."""
     kept = torch.zeros(n, dtype=torch.bool)
@@ -2690,11 +3014,15 @@ def main() -> int:
               timed("TextGenerationLSTM", phase_char_rnn, card),
               timed("LearnedSelfAttention", phase_learned_attention, card),
               timed("gradient checkpointing and bf16 compute_dtype LM", phase_remat_and_bf16,
-                    card)]
+                    card),
+              timed("bf16 compute_dtype generation", phase_bf16_generation, prompts, card),
+              timed("LeNet from MnistDataSetIterator", phase_lenet_iterator, card),
+              timed("ResNet-50 from files", phase_resnet_files, card)]
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
-    # LearnedSelfAttention network, and the checkpointed and bf16 LMs
+    # LearnedSelfAttention network, the checkpointed and bf16 LMs, the bf16
+    # LM's generation, and LeNet and ResNet-50 fed by iterators
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

@@ -16,10 +16,12 @@ from .resilience import (
     get_fault_injector,
     set_fault_injector,
 )
+from .rng import RngState, get_default_rng, set_default_seed
 
 __all__ = ["AdmissionController", "AdmissionRejectedError", "CircuitBreaker",
            "CircuitOpenError", "CircuitState", "CrashLoopError", "Deadline",
            "DeadlineExceededError", "FaultInjector", "ReplicaUnavailableError",
-           "ResilienceError", "RetryPolicy", "as_input", "default_device",
-           "from_json", "get_fault_injector", "register_config",
-           "set_fault_injector", "to_json", "torch_dtype"]
+           "ResilienceError", "RetryPolicy", "RngState", "as_input",
+           "default_device", "from_json", "get_default_rng", "get_fault_injector",
+           "register_config", "set_default_seed", "set_fault_injector", "to_json",
+           "torch_dtype"]

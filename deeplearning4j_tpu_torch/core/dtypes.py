@@ -91,3 +91,26 @@ def cast_floats(tree, dtype):
         return leaf
 
     return cast(tree)
+
+
+def promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` under JAX's type promotion. torch's product refuses mixed
+    float dtypes, which a ``compute_dtype`` model meets in the KV-cached
+    decode: the cache holds the master dtype, so the attention output is
+    promoted (see ``ops.decode_attention``) while the cast weights stay in
+    ``compute_dtype``; ``jnp.matmul`` promotes both to the wider type."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
+def to_numpy(x):
+    """A host numpy copy of a tensor (bfloat16, which numpy lacks, as
+    float32); numpy arrays and ``None`` pass through."""
+    if x is None or not isinstance(x, torch.Tensor):
+        return None if x is None else np.asarray(x)
+    x = x.detach()
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return x.cpu().numpy()

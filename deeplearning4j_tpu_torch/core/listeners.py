@@ -148,7 +148,7 @@ class EvaluativeListener(TrainingListener):
         self.history: List[Any] = []
 
     def _evaluate(self, model) -> None:
-        import numpy as np
+        from .dtypes import to_numpy
 
         if self.evaluation_factory is None and hasattr(model, "evaluate"):
             # single eval path: the model's own evaluate() loop (no second
@@ -160,10 +160,11 @@ class EvaluativeListener(TrainingListener):
                 self.log_fn(f"EvaluativeListener: accuracy={ev.accuracy():.4f}")
             return
         if self.evaluation_factory is None:
-            raise NotImplementedError(
-                "EvaluativeListener's default evaluation needs train/evaluation.py "
-                "(Evaluation), which is not ported yet; pass evaluation_factory=")
-        ev = self.evaluation_factory()
+            from ..train.evaluation import Evaluation
+
+            ev = Evaluation()  # self-sizes on first eval() call
+        else:
+            ev = self.evaluation_factory()
         saw_data = False
         for batch in self.iterator:
             feats = batch.features
@@ -179,7 +180,7 @@ class EvaluativeListener(TrainingListener):
             else:
                 out = model.output(feats, mask=fmask)
                 labels = batch.labels
-            ev.eval(labels, np.asarray(out), mask=lmask)
+            ev.eval(to_numpy(labels), to_numpy(out), mask=to_numpy(lmask))
             saw_data = True
         if not saw_data:
             # exhausted one-shot iterable (plain generator): warn, don't

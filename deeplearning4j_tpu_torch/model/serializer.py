@@ -52,6 +52,7 @@ _CONF = "configuration.json"
 _COEFF = "coefficients.npy"
 _STATE = "state.npz"
 _UPDATER = "updaterState.npz"
+_NORM = "normalizer.npz"
 _META = "meta.json"
 
 _FRAMEWORK = "deeplearning4j_tpu"  # the zip format's name, shared by both packages
@@ -216,10 +217,13 @@ def restore_model(path: str, device: Device = None, load_updater: bool = False) 
     return restore_multi_layer_network(path, device, load_updater)
 
 
-def write_model(model: Model, path: str, save_updater: bool = False) -> None:
-    """Reference: ModelSerializer.writeModel, in the JAX package's layout.
-    With ``save_updater`` and a model that has trained, the updater state
-    goes in too. Atomic: the zip is assembled in a temp file beside
+def write_model(model: Model, path: str, save_updater: bool = False,
+                normalizer=None) -> None:
+    """Reference: ModelSerializer.writeModel(model, file, saveUpdater[,
+    normalizer]), in the JAX package's layout. With ``save_updater`` and a
+    model that has trained, the updater state goes in too; a
+    ``data.normalizers`` normalizer goes in as ``normalizer.npz`` (its
+    ``state_dict``). Atomic: the zip is assembled in a temp file beside
     ``path`` and then renamed onto it."""
     model._check_init()
     trainer = model._trainer if save_updater else None
@@ -244,6 +248,10 @@ def write_model(model: Model, path: str, save_updater: bool = False) -> None:
                     np.savez(buf, **{f"leaf_{i}": leaf for i, leaf in
                                      enumerate(_state_leaves(trainer.opt_state))})
                     zf.writestr(_UPDATER, buf.getvalue())
+                if normalizer is not None:
+                    buf = io.BytesIO()
+                    np.savez(buf, **normalizer.state_dict())
+                    zf.writestr(_NORM, buf.getvalue())
                 zf.writestr(_META, json.dumps({
                     "model_class": type(model).__name__,
                     "framework": _FRAMEWORK,
@@ -258,3 +266,29 @@ def write_model(model: Model, path: str, save_updater: bool = False) -> None:
         except OSError:
             pass
         raise
+
+
+def read_normalizer(path: str):
+    """The normalizer a model zip carries (``normalizer.npz``, written by
+    either package), or None when it has none."""
+    from ..data.normalizers import (
+        ImagePreProcessingScaler,
+        NormalizerMinMaxScaler,
+        NormalizerStandardize,
+        VGG16ImagePreProcessor,
+    )
+
+    kinds = {
+        "standardize": NormalizerStandardize,
+        "minmax": NormalizerMinMaxScaler,
+        "image": ImagePreProcessingScaler,
+        "vgg16": VGG16ImagePreProcessor,
+    }
+    with zipfile.ZipFile(path) as zf:
+        if _NORM not in zf.namelist():
+            return None
+        z = np.load(io.BytesIO(zf.read(_NORM)))
+        d = {k: z[k] for k in z.files}
+    norm = kinds[str(d["kind"])]()
+    norm.load_state_dict(d)
+    return norm

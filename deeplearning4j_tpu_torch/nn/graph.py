@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.dtypes import as_input, cast_floats, default_device, torch_dtype
+from ..core.dtypes import as_input, cast_floats, default_device, to_numpy, torch_dtype
 from ..core.listeners import ListenerBus, TrainingListener
 from .graph_conf import ComputationGraphConfiguration, VertexSpec
 from .layers.base import Layer, LayerContext, LayerModule, apply_layer
@@ -305,8 +305,17 @@ class ComputationGraph(nn.Module):
         self._solver = v
 
     def evaluate(self, iterator_or_features, labels=None):
-        raise NotImplementedError("ComputationGraph.evaluate needs train/evaluation.py "
-                                  "(Evaluation), which is not ported yet (ROADMAP A7)")
+        """Classification evaluation of the first output against the first
+        labels (reference: ComputationGraph.evaluate)."""
+        from ..train.evaluation import Evaluation
+        from .sequential import _as_batches
+
+        ev = Evaluation()
+        for feats, labs, _, _ in _as_batches(iterator_or_features, labels, None):
+            out = self.output(*self._as_tuple(feats))
+            first = out[0] if isinstance(out, tuple) else out
+            ev.eval(to_numpy(self._as_tuple(labs)[0]), to_numpy(first))
+        return ev
 
     # ------------------------------------------------------------- params
     def num_params(self) -> int:

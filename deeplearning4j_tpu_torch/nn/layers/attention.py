@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.config import register_config
+from ...core.dtypes import promoted_matmul
 from ...ops.flash_attention import decode_attention, mha_attention
 from ...ops.paged_attention import paged_cache_write, paged_decode_attention
 from ..activations import Activation
@@ -196,9 +197,9 @@ class SelfAttentionLayer(Layer):
         x = apply_input_dropout(self, x, ctx)
         xt = x.transpose(1, 2)  # [b, t, f]
         if self.project_input:
-            q = _split_heads(xt @ params["Wq"], self.n_heads)
-            k = _split_heads(xt @ params["Wk"], self.n_heads)
-            v = _split_heads(xt @ params["Wv"], self.n_heads)
+            q = _split_heads(promoted_matmul(xt, params["Wq"]), self.n_heads)
+            k = _split_heads(promoted_matmul(xt, params["Wk"]), self.n_heads)
+            v = _split_heads(promoted_matmul(xt, params["Wv"]), self.n_heads)
         else:
             q = k = v = _split_heads(xt, self.n_heads)
         if "cache_k" in state:
@@ -211,7 +212,7 @@ class SelfAttentionLayer(Layer):
             new_state = state
         o = _merge_heads(o)
         if self.project_input:
-            o = o @ params["Wo"]
+            o = promoted_matmul(o, params["Wo"])
         act = self.activation or Activation.IDENTITY
         return act(o).transpose(1, 2), new_state
 
@@ -291,18 +292,19 @@ class TransformerDecoderBlockLayer(Layer):
         x = apply_input_dropout(self, x, ctx)
         xt = x.transpose(1, 2)  # [b, t, h]
         h1 = self._ln(xt, params["ln1_g"], params["ln1_b"])
-        q = _split_heads(h1 @ params["Wq"], self.n_heads)
-        k = _split_heads(h1 @ params["Wk"], self.n_heads)
-        v = _split_heads(h1 @ params["Wv"], self.n_heads)
+        q = _split_heads(promoted_matmul(h1, params["Wq"]), self.n_heads)
+        k = _split_heads(promoted_matmul(h1, params["Wk"]), self.n_heads)
+        v = _split_heads(promoted_matmul(h1, params["Wv"]), self.n_heads)
         if "cache_k" in state:
             o, new_state = _cached_attention(q, k, v, state, ctx.mask)
         else:
             o = dot_product_attention(q, k, v, mask=ctx.mask, causal=True)
             new_state = state
-        r1 = xt + _merge_heads(o) @ params["Wo"]
+        r1 = xt + promoted_matmul(_merge_heads(o), params["Wo"])
         h2 = self._ln(r1, params["ln2_g"], params["ln2_b"])
         act = self.activation or Activation.GELU
-        ffn = act(h2 @ params["W1"] + params["b1"]) @ params["W2"] + params["b2"]
+        ffn = promoted_matmul(act(promoted_matmul(h2, params["W1"]) + params["b1"]),
+                              params["W2"]) + params["b2"]
         return (r1 + ffn).transpose(1, 2), new_state
 
 
@@ -378,7 +380,7 @@ class LearnedSelfAttentionLayer(Layer):
             k = v = _split_heads(xt, self.n_heads)
         o = _merge_heads(dot_product_attention(q, k, v, mask=ctx.mask))
         if self.project_input:
-            o = o @ params["Wo"]
+            o = promoted_matmul(o, params["Wo"])
         act = self.activation or Activation.IDENTITY
         return act(o).transpose(1, 2), state
 

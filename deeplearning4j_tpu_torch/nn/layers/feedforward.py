@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.config import register_config
+from ...core.dtypes import promoted_matmul
 from ..activations import Activation
 from ..input_type import FeedForwardType, InputType, RecurrentType
 from ..weights import WeightInit, init_weights
@@ -67,7 +68,7 @@ class DenseLayer(Layer):
               ctx: LayerContext) -> Tuple[torch.Tensor, State]:
         x = apply_input_dropout(self, x, ctx)
         seq = x.ndim == 3  # time-distributed over [b, f, t]: one [b*t, f] x [f, g] product
-        y = (x.transpose(1, 2) if seq else x) @ params["W"]
+        y = promoted_matmul(x.transpose(1, 2) if seq else x, params["W"])
         if self.has_bias:
             y = y + params["b"]
         if seq:  # back to [b, g, t] before the activation, as in the JAX layer

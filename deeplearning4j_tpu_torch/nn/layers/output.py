@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.config import register_config
+from ...core.dtypes import promoted_matmul
 from ..activations import Activation
 from ..input_type import FeedForwardType, InputType, RecurrentType
 from ..losses import LossFunction
@@ -71,7 +72,7 @@ class OutputLayer(BaseOutputLayer):
 
     def preoutput(self, params: Params, x: torch.Tensor, ctx: LayerContext) -> torch.Tensor:
         x = apply_input_dropout(self, x, ctx)
-        y = x @ params["W"]
+        y = promoted_matmul(x, params["W"])
         if self.has_bias:
             y = y + params["b"]
         return y
@@ -151,7 +152,7 @@ class RnnOutputLayer(BaseOutputLayer):
 
     def preoutput(self, params: Params, x: torch.Tensor, ctx: LayerContext) -> torch.Tensor:
         x = apply_input_dropout(self, x, ctx)
-        y = _rnn_to_ff(x) @ params["W"]
+        y = promoted_matmul(_rnn_to_ff(x), params["W"])
         if self.has_bias:
             y = y + params["b"]
         return y  # [b*t, nOut]

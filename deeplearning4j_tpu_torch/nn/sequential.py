@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.dtypes import as_input, cast_floats, default_device, torch_dtype
+from ..core.dtypes import as_input, cast_floats, default_device, to_numpy, torch_dtype
 from ..core.listeners import ListenerBus, TrainingListener
 from .conf import MultiLayerConfiguration
 from .input_type import RecurrentType
@@ -293,9 +293,8 @@ class MultiLayerNetwork(nn.Module):
             self.listeners.add(l)
 
     def fit(self, data, labels=None, *, epochs: int = 1, mask=None, label_mask=None):
-        """Train (reference: MultiLayerNetwork.fit). ``data`` is a features
-        batch with ``labels``, or an iterable of (features, labels) pairs
-        (``DataSet`` and its iterators are not ported yet)."""
+        """Train (reference: MultiLayerNetwork.fit). ``data`` may be a
+        (features, labels) pair, a DataSet, or a DataSetIterator."""
         self._check_init()
         from ..train.solver import Solver
 
@@ -336,6 +335,28 @@ class MultiLayerNetwork(nn.Module):
 
     def _expects_sequence_input(self) -> bool:
         return isinstance(self.conf.input_type, RecurrentType)
+
+    # --------------------------------------------------------- evaluation
+    def evaluate(self, iterator_or_features, labels=None, mask=None):
+        """Classification evaluation (reference: MultiLayerNetwork.evaluate)
+        over a (features, labels) pair, a DataSet or a DataSetIterator; the
+        outputs are accumulated on the host."""
+        from ..train.evaluation import Evaluation
+
+        ev = Evaluation()
+        for feats, labs, msk, lmsk in _as_batches(iterator_or_features, labels, mask):
+            out = self.output(feats, mask=msk)
+            ev.eval(to_numpy(labs), to_numpy(out), mask=to_numpy(lmsk))
+        return ev
+
+    def evaluate_regression(self, iterator_or_features, labels=None):
+        from ..train.evaluation import RegressionEvaluation
+
+        ev = RegressionEvaluation()
+        for feats, labs, msk, _ in _as_batches(iterator_or_features, labels, None):
+            out = self.output(feats, mask=msk)
+            ev.eval(to_numpy(labs), to_numpy(out))
+        return ev
 
     # ------------------------------------------------------------- params
     def num_params(self) -> int:
@@ -380,10 +401,24 @@ class MultiLayerNetwork(nn.Module):
 
 
 def _as_batches(data, labels, mask):
-    """Normalize (features, labels) or an iterable of pairs into batch
-    tuples ``(features, labels, mask, label_mask)``."""
+    """Normalize (features, labels), a ``DataSet`` or an iterable of
+    ``DataSet``s or (features, labels) pairs into batch tuples
+    ``(features, labels, mask, label_mask)``. A batch that
+    ``data.device_put_dataset`` copied asynchronously is waited for on the
+    current stream first."""
+    from ..data.dataset import DataSet
+
     if labels is not None:
         yield data, labels, mask, None
         return
+    if isinstance(data, DataSet):
+        data.wait_ready()
+        yield data.features, data.labels, data.features_mask, data.labels_mask
+        return
     for item in data:
-        yield item[0], item[1], None, None
+        if isinstance(item, DataSet):
+            item.wait_ready()
+            yield item.features, item.labels, item.features_mask, item.labels_mask
+        else:
+            f, l = item[0], item[1]
+            yield f, l, None, None

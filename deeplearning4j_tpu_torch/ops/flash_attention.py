@@ -580,6 +580,15 @@ def decode_attention(q, k, v, start_pos, scale: Optional[float] = None,
         k = k.to(q.dtype) * k_scale[..., None].to(q.dtype)
     if v_scale is not None:
         v = v.to(q.dtype) * v_scale[..., None].to(q.dtype)
+    # A float cache holds the model's master dtype (the session builds the
+    # carry in ``model.dtype``; the layer writes cast into it), while a
+    # ``compute_dtype`` model's query is bfloat16. jnp.einsum promotes the
+    # pair, so the JAX seam computes the product, and returns it, in the
+    # cache's float32: the same here, on both routes (the kernel then runs
+    # its float32 instantiation). An int8 cache is dequantized in q.dtype
+    # above, as JAX does, and needs no promotion.
+    dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
     if q.shape[2] == 1 and _kernel_route(q):
         return flash_decode_attention(q, k, v, start_pos, scale=scale)
     return decode_attention_reference(q, k, v, start_pos, scale=scale)

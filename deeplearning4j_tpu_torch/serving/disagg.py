@@ -451,9 +451,11 @@ class DisaggCoordinator:
                 self._track(t, -1)
         return None
 
-    def _stream_into(self, resp, handle, t: _Target) -> str:
+    def _stream_into(self, resp, handle, t: _Target, on_done) -> str:
         """Re-emit a host's NDJSON token stream into the local handle.
-        Returns the terminal reason; raises on a drop mid-stream."""
+        Returns the terminal reason; raises on a drop mid-stream.
+        ``on_done()`` records the outcome before the handle finishes, so a
+        client that has seen the end of its stream sees it counted."""
         emitted = 0
         for line in resp:
             line = line.strip()
@@ -465,8 +467,9 @@ class DisaggCoordinator:
                 emitted += 1
             if ev.get("done"):
                 reason = str(ev.get("reason", "completed"))
-                handle._finish(reason, error=ev.get("error"))
                 t.breaker.record_success()
+                on_done()
+                handle._finish(reason, error=ev.get("error"))
                 return reason
             if handle.cancelled:
                 raise _ClientCancelled()
@@ -476,10 +479,12 @@ class DisaggCoordinator:
 
     def _run_decode(self, data: bytes, handle, deadline: Deadline,
                     priority: Optional[str],
-                    request_id: Optional[str]) -> bool:
+                    request_id: Optional[str], on_done) -> bool:
         """Ship handoff bytes to a decode host and stream tokens back.
         Failover only before the first byte; a drop mid-stream fails the
-        handle (never transparently re-opens — that would re-emit)."""
+        handle (never transparently re-opens — that would re-emit).
+        ``on_done()`` runs before the handle finishes, when this returns
+        True."""
         for t in self._candidates(self.decode_targets):
             self._track(t, 1)
             started = False
@@ -488,7 +493,7 @@ class DisaggCoordinator:
                                 "application/octet-stream", deadline,
                                 priority, request_id) as resp:
                     started = True
-                    self._stream_into(resp, handle, t)
+                    self._stream_into(resp, handle, t, on_done)
                 return True
             except HTTPError as e:
                 detail = ""
@@ -500,6 +505,7 @@ class DisaggCoordinator:
                     raise ValueError(detail or "bad request") from e
                 t.breaker.record_failure()
             except _ClientCancelled:
+                on_done()
                 handle._finish("cancelled")
                 return True
             except (URLError, ConnectionError, HTTPException, OSError,
@@ -507,6 +513,7 @@ class DisaggCoordinator:
                 t.breaker.record_failure()
                 if started and handle.tokens:
                     # tokens already escaped to the consumer: terminal
+                    on_done()
                     handle._finish("failed",
                                    error=f"decode stream dropped: {e}")
                     return True
@@ -516,9 +523,16 @@ class DisaggCoordinator:
 
     def _run_fallback(self, payload: dict, handle, deadline: Deadline,
                       priority: Optional[str],
-                      request_id: Optional[str]) -> bool:
+                      request_id: Optional[str], on_done) -> bool:
         """Unified fallback: the decode host prefills AND decodes via its
-        own /v1/generate. Slower first token, identical stream."""
+        own /v1/generate. Slower first token, identical stream.
+        ``on_done()`` runs before the handle finishes, when this returns
+        True."""
+
+        def streamed():
+            self._c_fallback.inc()
+            on_done()
+
         body = json.dumps(dict(payload, stream=True)).encode()
         for t in self._candidates(self.decode_targets):
             self._track(t, 1)
@@ -528,8 +542,7 @@ class DisaggCoordinator:
                                 "application/json", deadline, priority,
                                 request_id) as resp:
                     started = True
-                    self._stream_into(resp, handle, t)
-                self._c_fallback.inc()
+                    self._stream_into(resp, handle, t, streamed)
                 return True
             except HTTPError as e:
                 detail = ""
@@ -541,12 +554,14 @@ class DisaggCoordinator:
                     raise ValueError(detail or "bad request") from e
                 t.breaker.record_failure()
             except _ClientCancelled:
+                on_done()
                 handle._finish("cancelled")
                 return True
             except (URLError, ConnectionError, HTTPException, OSError,
                     TimeoutError, PartialHandoffError, ValueError) as e:
                 t.breaker.record_failure()
                 if started and handle.tokens:
+                    on_done()
                     handle._finish("failed",
                                    error=f"fallback stream dropped: {e}")
                     return True
@@ -592,6 +607,11 @@ class DisaggCoordinator:
             payload["speculative_k"] = int(speculative_k)
         t_submit = time.perf_counter()
 
+        def completed():
+            if handle.tokens:
+                self._h_first.observe(time.perf_counter() - t_submit)
+            self._c_handoff["completed"].inc()
+
         def run():
             try:
                 data = None
@@ -601,19 +621,13 @@ class DisaggCoordinator:
                 if handle.cancelled:
                     handle._finish("cancelled")
                     return
-                if data is not None:
-                    if self._run_decode(data, handle, deadline, priority,
-                                        request_id):
-                        if handle.tokens:
-                            self._h_first.observe(
-                                time.perf_counter() - t_submit)
-                        self._c_handoff["completed"].inc()
-                        return
+                if data is not None and self._run_decode(
+                        data, handle, deadline, priority, request_id, completed):
+                    return
                 # no prefill target, or every decode resume failed before
                 # a byte: unified fallback on the decode hosts
                 if self._run_fallback(payload, handle, deadline, priority,
-                                      request_id):
-                    self._c_handoff["fallback"].inc()
+                                      request_id, self._c_handoff["fallback"].inc):
                     return
                 self._c_handoff["failed"].inc()
                 handle._finish(

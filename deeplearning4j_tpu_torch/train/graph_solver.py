@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..data.dataset import DataSet, MultiDataSet
 from ..nn.sequential import grads_of
 from .solver import LayerOptimizers, _normalize_gradients
 
@@ -63,20 +64,47 @@ class GraphSolver:
         return score.detach()
 
     def fit_iterator(self, iterator, *, epochs: int = 1) -> float:
-        raise NotImplementedError("fit_iterator needs data/* (MultiDataSetIterator), "
-                                  "which is not ported yet")
+        """DataSet/MultiDataSet iterator training with exact mid-epoch
+        resume semantics — see :meth:`Solver.fit_iterator`: consumption
+        starts at the iterator's CURRENT position, reset() only when
+        exhausted. Masks are not read (as in the JAX package)."""
+        model = self.model
+        sync = bool(model.listeners.listeners)
+        last = None
+        for _ in range(epochs):
+            if not iterator.has_next():
+                iterator.reset()
+            model.listeners.epoch_start(model)
+            while iterator.has_next():
+                xs, ys = _multi_batch(iterator.next(), model._as_tuple)
+                score = self.fit_batch(xs, ys)
+                last = score
+                model.iteration_count += 1
+                if sync:
+                    model.score_value = float(score)
+                    model.listeners.iteration_done(
+                        model, model.iteration_count, model.epoch_count, model.score_value)
+            model.listeners.epoch_end(model)
+            model.epoch_count += 1
+        if last is not None:
+            model.score_value = float(last)
+        return model.score_value
 
     def fit(self, data, labels=None, *, epochs: int = 1) -> None:
-        """Train on ``(features, labels)`` tuples, or an iterable of
-        ``(features, labels)`` pairs, for ``epochs`` passes."""
+        """Train on ``(features, labels)`` tuples, a DataSet or MultiDataSet,
+        or an iterable of those or of ``(features, labels)`` pairs, for
+        ``epochs`` passes over the batches, which are read once."""
         model = self.model
         # Without listeners the per-iteration score stays a device scalar:
         # fetching it would wait for the device every step.
         sync_every_iter = bool(model.listeners.listeners)
+        as_tuple = model._as_tuple
         if labels is not None:
-            batches = [(data, labels)]
+            batches = [(as_tuple(data), as_tuple(labels))]
         else:
-            batches = [(item[0], item[1]) for item in data]
+            if isinstance(data, (DataSet, MultiDataSet)):
+                data = [data]
+            batches = [_multi_batch(item, as_tuple) for item in data]
         last_score = None
         for _ in range(epochs):
             model.listeners.epoch_start(model)
@@ -92,3 +120,15 @@ class GraphSolver:
             model.epoch_count += 1
         if last_score is not None:
             model.score_value = float(last_score)
+
+
+def _multi_batch(item, as_tuple):
+    """(inputs tuple, labels tuple) of a MultiDataSet, a DataSet or a
+    (features, labels) pair; an asynchronously copied DataSet is waited for
+    on the current stream first."""
+    if isinstance(item, MultiDataSet):
+        return tuple(item.features), tuple(item.labels)
+    if isinstance(item, DataSet):
+        item.wait_ready()
+        return (item.features,), (item.labels,)
+    return as_tuple(item[0]), as_tuple(item[1])

@@ -185,18 +185,60 @@ class Solver:
         return score
 
     def fit_iterator(self, iterator, *, epochs: int = 1) -> float:
-        raise NotImplementedError("fit_iterator needs data/* (DataSetIterator), "
-                                  "which is not ported yet")
+        """Train from a ``DataSetIterator`` WITHOUT resetting away its
+        current position: consumption starts wherever the iterator stands,
+        so an iterator repositioned by ``load_state_dict()`` resumes
+        exactly mid-epoch, and finishing the interrupted epoch counts as
+        the first of ``epochs``. An exhausted iterator is reset() at each
+        epoch top (the normal fresh-epoch path). Listeners fire per
+        iteration and per epoch exactly as in :meth:`fit`."""
+        model = self.model
+        sync = bool(model.listeners.listeners)
+        last = None
+        for _ in range(epochs):
+            if not iterator.has_next():
+                iterator.reset()
+            model.listeners.epoch_start(model)
+            while iterator.has_next():
+                ds = iterator.next().wait_ready()
+                score, _ = self.fit_batch(ds.features, ds.labels,
+                                          ds.features_mask, ds.labels_mask)
+                last = score
+                model.iteration_count += 1
+                if sync:
+                    model.score_value = float(score)
+                    model.listeners.iteration_done(
+                        model, model.iteration_count, model.epoch_count, model.score_value)
+            model.listeners.epoch_end(model)
+            model.epoch_count += 1
+        if last is not None:
+            model.score_value = float(last)
+        return model.score_value
 
     def fit(self, data, labels=None, *, epochs: int = 1, mask=None, label_mask=None) -> None:
         model = self.model
         # Without listeners the per-iteration score stays a device scalar:
         # fetching it would wait for the device every step.
         sync_every_iter = bool(model.listeners.listeners)
+        # The JAX package's scan fast path (no listeners, no masks, standard
+        # backprop) collects the batches once, dropping masked ones, and when
+        # their shapes are uniform trains every epoch on that one list; an
+        # iterator is then read once, not reset per epoch. The port keeps
+        # that order by looping over the list. With ragged shapes JAX falls
+        # back to reading the iterator again every epoch, and so does the port.
+        source = None
+        if (not sync_every_iter and mask is None and label_mask is None
+                and model.conf.backprop_type is not BackpropType.TRUNCATED_BPTT):
+            batches = [(f, l, None, None) for f, l, m, lm in _as_batches(data, labels, mask)
+                       if m is None and lm is None]
+            shapes = {(tuple(np.shape(f)), tuple(np.shape(l))) for f, l, _, _ in batches}
+            if batches and len(shapes) == 1:
+                source = batches
         last_score = None
         for _ in range(epochs):
             model.listeners.epoch_start(model)
-            for feats, labs, msk, lmsk in _as_batches(data, labels, mask):
+            for feats, labs, msk, lmsk in (
+                    source if source is not None else _as_batches(data, labels, mask)):
                 if label_mask is not None:
                     lmsk = label_mask
                 if (model.conf.backprop_type is BackpropType.TRUNCATED_BPTT

@@ -37,7 +37,7 @@ from deeplearning4j_tpu.train import updaters as jupd
 from deeplearning4j_tpu.train.solver import _normalize_gradients as jax_normalize
 
 from deeplearning4j_tpu_torch.core.config import from_json, to_json
-from deeplearning4j_tpu_torch.core.listeners import CollectScoresListener, EvaluativeListener
+from deeplearning4j_tpu_torch.core.listeners import CollectScoresListener
 from deeplearning4j_tpu_torch.model import restore_multi_layer_network, write_model
 from deeplearning4j_tpu_torch.model.serializer import _state_leaves
 from deeplearning4j_tpu_torch.model.zoo import TransformerLM as PortLM
@@ -333,7 +333,3 @@ def test_unported_solver_options_raise():
         Solver(model, optimize=True)
     with pytest.raises(NotImplementedError, match="step_profiler"):
         Solver(model, profiler=object())
-    with pytest.raises(NotImplementedError, match="data/"):
-        Solver(model).fit_iterator(iter(()))
-    with pytest.raises(NotImplementedError, match="train/evaluation"):
-        EvaluativeListener(iter(())).on_epoch_end(model)
