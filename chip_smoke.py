@@ -77,6 +77,22 @@ the 2048 test digits against the JAX package's accuracy on the CPU; and
 device_buffers=2)`` -> crop and flip on the card -> ``GraphSolver.fit_iterator``
 on ``ResNet50(num_classes=8, compute_dtype="bfloat16")``), its first batch
 held bit-equal to the decoded files and the host library required to load.
+Then the SameDiff slice, at ``bench.py``'s sizes for ``BASELINE.json``'s
+"BERT-base via SameDiff TF import": the frozen BERT-base graph (L 12, H 768,
+12 heads, vocab 30522) read from the committed skeleton
+(``deeplearning4j_tpu_torch/tools/bert_skeleton.py``, filled from seed 0) by
+the port's own GraphDef reader, with no TensorFlow (whether TensorFlow and
+protobuf are importable is printed, not gated), imported onto the card and
+run on [16, 128] ids eagerly and as one CUDA graph from ``compile()``
+(``graphed`` required; graph within 1e-6 of eager; positions 0-1 within 2e-4
+of the JAX package's output on the CPU, the committed golden; float32
+within 1e-4 of the graph with its float constants in float64); then
+fine-tuned as ``bench.py`` does (``convert_to_variables``, a ``cls_W`` head,
+``Adam(1e-5)``, 2 + 16 steps: loss finite and falling, one step's gradients
+in float32 within 1e-3 of float64 by norm per variable); and a native
+SameDiff ``multi_head_dot_product_attention`` graph on [8, 512, 768] with
+ragged key masks through B1-B3 (``output()`` and 3 ``fit`` steps), held
+against the attention seam's plain route (1e-4 / 1e-3).
 It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
@@ -92,6 +108,7 @@ device it exits with 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import http.client
@@ -121,7 +138,10 @@ from deeplearning4j_tpu_torch.nn.layers import (EmbeddingSequenceLayer, GlobalPo
                                                 LayerContext, LearnedSelfAttentionLayer,
                                                 MixtureOfExpertsLayer, OutputLayer, PoolingType)
 from deeplearning4j_tpu_torch.nn.sequential import MultiLayerNetwork
+from deeplearning4j_tpu_torch.samediff import SameDiff, TrainingConfig
+from deeplearning4j_tpu_torch.samediff.tf_import import TFGraphMapper
 from deeplearning4j_tpu_torch.ops import cuda_build, helpers
+from deeplearning4j_tpu_torch.tools import bert_skeleton
 from deeplearning4j_tpu_torch.tools import kernel_variants as kv
 from deeplearning4j_tpu_torch.tools.moe_profile import MOE_LAYER, moe_lm_conf
 from deeplearning4j_tpu_torch.tools.serving_profile import _device_profile
@@ -302,6 +322,26 @@ LENET_JAX_ACCURACY = 0.99072265625
 LENET_ACC_GATE = max(0.5, LENET_JAX_ACCURACY - 0.05)
 LENET_TRAIN = 12800
 FILE_PASSES = 2               # timed passes over the 512 files after the warm-up pass
+# The SameDiff TF-import BERT-base (bench.py:457-573 at its sizes): batch and
+# length of the ids, timing rounds and calls a round, fine-tune steps, and
+# the SameDiff attention phase's fit steps.
+BERT_IMPORT_B, BERT_IMPORT_T = 16, 128
+SD_ROUNDS, SD_CALLS, SD_TRAIN_STEPS, SD_ATT_STEPS = 5, 5, 16, 3
+# compile()'s CUDA graph against eager output(): the same kernels on the same
+# inputs, max abs error.
+TOL_SD_GRAPH = 1e-6
+# Positions 0-1 of the imported BERT against the JAX package's float32 output
+# on the CPU (tools/make_bert_skeleton.py), max abs error: float32 rounding
+# through 12 layers (outputs of magnitude ~1 after LayerNorm), summed in
+# another order by cuBLAS than by XLA on the CPU (~1e-6 a layer).
+TOL_SD_GOLDEN = 2e-4
+# One fine-tune step's gradients in float32 against float64 on the card, per
+# variable: norm of the difference over the norm of the float64 gradient, or
+# over SD_GRAD_FLOOR of the largest variable's where its own is smaller. The
+# key biases' exact gradient is 0 (softmax ignores a shift shared by every
+# key), so theirs is float rounding alone (~1e-8 of the largest in float32).
+TOL_SD_GRAD_F64 = 1e-3
+SD_GRAD_FLOOR = 1e-4
 #: tokens/s of each float32 engine of phase_engine, for the bf16 phase's print
 ENGINE_TPS = {}
 
@@ -2845,6 +2885,246 @@ def phase_resnet_files(card: str) -> dict:
     return counts
 
 
+def _sd_tokens_per_s(fn, tokens: int) -> tuple:
+    """(median tokens/s, per-call ms of each round) over ``SD_ROUNDS`` rounds
+    of ``SD_CALLS`` calls of ``fn``, synchronised at each round's end."""
+    rates, per_call = [], []
+    for _ in range(SD_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SD_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(tokens * SD_CALLS / dt)
+        per_call.append(1e3 * dt / SD_CALLS)
+    return float(np.median(rates)), per_call
+
+
+def _top_kernels(rows, n: int = 4) -> str:
+    """The ``n`` kernels of a ``_device_profile`` with the most device time."""
+    return "; ".join(f"{name[:60]} {ms:.2f} ms ({count})" for name, ms, count in rows[:n])
+
+
+def _sd_float64(sd):
+    """A view of ``sd`` with its float values in float64 (nodes shared)."""
+    out = copy.copy(sd)
+    out._values = {k: v.double() if v.is_floating_point() else v for k, v in sd._values.items()}
+    out._training = None
+    return out
+
+
+def phase_samediff_bert(card: str) -> dict:
+    """``bench.py``'s SameDiff TF-import BERT-base (``measure_bert_import``,
+    ``bench.py:457-507``, at its sizes: L 12, H 768, 12 heads, vocab 30522,
+    [16, 128] int32 ids): the frozen graph read from the committed skeleton
+    (``tools/bert_skeleton.py``, seed 0) by the port's own GraphDef reader,
+    imported by ``TFGraphMapper.import_graph`` onto the card, run eagerly by
+    ``output()`` and as one CUDA graph by ``compile()``. Gates: ``graphed``;
+    the graph within 1e-6 of eager; positions 0-1 within 2e-4 of the JAX
+    package's output on the CPU (the committed golden); float32 within 1e-4
+    of the same graph with its float constants in float64. Returns the
+    imported model and its names for the fine-tune phase, and the launch
+    counts of its path."""
+    import importlib.util
+
+    def importable(mod: str) -> bool:
+        try:
+            return importlib.util.find_spec(mod) is not None
+        except ModuleNotFoundError:
+            return False
+
+    print(f"samediff environment ({card}): tensorflow importable {importable('tensorflow')}, "
+          f"google.protobuf importable {importable('google.protobuf')}")
+    t0 = time.perf_counter()
+    gd, in_name, out_name = bert_skeleton.load_bert_base(0)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = TFGraphMapper.import_graph(gd, outputs=[out_name])
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    ids = torch.from_numpy(bert_skeleton.bench_ids()).cuda()
+    feeds = {in_name: ids}
+    tokens = ids.numel()
+    sd.output(feeds, [out_name])  # warm-up: library handles, allocator pools
+    compiled = sd.compile(feeds, [out_name])
+    check(compiled.graphed, f"the imported BERT must compile to one CUDA graph: {compiled.reason}")
+    values = dict(sd._values)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.reset_launch_counts()
+    eager = sd.output(feeds, [out_name])[out_name]
+    graphed = compiled(values, feeds)[out_name].clone()
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    eager_tps, eager_ms = _sd_tokens_per_s(lambda: sd.output(feeds, [out_name]), tokens)
+    graph_tps, graph_ms = _sd_tokens_per_s(lambda: compiled(values, feeds), tokens)
+    busy_e, launches_e, rows_e = _device_profile(lambda: sd.output(feeds, [out_name]))
+    busy_g, launches_g, _ = _device_profile(lambda: compiled(values, feeds))
+    e_graph = max_err(graphed, eager)
+    gold = bert_skeleton.golden()
+    e_gold = max_err(eager[:, :2].cpu(), torch.from_numpy(gold["first2"]))
+    sd64 = _sd_float64(sd)
+    ref64 = sd64.output(feeds, [out_name])[out_name]
+    e_f64 = rel_err(eager, ref64)
+    del sd64, ref64
+    n_closure = len(sd._closure([out_name]))
+    print(f"samediff tf-import bert-base ({card}): skeleton {len(gd.node)} nodes read and "
+          f"filled in {read_s:.2f} s, imported {len(sd._nodes)} nodes in {import_s:.2f} s "
+          f"({n_closure} in the output's closure); [{BERT_IMPORT_B},{BERT_IMPORT_T}] ids; "
+          f"output() eager {eager_tps:.0f} tokens/s (median of {SD_ROUNDS} rounds of "
+          f"{SD_CALLS}: {[round(t, 2) for t in eager_ms]} ms a call), device busy "
+          f"{busy_e:.2f} ms, {launches_e} launches, idle share "
+          f"{1 - busy_e / float(np.median(eager_ms)):.3f}; compile() graphed {graph_tps:.0f} "
+          f"tokens/s ({[round(t, 2) for t in graph_ms]} ms a call), device busy {busy_g:.2f} ms, "
+          f"{launches_g} launches, idle share {1 - busy_g / float(np.median(graph_ms)):.3f}; "
+          f"peak memory {peak / 2**30:.2f} GiB; graph vs eager {e_graph:.3e} (tol "
+          f"{TOL_SD_GRAPH:g}); positions 0-1 vs the JAX golden {e_gold:.3e} (tol "
+          f"{TOL_SD_GOLDEN:g}); mean {float(eager.double().mean()):.6g} (JAX "
+          f"{float(gold['mean']):.6g}), mean |x| {float(eager.abs().double().mean()):.6g} (JAX "
+          f"{float(gold['mean_abs']):.6g}); f32 vs f64 rel {e_f64:.3e} (tol {TOL_F32_VS_F64:g}); "
+          f"attention launches {counts}; top device time of the eager forward: "
+          f"{_top_kernels(rows_e)}")
+    check(tuple(eager.shape) == (BERT_IMPORT_B, BERT_IMPORT_T, 768)
+          and bool(torch.isfinite(eager).all()), "the imported BERT's output must be finite")
+    check(e_graph <= TOL_SD_GRAPH, "the graphed BERT disagrees with eager")
+    check(e_gold <= TOL_SD_GOLDEN, "the imported BERT disagrees with the JAX golden")
+    check(e_f64 <= TOL_F32_VS_F64, "the imported BERT in float32 disagrees with float64")
+    del compiled, graphed
+    return (sd, in_name, out_name, ids), counts
+
+
+def phase_samediff_finetune(card: str, imported) -> dict:
+    """``bench.py``'s ``measure_bert_import_train`` (``bench.py:509-573``):
+    ``convert_to_variables()``, a ``cls_W [768, 2]`` head over the mean of
+    the positions, ``softmax_cross_entropy`` and ``Adam(1e-5)``, fed through
+    ``TrainingConfig``'s mappings; 2 warm-up steps, then ``SD_TRAIN_STEPS``
+    timed ones on the repeated batch. Gates: the loss finite and lower
+    after the steps than at the first; one step's gradients in float32
+    within 1e-3 (relative, by norm) of float64 for every variable. Returns
+    the launch counts of its path."""
+    sd, in_name, out_name, ids = imported
+    converted = sd.convert_to_variables()
+    hidden = sd.get_variable(out_name)
+    pooled = sd._op("reduce_mean", hidden, axis=[1])
+    w = sd.var("cls_W", shape=(768, 2))
+    logits = sd._op("matmul", pooled, w, name="logits")
+    labels = sd.placeholder("labels", dtype="float32")
+    loss = sd._op("softmax_cross_entropy", labels, logits)
+    sd._op("reduce_mean", loss, name="loss")
+    sd.set_loss_variables("loss")
+    rng = np.random.default_rng(0)
+    rng.integers(0, 30522, (BERT_IMPORT_B, BERT_IMPORT_T))  # bench.py draws the ids first
+    y = torch.from_numpy(np.eye(2, dtype=np.float32)[rng.integers(0, 2, BERT_IMPORT_B)]).cuda()
+    cfg = TrainingConfig(updater=Adam(1e-5), data_set_feature_mapping=[in_name],
+                         data_set_label_mapping=["labels"])
+    feeds = {in_name: ids, "labels": y}
+    g32 = sd.calculate_gradients(feeds, sd.variables())
+    g64 = _sd_float64(sd).calculate_gradients(feeds, sd.variables())
+    norms = {n: float(torch.linalg.vector_norm(g.reshape(-1))) for n, g in g64.items()}
+    floor = SD_GRAD_FLOOR * max(norms.values())
+    worst = max((float(torch.linalg.vector_norm((g32[n].double() - g64[n]).reshape(-1)))
+                 / max(norms[n], floor), n) for n in g64)
+    n_floor = sum(v < floor for v in norms.values())
+    del g32, g64
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    warm = sd.fit([(ids, y)] * 2, cfg, epochs=1).loss_curve
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = sd.fit([(ids, y)] * SD_TRAIN_STEPS, cfg, epochs=1).loss_curve
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / SD_TRAIN_STEPS
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    busy, launches, rows = _device_profile(lambda: sd.fit([(ids, y)], cfg, epochs=1))
+    losses = warm + timed
+    tokens = ids.numel()
+    print(f"samediff bert-base fine-tune ({card}): convert_to_variables() {len(converted)} "
+          f"constants -> variables ({sum(sd._values[sd._names[n]].numel() for n in converted)} "
+          f"values) + cls_W, Adam(1e-5), 2 warm-up + {SD_TRAIN_STEPS} timed steps: {ms:.2f} "
+          f"ms/step = {tokens / ms * 1e3:.0f} tokens/s; one profiled step: device busy "
+          f"{busy:.2f} ms, {launches} launches, idle share {1 - busy / ms:.3f}; peak memory "
+          f"{peak / 2**30:.2f} GiB; loss {losses[0]:.6f} -> {losses[-1]:.6f}; gradients f32 vs "
+          f"f64 worst rel (by norm) {worst[0]:.3e} at {worst[1]} (tol {TOL_SD_GRAD_F64:g}; "
+          f"{n_floor} of {len(norms)} variables under the floor of {SD_GRAD_FLOOR:g} x the "
+          f"largest gradient norm {max(norms.values()):.4g}); "
+          f"attention launches {counts}; top device time of a step: {_top_kernels(rows)}")
+    check(all(np.isfinite(losses)), f"the fine-tune loss must be finite: {losses}")
+    check(losses[-1] < losses[0], f"the fine-tune loss must fall: {losses}")
+    check(worst[0] <= TOL_SD_GRAD_F64, "the fine-tune gradients in float32 disagree with float64")
+    return counts
+
+
+def phase_samediff_attention(card: str) -> dict:
+    """A native SameDiff graph through B1-B3: a [8, 512, 768] placeholder,
+    ``wq``/``wk``/``wv``/``wo`` variables, ``multi_head_dot_product_attention``
+    with 12 heads and seeded ragged key masks (lengths 128-512, as the
+    BERT-base encoder phase), the mean of the squared output as the loss;
+    ``output()`` and ``SD_ATT_STEPS`` ``fit`` steps (Adam 1e-3). Gates,
+    against the same graph with the attention seam on its plain route:
+    outputs within 1e-4 and gradients within 1e-3 (relative to the
+    largest). Returns the launch counts of its path."""
+    rs = np.random.RandomState(SEED + 31)
+    x = torch.from_numpy(rs.randn(BERT_BATCH, BERT_T, 768).astype(np.float32)).cuda()
+    lens = torch.tensor([BERT_T, 128] + rs.randint(128, BERT_T + 1, BERT_BATCH - 2).tolist())
+    mask = (torch.arange(BERT_T)[None, :] < lens[:, None]).float().cuda()
+    sd = SameDiff.create()
+    xin = sd.placeholder("x", (None, BERT_T, 768))
+    ws = [sd.var(n, (rs.randn(768, 768) * 0.03).astype(np.float32))
+          for n in ("wq", "wk", "wv", "wo")]
+    att = sd.nn.multi_head_dot_product_attention(xin, xin, xin, *ws, n_heads=12, mask=mask,
+                                                 name="att")
+    sd._op("reduce_mean", sd._op("square", att), name="loss")
+    sd.set_loss_variables("loss")
+    feeds = {"x": x}
+    cfg = TrainingConfig(updater=Adam(1e-3), data_set_feature_mapping=("x",))
+    sd.output(feeds, ["att"])  # warm-up
+    torch.cuda.synchronize()
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sd.output(feeds, ["att"])["att"]
+    torch.cuda.synchronize()
+    out_ms = 1e3 * (time.perf_counter() - t0)
+    check(_all_counts() == {"flash_forward": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_decode": 0, "grouped_matmul": 0},
+          f"the SameDiff attention op's output() must launch B1 once: {_all_counts()}")
+    losses, step_ms = [], []
+    for _ in range(SD_ATT_STEPS):
+        before = _all_counts()
+        t0 = time.perf_counter()
+        losses += sd.fit([(x, None)], cfg, epochs=1).loss_curve
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        per_step = {n: c - before[n] for n, c in _all_counts().items()}
+        check(per_step == {"flash_forward": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                           "flash_decode": 0, "grouped_matmul": 0},
+              f"a SameDiff fit step must launch B1, B2 and B3 once: {per_step}")
+    counts = _all_counts()
+    out = sd.output(feeds, ["att"])["att"]
+    ref = _with_impl("reference", lambda: sd.output(feeds, ["att"])["att"])
+    e_out = rel_err(out, ref)
+    names = ["wq", "wk", "wv", "wo"]
+    grads = sd.calculate_gradients(feeds, names)
+    ref_grads = _with_impl("reference", lambda: sd.calculate_gradients(feeds, names))
+    worst = max((rel_err(grads[n], ref_grads[n]), n) for n in names)
+    print(f"samediff multi-head attention ({card}): [{BERT_BATCH},{BERT_T},768] x 12 heads, key "
+          f"lengths {sorted(lens.tolist())}; output() {out_ms:.2f} ms; {SD_ATT_STEPS} fit steps "
+          f"Adam(1e-3) {[round(t, 2) for t in step_ms]} ms, losses "
+          f"{[round(v, 6) for v in losses]}; launches {counts}; vs the reference seam: output "
+          f"rel error {e_out:.3e} (tol {TOL_OUT_REL:g}), gradients worst rel error "
+          f"{worst[0]:.3e} at {worst[1]} (tol {TOL_GRAD_REL:g})")
+    check(bool(torch.isfinite(out).all()) and all(np.isfinite(losses)),
+          "the SameDiff attention outputs and losses must be finite")
+    check(e_out <= TOL_OUT_REL, "the SameDiff attention op through B1 disagrees with the seam")
+    check(worst[0] <= TOL_GRAD_REL, "the SameDiff attention gradients through B1-B3 disagree")
+    return counts
+
+
 def _kept_rows(sizes, m_pad: int, n: int) -> torch.Tensor:
     """[n] bool: the rows some group keeps (local index < m_pad, row < n)."""
     kept = torch.zeros(n, dtype=torch.bool)
@@ -3018,11 +3298,17 @@ def main() -> int:
               timed("bf16 compute_dtype generation", phase_bf16_generation, prompts, card),
               timed("LeNet from MnistDataSetIterator", phase_lenet_iterator, card),
               timed("ResNet-50 from files", phase_resnet_files, card)]
+    imported, counts = timed("SameDiff TF-imported BERT-base", phase_samediff_bert, card)
+    paths += [counts, timed("SameDiff BERT-base fine-tune", phase_samediff_finetune, card,
+                            imported),
+              timed("SameDiff multi-head attention", phase_samediff_attention, card)]
+    del imported
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
     # LearnedSelfAttention network, the checkpointed and bf16 LMs, the bf16
-    # LM's generation, and LeNet and ResNet-50 fed by iterators
+    # LM's generation, LeNet and ResNet-50 fed by iterators, and the SameDiff
+    # paths (the TF-imported BERT-base served and fine-tuned, the attention op)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [
