@@ -93,6 +93,27 @@ in float32 within 1e-3 of float64 by norm per variable); and a native
 SameDiff ``multi_head_dot_product_attention`` graph on [8, 512, 768] with
 ragged key masks through B1-B3 (``output()`` and 3 ``fit`` steps), held
 against the attention seam's plain route (1e-4 / 1e-3).
+Then the import slice, where neither h5py nor protobuf is used (whether
+h5py, protobuf and onnx are importable is printed, not gated):
+``keras.applications.ResNet50(weights=None)`` (224x224x3, 1000 classes,
+nothing cut) read from the committed HDF5 skeleton by the port's own reader
+(``deeplearning4j_tpu_torch/tools/keras_resnet50.py``, filled from seed 0)
+and imported by ``KerasModelImport`` onto the card as a ``ComputationGraph``:
+its pooled features and probabilities on 2 images held to the JAX package's
+CPU output (2e-4 relative, 1e-4) and float32 to float64 (1e-4), then
+``output()`` at batch 32 timed beside the zoo ResNet-50's, and 5
+``GraphSolver.fit_batch`` steps (Adam 1e-4) through the imported MCXENT
+``OutputLayer`` (score finite and falling; before the first step the score
+f32 vs f64 within 1e-5 and the gradients within 0.1 by norm, batch norms'
+f32 rounding amplified); and BERT-base's encoder (L 12, H 768, vocab 30522)
+read from the committed ONNX skeleton by the port's own wire reader
+(``tools/onnx_bert.py``, seed 0), imported by ``OnnxGraphMapper`` onto the
+card and run on [16, 128] int64 ids with a ragged attention mask, eagerly
+and as one CUDA graph (``graphed``; graph within 1e-6 of eager; positions
+0-1 within 2e-4 of the JAX golden; f32 within 1e-4 of f64). These three
+paths reach none of B1-B5 (the imported graphs spell attention as products
+and a softmax, as in the JAX package); their launch counts enter ``paths``
+all the same.
 It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
@@ -129,6 +150,8 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.generate import GenerationSession
+from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+from deeplearning4j_tpu_torch.modelimport.onnx import OnnxGraphMapper
 from deeplearning4j_tpu_torch.model.zoo import (BertEncoder, LeNet, ResNet50, TextGenerationLSTM,
                                                 TransformerLM)
 from deeplearning4j_tpu_torch import ops as fa
@@ -137,11 +160,12 @@ from deeplearning4j_tpu_torch.nn import (Activation, InputType, LossFunction,
 from deeplearning4j_tpu_torch.nn.layers import (EmbeddingSequenceLayer, GlobalPoolingLayer,
                                                 LayerContext, LearnedSelfAttentionLayer,
                                                 MixtureOfExpertsLayer, OutputLayer, PoolingType)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.sequential import MultiLayerNetwork
 from deeplearning4j_tpu_torch.samediff import SameDiff, TrainingConfig
 from deeplearning4j_tpu_torch.samediff.tf_import import TFGraphMapper
 from deeplearning4j_tpu_torch.ops import cuda_build, helpers
-from deeplearning4j_tpu_torch.tools import bert_skeleton
+from deeplearning4j_tpu_torch.tools import bert_skeleton, keras_resnet50, onnx_bert
 from deeplearning4j_tpu_torch.tools import kernel_variants as kv
 from deeplearning4j_tpu_torch.tools.moe_profile import MOE_LAYER, moe_lm_conf
 from deeplearning4j_tpu_torch.tools.serving_profile import _device_profile
@@ -344,6 +368,28 @@ TOL_SD_GRAD_F64 = 1e-3
 SD_GRAD_FLOOR = 1e-4
 #: tokens/s of each float32 engine of phase_engine, for the bf16 phase's print
 ENGINE_TPS = {}
+#: images/s of the zoo ResNet-50's output() (phase_resnet50), for the Keras
+#: ResNet-50 phase's print
+RESNET_IMAGES_PER_S = {}
+# The Keras-applications ResNet-50 against the JAX package's float32 output
+# on the CPU (tools/make_keras_resnet50_skeleton.py) on 2 images: the pooled
+# features, max abs error over the largest (float32 rounding through 53
+# convolutions and batch norms, summed by cuDNN in another order than XLA on
+# the CPU, ~1e-6 relative); the probabilities (top 0.068, not saturated),
+# max abs error.
+TOL_KERAS_FEATURES, TOL_KERAS_PROBS = 2e-4, 1e-4
+KERAS_FT_STEPS, KERAS_GRAD_BATCH = 5, 8
+# The imported ResNet-50's first fine-tune step in float32 against float64 on
+# the card, batch norms in training mode. The score: float32 rounding of one
+# forward (~1e-6 relative). The gradients, per parameter by norm (the
+# SameDiff fine-tune's rule, TOL_SD_GRAD_F64's floor): each of 53 batch
+# norms' backward subtracts the batch means of its incoming gradient, which
+# nearly cancel, so float32 rounding grows on the way back to the stem: the
+# JAX package's own float32 gradients on the CPU miss float64 by 3.2e-2
+# (tools/keras_resnet50_grad_precision.py, the whole vector 2.7e-2), the
+# port's by 2.1e-2. 0.1 holds the rounding and catches a lost or wrong
+# backward term (an error of order 1).
+TOL_KERAS_SCORE_F64, TOL_KERAS_GRAD_F64 = 1e-5, 0.1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2152,6 +2198,7 @@ def phase_resnet50(card: str) -> dict:
                if torch.equal(model.state[n][k], stats0[n][k])]
     check(not unmoved, f"batch-norm running statistics that did not move: {unmoved}")
     ms = float(np.median(step_ms))
+    RESNET_IMAGES_PER_S["output"] = RESNET_BATCH / out_ms * 1e3
     print(f"resnet50 ({card}): ComputationGraph {model.num_params()} params, "
           f"{len(model.conf.vertices)} vertices, {len(bn)} batch norms, init {init_s:.2f} s; "
           f"cudnn.benchmark={torch.backends.cudnn.benchmark}, cudnn.allow_tf32=True (the "
@@ -2885,6 +2932,15 @@ def phase_resnet_files(card: str) -> dict:
     return counts
 
 
+def importable(mod: str) -> bool:
+    import importlib.util
+
+    try:
+        return importlib.util.find_spec(mod) is not None
+    except ModuleNotFoundError:
+        return False
+
+
 def _sd_tokens_per_s(fn, tokens: int) -> tuple:
     """(median tokens/s, per-call ms of each round) over ``SD_ROUNDS`` rounds
     of ``SD_CALLS`` calls of ``fn``, synchronised at each round's end."""
@@ -2926,14 +2982,6 @@ def phase_samediff_bert(card: str) -> dict:
     of the same graph with its float constants in float64. Returns the
     imported model and its names for the fine-tune phase, and the launch
     counts of its path."""
-    import importlib.util
-
-    def importable(mod: str) -> bool:
-        try:
-            return importlib.util.find_spec(mod) is not None
-        except ModuleNotFoundError:
-            return False
-
     print(f"samediff environment ({card}): tensorflow importable {importable('tensorflow')}, "
           f"google.protobuf importable {importable('google.protobuf')}")
     t0 = time.perf_counter()
@@ -3125,6 +3173,231 @@ def phase_samediff_attention(card: str) -> dict:
     return counts
 
 
+def _environment(card: str, label: str) -> None:
+    print(f"{label} environment ({card}): h5py importable {importable('h5py')}, "
+          f"google.protobuf importable {importable('google.protobuf')}, onnx importable "
+          f"{importable('onnx')} (the port reads HDF5 and the ONNX wire format itself)")
+
+
+def _float64_graph(net: ComputationGraph) -> ComputationGraph:
+    """``net``'s configuration, weights and statistics in float64, on its device."""
+    out = ComputationGraph(dataclasses.replace(net.conf, dtype="float64"), device=net.device)
+    out.init()
+    out.set_params_flat(net.params_flat())
+    out.state = {n: {k: t.double() for k, t in st.items()} for n, st in net.state.items()}
+    return out
+
+
+def _graph_acts(net: ComputationGraph, x: torch.Tensor, names) -> list:
+    with torch.inference_mode():
+        acts, _ = net.forward_pure(net.params, net.state, [x])
+    return [acts[n] for n in names]
+
+
+def phase_keras_resnet50(card: str):
+    """``keras.applications.ResNet50(weights=None)`` (224x224x3, 1000
+    classes, nothing cut) read from the committed HDF5 skeleton by the port's
+    own reader (no h5py; whether h5py, protobuf and onnx are importable is
+    printed, not gated), filled from seed 0 (``tools/keras_resnet50.py``) and
+    imported by ``KerasModelImport`` onto the card as a ``ComputationGraph``
+    (the zoo ResNet-50's network plus Keras's ZeroPadding layers and conv
+    biases). Gates: the ``avg_pool`` features within 2e-4 (over the largest)
+    and the probabilities within 1e-4 of the JAX package's on the CPU (the
+    committed golden, 2 images); float32 within 1e-4 of the same graph in
+    float64 on the card. Then ``output()`` at batch ``RESNET_BATCH`` with
+    cuDNN's TF32 switch at its default, timed beside the zoo ResNet-50's.
+    No attention or grouped-matmul kernel lies on this path. Returns the
+    model and batch for the fine-tune phase, and the launch counts."""
+    _environment(card, "keras import")
+    t0 = time.perf_counter()
+    f = keras_resnet50.load(0)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = KerasModelImport.import_keras_model_and_weights(f)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    check(net.device.type == "cuda" and net.num_params() == keras_resnet50.N_PARAMS,
+          f"the imported ResNet-50 has {net.num_params()} params on {net.device}")
+    names = (keras_resnet50.FEATURES, keras_resnet50.OUTPUT)
+    gold = keras_resnet50.golden()
+    x2 = torch.from_numpy(keras_resnet50.golden_input()).cuda()
+    with _cudnn_tf32_default():
+        feats, probs = _graph_acts(net, x2, names)
+    e_feat = float((feats.cpu() - torch.from_numpy(gold["features"])).abs().max()
+                   / float(np.abs(gold["features"]).max()))
+    e_prob = max_err(probs.cpu(), torch.from_numpy(gold["probs"]))
+    net64 = _float64_graph(net)
+    f64 = _graph_acts(net64, x2.double(), names)
+    e_f64 = [rel_err(a, b) for a, b in zip((feats, probs), f64)]
+    del net64, f64
+    rs = np.random.RandomState(SEED + 40)
+    x = torch.from_numpy(rs.randn(RESNET_BATCH, 3, 224, 224).astype(np.float32)).cuda()
+    with _cudnn_tf32_default():
+        net.output(x)  # warm-up: cuDNN handles, allocator pools
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_out = 5
+        for _ in range(n_out):
+            out = net.output(x)
+        torch.cuda.synchronize()
+        out_ms = 1e3 * (time.perf_counter() - t0) / n_out
+        counts = _all_counts()
+        busy, launches, rows = _device_profile(lambda: net.output(x))
+    check(tuple(out.shape) == (RESNET_BATCH, 1000) and bool(torch.isfinite(out).all()),
+          "the imported ResNet-50's output() must be finite [32, 1000]")
+    zoo = RESNET_IMAGES_PER_S.get("output", float("nan"))
+    print(f"keras resnet50 ({card}): skeleton read and filled in {read_s:.2f} s (320 datasets, "
+          f"no h5py), imported in {import_s:.2f} s: ComputationGraph {net.num_params()} params, "
+          f"{len(net.conf.vertices)} vertices; output() [{RESNET_BATCH},3,224,224] "
+          f"{out_ms:.2f} ms = {RESNET_BATCH / out_ms * 1e3:.1f} images/s (the zoo ResNet-50 "
+          f"in this run: {zoo:.1f} images/s), device busy {busy:.2f} ms, {launches} launches, "
+          f"idle share {1 - busy / out_ms:.3f}; vs the JAX golden: features {e_feat:.3e} (tol "
+          f"{TOL_KERAS_FEATURES:g}), probabilities {e_prob:.3e} (tol {TOL_KERAS_PROBS:g}; top "
+          f"{float(probs.max()):.5f}); f32 vs f64 on the card: features {e_f64[0]:.3e}, "
+          f"probabilities {e_f64[1]:.3e} (tol {TOL_F32_VS_F64:g}); launches {counts}; top "
+          f"device time: {_top_kernels(rows)}")
+    check(e_feat <= TOL_KERAS_FEATURES, "the imported ResNet-50's features disagree with JAX")
+    check(e_prob <= TOL_KERAS_PROBS, "the imported ResNet-50's probabilities disagree with JAX")
+    check(max(e_f64) <= TOL_F32_VS_F64, "the imported ResNet-50 in float32 disagrees with float64")
+    return (net, x), counts
+
+
+def phase_keras_finetune(card: str, imported) -> dict:
+    """The imported ResNet-50 fine-tuned: ``KERAS_FT_STEPS``
+    ``GraphSolver.fit_batch`` steps (Adam 1e-4, set on the imported
+    configuration) at batch ``RESNET_BATCH`` on a fixed batch, through the
+    ``OutputLayer`` (MCXENT) the importer made of the trailing softmax
+    Dense. Gates: the score finite and falling; before the first step, at
+    batch ``KERAS_GRAD_BATCH``, the score in float32 within 1e-5 of float64
+    on the card and the gradients within 0.1 (``TOL_KERAS_GRAD_F64`` says
+    why not 1e-3), by norm per parameter over the larger of its float64
+    norm and ``SD_GRAD_FLOOR`` of the largest. No attention or
+    grouped-matmul kernel lies on this path. Returns its launch counts."""
+    _environment(card, "keras fine-tune")
+    net, x = imported
+    net.conf = dataclasses.replace(net.conf, updater=Adam(1e-4))
+    rs = np.random.RandomState(SEED + 41)
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[rs.randint(0, 1000, RESNET_BATCH)]).cuda()
+    xg, yg = x[:KERAS_GRAD_BATCH], y[:KERAS_GRAD_BATCH]
+    g32 = net.calculate_gradients(xg, yg)
+    net64 = _float64_graph(net)
+    g64 = net64.calculate_gradients(xg.double(), yg.double())
+    s32, s64 = net.score(xg, yg), net64.score(xg.double(), yg.double())
+    e_score = abs(s32 - s64) / abs(s64)
+    del net64
+    norms = {(l, k): float(torch.linalg.vector_norm(g.reshape(-1)))
+             for l, lg in g64.items() for k, g in lg.items()}
+    floor = SD_GRAD_FLOOR * max(norms.values())
+    worst = max((float(torch.linalg.vector_norm((g32[l][k].double() - g64[l][k]).reshape(-1)))
+                 / max(norms[(l, k)], floor), f"{l}/{k}") for (l, k) in norms)
+    n_floor = sum(v < floor for v in norms.values())
+    del g32, g64
+    solver = GraphSolver(net)
+    with _cudnn_tf32_default():
+        solver.fit_batch((x,), (y,))  # warm-up step: cuDNN's backward handles, Adam's state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        scores, step_ms = [], []
+        for _ in range(KERAS_FT_STEPS):
+            t0 = time.perf_counter()
+            scores.append(float(solver.fit_batch((x,), (y,))))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = _all_counts()
+        peak = torch.cuda.max_memory_allocated()
+        busy, launches, rows = _device_profile(lambda: solver.fit_batch((x,), (y,)))
+    ms = float(np.median(step_ms))
+    print(f"keras resnet50 fine-tune ({card}): GraphSolver.fit_batch Adam(1e-4) through the "
+          f"imported OutputLayer (MCXENT), 1 warm-up + {KERAS_FT_STEPS} steps at batch "
+          f"{RESNET_BATCH}: median {ms:.2f} ms/step of {[round(t, 2) for t in step_ms]} = "
+          f"{RESNET_BATCH / ms * 1e3:.1f} images/s; one profiled step: device busy {busy:.2f} "
+          f"ms, {launches} launches, idle share {1 - busy / ms:.3f}; peak memory "
+          f"{peak / 2**30:.2f} GiB; scores {[round(v, 5) for v in scores]}; at batch "
+          f"{KERAS_GRAD_BATCH} before the first step, f32 vs f64: score {e_score:.3e} (tol "
+          f"{TOL_KERAS_SCORE_F64:g}), gradients worst rel (by norm) {worst[0]:.3e} at {worst[1]} "
+          f"(tol {TOL_KERAS_GRAD_F64:g}; {n_floor} of {len(norms)} under the floor); launches "
+          f"{counts}; top device time: {_top_kernels(rows)}")
+    check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+          f"the imported ResNet-50's fine-tune scores must be finite and falling: {scores}")
+    check(e_score <= TOL_KERAS_SCORE_F64,
+          "the imported ResNet-50's score in float32 disagrees with float64")
+    check(worst[0] <= TOL_KERAS_GRAD_F64,
+          "the imported ResNet-50's gradients in float32 disagree with float64")
+    return counts
+
+
+def phase_onnx_bert(card: str) -> dict:
+    """BERT-base's encoder (L 12, H 768, 12 heads, FFN 3072, vocab 30522)
+    read from the committed ONNX skeleton by the port's own wire reader (no
+    protobuf or onnx), filled from seed 0 (``tools/onnx_bert.py``), imported
+    by ``OnnxGraphMapper`` onto the card, and run on [16, 128] int64 ids
+    with a ragged attention mask, eagerly by ``output()`` and as one CUDA
+    graph by ``compile()``. Gates: ``graphed``; the graph within 1e-6 of
+    eager; positions 0-1 within 2e-4 of the JAX package's output on the
+    CPU (the committed golden); float32 within 1e-4 of the same graph with
+    its float constants in float64. Attention is spelled MatMul + Softmax,
+    so no attention or grouped-matmul kernel lies on this path. Returns its
+    launch counts."""
+    _environment(card, "onnx import")
+    t0 = time.perf_counter()
+    model = onnx_bert.load(0)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = OnnxGraphMapper.import_model(model, outputs=[onnx_bert.OUTPUT])
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    out_name = onnx_bert.OUTPUT
+    feeds = {k: torch.from_numpy(v).cuda() for k, v in onnx_bert.bench_feeds().items()}
+    tokens = feeds[onnx_bert.INPUTS[0]].numel()
+    sd.output(feeds, [out_name])  # warm-up: library handles, allocator pools
+    compiled = sd.compile(feeds, [out_name])
+    check(compiled.graphed, f"the imported ONNX BERT must compile to one CUDA graph: "
+                            f"{compiled.reason}")
+    values = dict(sd._values)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    eager = sd.output(feeds, [out_name])[out_name]
+    graphed = compiled(values, feeds)[out_name].clone()
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    eager_tps, eager_ms = _sd_tokens_per_s(lambda: sd.output(feeds, [out_name]), tokens)
+    graph_tps, graph_ms = _sd_tokens_per_s(lambda: compiled(values, feeds), tokens)
+    busy_e, launches_e, rows_e = _device_profile(lambda: sd.output(feeds, [out_name]))
+    busy_g, launches_g, _ = _device_profile(lambda: compiled(values, feeds))
+    e_graph = max_err(graphed, eager)
+    gold = onnx_bert.golden()
+    e_gold = max_err(eager[:, :2].cpu(), torch.from_numpy(gold["first2"]))
+    sd64 = _sd_float64(sd)
+    e_f64 = rel_err(eager, sd64.output(feeds, [out_name])[out_name])
+    del sd64
+    print(f"onnx bert-base ({card}): skeleton {len(model.graph.node)} nodes, "
+          f"{len(model.graph.initializer)} initializers (74 filled), read in "
+          f"{read_s:.2f} s, imported {len(sd._nodes)} nodes in {import_s:.2f} s; "
+          f"[{onnx_bert.BATCH},{onnx_bert.SEQ}] int64 ids + ragged mask; output() eager "
+          f"{eager_tps:.0f} tokens/s ({[round(t, 2) for t in eager_ms]} ms a call), device busy "
+          f"{busy_e:.2f} ms, {launches_e} launches, idle share "
+          f"{1 - busy_e / float(np.median(eager_ms)):.3f}; compile() graphed {graph_tps:.0f} "
+          f"tokens/s ({[round(t, 2) for t in graph_ms]} ms a call), device busy {busy_g:.2f} ms, "
+          f"{launches_g} launches, idle share {1 - busy_g / float(np.median(graph_ms)):.3f}; "
+          f"peak memory {peak / 2**30:.2f} GiB; graph vs eager {e_graph:.3e} (tol "
+          f"{TOL_SD_GRAPH:g}); positions 0-1 vs the JAX golden {e_gold:.3e} (tol "
+          f"{TOL_SD_GOLDEN:g}); mean |x| {float(eager.abs().double().mean()):.6g} (JAX "
+          f"{float(gold['mean_abs']):.6g}); f32 vs f64 rel {e_f64:.3e} (tol "
+          f"{TOL_F32_VS_F64:g}); launches {counts}; top device time of the eager forward: "
+          f"{_top_kernels(rows_e)}")
+    check(tuple(eager.shape) == (onnx_bert.BATCH, onnx_bert.SEQ, onnx_bert.HIDDEN)
+          and bool(torch.isfinite(eager).all()), "the imported ONNX BERT's output must be finite")
+    check(e_graph <= TOL_SD_GRAPH, "the graphed ONNX BERT disagrees with eager")
+    check(e_gold <= TOL_SD_GOLDEN, "the imported ONNX BERT disagrees with the JAX golden")
+    check(e_f64 <= TOL_F32_VS_F64, "the imported ONNX BERT in float32 disagrees with float64")
+    del compiled, graphed
+    return counts
+
+
 def _kept_rows(sizes, m_pad: int, n: int) -> torch.Tensor:
     """[n] bool: the rows some group keeps (local index < m_pad, row < n)."""
     kept = torch.zeros(n, dtype=torch.bool)
@@ -3303,12 +3576,18 @@ def main() -> int:
                             imported),
               timed("SameDiff multi-head attention", phase_samediff_attention, card)]
     del imported
+    imported, counts = timed("Keras ResNet-50", phase_keras_resnet50, card)
+    paths += [counts, timed("Keras ResNet-50 fine-tune", phase_keras_finetune, card, imported)]
+    del imported
+    paths.append(timed("ONNX BERT-base", phase_onnx_bert, card))
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
     # LearnedSelfAttention network, the checkpointed and bf16 LMs, the bf16
-    # LM's generation, LeNet and ResNet-50 fed by iterators, and the SameDiff
+    # LM's generation, LeNet and ResNet-50 fed by iterators, the SameDiff
     # paths (the TF-imported BERT-base served and fine-tuned, the attention op)
+    # and the imported models (the Keras ResNet-50 served and fine-tuned, the
+    # ONNX BERT-base served), which launch none of the five kernels
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

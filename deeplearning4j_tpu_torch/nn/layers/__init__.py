@@ -67,5 +67,6 @@ from .preprocessors import (
     RnnToCnnPreProcessor,
     RnnToFeedForwardPreProcessor,
 )
+from .samediff_layer import SameDiffLambdaLayer, SameDiffLayer
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -11,7 +11,6 @@ from deeplearning4j_tpu.core.config import to_json as jax_to_json
 from deeplearning4j_tpu.model.zoo.transformer_lm import TransformerLM as JaxLM
 from deeplearning4j_tpu.nn import NeuralNetConfiguration as JaxNNC
 from deeplearning4j_tpu.nn.layers import OutputLayer as JaxOut
-from deeplearning4j_tpu.nn.layers import SameDiffLayer as JaxSameDiff
 
 from deeplearning4j_tpu_torch.core import config as port_config
 from deeplearning4j_tpu_torch.core.config import from_json, to_json
@@ -73,10 +72,12 @@ def test_enum_paths_decode_without_importing_the_jax_package(monkeypatch):
 
 
 def test_unknown_class_raises_naming_it():
-    # SameDiffLayer (a custom layer whose forward is a SameDiff graph) is
-    # not ported (ROADMAP A9)
+    # QuantizedDenseLayer (the int8 weight-rewrite product) is not ported
+    # (ROADMAP A5)
+    from deeplearning4j_tpu.nn.rewrite.quantize import QuantizedDenseLayer as JaxQuantized
+
     conf = (JaxNNC.builder().seed(1).list()
-            .layer(JaxSameDiff(param_shapes={"W": (4, 3)}, n_out=3))
+            .layer(JaxQuantized(n_in=4, n_out=3))
             .layer(JaxOut(n_in=3, n_out=2)).build())
-    with pytest.raises(KeyError, match="SameDiffLayer"):
+    with pytest.raises(KeyError, match="QuantizedDenseLayer"):
         from_json(jax_to_json(conf))
