@@ -114,6 +114,23 @@ and as one CUDA graph (``graphed``; graph within 1e-6 of eager; positions
 paths reach none of B1-B5 (the imported graphs spell attention as products
 and a softmax, as in the JAX package); their launch counts enter ``paths``
 all the same.
+Then the rewrite slice (``nn/rewrite``): after the HTTP phase the
+GPT-2-small-width LM is published to a ``ModelStore`` and deployed through
+``ModelManager(optimize="inference:int8")`` (12 int8 decoder blocks; the
+embeddings and the softmax head stay float32), served through ``output()``
+on 8 x 1024 (B1), ``GenerationSession`` and ``DecodeEngine`` (B4 in the
+step's CUDA graph), redeployed as ``"inference:fp8"`` and rolled back, its
+int8 output held to the same int8 network in float64 through the plain
+attention (1e-4), graph to eager (1e-6), cached decode to a full forward
+(2e-3), beside the float32 model's numbers in the same call; after the
+ONNX phase, the MoE network int8 (grouped dispatch through B5 against
+sort), the zoo ResNet-50 under each rewrite (stem, fold, ``"inference"``,
+``"inference:int8"``; images/s in turns, the float rewrites within 1e-4)
+and 3 ``GraphSolver(optimize="training")`` steps beside plain ones (the
+first score within 1e-4), the zoo LeNet with ``calibrate()`` ranges (the
+card's int32 accumulators equal the CPU's), and the thirteen other zoo
+models at their published input sizes, batch 8 (the JAX package's output
+shapes, finite, the ``"inference"`` rewrite within 1e-4).
 It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
@@ -161,7 +178,12 @@ from deeplearning4j_tpu_torch.nn.layers import (EmbeddingSequenceLayer, GlobalPo
                                                 LayerContext, LearnedSelfAttentionLayer,
                                                 MixtureOfExpertsLayer, OutputLayer, PoolingType)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.rewrite import (BatchNormAffinePass, ConvBatchNormFoldPass,
+                                                 QuantizedDenseLayer, QuantizeWeightsPass,
+                                                 RewritePass, SpaceToDepthStemPass, calibrate,
+                                                 count_quantized_layers, rewrite_model)
 from deeplearning4j_tpu_torch.nn.sequential import MultiLayerNetwork
+from deeplearning4j_tpu_torch.serving import model_bytes as serving_model_bytes
 from deeplearning4j_tpu_torch.samediff import SameDiff, TrainingConfig
 from deeplearning4j_tpu_torch.samediff.tf_import import TFGraphMapper
 from deeplearning4j_tpu_torch.ops import cuda_build, helpers
@@ -3526,6 +3548,498 @@ def phase_grouped_matmul(gen, routed) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The graph rewrite passes and post-training quantization (nn/rewrite)
+# ---------------------------------------------------------------------------
+
+# A rewritten graph against the unrewritten one on the card, both float32,
+# max abs error over the largest value: the fold scales each conv kernel in
+# float64 and rounds it to float32 once, and the stem conv sums its 49 taps
+# (plus 15 zeros) in another order; ~1e-6 relative through 53 layers. A
+# fold that dropped a BN's shift or scale misses by ~1.
+TOL_REWRITE_REL = 1e-4
+# The quantized LM's float32 output() on the card against the same quantized
+# network (the same int8 or fp8 weights and float32 scales) in float64
+# through the plain attention: the f32-vs-f64 gate of the other phases.
+TOL_QUANT_F64 = TOL_F32_VS_F64
+# The graphed decode step against the uncaptured one on the same carry, as in
+# phase_model: the same kernels and shapes, replayed.
+TOL_GRAPH_STEP = 1e-6
+# The published-size zoo, batch 8: (class, constructor arguments, input
+# [c, h, w], the JAX package's output shape; tests/test_torch_zoo.py holds
+# the shapes against the JAX package's shape inference).
+ZOO_BATCH = 8
+ZOO_CASES = [
+    ("AlexNet", {}, (3, 224, 224), (8, 1000)),
+    ("VGG16", {}, (3, 224, 224), (8, 1000)),
+    ("VGG19", {}, (3, 224, 224), (8, 1000)),
+    ("SqueezeNet", {}, (3, 224, 224), (8, 1000)),
+    ("Darknet19", {}, (3, 224, 224), (8, 1000)),
+    ("TinyYOLO", {}, (3, 416, 416), (8, 125, 13, 13)),
+    ("YOLO2", {}, (3, 416, 416), (8, 125, 13, 13)),
+    ("UNet", {}, (3, 128, 128), (8, 1, 128, 128)),
+    ("Xception", {}, (3, 299, 299), (8, 1000)),
+    ("NASNet", {}, (3, 224, 224), (8, 1000)),
+    ("InceptionResNetV1", {}, (3, 160, 160), (8, 1000)),
+    ("SimpleCNN", {}, (3, 48, 48), (8, 10)),
+    ("FaceNetNN4Small2", {}, (3, 96, 96), (8, 128)),
+]
+
+
+class _Float64(RewritePass):
+    """The network itself in float64: every float32 tensor widened (exact),
+    the int8 and fp8 weights as they are. The reference side of the
+    quantized LM's f32-vs-f64 gate."""
+
+    name = "float64"
+
+    def apply_sequential(self, conf, params, state):
+        def wide(d):
+            return {k: (v.detach().double() if v.dtype == torch.float32 else v.detach())
+                    for k, v in d.items()}
+
+        return (dataclasses.replace(conf, dtype="float64"),
+                {l: wide(p) for l, p in params.items()},
+                {l: wide(s) for l, s in state.items()}, True)
+
+
+def _seed_bn_stats(net, seed: int) -> None:
+    """Running statistics of every batch norm from ``seed`` (means ~N(0, 0.1),
+    variances in [0.5, 1.5)), so that a fold moves every kernel."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for st in net.state.values():
+            if "mean" in st:
+                st["mean"].copy_(0.1 * torch.randn(st["mean"].shape, generator=g))
+                st["var"].copy_(0.5 + torch.rand(st["var"].shape, generator=g))
+
+
+def _serve_lm(m, prompts, ids, label: str) -> dict:
+    """One LM's serving numbers on the card: ``output()`` [8, 1024] (after a
+    warm-up), ``GenerationSession.generate`` of 8 x 64 greedy tokens (median
+    of 3), the graphed decode step against the uncaptured one on two carries
+    of one prefill (24 steps), the cached decode's log-probs against a full
+    forward, and the peak memory above the resident tensors."""
+    session = GenerationSession(m, max_len=T_FULL)
+    m.output(ids)  # warm-up at the timed shape: the allocator's pools, library plans
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probs = m.output(ids)
+    torch.cuda.synchronize()
+    output_ms = 1e3 * (time.perf_counter() - t0)
+    rows = probs[:2].clone()
+    del probs
+    runs, gen = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gen = session.generate(prompts, MAX_TOKENS)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    generate_s = sorted(runs)[1]
+    lp_gap = _greedy_gap(m, prompts, gen)
+    # cached decode vs a full forward, teacher-forced on the stream
+    steps = MAX_TOKENS - 1
+    carry, logits, _ = session.prefill(prompts)
+    cached = [logits]
+    for s in range(steps):
+        carry, logits = session.decode(carry, [row[s] for row in gen])
+        cached.append(logits)
+    cached = torch.stack(cached, dim=1)
+    ref = _teacher_forced(m, prompts, [g[:MAX_TOKENS] for g in gen])
+    decode_err = max(max_err(cached[i], ref[i]) for i in range(len(prompts)))
+    del carry, cached, ref
+    session.release_graphs()
+    # graph replay vs the uncaptured step
+    carry_g, logits_g, _ = session.prefill(prompts)
+    carry_e, _, _ = session.prefill(prompts)
+    toks = torch.argmax(logits_g, dim=-1)
+    worst, t_graph, t_eager = 0.0, [], []
+    for s_ in range(24):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry_g, lg = session.decode(carry_g, toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            le = session.step(carry_e, toks.to(torch.int32))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if s_ >= 2:  # step 0 runs eagerly, step 1 captures
+            t_graph.append(t1 - t0)
+            t_eager.append(t2 - t1)
+        worst = max(worst, max_err(lg, le))
+        toks = torch.argmax(lg, dim=-1)
+    entry = session._graphs.get(B)
+    graph_launches = entry.step.launches if entry is not None and entry.step is not None else None
+    session.release_graphs()
+    del carry_g, carry_e
+    out = dict(rows=rows, gen=gen, output_ms=output_ms, generate_s=generate_s,
+               tokens_per_s=B * MAX_TOKENS / generate_s, decode_err=decode_err,
+               greedy_gap=lp_gap, graph_ms=1e3 * float(np.median(t_graph)),
+               eager_ms=1e3 * float(np.median(t_eager)), graph_err=worst,
+               graph_launches=graph_launches, peak=peak,
+               model_bytes=serving_model_bytes(m))
+    print(f"quantized lm {label}: output() [8,1024] {output_ms:.2f} ms; generate 8 x "
+          f"{MAX_TOKENS} median {generate_s * 1e3:.1f} ms of {[round(r * 1e3, 1) for r in runs]}"
+          f" = {out['tokens_per_s']:.1f} tokens/s; decode step graph {out['graph_ms']:.3f} ms,"
+          f" eager {out['eager_ms']:.3f} ms (medians of 22), graph vs eager logits max_abs "
+          f"{worst:.3e}; cached decode vs full forward log-prob max_abs {decode_err:.3e}, "
+          f"greedy gap {lp_gap:.3e}; model_bytes {out['model_bytes']}; peak memory above the "
+          f"resident {peak / 2**30:.3f} GiB")
+    return out
+
+
+def phase_quant_lm(model, prompts, card: str) -> dict:
+    """The GPT-2-small-width LM (163,050,577 params, float32) published to a
+    ``ModelStore`` and deployed through ``ModelManager(optimize=
+    "inference:int8")``: the 12 decoder blocks are quantized in memory
+    (count_quantized_layers 12, the quantized gauge 12), its ``output()`` on
+    8 x 1024 runs B1, ``GenerationSession`` and ``DecodeEngine`` generate 64
+    greedy tokens on the 8 prompts through B4 (the decode step replayed
+    from a CUDA graph); the same version is redeployed as ``"inference:fp8"``
+    and rolled back. Gates: the card's int8 output against the same int8
+    network in float64 through the plain attention (1e-4), graph vs eager
+    (1e-6), decode log-probs vs a full forward (2e-3), the engine's streams
+    greedy, and the rollback serving the int8 incumbent's exact outputs. The
+    f32 model's numbers are taken first, in the same call. Returns the
+    launch counts of the int8 and fp8 paths."""
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import DecodeEngine
+    from deeplearning4j_tpu_torch.serving import ModelManager, ModelStore
+
+    rs = np.random.RandomState(SEED + 43)
+    ids = torch.from_numpy(rs.randint(0, 50257, (B, T_FULL))).cuda()
+    f32 = _serve_lm(model, prompts, ids, f"f32 ({card})")
+    n_blocks = sum(isinstance(l, type(model.layers[2])) for l in model.layers)
+    with tempfile.TemporaryDirectory() as root:
+        store = ModelStore(root)
+        t0 = time.perf_counter()
+        store.publish("lm", model)
+        t_pub = time.perf_counter() - t0
+        reg = MetricsRegistry()
+        t0 = time.perf_counter()
+        mgr = ModelManager(store, "lm", version=1, optimize="inference:int8",
+                           warmup_example=np.zeros((1, 1)), workers=1, batch_limit=4,
+                           registry=reg)
+        t_deploy = time.perf_counter() - t0
+        try:
+            qm = mgr.engine.model
+            n_q = count_quantized_layers(qm)
+            gauge = reg.get("dl4j_tpu_serving_quantized_live").labels("lm").value
+            passes = [e["passes"] for e in reg.events("model_rewrite")]
+            check(n_q == n_blocks == 12 and gauge == 12.0 and passes == [["quantize_weights_int8"]],
+                  f"the int8 deploy quantized {n_q} layers (gauge {gauge}, passes {passes})")
+            w = qm.params["layer_2"]
+            check(w["Wq_q"].dtype == torch.int8 and w["Wq_q"].is_cuda
+                  and w["Wq_scale"].dtype == torch.float32,
+                  "int8 weights and float32 scales must stay on the card")
+            fa.reset_launch_counts()
+            int8 = _serve_lm(qm, prompts, ids, f"int8 ({card})")
+            # the manager's own serving path answers
+            served = np.asarray(mgr.output(ids[:1].cpu().numpy(), timeout=300))
+            check(served.shape[-2:] == (50257, T_FULL) and bool(np.isfinite(served).all()),
+                  f"the manager's int8 answer: {served.shape}")
+            eng = DecodeEngine(qm, max_len=T_FULL, slots=B, registry=MetricsRegistry(),
+                               name="int8-lm")
+            try:
+                _run_engine(eng, prompts[:1], 3)  # warm-up: eager step, capture, replay
+                streams, dt, turns = _run_engine(eng, prompts, MAX_TOKENS)
+                eng_graph = eng._graph.launches if eng._graph is not None else None
+            finally:
+                eng.shutdown(drain=False)
+            eng_gap = _greedy_gap(qm, prompts, streams)
+            # the f32-vs-f64 gate on the same int8 network
+            q64, _ = rewrite_model(qm, [_Float64()])
+            ref = _with_impl("reference", lambda: q64.output(ids[:2]))
+            e64 = rel_err(int8["rows"], ref)
+            del q64, ref
+            e_f32 = rel_err(int8["rows"], f32["rows"])
+            incumbent = qm.output(ids[:2])  # what the rollback must serve again
+            # redeploy the same version as fp8, then roll back to int8
+            t0 = time.perf_counter()
+            mgr.deploy(1, optimize="inference:fp8")
+            t_fp8 = time.perf_counter() - t0
+            fm = mgr.engine.model
+            check(mgr.live_version == "1" and mgr.previous_version == "1"
+                  and count_quantized_layers(fm) == 12
+                  and fm.params["layer_2"]["Wq_q"].dtype == torch.float8_e4m3fn,
+                  "the fp8 redeploy of version 1 must be a real swap to 12 fp8 blocks")
+            fp8 = _serve_lm(fm, prompts, ids, f"fp8 ({card})")
+            e_fp8 = rel_err(fp8["rows"], f32["rows"])
+            del fm
+            mgr.rollback()
+            check(mgr.engine.model is qm and count_quantized_layers(qm) == 12,
+                  "the rollback must restore the int8 incumbent")
+            again = qm.output(ids[:2])
+            torch.cuda.synchronize()
+            counts = _all_counts()
+            deploys = {d: reg.get("dl4j_tpu_serving_quantized_deploys_total").labels("lm", d).value
+                       for d in ("int8", "fp8")}
+        finally:
+            mgr.shutdown(drain=False)
+    rollback_exact = torch.equal(again, incumbent)
+    top1 = {k: float((r["rows"].argmax(1) == f32["rows"].argmax(1)).float().mean())
+            for k, r in (("int8", int8), ("fp8", fp8))}
+    print(f"int8 lm serving ({card}): publish {t_pub:.2f} s, ModelManager(optimize="
+          f"'inference:int8') load + rewrite + warm-up {t_deploy:.2f} s, {n_q} quantized blocks,"
+          f" gauge {gauge}; engine {B} x {MAX_TOKENS} tokens in {dt * 1e3:.1f} ms = "
+          f"{B * MAX_TOKENS / dt:.1f} tokens/s ({turns} turns), step graph {eng_graph}, greedy "
+          f"gap {eng_gap:.3e}; int8 vs f64 {e64:.3e} (tol {TOL_QUANT_F64:g}); output error vs "
+          f"f32 int8 {e_f32:.3e}, fp8 {e_fp8:.3e}, top-1 agreement with f32 over 2 x {T_FULL} "
+          f"positions {top1}; fp8 redeploy {t_fp8:.2f} s; rollback exact "
+          f"{rollback_exact}; quantized deploys {deploys}; launches {counts}")
+    print(f"quantized lm ({card}): f32 / int8 / fp8 output() ms {f32['output_ms']:.2f} / "
+          f"{int8['output_ms']:.2f} / {fp8['output_ms']:.2f}; decode step graph ms "
+          f"{f32['graph_ms']:.3f} / {int8['graph_ms']:.3f} / {fp8['graph_ms']:.3f}; tokens/s "
+          f"{f32['tokens_per_s']:.1f} / {int8['tokens_per_s']:.1f} / {fp8['tokens_per_s']:.1f}; "
+          f"model_bytes {f32['model_bytes']} / {int8['model_bytes']} / {fp8['model_bytes']} "
+          f"({int8['model_bytes'] / f32['model_bytes']:.3f} of f32); peak memory above the "
+          f"resident GiB {f32['peak'] / 2**30:.3f} / {int8['peak'] / 2**30:.3f} / "
+          f"{fp8['peak'] / 2**30:.3f}")
+    for label, r in (("int8", int8), ("fp8", fp8)):
+        check(r["graph_err"] <= TOL_GRAPH_STEP and r["graph_launches"] == {"flash_decode": 12},
+              f"the {label} decode graph disagrees with eager ({r['graph_err']:.3e}) or "
+              f"launches {r['graph_launches']}")
+        check(r["decode_err"] <= TOL_LOGPROB and r["greedy_gap"] <= TOL_LOGPROB,
+              f"the {label} cached decode disagrees with the full forward")
+    check(e64 <= TOL_QUANT_F64, f"the int8 output() on the card disagrees with float64: {e64}")
+    check(eng_gap <= TOL_LOGPROB and eng_graph == {"flash_decode": 12},
+          f"the int8 engine's streams are not greedy ({eng_gap}) or its graph {eng_graph}")
+    check(rollback_exact, "the rollback does not serve the int8 incumbent's outputs")
+    check(deploys == {"int8": 1.0, "fp8": 1.0}, f"quantized deploys {deploys}")
+    check(counts["flash_forward"] > 0 and counts["flash_decode"] > 0,
+          f"the quantized LM must run B1 and B4: {counts}")
+    return counts
+
+
+def phase_quant_moe(card: str) -> dict:
+    """The MoE network of ``phase_moe`` (one GPT-2-small-width block, 8
+    experts x hidden 1536, top-2) after ``QuantizeWeightsPass("int8")``: the
+    block's six products and the expert slabs int8 (per-expert scales), the
+    router float32. ``output()`` on [8, 1024] in grouped dispatch (B5 on the
+    slab cast to the rows' dtype) and in sort dispatch; gate: grouped equals
+    sort to the MoE phase's output gate. Returns the grouped call's launch
+    counts."""
+    model = MultiLayerNetwork(moe_lm_conf()).init()
+    sort_model = MultiLayerNetwork(moe_lm_conf("sort")).init()
+    sort_model.load_state_dict(model.state_dict())
+    rs = np.random.RandomState(SEED + 44)
+    ids = torch.from_numpy(rs.randint(0, 50257, (B, T_FULL))).cuda()
+    model.output(ids)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = model.output(ids)
+    torch.cuda.synchronize()
+    ms_f32 = 1e3 * (time.perf_counter() - t0)
+    qm, applied = rewrite_model(model, [QuantizeWeightsPass("int8")])
+    qs, _ = rewrite_model(sort_model, [QuantizeWeightsPass("int8")])
+    del model, sort_model
+    moe = qm.params[MOE_LAYER]
+    check(applied == ["quantize_weights_int8"] and count_quantized_layers(qm) == 2
+          and moe["We1_q"].dtype == torch.int8 and tuple(moe["We1_scale"].shape) == (E_MOE, H_MOE)
+          and moe["Wg"].dtype == torch.float32,
+          f"the int8 MoE network: {applied}, {count_quantized_layers(qm)} layers")
+    qm.output(ids)  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_g = qm.output(ids)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = _all_counts()
+    out_s = qs.output(ids)
+    e_gs, e_f32 = rel_err(out_g, out_s), rel_err(out_g, ref)
+    mean_f32 = float((out_g - ref).abs().mean() / ref.abs().mean())
+    top1 = float((out_g.argmax(1) == ref.argmax(1)).float().mean())
+    print(f"int8 moe ({card}): QuantizeWeightsPass('int8') on the MoE network (block + 8 "
+          f"experts x hidden 1536), output() [8,1024] grouped {ms:.2f} ms (f32 {ms_f32:.2f} ms); "
+          f"grouped vs sort "
+          f"rel error {e_gs:.3e} (tol {TOL_BWD_REL[torch.float32]:g}); int8 vs f32: max "
+          f"{e_f32:.3e}, mean {mean_f32:.3e} of the mean, top-1 agreement {top1:.4f} (a token "
+          f"whose top-2 experts change takes other experts' outputs); launches {counts}")
+    check(counts["grouped_matmul"] == 2 and counts["flash_forward"] == 1,
+          f"the int8 MoE output() must launch B5 twice and B1 once: {counts}")
+    check(e_gs <= TOL_BWD_REL[torch.float32], "int8 grouped dispatch disagrees with sort")
+    return counts
+
+
+def _images_per_s(nets: dict, x, rounds: int = 3) -> dict:
+    """``output()`` images/s of each network, the medians of ``rounds``
+    rounds taken in turns (forward order, then reversed), after a warm-up."""
+    times = {k: [] for k in nets}
+    for net in nets.values():
+        net.output(x)
+    for r in range(rounds):
+        for k in (list(nets) if r % 2 == 0 else list(nets)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nets[k].output(x)
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+    return {k: x.shape[0] / float(np.median(v)) for k, v in times.items()}
+
+
+def phase_resnet_rewrite(card: str) -> dict:
+    """The zoo ResNet-50 (224x224x3, 1000 classes) with seeded batch-norm
+    statistics, rewritten by ``rewrite_model``: the stem pass alone, the
+    fold and affine passes without the stem, the ``"inference"`` pipeline
+    (stem, fold; affine where a BN is left) and ``"inference:int8"``;
+    ``output()`` images/s at batch 32 of each beside the unrewritten
+    network, taken in turns; gate: each float rewrite within 1e-4 of the
+    unrewritten output (pooled features and probabilities). Then 3
+    ``GraphSolver(optimize="training")`` steps beside 3 plain ones from the
+    same weights: the first score (before any update) within 1e-4; the
+    later ones printed. Returns the launch counts (no attention kernel)."""
+    net = ResNet50(seed=SEED).init()
+    _seed_bn_stats(net, SEED + 45)
+    rs = np.random.RandomState(SEED + 46)
+    x = torch.from_numpy(rs.randn(RESNET_BATCH, 3, 224, 224).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[rs.randint(0, 1000, RESNET_BATCH)]).cuda()
+    specs = {"stem only": [SpaceToDepthStemPass()],
+             "fold + affine": [ConvBatchNormFoldPass(), BatchNormAffinePass()],
+             "inference": "inference", "inference:int8": "inference:int8"}
+    fa.reset_launch_counts()
+    nets, applied = {"unrewritten": net}, {}
+    t_rw = {}
+    for k, spec in specs.items():
+        t0 = time.perf_counter()
+        nets[k], applied[k] = rewrite_model(net, spec)
+        torch.cuda.synchronize()
+        t_rw[k] = time.perf_counter() - t0
+    check(applied["inference"] == ["space_to_depth_stem", "conv_bn_fold"]
+          and applied["stem only"] == ["space_to_depth_stem"]
+          and applied["fold + affine"] == ["conv_bn_fold"]
+          and count_quantized_layers(nets["inference:int8"]) == 53,
+          f"ResNet-50 rewrites: {applied}, "
+          f"{count_quantized_layers(nets['inference:int8'])} quantized layers")
+    feats = {k: _graph_acts(m, x[:8], ["avgpool", "fc"]) for k, m in nets.items()}
+    errs = {k: max(rel_err(a, b) for a, b in zip(feats[k], feats["unrewritten"]))
+            for k in specs}
+    del feats
+    ips = _images_per_s(nets, x)
+    counts = _all_counts()
+    print(f"resnet50 inference rewrite ({card}): applied {applied}; rewrite s "
+          f"{ {k: round(v, 2) for k, v in t_rw.items()} }; vertices "
+          f"{ {k: len(m.conf.vertices) for k, m in nets.items()} }; max error vs unrewritten "
+          f"(pooled features, probabilities; 8 images) "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tol {TOL_REWRITE_REL:g} for the float "
+          f"rewrites); output() [{RESNET_BATCH},3,224,224] images/s "
+          f"{ {k: round(v, 1) for k, v in ips.items()} } (medians of 3 rounds in turns)")
+    for k in ("stem only", "fold + affine", "inference"):
+        check(errs[k] <= TOL_REWRITE_REL, f"the {k} rewrite disagrees with the unrewritten "
+                                          f"ResNet-50: {errs[k]}")
+    check(np.isfinite(errs["inference:int8"]), "the int8 ResNet-50 output is not finite")
+    del nets
+    # training through the stem and affine rewrites, beside plain training
+    plain = ResNet50(seed=SEED).init()
+    rewritten = ResNet50(seed=SEED).init()
+    for m in (plain, rewritten):
+        _seed_bn_stats(m, SEED + 45)
+    s_plain = GraphSolver(plain)
+    s_rw = GraphSolver(rewritten, optimize="training")
+    check(s_rw.applied_rewrites == ["space_to_depth_stem", "bn_affine_precompute"],
+          f"GraphSolver(optimize='training') applied {s_rw.applied_rewrites}")
+    scores = {"plain": [], "rewritten": []}
+    ms = {"plain": [], "rewritten": []}
+    for _ in range(3):
+        for k, s in (("plain", s_plain), ("rewritten", s_rw)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores[k].append(float(s.fit_batch((x,), (y,))))
+            torch.cuda.synchronize()
+            ms[k].append(1e3 * (time.perf_counter() - t0))
+    gaps = [abs(a - b) / abs(a) for a, b in zip(scores["plain"], scores["rewritten"])]
+    print(f"resnet50 training rewrite ({card}): GraphSolver(optimize='training') applied "
+          f"{s_rw.applied_rewrites}; scores plain {[round(v, 6) for v in scores['plain']]}, "
+          f"rewritten {[round(v, 6) for v in scores['rewritten']]}, relative gaps "
+          f"{[f'{g:.3e}' for g in gaps]} (tol {TOL_REWRITE_REL:g} on the first: the stem "
+          f"kernel's 15 zero taps of each 8x8 block train too, so later steps leave the plain "
+          f"trajectory); ms/step plain {[round(v, 1) for v in ms['plain']]}, rewritten "
+          f"{[round(v, 1) for v in ms['rewritten']]}")
+    check(gaps[0] <= TOL_REWRITE_REL and all(np.isfinite(scores["rewritten"])),
+          f"the rewritten first step's score disagrees with plain training: {gaps}")
+    del plain, rewritten, s_plain, s_rw
+    return counts
+
+
+def phase_calibrated_dense(card: str) -> dict:
+    """The zoo LeNet on a batch of 64 with ``calibrate()`` ranges, rewritten
+    by ``QuantizeWeightsPass("int8", act_ranges=...)``: its dense layer
+    quantizes its input too and accumulates int8 x int8 in int32
+    (``torch._int_mm`` on the card, k = 800, n = 500 padded to 504); gate:
+    the card's int32 accumulators equal the CPU's (int64 products) exactly.
+    Returns the launch counts (no attention kernel)."""
+    net = LeNet(seed=SEED).init()
+    rs = np.random.RandomState(SEED + 47)
+    x = torch.from_numpy(rs.rand(LENET_BATCH, 784).astype(np.float32)).cuda()
+    ranges = calibrate(net, [x])
+    fa.reset_launch_counts()
+    qm, applied = rewrite_model(net, [QuantizeWeightsPass("int8", act_ranges=ranges)])
+    dense = qm.layers[6]
+    check(isinstance(dense, QuantizedDenseLayer) and dense.act_absmax == ranges["layer_6"],
+          f"the calibrated dense layer: {type(dense).__name__}, ranges {ranges}")
+    with torch.inference_mode():
+        _, _, _, acts = qm.forward_pure(qm.params, qm.state, qm._input(x), collect=True)
+        dense_in = acts[5]
+        acc, _ = dense.int32_accumulators(qm.params["layer_6"], dense_in)
+        cpu_params = {k: v.detach().cpu() for k, v in qm.params["layer_6"].items()}
+        acc_cpu, _ = dense.int32_accumulators(cpu_params, dense_in.cpu())
+    exact = torch.equal(acc.cpu(), acc_cpu)
+    t0 = time.perf_counter()
+    out = qm.output(x)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    err = rel_err(out, net.output(x))
+    counts = _all_counts()
+    print(f"calibrated int8 dense ({card}): LeNet, calibrate() ranges {ranges}; layer_6 "
+          f"int32 accumulators {tuple(acc.shape)} {acc.dtype}, card vs CPU exact {exact} "
+          f"(largest |acc| {int(acc.abs().max())}); output() [{LENET_BATCH},784] {ms:.2f} ms, "
+          f"error vs f32 {err:.3e}")
+    check(acc.is_cuda and acc.dtype == torch.int32 and exact,
+          "the card's int32 accumulators differ from the CPU's")
+    return counts
+
+
+def phase_zoo(card: str) -> dict:
+    """The rest of the zoo at its published input sizes, batch 8, float32,
+    random weights from the constructors' seed and seeded batch-norm
+    statistics: ``output()`` (the JAX package's output shape, finite),
+    images/s (median of 3 after a warm-up), the parameter count, and the
+    ``"inference"`` rewrite within 1e-4 of the unrewritten output. Returns
+    the launch counts (no attention kernel)."""
+    import deeplearning4j_tpu_torch.model.zoo as zoo
+
+    rs = np.random.RandomState(SEED + 48)
+    fa.reset_launch_counts()
+    for name, kw, chw, shape in ZOO_CASES:
+        t0 = time.perf_counter()
+        net = getattr(zoo, name)(**kw).init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _seed_bn_stats(net, SEED + 49)
+        x = torch.from_numpy(rs.randn(ZOO_BATCH, *chw).astype(np.float32)).cuda()
+        out = net.output(x)
+        out = out[0] if isinstance(out, tuple) else out
+        check(tuple(out.shape) == shape and bool(torch.isfinite(out).all()),
+              f"{name} output() {tuple(out.shape)} (JAX: {shape}) must be finite")
+        rw, applied = rewrite_model(net, "inference")
+        rout = rw.output(x)
+        rout = rout[0] if isinstance(rout, tuple) else rout
+        gap = rel_err(rout, out)
+        ips = _images_per_s({"plain": net, "rewritten": rw} if applied else {"plain": net}, x)
+        print(f"zoo {name} ({card}): {net.num_params()} params, input [{ZOO_BATCH},"
+              f"{','.join(map(str, chw))}] -> {list(out.shape)}, init {init_s:.2f} s; output() "
+              f"{ips['plain']:.1f} images/s; 'inference' applied {applied}"
+              + (f", {ips['rewritten']:.1f} images/s" if applied else "")
+              + f", max error vs unrewritten {gap:.3e} (tol {TOL_REWRITE_REL:g})")
+        check(gap <= TOL_REWRITE_REL, f"{name}: the inference rewrite disagrees: {gap}")
+        del net, rw, out, rout
+    return _all_counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3552,7 +4066,8 @@ def main() -> int:
     serving, model = timed("LM serving", phase_model, prompts)
     engine, static_streams = timed("LM engine", phase_engine, model, prompts, card)
     paths = [serving, engine,
-             timed("HTTP serving", phase_http, model, prompts, static_streams, card)]
+             timed("HTTP serving", phase_http, model, prompts, static_streams, card),
+             timed("int8 LM serving", phase_quant_lm, model, prompts, card)]
     del model
     timed("device sampler", phase_sampler)
     paths.append(timed("LM training", phase_train, card))
@@ -3580,6 +4095,10 @@ def main() -> int:
     paths += [counts, timed("Keras ResNet-50 fine-tune", phase_keras_finetune, card, imported)]
     del imported
     paths.append(timed("ONNX BERT-base", phase_onnx_bert, card))
+    paths += [timed("int8 MoE", phase_quant_moe, card),
+              timed("ResNet-50 inference rewrite", phase_resnet_rewrite, card),
+              timed("calibrated int8 Dense", phase_calibrated_dense, card),
+              timed("zoo", phase_zoo, card)]
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
@@ -3587,7 +4106,9 @@ def main() -> int:
     # LM's generation, LeNet and ResNet-50 fed by iterators, the SameDiff
     # paths (the TF-imported BERT-base served and fine-tuned, the attention op)
     # and the imported models (the Keras ResNet-50 served and fine-tuned, the
-    # ONNX BERT-base served), which launch none of the five kernels
+    # ONNX BERT-base served), which launch none of the five kernels; then the
+    # rewrite slice: the int8 and fp8 LM (B1, B4), the int8 MoE network (B1,
+    # B5), and the ResNet-50 rewrites, the calibrated LeNet and the zoo (none)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

@@ -119,13 +119,19 @@ class Layer:
 
 class LayerModule(nn.Module):
     """The ``nn.Module`` of one layer: its config plus its parameters,
-    registered under their JAX names."""
+    registered under their JAX names. An ``nn.Parameter`` is registered
+    as it is (a rewritten model shares the ones a rewrite left alone); the
+    int8 and fp8 weights of a quantized layer (``nn/rewrite``) take no
+    gradient."""
 
     def __init__(self, conf: Layer, params: Params) -> None:
         super().__init__()
         self.conf = conf
         for pname, value in params.items():
-            self.register_parameter(pname, nn.Parameter(value))
+            if not isinstance(value, nn.Parameter):
+                trainable = value.is_floating_point() and value.element_size() > 1
+                value = nn.Parameter(value, requires_grad=trainable)
+            self.register_parameter(pname, value)
 
     def params(self) -> Params:
         return dict(self.named_parameters(recurse=False))

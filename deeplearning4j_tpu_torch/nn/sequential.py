@@ -169,13 +169,16 @@ class MultiLayerNetwork(nn.Module):
         mask: Optional[torch.Tensor] = None,
         rnn_state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
         upto: Optional[int] = None,
+        collect: bool = False,
     ):
         """Forward through layers [0, upto). Returns (out, new_state,
-        new_rnn_state). Decode caches in ``rnn_state`` are written in place."""
+        new_rnn_state), and with ``collect`` each layer's output as a fourth
+        element. Decode caches in ``rnn_state`` are written in place."""
         params, x = self._to_compute(params, x)
         remat = self.conf.gradient_checkpointing and train
         new_state: Dict[str, Dict[str, torch.Tensor]] = {}
         new_rnn: Dict[str, Dict[str, torch.Tensor]] = {}
+        acts: List[torch.Tensor] = []
         cur_mask = mask
         n = len(self.layers) if upto is None else upto
         it = self.conf.input_type
@@ -197,6 +200,10 @@ class MultiLayerNetwork(nn.Module):
                 cur_mask = layer.feed_forward_mask(cur_mask, it)
                 it = layer.output_type(it)
             x = y
+            if collect:
+                acts.append(y)
+        if collect:
+            return x, new_state, new_rnn, acts
         return x, new_state, new_rnn
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

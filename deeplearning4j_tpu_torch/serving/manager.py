@@ -44,11 +44,17 @@ engine. Every path is exercisable on CPU via the seeded
 :class:`~deeplearning4j_tpu_torch.core.resilience.FaultInjector` sites
 ``model_manager.load`` and ``model_manager.warmup``.
 
-The inference graph rewrites of the JAX package (``nn/rewrite``: BN
-folding, weight quantization) are not ported (ROADMAP A5): ``optimize=``
-defaults to None here, any pipeline raises ``NotImplementedError``, and
-the quantized-layer gauge reads 0. Resident bytes are counted over the
-network's parameter and state tensors, once per storage.
+Every load runs the inference graph rewrites (``nn/rewrite``) on the
+loaded copy before warmup: ``optimize="inference"`` by default (the stem
+rewrite, conv+BN folding, fused BNs), ``"inference:int8"`` /
+``"inference:fp8"`` adds weight quantization, None turns them off; the
+store artifact stays byte-identical. The ``model_rewrite`` span and event
+name the passes that matched, ``dl4j_tpu_serving_quantized_live`` counts
+the quantized layers serving primary traffic and
+``dl4j_tpu_serving_quantized_deploys_total`` the quantized loads.
+Resident bytes are counted over the network's parameter and state
+tensors, once per storage, so a quantized version counts its int8 or fp8
+bytes.
 """
 
 from __future__ import annotations
@@ -76,13 +82,6 @@ _SWAP_OUTCOMES = ("completed", "warmup_failed", "rolled_back",
 #: sentinel: "use the manager's default optimize pipeline" — distinct from
 #: None, which explicitly disables rewrites for one deploy/canary
 _DEFAULT_OPTIMIZE = object()
-
-
-def _check_optimize(optimize) -> None:
-    if optimize:
-        raise NotImplementedError(
-            f"ModelManager(optimize={optimize!r}) needs the inference graph "
-            "rewrites (nn/rewrite), which are not ported yet (ROADMAP A5)")
 
 
 def model_bytes(*models) -> int:
@@ -156,18 +155,20 @@ class ModelManager:
         clock: Callable[[], float] = time.monotonic,
         fault_injector=None,
         registry: Optional[MetricsRegistry] = None,
-        optimize: Union[str, list, None] = None,
+        optimize: Union[str, list, None] = "inference",
         tracer: Optional[Tracer] = None,
     ) -> None:
-        _check_optimize(optimize)
         self.store = store
         self.model_name = model_name
         self._clock = clock
         self._fault_injector = fault_injector
         self._tracer = tracer  # None -> process-global at call time
-        # the graph rewrite pipeline of every load: None until the
-        # rewrites are ported (ROADMAP A5); kept per deployment, as in the
-        # JAX manager
+        # graph rewrite pipeline applied to every store-loaded model
+        # BEFORE warmup (nn/rewrite): the default "inference" set folds
+        # conv+BN, rewrites the conv stem and fuses remaining BNs, so the
+        # swapped-in version serves — and probation measures — the
+        # rewritten graph. In-memory only: store artifacts stay
+        # un-rewritten. None disables.
         self._optimize = optimize
         self.probation_seconds = float(probation_seconds)
         self._breaker_factory = breaker_factory or (
@@ -248,26 +249,50 @@ class ModelManager:
         return self._tracer if self._tracer is not None else get_tracer()
 
     def _resolve_optimize(self, optimize):
-        opt = self._optimize if optimize is _DEFAULT_OPTIMIZE else optimize
-        _check_optimize(opt)
-        return opt
+        return self._optimize if optimize is _DEFAULT_OPTIMIZE else optimize
 
     def _load(self, version: Union[int, str], *,
               optimize=_DEFAULT_OPTIMIZE):
-        """Load + checksum-verify from the store onto its device. A
-        rewrite pipeline (``optimize``) raises: the rewrites are not
-        ported (ROADMAP A5)."""
+        """Load + checksum-verify from the store onto its device, then
+        apply the inference rewrite pipeline to the in-memory copy (the
+        artifact on disk stays un-rewritten). Warmup — and therefore
+        probation — always measures the graph that will actually serve.
+        ``optimize`` overrides the manager default for this load (the
+        per-deploy knob: e.g. canary a quantized ``"inference:int8"``
+        build of a version against the full-precision incumbent)."""
         opt = self._resolve_optimize(optimize)
         with self.tracer.span("manager.load",
                               attrs={"model": self.model_name,
                                      "version": str(version)}):
             self._inj().fire(LOAD_SITE)
             model, entry = self.store.load(self.model_name, version)
+            if opt:
+                from ..nn.rewrite import rewrite_model
+
+                with self.tracer.span("model_rewrite",
+                                      attrs={"model": self.model_name,
+                                             "version": str(entry.version),
+                                             "optimize": str(opt)}) as rspan:
+                    model, applied = rewrite_model(model, opt, context="inference")
+                    rspan.set_attribute("passes", ",".join(applied))
+                if applied:
+                    self.registry.log_event(
+                        "model_rewrite", model=self.model_name,
+                        version=str(entry.version), passes=applied)
+                    for pname in applied:
+                        if pname.startswith("quantize_weights_"):
+                            self._c_quant_family.labels(
+                                self.model_name,
+                                pname.rsplit("_", 1)[-1]).inc()
         return model, entry
 
     def _set_quantized_gauge(self) -> None:
-        # no rewrite pass is ported, so no deploy serves quantized layers
-        self._g_quant_live.set(0.0)
+        from ..nn.rewrite import count_quantized_layers
+
+        model = getattr(self._live.servable, "model", None)
+        self._g_quant_live.set(
+            float(count_quantized_layers(model)) if model is not None
+            else 0.0)
 
     def _set_live_gauge(self) -> None:
         try:
@@ -332,8 +357,10 @@ class ModelManager:
         prior version stays live and :class:`SwapError` is raised. The
         new version serves under a fresh circuit breaker and is on
         probation for ``probation_seconds`` — a breaker-open inside that
-        window rolls back automatically. A rewrite pipeline
-        (``optimize``) raises ``NotImplementedError`` (ROADMAP A5)."""
+        window rolls back automatically. ``optimize`` overrides the
+        manager's rewrite pipeline for this load; re-deploying the live
+        version under another pipeline (quantize or de-quantize) is a
+        real swap."""
         with self._lock:
             opt = self._resolve_optimize(optimize)
             entry = self.store.resolve(self.model_name, version)
@@ -475,9 +502,10 @@ class ModelManager:
         of traffic (deterministic per request key) to it — or, with
         ``shadow=True``, mirror every request to it while responses keep
         coming from the live version. A canary breaker-open inside the
-        probation window stops the canary automatically. A rewrite
-        pipeline (``optimize``) raises ``NotImplementedError`` (ROADMAP
-        A5)."""
+        probation window stops the canary automatically. ``optimize``
+        overrides the rewrite pipeline for the canary's load
+        (``start_canary(v, optimize="inference:int8")`` serves the int8
+        build next to the full-precision incumbent)."""
         with self._lock:
             if self._parked is not None:
                 raise ModelParkedError(
@@ -767,6 +795,8 @@ class ModelManager:
 
     # ----- introspection / lifecycle ----------------------------------
     def describe(self) -> Dict:
+        from ..nn.rewrite import count_quantized_layers
+
         with self._lock:
             if self._parked is not None:
                 return {
@@ -784,10 +814,12 @@ class ModelManager:
                     "weight": self._router.canary_weight if self._router else 0.0,
                     "shadow": bool(self._router and self._router.shadow is not None),
                     "circuit": self._canary.breaker.state.value,
-                    "quantized_layers": 0,
+                    "quantized_layers": count_quantized_layers(
+                        getattr(self._canary.servable, "model", None)),
                 }
+            live_model = getattr(self._live.servable, "model", None)
             return {
-                "quantized_layers": 0,
+                "quantized_layers": count_quantized_layers(live_model),
                 "name": self.model_name,
                 "residency": "warm",
                 "live_version": self._live.version,

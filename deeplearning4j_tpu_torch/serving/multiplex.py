@@ -16,7 +16,8 @@ Three cooperating pieces:
   spec — version, rewrite pipeline, engine knobs); the first request
   pages a model in (build + warm through the ordinary deploy path) and
   accounts its actual resident bytes (the storages of its params and
-  state tensors, :func:`model_bytes`). When a page-in would exceed
+  state tensors, :func:`model_bytes`, so an ``optimize="inference:int8"``
+  deploy pages in at its quantized size). When a page-in would exceed
   ``budget_bytes``, warm victims are parked in **LRU order with the
   request-rate EWMA as tie-break** (:meth:`ModelManager.park` drains
   first, so eviction never corrupts an in-flight request). Misses on a
@@ -180,14 +181,14 @@ class ModelMultiplexer:
 
     # ----- registration -----------------------------------------------
     def register(self, name: str, *, version: Union[int, str] = LATEST,
-                 optimize: Union[str, list, None] = None,
+                 optimize: Union[str, list, None] = "inference",
                  warmup_example=None, **manager_kwargs) -> None:
         """Register a store-published model. Nothing is loaded now — the
         model is born parked and costs zero bytes until traffic (or
         :meth:`prefetch`) pages it in. ``optimize`` is the rewrite
-        pipeline every page-in replays (none is ported: ROADMAP A5); extra
-        kwargs go to the :class:`~.manager.ModelManager` built at first
-        page-in."""
+        pipeline every page-in replays (``"inference:int8"`` keeps the
+        model resident at its quantized size); extra kwargs go to the
+        :class:`~.manager.ModelManager` built at first page-in."""
         self.store.resolve(name, version)  # fail registration, not traffic
         spec = dict(self._manager_defaults)
         spec.update(manager_kwargs)

@@ -22,17 +22,21 @@ from .solver import LayerOptimizers, _normalize_gradients
 
 class GraphSolver:
     def __init__(self, model, *, optimize=None, profiler=None) -> None:
-        """``optimize=`` (training-safe graph rewrites) and ``profiler=``
-        (step-phase attribution) need modules that are not ported yet and
-        raise."""
-        if optimize:
-            raise NotImplementedError("GraphSolver(optimize=) needs nn/rewrite, which is "
-                                      "not ported yet")
+        """``optimize=`` applies training-safe graph rewrite passes in place
+        before the updater state is built (see :class:`Solver`;
+        ``applied_rewrites`` names the passes that matched). ``profiler=``
+        (step-phase attribution) needs ``obs/step_profiler.py``, which is
+        not ported yet, and raises."""
         if profiler is not None:
             raise NotImplementedError("GraphSolver(profiler=) needs obs/step_profiler.py, "
                                       "which is not ported yet")
         self.model = model
         model.migrate_state()
+        self.applied_rewrites = []
+        if optimize:
+            from ..nn.rewrite import rewrite_model_inplace
+
+            self.applied_rewrites = rewrite_model_inplace(model, optimize, context="training")
         self.optim = LayerOptimizers(model)
         self.opt_state = self.optim.init(model.params)
 

@@ -127,16 +127,24 @@ class LayerOptimizers:
 
 class Solver:
     def __init__(self, model, *, optimize=None, profiler=None) -> None:
-        """``optimize=`` (training-safe graph rewrites) and ``profiler=``
-        (step-phase attribution) need modules that are not ported yet and
-        raise."""
-        if optimize:
-            raise NotImplementedError("Solver(optimize=) needs nn/rewrite, which is "
-                                      "not ported yet")
+        """``optimize=`` applies training-safe graph rewrite passes before
+        the updater state is built (``True``/``"training"`` -> the default
+        set: space-to-depth stem + BN affine precompute; or an explicit
+        pass list — inference-only passes are rejected). The model is
+        rewritten in place to a numerically equivalent form; rewrites are
+        in-memory only and never serialized (``nn/rewrite``); the names of
+        the passes that matched are ``applied_rewrites``. ``profiler=``
+        (step-phase attribution) needs ``obs/step_profiler.py``, which is
+        not ported yet, and raises."""
         if profiler is not None:
             raise NotImplementedError("Solver(profiler=) needs obs/step_profiler.py, "
                                       "which is not ported yet")
         self.model = model
+        self.applied_rewrites = []
+        if optimize:
+            from ..nn.rewrite import rewrite_model_inplace
+
+            self.applied_rewrites = rewrite_model_inplace(model, optimize, context="training")
         self.optim = LayerOptimizers(model)
         self.opt_state = self.optim.init(model.params)
 

@@ -72,12 +72,21 @@ def test_enum_paths_decode_without_importing_the_jax_package(monkeypatch):
 
 
 def test_unknown_class_raises_naming_it():
-    # QuantizedDenseLayer (the int8 weight-rewrite product) is not ported
-    # (ROADMAP A5)
-    from deeplearning4j_tpu.nn.rewrite.quantize import QuantizedDenseLayer as JaxQuantized
+    # every layer class of the JAX package is ported, so the test registers
+    # a layer on the JAX side only: its config JSON names a class the port
+    # does not know
+    import dataclasses
+
+    from deeplearning4j_tpu.core.config import register_config as jax_register
+    from deeplearning4j_tpu.nn.layers import DenseLayer as JaxDense
+
+    @jax_register
+    @dataclasses.dataclass(frozen=True, kw_only=True)
+    class JaxOnlyProbeLayer(JaxDense):
+        pass
 
     conf = (JaxNNC.builder().seed(1).list()
-            .layer(JaxQuantized(n_in=4, n_out=3))
+            .layer(JaxOnlyProbeLayer(n_in=4, n_out=3))
             .layer(JaxOut(n_in=3, n_out=2)).build())
-    with pytest.raises(KeyError, match="QuantizedDenseLayer"):
+    with pytest.raises(KeyError, match="JaxOnlyProbeLayer"):
         from_json(jax_to_json(conf))

@@ -256,8 +256,19 @@ def test_fit_and_score_value(tmp_path):
     assert pm.iteration_count == 6 and pm.epoch_count == 3
     assert np.isfinite(pm.score_value) and pm.score(*batches[0]) < before
     assert int(pm.evaluate(batches).confusion.sum()) == 16
-    with pytest.raises(NotImplementedError, match="nn/rewrite"):
-        GraphSolver(pm, optimize="training")
+    # optimize= as JAX's: the training set fuses the batch norm in place
+    # (outputs unchanged), and an inference-only pipeline is refused in a
+    # training context
+    from deeplearning4j_tpu.train.graph_solver import GraphSolver as JaxGraphSolver
+
+    fused = pm.clone()
+    assert GraphSolver(fused, optimize="training").applied_rewrites == \
+        JaxGraphSolver(jm.clone(), optimize="training").applied_rewrites == \
+        ["bn_affine_precompute"]
+    for a, b in zip(fused.output(*batches[0][0]), pm.output(*batches[0][0])):
+        assert float((a - b).abs().max()) <= TOL
+    with pytest.raises(ValueError, match="inference-only"):
+        GraphSolver(pm.clone(), optimize="inference")
     clone = pm.clone()
     xs = batches[0][0]
     for a, b in zip(clone.output(*xs), pm.output(*xs)):

@@ -12,7 +12,8 @@ on the CPU.
   promote, rollback, automatic rollback when the candidate's breaker opens
   inside probation, park/unpark with ``resident_bytes`` going to 0 and
   back; its ``describe()`` and ``stats()`` keys are JAX's. ``optimize=``
-  raises, naming ROADMAP A5.
+  defaults to the "inference" pipeline, and a pipeline that does not exist
+  raises JAX's error.
 * ``JsonModelServer`` serves a managed model under ``/v1/models/<name>``
   with ``X-Model-Version`` and the admin deploy/rollback routes.
 """
@@ -222,17 +223,32 @@ def test_describe_and_stats_keys_equal_jax(store, tmp_path):
         mgr.shutdown()
 
 
-def test_optimize_raises_naming_a5(store):
-    with pytest.raises(NotImplementedError, match="A5"):
-        _manager(store, version=1, optimize="inference")
+def test_optimize_raises_naming_a5(store, versions, tmp_path):
+    # the name is older than the rewrite passes' port (ROADMAP A5): the
+    # manager now runs optimize= as JAX's does. The default is the
+    # "inference" pipeline (nothing matches this network, so it serves the
+    # stored weights); a pipeline name that does not exist raises the JAX
+    # manager's ValueError, naming it, and leaves the live version serving
+    jstore = JaxStore(str(tmp_path / "store"))  # the same directory
+    jmgr = JaxManager(jstore, "m", version=1, warmup_example=X, workers=1, batch_limit=4,
+                      registry=JaxRegistry())
     mgr = _manager(store, version=1)
     try:
-        with pytest.raises(NotImplementedError, match="A5"):
-            mgr.deploy(2, optimize="inference:int8")
-        with pytest.raises(NotImplementedError, match="A5"):
-            mgr.start_canary(2, optimize="inference")
+        assert mgr._optimize == jmgr._optimize == "inference"
+        np.testing.assert_allclose(mgr.output(X, timeout=60), _out(versions[0]), rtol=0, atol=TOL)
+        assert mgr.describe()["quantized_layers"] == jmgr.describe()["quantized_layers"] == 0
+        for call in (lambda m: m.deploy(2, optimize="nonsense"),
+                     lambda m: m.start_canary(2, optimize="inference:int4")):
+            with pytest.raises(ValueError) as want:
+                call(jmgr)
+            with pytest.raises(ValueError) as got:
+                call(mgr)
+            assert str(got.value) == str(want.value)
         assert mgr.live_version == "1" and mgr.canary_version is None
+        with pytest.raises(ValueError, match="nonsense"):
+            _manager(store, version=1, optimize="nonsense")
     finally:
+        jmgr.shutdown()
         mgr.shutdown()
 
 

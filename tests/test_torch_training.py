@@ -328,8 +328,20 @@ def test_check_gradients_passes_on_a_float64_lm():
 
 
 def test_unported_solver_options_raise():
+    # profiler= needs obs/step_profiler.py (ROADMAP A10) and raises; since
+    # the rewrite passes are ported, optimize= resolves as JAX's does: on
+    # an LM no training pass matches, and an inference-only pipeline is
+    # refused in a training context with JAX's error
     model = PortLM(n_layers=1, **_SHAPE).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="nn/rewrite"):
-        Solver(model, optimize=True)
+    jmodel = JaxLM(n_layers=1, **_SHAPE).init()
+    from deeplearning4j_tpu.train.solver import Solver as JaxSolver
+
+    assert Solver(model, optimize=True).applied_rewrites == \
+        JaxSolver(jmodel, optimize=True).applied_rewrites == []
+    with pytest.raises(ValueError) as want:
+        JaxSolver(jmodel, optimize="inference")
+    with pytest.raises(ValueError) as got:
+        Solver(model, optimize="inference")
+    assert str(got.value) == str(want.value)
     with pytest.raises(NotImplementedError, match="step_profiler"):
         Solver(model, profiler=object())
