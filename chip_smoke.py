@@ -131,6 +131,26 @@ first score within 1e-4), the zoo LeNet with ``calibrate()`` ranges (the
 card's int32 accumulators equal the CPU's), and the thirteen other zoo
 models at their published input sizes, batch 8 (the JAX package's output
 shapes, finite, the ``"inference"`` rewrite within 1e-4).
+Then fault-tolerant training, on the GPT-2-small-width LM (12 blocks, f32,
+``Adam(1e-4)``) through B1-B3: 8 steps from an in-memory iterator of 8
+seeded [8, 1024] batches uninterrupted, again with an async
+``CheckpointListener`` (every 4 iterations, keep 2, the iterator's cursor in
+the sidecar), ``HeartbeatListener`` and an installed ``PreemptionHandler``
+(params and scores bitwise the uninterrupted run's), and again restored from
+the iteration-4 checkpoint into a fresh model (bitwise again), with the
+step ms, the snapshot's ms on the step thread (beside pinned and pageable
+copies of the same tensors), the writer's seconds and bytes per zip and the
+restore seconds; the port's chaos harness
+(``tools/check_training_resilience_contract.py``, ``"lm"``: the same widths
+and [8, 1024] batches, cut to 2 blocks, since each child boot writes or
+restores a ~1.1 GB zip)
+under ``elastic_fit``, its SIGKILL, SIGTERM and stall legs each ending
+bitwise on the uninterrupted leg's parameters, SIGTERM with no iteration
+lost, with the goodput ratio, downtime by reason and child boot seconds;
+``EarlyStoppingTrainer`` for 3 epochs of 2 batches (the best model's
+recomputed held-out loss equal to ``best_model_score``, its tensors not the
+live model's); and 6 steps under ``Solver(profiler=StepProfiler(
+sync_every=2))`` beside 6 without (scores bitwise equal).
 It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
@@ -151,6 +171,7 @@ import ctypes
 import dataclasses
 import http.client
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -166,6 +187,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.core.listeners import TrainingListener
 from deeplearning4j_tpu_torch.generate import GenerationSession
 from deeplearning4j_tpu_torch.modelimport import KerasModelImport
 from deeplearning4j_tpu_torch.modelimport.onnx import OnnxGraphMapper
@@ -4040,6 +4062,322 @@ def phase_zoo(card: str) -> dict:
     return _all_counts()
 
 
+# ---- fault-tolerant training (checkpoints, exact resume, early stopping,
+# preemption, elastic restart, the step profiler) ---------------------------
+
+FT_STEPS = 8                  # the fault-tolerant phase's steps, one batch each
+FT_SAVE_EVERY = 4             # checkpoints at iterations 4 and 8
+ES_EPOCHS, ES_BATCHES = 3, 2  # early stopping: 3 epochs of 2 batches
+PROFILED_STEPS = 6
+
+
+def _ft_iterator(n_batches: int, seed: int = SEED + 60):
+    """``n_batches`` seeded [8, 1024] batches (labels the ids shifted by
+    one) in an in-memory iterator, in order."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterators import ListDataSetIterator
+
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, 50257, (n_batches * B, T_FULL + 1))
+    return ListDataSetIterator(DataSet(ids[:, :-1], ids[:, 1:]), B)
+
+
+class _StepClock(TrainingListener):
+    """A listener that records the wall time of every iteration_done (the
+    first in the chain, so a step's interval holds the listeners after it)."""
+
+    def __init__(self):
+        self.ts = []
+
+    def iteration_done(self, model, iteration, epoch, score):
+        self.ts.append(time.perf_counter())
+
+    def step_ms(self):
+        return [1e3 * (b - a) for a, b in zip(self.ts, self.ts[1:])]
+
+
+def _params_equal(a, b) -> bool:
+    return all(torch.equal(p, b.params[l][k]) for l, lp in a.params.items()
+               for k, p in lp.items())
+
+
+def _snapshot_variants(model) -> dict:
+    """Seconds on the step thread for the two ways a checkpoint snapshot can
+    copy the model's parameters and Adam's moments to the host, each taken
+    twice, while the listener's writer deflates in the background as it does
+    in a run: into pinned buffers (allocated, copies queued ``non_blocking``,
+    an event recorded; then waited on) and into pageable ones
+    (``to("cpu", copy=True)``, which returns once the copy landed). The
+    second of each pair reuses the first's buffers."""
+    from deeplearning4j_tpu_torch.train.checkpoint import _tensors
+
+    live = _tensors(({l: dict(lp) for l, lp in model.params.items()},
+                     model._trainer.opt_state), [])
+    out = {"bytes": sum(t.numel() * t.element_size() for t in live)}
+    torch.cuda.synchronize()
+    bufs = None
+    for key in ("pinned_fresh", "pinned_reused"):
+        t0 = time.perf_counter()
+        if bufs is None:
+            bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in live]
+        for b, t in zip(bufs, live):
+            b.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        out[key] = time.perf_counter() - t0
+        ev.synchronize()
+        out[key + "_landed"] = time.perf_counter() - t0
+    del bufs
+    bufs = None
+    for key in ("pageable_fresh", "pageable_reused"):
+        t0 = time.perf_counter()
+        if bufs is None:
+            bufs = [t.detach().to("cpu", copy=True) for t in live]
+        else:
+            for b, t in zip(bufs, live):
+                b.copy_(t)
+        out[key] = time.perf_counter() - t0
+    check(all(torch.equal(b, t.cpu()) for b, t in zip(bufs[:3], live[:3])),
+          "the pageable snapshot must equal the live tensors")
+    return out
+
+
+def phase_fault_tolerant_lm(card: str) -> dict:
+    """The GPT-2-small-width LM (12 blocks, f32, ``Adam(1e-4)``) trained for
+    8 steps from an in-memory iterator of 8 seeded [8, 1024] batches, three
+    times from the same initial weights (``clone()``): uninterrupted; with
+    ``CheckpointListener(async_save=True, save_every_n_iterations=4,
+    keep_last=2, iterator=...)``, ``HeartbeatListener`` and an installed
+    ``PreemptionHandler`` (params and scores bitwise the uninterrupted
+    run's); and restored from the iteration-4 checkpoint into a fresh model
+    (``restore_model(load_updater=True)``, ``restore_training_state``, a
+    fresh iterator) and fitted to iteration 8 (bitwise again). Returns the
+    launch counts of the three runs and a function that waits for the
+    writer to finish the iteration-8 zip and prints the phase's numbers
+    (``main`` runs the elastic phase meanwhile: its children are processes
+    of their own)."""
+    from deeplearning4j_tpu_torch.core.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.model import restore_model
+    from deeplearning4j_tpu_torch.train import (CheckpointListener, HeartbeatListener,
+                                                PreemptionHandler, restore_training_state)
+
+    base = TransformerLM(vocab_size=50257, hidden=768, n_layers=12, n_heads=12, ffn_size=3072,
+                         max_len=T_FULL, seed=SEED, dtype="float32").init()
+    fa.reset_launch_counts()
+
+    def run(model, it, *extra):
+        clock, scores = _StepClock(), CollectScoresListener()
+        model.add_listeners(clock, *extra, scores)
+        solver = model._trainer if model._trainer is not None else Solver(model)
+        model._trainer = solver
+        while model.iteration_count < FT_STEPS:
+            solver.fit_iterator(it, epochs=1)
+        torch.cuda.synchronize()
+        return scores.scores, clock.step_ms()
+
+    ref = base.clone()
+    before = dict(fa.LAUNCH_COUNTS)
+    ref_scores, ref_ms = run(ref, _ft_iterator(FT_STEPS))
+    per_step = {n: (fa.LAUNCH_COUNTS[n] - before[n]) / FT_STEPS for n in before}
+    check(per_step == {"flash_forward": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                       "flash_decode": 0},
+          f"a training step must launch B1, B2 and B3 once per block (12): {per_step}")
+
+    d = tempfile.mkdtemp(prefix="ft_lm_")
+    try:
+        run_model = base.clone()
+        del base
+        it = _ft_iterator(FT_STEPS)
+        ckpt = CheckpointListener(d, save_every_n_iterations=FT_SAVE_EVERY, keep_last=2,
+                                  async_save=True, iterator=it)
+        preempt = PreemptionHandler(checkpoint=ckpt).install()
+        try:
+            scores, ms = run(run_model, it, ckpt, HeartbeatListener(d), preempt)
+        finally:
+            preempt.uninstall()
+        check(scores == ref_scores and _params_equal(run_model, ref),
+              f"the checkpointed run must equal the uninterrupted one bitwise: {scores} vs "
+              f"{ref_scores}")
+        del run_model
+        # restore the iteration-4 checkpoint as soon as it is down, while the
+        # writer still deflates iteration 8's
+        zip4 = os.path.join(d, f"checkpoint_iter{FT_SAVE_EVERY}_epoch0.zip")
+        deadline = time.monotonic() + 900
+        while not os.path.exists(zip4[:-4] + ".state.json") and time.monotonic() < deadline:
+            time.sleep(0.1)
+        with open(zip4[:-4] + ".state.json") as f:
+            state = json.load(f)
+        t0 = time.perf_counter()
+        resumed = restore_model(zip4, load_updater=True)
+        it2 = _ft_iterator(FT_STEPS)
+        restore_training_state(resumed, state, iterator=it2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rscores, rms = run(resumed, it2)
+        check(rscores == ref_scores[FT_SAVE_EVERY:] and _params_equal(resumed, ref),
+              f"the resumed run must equal the uninterrupted one bitwise: {rscores} vs "
+              f"{ref_scores[FT_SAVE_EVERY:]}")
+        counts = _all_counts()
+        del resumed
+        variants = _snapshot_variants(ref)
+        del ref
+    except BaseException:
+        shutil.rmtree(d, ignore_errors=True)
+        raise
+    t_drain = time.perf_counter()
+
+    def finish():
+        try:
+            ckpt.close(timeout=900)
+            drained = time.perf_counter() - t_drain
+            zips = sorted(f for f in os.listdir(d) if f.endswith(".zip"))
+            sizes = {f: os.path.getsize(os.path.join(d, f)) for f in zips}
+            check(len(ckpt.write_seconds) == 2 and CheckpointListener.last_checkpoint(
+                d).endswith(f"checkpoint_iter{FT_STEPS}_epoch0.zip"),
+                f"two checkpoints must land: {zips}")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        v = {k: (round(x, 4) if isinstance(x, float) else x) for k, x in variants.items()}
+        print(f"fault-tolerant lm ({card}): 8 steps [8,1024] Adam(1e-4) from one clone each; "
+              f"step ms median uninterrupted {float(np.median(ref_ms)):.2f} "
+              f"{[round(t, 2) for t in ref_ms]}, checkpointed {float(np.median(ms)):.2f} "
+              f"{[round(t, 2) for t in ms]} (the snapshot at 4 in step 5's interval, the "
+              f"writer's start in step 6's), resumed {[round(t, 2) for t in rms]}; snapshot "
+              f"s on the step thread {[round(t, 4) for t in ckpt.snapshot_seconds]}; the "
+              f"same tensors copied to the host once more (s on the step thread; pinned: "
+              f"until queued, then until landed) {v}; writer s per zip "
+              f"{[round(t, 2) for t in ckpt.write_seconds]} (the second beside the "
+              f"elastic phase; {drained:.1f} s waited after the resumed run), bytes {sizes}; "
+              f"restore {restore_s:.2f} s; scores {[round(x, 5) for x in ref_scores]} bitwise "
+              f"in all three runs; launches {counts} (12 B1, B2, B3 a step, 20 steps)")
+
+    return counts, finish
+
+
+def phase_elastic(card: str) -> dict:
+    """The port's chaos harness (``tools/check_training_resilience_contract.py``)
+    under ``elastic_fit`` on the card, with its ``"lm"`` configuration: the
+    LM at GPT-2 small's widths and the main path's [8, 1024] batch, cut to
+    2 blocks, because every child boot writes or restores a checkpoint of
+    the parameters and Adam's moments (about 1.1 GB at 2 blocks, 1.96 GB at
+    12). Legs uninterrupted, SIGKILL, SIGTERM and stall, concurrently; each
+    ends bitwise on the first's parameters, and SIGTERM loses no iteration.
+    Returns the launch counts of the children's processes."""
+    from deeplearning4j_tpu_torch.tools import check_training_resilience_contract as harness
+
+    torch.cuda.empty_cache()  # the four children share the card with this process
+    fa.reset_launch_counts()
+    out = harness.run_legs(device="cuda", model="lm", log=lambda m: print(f"elastic {m}"))
+    check(out["sigterm"]["lost_iterations"] == 0, "SIGTERM must lose no iteration")
+    counts: dict = {}
+    for name, leg in out.items():
+        g = leg["result"]["goodput"]
+        down = {k: round(v, 2) for k, v in g["downtime_seconds"].items() if v}
+        per = {k: v / leg["steps"] for k, v in leg["launches"].items() if leg["steps"]}
+        check(per.get("flash_forward") == per.get("flash_bwd_dq") ==
+              per.get("flash_bwd_dkv") == 2,
+              f"{name}: a 2-block step must launch B1, B2 and B3 twice: {leg['launches']}")
+        for k, v in leg["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        print(f"elastic restart {name} ({card}; [8,1024], 2 of 12 blocks: each child "
+              f"writes or restores a ~1.1 GB checkpoint): exit codes {leg['rcs']}, "
+              f"{leg['steps']} steps over its runs, wall {leg['seconds']:.1f} s, goodput "
+              f"ratio {g['ratio']:.4f}, downtime s {down}, child boot-to-first-step s "
+              f"{[round(b, 2) for b in leg['boot_seconds']]}; bitwise equal to uninterrupted")
+    counts["grouped_matmul"] = 0
+    return counts
+
+
+def phase_early_stopping_lm(card: str) -> dict:
+    """``EarlyStoppingTrainer`` on the GPT-2-small-width LM (12 blocks, f32,
+    ``Adam(1e-4)``): 3 epochs of 2 seeded [8, 1024] batches,
+    ``DataSetLossCalculator`` on one held-out batch,
+    ``MaxEpochsTerminationCondition(3)`` and
+    ``ScoreImprovementEpochTerminationCondition(1)``, the best model saved to
+    ``model_saver_path``. The best model's held-out loss, recomputed, must
+    equal ``best_model_score`` and it must share no storage with the live
+    model. Returns the launch counts."""
+    from deeplearning4j_tpu_torch.model import serializer
+    from deeplearning4j_tpu_torch.train.early_stopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration, EarlyStoppingTrainer,
+        MaxEpochsTerminationCondition, ScoreImprovementEpochTerminationCondition)
+
+    model = TransformerLM(vocab_size=50257, hidden=768, n_layers=12, n_heads=12, ffn_size=3072,
+                          max_len=T_FULL, seed=SEED, dtype="float32").init()
+    d = tempfile.mkdtemp(prefix="es_lm_")
+    calc = DataSetLossCalculator(_ft_iterator(1, seed=SEED + 61))
+    conf = EarlyStoppingConfiguration(
+        score_calculator=calc,
+        epoch_termination_conditions=[MaxEpochsTerminationCondition(ES_EPOCHS),
+                                      ScoreImprovementEpochTerminationCondition(1)],
+        model_saver_path=os.path.join(d, "best.zip"))
+    writes = []
+    real_write = serializer.write_model
+
+    def timed_write(*a, **kw):
+        t0 = time.perf_counter()
+        real_write(*a, **kw)
+        writes.append(time.perf_counter() - t0)
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(serializer, "write_model", timed_write):
+            res = EarlyStoppingTrainer(conf, model, _ft_iterator(ES_BATCHES)).fit()
+        fit_s = time.perf_counter() - t0
+        saved_bytes = os.path.getsize(conf.model_saver_path)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    counts = _all_counts()
+    best = res.best_model
+    check(best is not model and all(
+        p.data_ptr() != model.params[l][k].data_ptr()
+        for l, lp in best.params.items() for k, p in lp.items()),
+          "the best model must be a copy of the live model's tensors")
+    again = calc.calculate_score(best)
+    check(again == res.best_model_score,
+          f"the best model's held-out loss {again!r} must equal best_model_score "
+          f"{res.best_model_score!r}")
+    print(f"early stopping lm ({card}): {res.total_epochs} epochs of {ES_BATCHES} [8,1024] "
+          f"batches in {fit_s:.2f} s; score_vs_epoch "
+          f"{ {e: round(s, 6) for e, s in res.score_vs_epoch.items()} }; reason "
+          f"{res.termination_reason} ({res.termination_details}); best epoch "
+          f"{res.best_model_epoch}, recomputed held-out loss equal; model_saver_path write s "
+          f"{[round(t, 2) for t in writes]} ({saved_bytes} bytes); launches {counts}")
+    return counts
+
+
+def phase_step_profiler(card: str) -> dict:
+    """6 LM steps (GPT-2-small widths, 12 blocks, f32) under
+    ``Solver(profiler=StepProfiler(sync_every=2))`` from a wrapped iterator
+    and 6 without, from ``clone()``s of the same weights: the scores must be
+    bitwise equal. Returns the launch counts."""
+    from deeplearning4j_tpu_torch.core.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry, StepProfiler
+
+    base = TransformerLM(vocab_size=50257, hidden=768, n_layers=12, n_heads=12, ffn_size=3072,
+                         max_len=T_FULL, seed=SEED, dtype="float32").init()
+    fa.reset_launch_counts()
+    prof = StepProfiler(sync_every=2, registry=MetricsRegistry(), name="chip-smoke")
+    runs = []
+    for profiler in (prof, None):
+        m = base.clone()
+        scores = CollectScoresListener()
+        m.add_listeners(scores)
+        it = _ft_iterator(PROFILED_STEPS, seed=SEED + 62)
+        Solver(m, profiler=profiler).fit(prof.wrap_iterator(it) if profiler else it)
+        runs.append(scores.scores)
+        del m
+    check(runs[0] == runs[1], f"profiled scores must equal unprofiled: {runs}")
+    st = prof.stats()
+    print(f"step profiler lm ({card}): {st['steps']} steps, {st['sampled_steps']} fenced; "
+          f"per-step ms {st['per_step_ms']}; share {st['share']}; "
+          f"samples/s excluding input {prof.samples_per_sec_excl_input(B):.2f} "
+          f"(= {prof.samples_per_sec_excl_input(B) * T_FULL:.0f} tokens/s); scores bitwise "
+          f"equal to the unprofiled run; launches {_all_counts()}")
+    return _all_counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4099,6 +4437,11 @@ def main() -> int:
               timed("ResNet-50 inference rewrite", phase_resnet_rewrite, card),
               timed("calibrated int8 Dense", phase_calibrated_dense, card),
               timed("zoo", phase_zoo, card)]
+    ft, ft_finish = timed("fault-tolerant LM training", phase_fault_tolerant_lm, card)
+    paths += [ft, timed("elastic restart", phase_elastic, card)]
+    timed("fault-tolerant LM checkpoint writes", ft_finish)
+    paths += [timed("early stopping LM", phase_early_stopping_lm, card),
+              timed("step profiler", phase_step_profiler, card)]
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
@@ -4108,7 +4451,10 @@ def main() -> int:
     # and the imported models (the Keras ResNet-50 served and fine-tuned, the
     # ONNX BERT-base served), which launch none of the five kernels; then the
     # rewrite slice: the int8 and fp8 LM (B1, B4), the int8 MoE network (B1,
-    # B5), and the ResNet-50 rewrites, the calibrated LeNet and the zoo (none)
+    # B5), and the ResNet-50 rewrites, the calibrated LeNet and the zoo (none);
+    # then fault-tolerant training: the checkpointed and resumed LM, the
+    # elastic restart's children (counted in their own processes), early
+    # stopping and the profiled steps (B1-B3)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

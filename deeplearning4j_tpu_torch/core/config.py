@@ -158,6 +158,20 @@ def from_json(s: str) -> Any:
     return _decode(json.loads(s))
 
 
+def to_dict(cfg: Any) -> Any:
+    return _encode(cfg)
+
+
+def from_dict(d: Any) -> Any:
+    _register_all()
+    return _decode(d)
+
+
+def replace(cfg: T, **changes: Any) -> T:
+    """Immutable update, mirroring dataclasses.replace (configs are frozen)."""
+    return dataclasses.replace(cfg, **changes)
+
+
 def _register_all() -> None:
     """Import every module that registers config classes, so that decoding
     a JSON document does not depend on what the caller imported first."""

@@ -8,6 +8,7 @@ card, the default raises and the caller must pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import enum
 from typing import Optional, Union
 
 import numpy as np
@@ -25,6 +26,79 @@ _TORCH_DTYPES = {
     "uint8": torch.uint8,
     "bool": torch.bool,
 }
+
+
+class DataType(enum.Enum):
+    """The reference's ``org.nd4j.linalg.api.buffer.DataType`` vocabulary,
+    as in the JAX package, mapped onto torch dtypes (:attr:`torch`, where
+    the JAX package has ``.jnp``)."""
+
+    DOUBLE = "float64"
+    FLOAT = "float32"
+    HALF = "float16"
+    BFLOAT16 = "bfloat16"
+    LONG = "int64"
+    INT = "int32"
+    SHORT = "int16"
+    BYTE = "int8"
+    UBYTE = "uint8"
+    UINT16 = "uint16"
+    UINT32 = "uint32"
+    UINT64 = "uint64"
+    BOOL = "bool"
+    UTF8 = "object"  # host-only; never reaches the device
+
+    @property
+    def np(self) -> np.dtype:
+        """The numpy dtype. numpy has no bfloat16: its host copies are
+        float32 (see :func:`to_numpy`)."""
+        if self is DataType.BFLOAT16:
+            return np.dtype(np.float32)
+        return np.dtype(self.value)
+
+    @property
+    def torch(self) -> torch.dtype:
+        if self is DataType.UTF8:
+            raise ValueError("UTF8 is a host-only dtype")
+        return getattr(torch, self.value)
+
+    @property
+    def is_floating(self) -> bool:
+        return self in (DataType.DOUBLE, DataType.FLOAT, DataType.HALF, DataType.BFLOAT16)
+
+    @property
+    def is_integer(self) -> bool:
+        return self in (
+            DataType.LONG, DataType.INT, DataType.SHORT, DataType.BYTE,
+            DataType.UBYTE, DataType.UINT16, DataType.UINT32, DataType.UINT64,
+        )
+
+    @classmethod
+    def from_any(cls, d) -> "DataType":
+        """A DataType, a dtype name, or a numpy or torch dtype."""
+        if isinstance(d, DataType):
+            return d
+        if isinstance(d, torch.dtype):
+            name = str(d).replace("torch.", "")
+        elif isinstance(d, str):
+            name = d
+        else:
+            name = np.dtype(d).name
+        by_name = {"float64": cls.DOUBLE, "float32": cls.FLOAT, "float16": cls.HALF}
+        if name in by_name:
+            return by_name[name]
+        for m in cls:
+            if m.value == name or m.name == name.upper():
+                return m
+        raise ValueError(f"Unknown dtype: {d!r}")
+
+
+def default_float_dtype() -> torch.dtype:
+    """The process default float dtype (``DL4J_TPU_DTYPE``, or float64
+    after ``Environment.enable_x64()``), as a torch dtype."""
+    from .env import get_environment
+
+    return torch_dtype(get_environment().default_dtype)
 
 
 def torch_dtype(d: Union[str, torch.dtype, np.dtype, type]) -> torch.dtype:

@@ -27,8 +27,9 @@ states in order, each state's fields in order, and each ``{param: array}``
 dict sorted by name (for Adam: count, mu by param, nu by param, then the
 learning-rate schedule's count when the rate is a schedule). The port's
 updater states keep optax's layout (``train/updaters.py``), so a zip a JAX
-``Solver`` wrote resumes in the port and the reverse. Only Adam and AdamW
-states are carried so far; any other updater raises.
+``Solver`` wrote resumes in the port and the reverse, for all 13 updaters
+(an ``EmptyState`` has no leaves; a schedule adds its count; Lars and Lamb
+keep their dicts of count, moments, trust and gnorm).
 """
 
 from __future__ import annotations
@@ -114,16 +115,6 @@ def _fill_state(template: Any, leaves: Iterator[np.ndarray]) -> Any:
     return template
 
 
-def _check_carried_updaters(trainer) -> None:
-    from ..train.updaters import Adam, AdamW
-
-    for name, updater in trainer.optim.updaters.items():
-        if type(updater) not in (Adam, AdamW):
-            raise NotImplementedError(
-                f"{name}: carrying {type(updater).__name__} updater state through "
-                "the model zip is not ported yet (Adam and AdamW are)")
-
-
 def load_jax_params(model: Model, params_np: Dict[str, Dict[str, np.ndarray]]) -> Model:
     """Load the JAX package's parameters, given as numpy arrays
     (``{layer_name: {param_name: array}}``, a graph's keyed by vertex), into
@@ -196,7 +187,6 @@ def _restore(path: str, cls, device: Device, load_updater: bool) -> Model:
                 from ..train.solver import Solver as trainer_cls
 
             trainer = trainer_cls(model)
-            _check_carried_updaters(trainer)
             z = np.load(io.BytesIO(zf.read(_UPDATER)))
             leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
             n_expected = len(_state_leaves(trainer.opt_state))
@@ -218,17 +208,19 @@ def restore_model(path: str, device: Device = None, load_updater: bool = False) 
 
 
 def write_model(model: Model, path: str, save_updater: bool = False,
-                normalizer=None) -> None:
+                normalizer=None, *, class_name: Optional[str] = None) -> None:
     """Reference: ModelSerializer.writeModel(model, file, saveUpdater[,
     normalizer]), in the JAX package's layout. With ``save_updater`` and a
     model that has trained, the updater state goes in too; a
     ``data.normalizers`` normalizer goes in as ``normalizer.npz`` (its
     ``state_dict``). Atomic: the zip is assembled in a temp file beside
-    ``path`` and then renamed onto it."""
+    ``path`` and then renamed onto it.
+
+    ``class_name=`` names the model class in ``meta.json`` when ``model``
+    is not the network itself: the checkpoint writer
+    (``train/checkpoint.py``) serializes a host snapshot of it."""
     model._check_init()
     trainer = model._trainer if save_updater else None
-    if trainer is not None:
-        _check_carried_updaters(trainer)
     dirname = os.path.dirname(os.path.abspath(path))
     fd, tmp_path = tempfile.mkstemp(dir=dirname, prefix=".tmp-",
                                     suffix=os.path.basename(path))
@@ -253,7 +245,7 @@ def write_model(model: Model, path: str, save_updater: bool = False,
                     np.savez(buf, **normalizer.state_dict())
                     zf.writestr(_NORM, buf.getvalue())
                 zf.writestr(_META, json.dumps({
-                    "model_class": type(model).__name__,
+                    "model_class": class_name or type(model).__name__,
                     "framework": _FRAMEWORK,
                     "writer": f"{_PORT_FRAMEWORK} {__version__}",
                 }))

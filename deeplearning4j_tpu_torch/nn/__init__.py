@@ -1,3 +1,4 @@
+from . import layers
 from .activations import Activation
 from .conf import (
     BackpropType,
@@ -8,7 +9,7 @@ from .conf import (
 )
 from .input_type import InputType
 from .losses import LossFunction
-from .sequential import MultiLayerNetwork
+from .sequential import MultiLayerNetwork, Sequential
 from .weights import Distribution, WeightInit
 
 __all__ = [
@@ -21,6 +22,8 @@ __all__ = [
     "MultiLayerConfiguration",
     "MultiLayerNetwork",
     "NeuralNetConfiguration",
+    "Sequential",
     "WeightInit",
     "WorkspaceMode",
+    "layers",
 ]

@@ -34,6 +34,7 @@ from torch import nn
 
 from ..core.dtypes import as_input, cast_floats, default_device, to_numpy, torch_dtype
 from ..core.listeners import ListenerBus, TrainingListener
+from ..core.rng import RngState
 from .graph_conf import ComputationGraphConfiguration, VertexSpec
 from .layers.base import Layer, LayerContext, LayerModule, apply_layer
 from .layers.output import BaseOutputLayer
@@ -55,7 +56,8 @@ class ComputationGraph(nn.Module):
         self.epoch_count = 0
         self.last_batch_size = 0
         self.score_value = float("nan")
-        self._rng = torch.Generator().manual_seed(conf.seed)
+        # the dropout stream: a checkpoint carries its position (state_dict)
+        self._rng = RngState(conf.seed)
         self._solver = None
         self._initialized = False
         # loss weights per output (reference: setOutputs + loss weighting)
@@ -105,10 +107,9 @@ class ComputationGraph(nn.Module):
 
     def _next_generator(self) -> torch.Generator:
         """A fresh CPU generator for one training step's dropout draws; the
-        model's own generator (seeded from the config's seed) advances once
+        model's own stream (seeded from the config's seed) advances once
         per step."""
-        seed = int(torch.randint(0, 2**62, (), generator=self._rng))
-        return torch.Generator().manual_seed(seed)
+        return self._rng.next_key()
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":

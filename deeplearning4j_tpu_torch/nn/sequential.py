@@ -38,6 +38,7 @@ from torch import nn
 
 from ..core.dtypes import as_input, cast_floats, default_device, to_numpy, torch_dtype
 from ..core.listeners import ListenerBus, TrainingListener
+from ..core.rng import RngState
 from .conf import MultiLayerConfiguration
 from .input_type import RecurrentType
 from .layers.base import Layer, LayerContext, LayerModule, apply_layer
@@ -91,7 +92,8 @@ class MultiLayerNetwork(nn.Module):
         self.epoch_count = 0
         self.last_batch_size = 0
         self.score_value = float("nan")
-        self._rng = torch.Generator().manual_seed(conf.seed)
+        # the dropout stream: a checkpoint carries its position (state_dict)
+        self._rng = RngState(conf.seed)
         self._trainer = None
         self._initialized = False
 
@@ -124,10 +126,9 @@ class MultiLayerNetwork(nn.Module):
 
     def _next_generator(self) -> torch.Generator:
         """A fresh CPU generator for one training step's dropout draws; the
-        model's own generator (seeded from the config's seed) advances once
+        model's own stream (seeded from the config's seed) advances once
         per step."""
-        seed = int(torch.randint(0, 2**62, (), generator=self._rng))
-        return torch.Generator().manual_seed(seed)
+        return self._rng.next_key()
 
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
         """Build every layer's parameters from one CPU ``torch.Generator``
@@ -151,6 +152,26 @@ class MultiLayerNetwork(nn.Module):
     def _check_init(self) -> None:
         if not self._initialized:
             self.init()
+
+    def migrate_state(self) -> None:
+        """Fill persistent-state keys that a layer's ``init_state`` defines
+        but the state lacks (a state restored from an older version, such
+        as an MoE layer's counters), with their defaults; existing values
+        (batch norm's running statistics) stay."""
+        if not self._initialized:
+            return
+        for i, layer in enumerate(self.layers):
+            defaults = layer.init_state(self.dtype)
+            if not defaults:
+                continue
+            name = self.conf.layer_name(i)
+            cur = dict(self.state.get(name, {}))
+            missing = [k for k in defaults if k not in cur]
+            if missing:
+                for k in missing:
+                    cur[k] = defaults[k].to(self.device)
+                self.state[name] = cur
+                self._persistent_keys[name] = tuple(cur.keys())
 
     @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -267,6 +288,18 @@ class MultiLayerNetwork(nn.Module):
             out, _, _ = self.forward_pure(self.params, self.state, self._input(x),
                                           mask=self._mask(mask))
         return out.to(self.dtype)
+
+    def feed_forward(self, x, train: bool = False, mask=None) -> List[torch.Tensor]:
+        """Every layer's activation (reference: feedForward), in layer order.
+        ``train=True`` runs the training forward, drawing dropout from the
+        model's stream."""
+        self._check_init()
+        rng = self._next_generator() if train else None
+        with torch.no_grad():
+            _, _, _, acts = self.forward_pure(self.params, self.state, self._input(x),
+                                              train=train, rng=rng, mask=self._mask(mask),
+                                              collect=True)
+        return acts
 
     def score(self, features, labels, mask=None, label_mask=None) -> float:
         self._check_init()
@@ -391,6 +424,42 @@ class MultiLayerNetwork(nn.Module):
             flat = flat.float()
         return flat.numpy()
 
+    def get_layer_params(self, i: int) -> Dict[str, torch.Tensor]:
+        return self.params[self.conf.layer_name(i)]
+
+    def summary(self) -> str:
+        """The JAX package's table: index, name, type and parameter count of
+        each layer, then the total."""
+        lines = [f"{'idx':<4}{'name':<28}{'type':<30}{'params':>10}"]
+        total = 0
+        params = self.params if self._initialized else {}
+        for i, layer in enumerate(self.layers):
+            name = self.conf.layer_name(i)
+            n = sum(int(a.numel()) for a in params.get(name, {}).values())
+            total += n
+            lines.append(f"{i:<4}{name:<28}{type(layer).__name__:<30}{n:>10}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A copy of the configuration, parameters and state on the same
+        device, with no trainer, counters or listeners, as the JAX
+        package's. Every tensor is copied: the JAX package may share its
+        arrays because they are immutable, but here the updater writes the
+        parameters in place, and a shared copy would follow the live model."""
+        m = MultiLayerNetwork(self.conf, device=self.device)
+        if self._initialized:
+            with torch.no_grad():
+                for name in self.layer_names():
+                    src = getattr(self, name)
+                    m.add_module(name, LayerModule(src.conf, {
+                        k: p.detach().clone() for k, p in src.params().items()}))
+                m.state = {l: {k: v.clone() for k, v in st.items()}
+                           for l, st in self.state.items()}
+            m._persistent_keys = dict(self._persistent_keys)
+            m._initialized = True
+        return m
+
     def set_params_flat(self, vec) -> None:
         vec = np.asarray(vec)
         if vec.size != self.num_params():
@@ -405,6 +474,10 @@ class MultiLayerNetwork(nn.Module):
                 chunk = torch.from_numpy(np.ascontiguousarray(vec[off:off + n]))
                 p.copy_(chunk.reshape(p.shape).to(device=p.device, dtype=p.dtype))
                 off += n
+
+
+# Alias with the TPU-native project's own idiom, as in the JAX package
+Sequential = MultiLayerNetwork
 
 
 def _as_batches(data, labels, mask):

@@ -10,7 +10,9 @@ DecodeEngine`'s ``dl4j_tpu_generate_*`` series. :class:`Tracer` and
 :class:`TraceSpan` give requests identity (W3C ``traceparent``) and
 parent/child structure, exported to a bounded :class:`TraceStore`.
 :func:`render_prometheus` gives the 0.0.4 text a server's ``/metrics``
-serves. The step profiler is not ported yet (ROADMAP A10).
+serves. :class:`StepProfiler` (``obs/step_profiler.py``) attributes
+training step time to data_wait/h2d/compute/host phases, fencing the card
+on sampled steps only.
 """
 
 from .metrics import (
@@ -28,6 +30,8 @@ from .metrics import (
 from .listener import MetricsListener, MoEMetricsListener, record_moe_metrics
 from .prom import CONTENT_TYPE as PROM_CONTENT_TYPE
 from .prom import render_prometheus
+from .step_profiler import PHASES as STEP_PHASES
+from .step_profiler import StepProfiler
 from .tracing import (
     DEFAULT_SAMPLE_RATE as DEFAULT_TRACE_SAMPLE_RATE,
     TraceContext,
@@ -54,7 +58,9 @@ __all__ = [
     "MetricsRegistry",
     "MoEMetricsListener",
     "PROM_CONTENT_TYPE",
+    "STEP_PHASES",
     "Span",
+    "StepProfiler",
     "TraceContext",
     "TraceSpan",
     "TraceStore",

@@ -1,3 +1,11 @@
+from . import helpers
+from .helpers import (
+    available_helpers,
+    get_helper,
+    helper_name,
+    register_helper,
+    set_helper,
+)
 from .flash_attention import (
     LAUNCH_COUNTS,
     attention_impl,
@@ -20,6 +28,7 @@ from .grouped_matmul import (
     grouped_matmul,
     grouped_matmul_impl,
     grouped_matmul_plain,
+    grouped_matmul_reference,
     reset_launch_counts as _reset_grouped_matmul_counts,
     set_grouped_matmul_impl,
 )
@@ -51,6 +60,7 @@ __all__ = [
     "GROUPED_MATMUL_LAUNCH_COUNTS",
     "LAUNCH_COUNTS",
     "attention_impl",
+    "available_helpers",
     "combine_rows",
     "decode_attention",
     "decode_attention_reference",
@@ -62,9 +72,13 @@ __all__ = [
     "flash_decode_attention",
     "flash_decode_attention_plain",
     "gather_dispatch",
+    "get_helper",
     "grouped_matmul",
     "grouped_matmul_impl",
     "grouped_matmul_plain",
+    "grouped_matmul_reference",
+    "helper_name",
+    "helpers",
     "make_dispatch_plan",
     "mha_attention",
     "mha_attention_reference",
@@ -72,9 +86,11 @@ __all__ = [
     "paged_cache_write",
     "paged_decode_attention",
     "paged_gather",
+    "register_helper",
     "reset_launch_counts",
     "scatter_combine",
     "set_attention_impl",
     "set_grouped_matmul_impl",
+    "set_helper",
     "top_k_routing",
 ]

@@ -175,6 +175,10 @@ def grouped_matmul_plain(lhs: torch.Tensor, group_sizes: torch.Tensor, rhs: torc
     return _gmm_plain(lhs, rhs, group_sizes, m_pad)
 
 
+#: the JAX package's name for the plain version
+grouped_matmul_reference = grouped_matmul_plain
+
+
 # ---------------------------------------------------------------------------
 # B5: the CUDA kernel
 # ---------------------------------------------------------------------------

@@ -11,12 +11,14 @@ place and the state write-back (batch norm's running statistics).
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import torch
 
 from ..data.dataset import DataSet, MultiDataSet
 from ..nn.sequential import grads_of
+from ..obs.step_profiler import fence
 from .solver import LayerOptimizers, _normalize_gradients
 
 
@@ -25,11 +27,8 @@ class GraphSolver:
         """``optimize=`` applies training-safe graph rewrite passes in place
         before the updater state is built (see :class:`Solver`;
         ``applied_rewrites`` names the passes that matched). ``profiler=``
-        (step-phase attribution) needs ``obs/step_profiler.py``, which is
-        not ported yet, and raises."""
-        if profiler is not None:
-            raise NotImplementedError("GraphSolver(profiler=) needs obs/step_profiler.py, "
-                                      "which is not ported yet")
+        attaches a :class:`~deeplearning4j_tpu_torch.obs.step_profiler.
+        StepProfiler`, as in :class:`Solver`."""
         self.model = model
         model.migrate_state()
         self.applied_rewrites = []
@@ -37,6 +36,7 @@ class GraphSolver:
             from ..nn.rewrite import rewrite_model_inplace
 
             self.applied_rewrites = rewrite_model_inplace(model, optimize, context="training")
+        self.profiler = profiler
         self.optim = LayerOptimizers(model)
         self.opt_state = self.optim.init(model.params)
 
@@ -46,8 +46,18 @@ class GraphSolver:
         (and, optionally, per-input masks and per-output label masks).
         Returns the score as a 0-dim tensor on the model's device."""
         model = self.model
+        # StepProfiler phases, as in Solver.fit_batch
+        prof = self.profiler
+        fenced = prof.begin_step() if prof is not None else False
+        timed = prof is not None and (fenced or prof.sync_every == 0)
+        t0 = time.perf_counter() if prof is not None else 0.0
         xs = model._as_inputs(model._as_tuple(xs))
         ys = model._as_labels(model._as_tuple(ys))
+        if timed:
+            if fenced:
+                fence(model.device)
+            prof.record("h2d", time.perf_counter() - t0, sampled=fenced)
+            t0 = time.perf_counter()
         score, new_state = model.loss_pure(
             model.params, model.state, xs, ys, rng=model._next_generator(),
             masks=model._as_masks(masks), label_masks=model._as_masks(label_masks),
@@ -58,6 +68,11 @@ class GraphSolver:
                                      conf.gradient_normalization_threshold)
         with torch.no_grad():
             self.opt_state = self.optim.update(grads, self.opt_state, model.params)
+        if timed:
+            if fenced:
+                fence(model.device)
+            prof.record("compute", time.perf_counter() - t0, sampled=fenced)
+        th = time.perf_counter() if prof is not None else 0.0
         # the state keeps values only: an MoE layer's aux term carries this
         # step's graph, which must not stay alive until the next step
         model.state = {l: {k: v.detach() for k, v in st.items()}
@@ -65,6 +80,9 @@ class GraphSolver:
         model.last_batch_size = int(xs[0].shape[0])
         if model.listeners.requires_arrays:
             model.listeners.gradient_calculation(model, grads)
+        if prof is not None:
+            prof.record("host", time.perf_counter() - th, sampled=fenced)
+            prof.end_step()
         return score.detach()
 
     def fit_iterator(self, iterator, *, epochs: int = 1) -> float:

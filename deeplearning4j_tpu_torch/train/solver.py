@@ -25,12 +25,14 @@ between the packages, and only their distribution is comparable.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.dtypes import as_input
+from ..obs.step_profiler import fence
 from ..nn.conf import BackpropType, GradientNormalization
 from ..nn.sequential import _as_batches, grads_of
 from .updaters import (
@@ -133,18 +135,21 @@ class Solver:
         pass list — inference-only passes are rejected). The model is
         rewritten in place to a numerically equivalent form; rewrites are
         in-memory only and never serialized (``nn/rewrite``); the names of
-        the passes that matched are ``applied_rewrites``. ``profiler=``
-        (step-phase attribution) needs ``obs/step_profiler.py``, which is
-        not ported yet, and raises."""
-        if profiler is not None:
-            raise NotImplementedError("Solver(profiler=) needs obs/step_profiler.py, "
-                                      "which is not ported yet")
+        the passes that matched are ``applied_rewrites``.
+
+        ``profiler=`` attaches a :class:`~deeplearning4j_tpu_torch.obs.
+        step_profiler.StepProfiler`: each ``fit_batch`` attributes its time
+        to the h2d / compute / host phases, fencing the card only on the
+        profiler's sampled steps, and ``fit`` reads its batches step by
+        step (the JAX package's whole-epoch scan has no steps to
+        attribute). Without one, a step does nothing more."""
         self.model = model
         self.applied_rewrites = []
         if optimize:
             from ..nn.rewrite import rewrite_model_inplace
 
             self.applied_rewrites = rewrite_model_inplace(model, optimize, context="training")
+        self.profiler = profiler
         self.optim = LayerOptimizers(model)
         self.opt_state = self.optim.init(model.params)
 
@@ -156,8 +161,18 @@ class Solver:
         recurrent layers start from that carry, and the returned carry is
         where this step left them, detached from its graph."""
         model = self.model
+        # StepProfiler phases: the card is fenced only on sampled steps
+        prof = self.profiler
+        fenced = prof.begin_step() if prof is not None else False
+        timed = prof is not None and (fenced or prof.sync_every == 0)
+        t0 = time.perf_counter() if prof is not None else 0.0
         x = model._input(x)
         y = as_input(y, model.dtype, True, model.device)
+        if timed:
+            if fenced:
+                fence(model.device)
+            prof.record("h2d", time.perf_counter() - t0, sampled=fenced)
+            t0 = time.perf_counter()
         score, (new_state, new_rnn) = model.loss_pure(
             model.params, model.state, x, y, rng=model._next_generator(),
             mask=model._mask(mask), label_mask=model._mask(label_mask),
@@ -169,6 +184,11 @@ class Solver:
                                      conf.gradient_normalization_threshold)
         with torch.no_grad():
             self.opt_state = self.optim.update(grads, self.opt_state, model.params)
+        if timed:
+            if fenced:
+                fence(model.device)
+            prof.record("compute", time.perf_counter() - t0, sampled=fenced)
+        th = time.perf_counter() if prof is not None else 0.0
         # the state keeps values only: an MoE layer's aux term carries this
         # step's graph, which must not stay alive until the next step
         model.state = {l: {k: v.detach() for k, v in st.items()}
@@ -176,8 +196,13 @@ class Solver:
         model.last_batch_size = int(x.shape[0])
         if model.listeners.requires_arrays:
             model.listeners.gradient_calculation(model, grads)
-        return score, {l: {k: v.detach() for k, v in st.items()}
-                       for l, st in new_rnn.items()}
+        new_rnn = {l: {k: v.detach() for k, v in st.items()} for l, st in new_rnn.items()}
+        if prof is not None:
+            # on sampled steps the card is idle after the fence, so this
+            # host time is honest
+            prof.record("host", time.perf_counter() - th, sampled=fenced)
+            prof.end_step()
+        return score, new_rnn
 
     def fit_scan(self, features, labels) -> torch.Tensor:
         """Multi-step training over a stack of batches ([n_batches, batch,
@@ -234,8 +259,10 @@ class Solver:
         # iterator is then read once, not reset per epoch. The port keeps
         # that order by looping over the list. With ragged shapes JAX falls
         # back to reading the iterator again every epoch, and so does the port.
+        # A step profiler needs per-step boundaries, so it opts out.
         source = None
-        if (not sync_every_iter and mask is None and label_mask is None
+        if (not sync_every_iter and self.profiler is None and mask is None
+                and label_mask is None
                 and model.conf.backprop_type is not BackpropType.TRUNCATED_BPTT):
             batches = [(f, l, None, None) for f, l, m, lm in _as_batches(data, labels, mask)
                        if m is None and lm is None]

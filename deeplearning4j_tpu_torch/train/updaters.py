@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..core.config import register_config
@@ -373,7 +374,11 @@ def _lamb_tx(lr: LR, b1: float, b2: float, eps: float, weight_decay: float,
             raise ValueError("Lamb requires params")
         count = state["count"] + 1
         lr_t = _lr_at(lr_fn, count - 1)
-        c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+        # the JAX package's bias corrections are float32 (its count is cast
+        # to float32): 1 - 0.999 loses five digits there, and a parameter
+        # with no trust ratio (a zero bias) takes that rounding into its step
+        c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
+        c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
         out, trust_t, gnorm = {}, {}, {}
         for k, g in updates.items():
             p = params[k]

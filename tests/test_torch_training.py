@@ -300,12 +300,23 @@ def test_port_updater_state_resumes_in_jax(tmp_path, name, kwargs):
 
 
 def test_other_updater_state_is_not_carried(tmp_path):
+    # The name is from when only Adam and AdamW state went into the zip.
+    # Every updater's state is carried now (tests/test_torch_updater_state.py
+    # holds all 13 against JAX): the char-RNN's RmsProp comes back leaf for
+    # leaf, and the restored model's next step is the original's.
     port = PortLM(n_layers=1, updater=pupd.RmsProp(), **_SHAPE).init(device="cpu")
     ids, labels, _ = _batch()
     port.fit(ids, labels)
-    with pytest.raises(NotImplementedError, match="RmsProp"):
-        write_model(port, str(tmp_path / "m.zip"), save_updater=True)
-    write_model(port, str(tmp_path / "m.zip"))  # weights alone are fine
+    path = str(tmp_path / "m.zip")
+    write_model(port, path, save_updater=True)
+    back = restore_multi_layer_network(path, device="cpu", load_updater=True)
+    want, got = _state_leaves(port._trainer.opt_state), _state_leaves(back._trainer.opt_state)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    port.fit(ids, labels)
+    back.fit(ids, labels)
+    np.testing.assert_array_equal(back.params_flat(), port.params_flat())
 
 
 # ---- gradient check, and what is not ported yet ----------------------------------------
@@ -328,10 +339,11 @@ def test_check_gradients_passes_on_a_float64_lm():
 
 
 def test_unported_solver_options_raise():
-    # profiler= needs obs/step_profiler.py (ROADMAP A10) and raises; since
-    # the rewrite passes are ported, optimize= resolves as JAX's does: on
-    # an LM no training pass matches, and an inference-only pipeline is
-    # refused in a training context with JAX's error
+    # Both options are ported now. optimize= resolves as JAX's does: on an
+    # LM no training pass matches, and an inference-only pipeline is
+    # refused in a training context with JAX's error. profiler= takes a
+    # StepProfiler (obs/step_profiler.py; tests/test_torch_step_profiler.py)
+    # and leaves the step's result unchanged.
     model = PortLM(n_layers=1, **_SHAPE).init(device="cpu")
     jmodel = JaxLM(n_layers=1, **_SHAPE).init()
     from deeplearning4j_tpu.train.solver import Solver as JaxSolver
@@ -343,5 +355,11 @@ def test_unported_solver_options_raise():
     with pytest.raises(ValueError) as got:
         Solver(model, optimize="inference")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="step_profiler"):
-        Solver(model, profiler=object())
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry, StepProfiler
+
+    ids, labels, _ = _batch()
+    prof = StepProfiler(sync_every=1, registry=MetricsRegistry())
+    plain = PortLM(n_layers=1, **_SHAPE).init(device="cpu")
+    got_score, _ = Solver(model, profiler=prof).fit_batch(ids, labels)
+    want_score, _ = Solver(plain).fit_batch(ids, labels)
+    assert float(got_score) == float(want_score) and prof.stats()["steps"] == 1
