@@ -151,6 +151,26 @@ lost, with the goodput ratio, downtime by reason and child boot seconds;
 recomputed held-out loss equal to ``best_model_score``, its tensors not the
 live model's); and 6 steps under ``Solver(profiler=StepProfiler(
 sync_every=2))`` beside 6 without (scores bitwise equal).
+Then data-parallel training (``parallel/trainer.py``'s
+``DistributedTrainer``): the GPT-2-small-width LM (12 blocks, f32,
+``Adam(1e-4)``) at world size 1 over NCCL for 3 steps on [8, 1024] (params
+bit for bit ``Solver.fit_batch``'s from the same weights and batches; 12
+B1, B2 and B3 launches a step); two ranks sharing ``cuda:0`` over gloo
+(NCCL refuses two ranks on one device), [4, 1024] each, one boot running
+``SyncAllReduce``, ``BucketedAllReduceSync``, ZeRO-1 and
+``ThresholdCompressedSync`` for 3 steps each (ranks bit for bit equal after
+every leg, bucketed and ZeRO-1 bit for bit ``SyncAllReduce``, ZeRO-1's
+updater bytes per rank the replicated bytes less half of every sliced
+leaf's, ``SyncAllReduce`` within 6e-4 of world 1; ms a step and the
+collectives' host-timed share); the zoo ResNet-50 on two ranks under
+``ThresholdCompressedSync`` with ``bn_group_size=2``, batch 32 a rank, 3
+steps (params and running statistics bit for bit equal across the ranks,
+scores finite; ``BASELINE.json``'s gradient-sharing ResNet-50 cut to one
+card); and the port's elastic resize harness
+(``tools/check_elastic_resize_contract.py``, ``"lm"``: 2 blocks at full
+width, [8, 1024], ZeRO-1, ``OrbaxCheckpointer``) resized 2 -> 1 -> 2 ranks
+by two SIGKILLs, nothing consumed twice or skipped, and each resumed boot
+restoring the killed boot's checkpoint bit for bit (width 2 -> 1, 1 -> 2).
 It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
@@ -4104,7 +4124,7 @@ def _params_equal(a, b) -> bool:
 def _snapshot_variants(model) -> dict:
     """Seconds on the step thread for the two ways a checkpoint snapshot can
     copy the model's parameters and Adam's moments to the host, each taken
-    twice, while the listener's writer deflates in the background as it does
+    twice, while the listener's writer writes in the background as it does
     in a run: into pinned buffers (allocated, copies queued ``non_blocking``,
     an event recorded; then waited on) and into pageable ones
     (``to("cpu", copy=True)``, which returns once the copy landed). The
@@ -4200,7 +4220,7 @@ def phase_fault_tolerant_lm(card: str) -> dict:
               f"{ref_scores}")
         del run_model
         # restore the iteration-4 checkpoint as soon as it is down, while the
-        # writer still deflates iteration 8's
+        # writer still writes iteration 8's
         zip4 = os.path.join(d, f"checkpoint_iter{FT_SAVE_EVERY}_epoch0.zip")
         deadline = time.monotonic() + 900
         while not os.path.exists(zip4[:-4] + ".state.json") and time.monotonic() < deadline:
@@ -4378,6 +4398,240 @@ def phase_step_profiler(card: str) -> dict:
     return _all_counts()
 
 
+DP_STEPS = 3  # every data-parallel leg's steps
+
+
+def _lm_dp_spec():
+    from deeplearning4j_tpu_torch.tools import dp_legs
+
+    return dp_legs.lm_spec(steps=DP_STEPS, global_batch=B, seq=T_FULL, seed=SEED)
+
+
+def phase_dp_world1(card: str):
+    """``DistributedTrainer`` at world size 1 over NCCL on the
+    GPT-2-small-width LM, 3 steps on one seeded [8, 1024] batch, against
+    ``Solver.fit_batch`` from the same weights on the same batch: params
+    bit for bit equal (an all-reduce over one rank is the identity). It also
+    reads what the two-rank phase's gate against this run would see under
+    a planted fault: ``Solver`` on the first half of the rows (both ranks
+    fed rank 0's rows, an exchange that kept one rank's gradient, or no
+    exchange at all, seen from rank 0) and the start params (no update).
+    Returns the launch counts of the trainer's steps and a dict: its final
+    params (host float32), the params' shapes and the two fault readings."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import DistributedTrainer, initialize_distributed
+    from deeplearning4j_tpu_torch.tools import dp_legs
+
+    t0 = time.perf_counter()
+    backend = initialize_distributed()
+    check(backend == "nccl", f"a CUDA model's default backend must be NCCL, got {backend}")
+    spec = _lm_dp_spec()
+    ids, labels = (torch.from_numpy(a).cuda() for a in dp_legs.lm_batch(spec))
+
+    def lm():
+        return TransformerLM(**spec["lm"], seed=SEED, dtype="float32").init()
+
+    try:
+        model, ref = lm(), lm()
+        trainer = DistributedTrainer(model)
+        check(trainer.n_data_shards == 1, "world 1")
+        start = model.params_flat().copy()
+        fa.reset_launch_counts()
+        scores, step_ms = [], []
+        for _ in range(DP_STEPS):
+            before = dict(fa.LAUNCH_COUNTS)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            scores.append(float(trainer.fit_batch(ids, labels)))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - ts))
+            per_step = {n: fa.LAUNCH_COUNTS[n] - before[n] for n in before}
+            check(per_step == {"flash_forward": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                               "flash_decode": 0},
+                  f"a data-parallel step must launch B1, B2 and B3 once per block: {per_step}")
+        counts = _all_counts()
+        solver = Solver(ref)
+        want = [float(solver.fit_batch(ids, labels)[0]) for _ in range(DP_STEPS)]
+        check(scores == want, f"world-1 scores {scores} must equal Solver's {want}")
+        same = all(torch.equal(p, ref.params[l][k]) for l, lp in model.params.items()
+                   for k, p in lp.items())
+        check(same, "world-1 params must equal Solver.fit_batch's bit for bit")
+        check(scores[-1] < scores[0], f"the score must fall: {scores}")
+        flat = model.params_flat().copy()
+        shapes = [tuple(p.shape) for lp in model.params.values() for p in lp.values()]
+        del trainer, model, ref, solver
+        half, h = lm(), B // 2
+        half_solver = Solver(half)
+        for _ in range(DP_STEPS):
+            half_solver.fit_batch(ids[:h], labels[:h])
+        faults = {"rank 0's rows only": float(np.abs(half.params_flat() - flat).max()),
+                  "no update": float(np.abs(start - flat).max())}
+        del half, half_solver
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"data-parallel lm world 1 ({card}): NCCL, [8,1024] Adam(1e-4), {DP_STEPS} steps, "
+          f"ms/step {[round(t, 2) for t in step_ms]}, scores {[round(x, 5) for x in scores]}; "
+          f"params bit for bit Solver.fit_batch's; planted faults vs this run, max |diff| "
+          f"{ {k: f'{v:.3e}' for k, v in faults.items()} }; launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts, {"params": flat, "shapes": shapes, "faults": faults}
+
+
+# two-rank SyncAllReduce vs world 1 (H100 80GB HBM3, 700 W): 3.774e-06 sound;
+# the limit sits between that and what a planted fault reads (the world-1
+# phase measures those in every run, and the gate checks they stay above it)
+TOL_DP_WORLD = 3e-5
+
+
+def phase_dp_two_ranks(card: str, world1) -> dict:
+    """Two ranks share ``cuda:0`` over gloo (NCCL takes one device per
+    rank), [4, 1024] each (global [8, 1024], the world-1 phase's batch), in
+    one boot: ``SyncAllReduce``, ``BucketedAllReduceSync``, ZeRO-1 (under
+    the bucketed exchange) and ``ThresholdCompressedSync``, 3 steps each
+    from the same seeded weights. Returns the launch counts of both ranks'
+    processes."""
+    from deeplearning4j_tpu_torch.tools import dp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec = _lm_dp_spec()
+    out = tempfile.mkdtemp(prefix="dp_two_ranks_")
+    try:
+        reps = dp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
+                                 timeout=900)
+        r0, r1 = (r["legs"] for r in reps)
+        for leg in r0:
+            for k in ("params_sha256", "state_sha256", "scores"):
+                check(r0[leg][k] == r1[leg][k], f"{leg}: the ranks differ in {k}")
+        for leg in ("bucketed", "zero1"):
+            check(r0[leg]["params_sha256"] == r0["sync"]["params_sha256"],
+                  f"{leg} must equal SyncAllReduce bit for bit")
+        rep, z = r0["bucketed"], r0["zero1"]
+        check(z["updater_state_bytes_global"] == rep["updater_state_bytes"],
+              "ZeRO-1's global updater bytes must be the replicated bytes")
+        # Adam's two float32 moments of every param whose dim 0 the two
+        # ranks divide: each rank holds half of them
+        sliced = sum(2 * 4 * int(np.prod(s)) for s in world1["shapes"] if s and s[0] % 2 == 0)
+        check(z["updater_state_bytes"] == rep["updater_state_bytes"] - sliced // 2,
+              f"ZeRO-1 must hold half of the sliced leaves ({sliced} bytes) a rank: "
+              f"{z['updater_state_bytes']} of {rep['updater_state_bytes']}")
+        check(z["updater_state_bytes"] < 0.7 * rep["updater_state_bytes"],
+              f"ZeRO-1 must hold about half of the replicated updater bytes a rank: "
+              f"{z['updater_state_bytes']} of {rep['updater_state_bytes']}")
+        th = r0["threshold"]
+        check(all(np.isfinite(th["scores"])) and th["scores"][-1] < th["scores"][0],
+              f"threshold-compressed scores must be finite and fall: {th['scores']}")
+        two = np.load(r0["sync"]["params_path"])
+        gap = np.abs(two - world1["params"])
+        check(float(gap.max()) <= TOL_DP_WORLD,
+              f"two-rank SyncAllReduce must be within {TOL_DP_WORLD} of world 1: {gap.max()}")
+        check(all(v > TOL_DP_WORLD for v in world1["faults"].values()),
+              f"a planted fault must read above the gate {TOL_DP_WORLD}: {world1['faults']}")
+        counts: dict = {}
+        for r in reps:
+            for k, v in r["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        want = 2 * len(spec["legs"]) * DP_STEPS * 12
+        check(all(counts[n] == want for n in ("flash_forward", "flash_bwd_dq",
+                                               "flash_bwd_dkv")),
+              f"each rank's step must launch B1-B3 once per block: {counts}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for leg, rec in r0.items():
+        ms, coll = rec["step_ms"], rec["collective_ms"]
+        share = [c / t for c, t in zip(coll, ms)]
+        extra = ""
+        if rec["compression"]:
+            extra = (f", density {rec['compression']['density']:.4f}, threshold "
+                     f"{rec['compression']['threshold']:.6g}")
+        print(f"data-parallel lm 2 ranks {leg} ({card}; gloo, [4,1024] a rank): ms/step "
+              f"{[round(t, 2) for t in ms]}, collectives ms {[round(c, 2) for c in coll]} "
+              f"(share {[round(x, 3) for x in share]}), scores "
+              f"{[round(x, 5) for x in rec['scores']]}, updater bytes a rank "
+              f"{rec['updater_state_bytes']} of {rec['updater_state_bytes_global']}{extra}")
+    print(f"data-parallel lm 2 ranks ({card}): ranks bit for bit equal after every leg; "
+          f"bucketed and ZeRO-1 bit for bit SyncAllReduce; ZeRO-1 holds "
+          f"{z['updater_state_bytes'] / rep['updater_state_bytes']:.4f} of the replicated "
+          f"updater bytes a rank ({sliced} bytes of sliced leaves; the embedding's 50257 rows "
+          f"do not divide by 2 and stay whole); SyncAllReduce vs world 1: max |diff| "
+          f"{gap.max():.3e}, mean {gap.mean():.3e} (gate {TOL_DP_WORLD:g}; planted faults read "
+          f"{ {k: f'{v:.3e}' for k, v in world1['faults'].items()} }); launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_dp_resnet50(card: str) -> dict:
+    """``BASELINE.json``'s "SharedTrainingMaster gradient-sharing ResNet-50",
+    cut to two ranks sharing the card: the zoo ``ResNet50()`` (224x224x3,
+    1000 classes) under ``ThresholdCompressedSync`` with ``bn_group_size=2``
+    (each batch norm's moments over both ranks' rows), batch 32 a rank, 3
+    steps. Returns the launch counts (no B kernel runs here)."""
+    from deeplearning4j_tpu_torch.tools import dp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec = dp_legs.resnet_spec(steps=DP_STEPS, local_batch=32, seed=SEED)
+    out = tempfile.mkdtemp(prefix="dp_resnet_")
+    try:
+        reps = dp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
+                                 timeout=900)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    a, b = (r["legs"]["threshold_bn2"] for r in reps)
+    check(a["params_sha256"] == b["params_sha256"], "ResNet-50 ranks' params differ")
+    check(a["state_sha256"] == b["state_sha256"], "ResNet-50 ranks' running statistics differ")
+    check(all(np.isfinite(a["scores"])), f"ResNet-50 scores must be finite: {a['scores']}")
+    counts: dict = {}
+    for r in reps:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    comp = a["compression"]
+    share = [c / t for c, t in zip(a["collective_ms"], a["step_ms"])]
+    print(f"data-parallel resnet50 2 ranks ({card}; gloo, ThresholdCompressedSync, "
+          f"bn_group_size=2, batch 32 a rank, 224x224): ms/step "
+          f"{[round(t, 2) for t in a['step_ms']]}, collectives ms "
+          f"{[round(c, 2) for c in a['collective_ms']]} (share "
+          f"{[round(x, 3) for x in share]}), images/s "
+          f"{2 * 32 / (np.median(a['step_ms']) / 1e3):.1f}, scores "
+          f"{[round(x, 5) for x in a['scores']]}, density {comp['density']:.4f}, threshold "
+          f"{comp['threshold']:.6g}; params and running statistics bit for bit equal across "
+          f"the ranks; launches {counts}; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_dp_elastic_resize(card: str) -> dict:
+    """The port's elastic resize harness on the card
+    (``tools/check_elastic_resize_contract.py``, ``"lm"``): 2 -> 1 -> 2 ranks
+    by two SIGKILLs, ZeRO-1 state restored onto both widths, nothing
+    consumed twice or skipped, the final loss within the gate of the
+    fixed-width run, and each resumed boot restoring the killed boot's
+    checkpoint bit for bit (width 2 -> 1 and 1 -> 2). Returns the launch
+    counts of the ranks' processes."""
+    from deeplearning4j_tpu_torch.tools import check_elastic_resize_contract as harness
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = harness.run_legs(device="cuda", model="lm", log=lambda m: print(f"elastic resize {m}"))
+    counts: dict = {}
+    for name in ("reference", "resize"):
+        for k, v in out[name]["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    res = out["resize"]
+    g = res["result"]["goodput"]
+    down = {k: round(v, 2) for k, v in g["downtime_seconds"].items() if v}
+    print(f"elastic resize lm ({card}; 2 of 12 blocks at full width, [8,1024], ZeRO-1, "
+          f"OrbaxCheckpointer every 2 steps): widths {res['widths']}, exit codes {res['rcs']}, "
+          f"committed {res['committed']}, eval loss {res['eval_loss']:.5f} vs fixed width "
+          f"{res['reference_eval_loss']:.5f}, goodput {g['ratio']:.4f}, downtime s {down}, "
+          f"boot-to-first-step s {[round(b, 2) for b in res['boot_seconds']]}, resize leg "
+          f"{res['seconds']:.1f} s; each resumed boot restored the killed boot's checkpoint "
+          f"bit for bit (2 -> 1, 1 -> 2); launches {counts}; {time.perf_counter() - t0:.1f} s")
+    counts.setdefault("grouped_matmul", 0)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4442,6 +4696,12 @@ def main() -> int:
     timed("fault-tolerant LM checkpoint writes", ft_finish)
     paths += [timed("early stopping LM", phase_early_stopping_lm, card),
               timed("step profiler", phase_step_profiler, card)]
+    dp1, world1 = timed("data-parallel LM, world 1", phase_dp_world1, card)
+    paths += [dp1, timed("data-parallel LM, 2 ranks on one card", phase_dp_two_ranks, card,
+                         world1)]
+    del world1
+    paths += [timed("ResNet-50 gradient sharing, 2 ranks", phase_dp_resnet50, card),
+              timed("elastic resize", phase_dp_elastic_resize, card)]
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
@@ -4454,7 +4714,9 @@ def main() -> int:
     # B5), and the ResNet-50 rewrites, the calibrated LeNet and the zoo (none);
     # then fault-tolerant training: the checkpointed and resumed LM, the
     # elastic restart's children (counted in their own processes), early
-    # stopping and the profiled steps (B1-B3)
+    # stopping and the profiled steps (B1-B3); then data-parallel training:
+    # the world-1 trainer, the two ranks' legs and the elastic resize's ranks
+    # (B1-B3, counted in their processes) and the ResNet-50 ranks (none)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

@@ -1,5 +1,5 @@
 from .config import from_dict, from_json, register_config, replace, to_dict, to_json
-from .dtypes import DataType, as_input, default_device, default_float_dtype, torch_dtype
+from .dtypes import DataType, as_input, as_input_np, default_device, default_float_dtype, torch_dtype
 from .env import Environment, get_environment
 from .listeners import (
     CollectScoresListener,
@@ -32,7 +32,7 @@ __all__ = ["AdmissionController", "AdmissionRejectedError", "CircuitBreaker",
            "DataType", "Deadline", "DeadlineExceededError", "Environment", "FaultInjector",
            "ListenerBus", "OpDef", "OpRegistry", "PerformanceListener",
            "ReplicaUnavailableError", "ResilienceError", "RetryPolicy", "RngState",
-           "ScoreIterationListener", "TrainingListener", "as_input", "default_device",
+           "ScoreIterationListener", "TrainingListener", "as_input", "as_input_np", "default_device",
            "default_float_dtype", "from_dict", "from_json", "get_default_rng",
            "get_environment", "get_fault_injector", "get_op", "register_config",
            "register_op", "replace", "set_default_seed", "set_fault_injector", "to_dict",

@@ -144,6 +144,23 @@ def as_input(x, dtype: torch.dtype, keep_int: bool = False,
     return t.to(dtype)
 
 
+def as_input_np(x, dtype, keep_int: bool = False) -> np.ndarray:
+    """Host-side twin of :func:`as_input` for code that keeps a batch on
+    the host until it places it itself (the sharded loader and the
+    distributed trainer): a numpy array at ``dtype`` (a torch or numpy
+    dtype), integer inputs kept as they are under ``keep_int``."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    arr = np.asarray(x)
+    want = torch.empty((), dtype=dtype).numpy().dtype if isinstance(dtype, torch.dtype) \
+        else np.dtype(dtype)
+    if arr.dtype == want:
+        return arr
+    if keep_int and not np.issubdtype(arr.dtype, np.floating):
+        return arr
+    return arr.astype(want)
+
+
 def cast_floats(tree, dtype):
     """Cast every floating-point tensor of a nested dict / list / tuple to
     ``dtype``, leaving integer and bool tensors and ``None`` untouched.

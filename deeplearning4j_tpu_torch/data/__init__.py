@@ -1,10 +1,7 @@
 """Data pipelines of the port (``deeplearning4j_tpu/data``): datasets,
 iterators with async prefetch to the card, DataVec readers and transforms,
-image augmentation, normalizers and the procedural dataset fetchers.
-
-The JAX package's ``data/sharded.py`` (``ShardedDataSetIterator``,
-``shard_paths``) builds global arrays over a device mesh and is not ported
-here: it belongs to the distributed slice (ROADMAP A8)."""
+image augmentation, normalizers, the procedural dataset fetchers, and the
+per-rank sharded loader (``sharded.py``) of data-parallel training."""
 
 from .dataset import DataSet, MultiDataSet
 from .fetchers import (Cifar10DataSetIterator, EmnistDataSetIterator,
@@ -32,6 +29,7 @@ from .records import (
     RecordReaderDataSetIterator,
     resolve_data_workers,
 )
+from .sharded import ShardedDataSetIterator, shard_paths
 from .transform import (
     Schema,
     TransformProcess,
@@ -46,6 +44,7 @@ __all__ = [
     "MappedDataSetIterator",
     "MultipleEpochsIterator",
     "device_put_dataset",
+    "shard_paths",
     "resolve_data_workers",
     "Cifar10DataSetIterator",
     "CollectionRecordReader",
@@ -68,6 +67,7 @@ __all__ = [
     "RecordReader",
     "RecordReaderDataSetIterator",
     "Schema",
+    "ShardedDataSetIterator",
     "TransformProcess",
     "TransformProcessRecordReader",
 ]

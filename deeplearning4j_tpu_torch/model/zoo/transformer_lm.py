@@ -70,3 +70,19 @@ class TransformerLM:
         """The network with seeded random weights, on ``device`` (default:
         the current CUDA device)."""
         return MultiLayerNetwork(self.conf(), device=device).init()
+
+    @classmethod
+    def draft_of(cls, target: "TransformerLM", *, hidden: int = 64,
+                 n_layers: int = 1, n_heads: int = 2,
+                 seed: Optional[int] = None) -> "TransformerLM":
+        """A small draft config paired to ``target`` for speculative
+        decoding: the same vocab, ``max_len`` and dtype (the acceptance
+        ratio needs one token space, and the paired caches advance in
+        lockstep), with a much cheaper stack; the default (1 layer, hidden
+        64) is the zoo's serving draft. The seed is the target's plus one
+        unless given."""
+        return cls(vocab_size=target.vocab_size, hidden=hidden,
+                   n_layers=n_layers, n_heads=n_heads,
+                   max_len=target.max_len,
+                   seed=target.seed + 1 if seed is None else seed,
+                   dtype=target.dtype)

@@ -161,7 +161,7 @@ class ComputationGraph(nn.Module):
 
     # -------------------------------------------------------------- forward
     def _run(self, params, state, inputs, *, train, rng, masks, labels=None,
-             label_masks=None):
+             label_masks=None, dist=None):
         """The topological walk shared by :meth:`forward_pure` and
         :meth:`loss_pure`. With ``labels``, each output layer that has labels
         computes its loss (and runs its forward only if another vertex reads
@@ -185,7 +185,7 @@ class ComputationGraph(nn.Module):
                 vmasks[spec.name] = in_mask
                 continue
             x = xs[0]
-            ctx = LayerContext(train=train, rng=rng, mask=in_mask)
+            ctx = LayerContext(train=train, rng=rng, mask=in_mask, dist=dist)
             if spec.preprocessor is not None:
                 x, _ = spec.preprocessor.apply({}, {}, x, ctx)
             lparams = params.get(spec.name, {})
@@ -207,21 +207,22 @@ class ComputationGraph(nn.Module):
 
     def forward_pure(self, params, state, inputs: Sequence[torch.Tensor], *,
                      train: bool = False, rng: Optional[torch.Generator] = None,
-                     masks: Optional[Sequence[Optional[torch.Tensor]]] = None):
-        """Topo-order forward. Returns ({vertex: activation}, new_state)."""
+                     masks: Optional[Sequence[Optional[torch.Tensor]]] = None, dist=None):
+        """Topo-order forward. Returns ({vertex: activation}, new_state).
+        ``dist`` is the distributed trainer's ``DistContext``."""
         acts, new_state, _ = self._run(params, state, inputs, train=train, rng=rng,
-                                       masks=masks)
+                                       masks=masks, dist=dist)
         return acts, new_state
 
     def loss_pure(self, params, state, inputs: Sequence[torch.Tensor],
                   labels: Sequence[torch.Tensor], *, rng: Optional[torch.Generator] = None,
-                  masks=None, label_masks=None, train: bool = True):
+                  masks=None, label_masks=None, train: bool = True, dist=None):
         """Weighted sum of output-layer losses + regularization (on the
         master parameters) + each MoE layer's load-balance term. Returns
         (score, new_state)."""
         _, new_state, losses = self._run(params, state, inputs, train=train, rng=rng,
                                          masks=masks, labels=labels,
-                                         label_masks=label_masks)
+                                         label_masks=label_masks, dist=dist)
         score_dtype = torch.promote_types(self.dtype, torch.float32)
         total = torch.zeros((), dtype=score_dtype, device=self.device)
         for name, loss in losses.items():

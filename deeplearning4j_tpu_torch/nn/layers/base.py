@@ -37,15 +37,47 @@ State = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
+class DistContext:
+    """Data-parallel context for layers that compute statistics across
+    replicas (distributed batch norm). ``DistributedTrainer`` sets it for
+    its step; it is ``None`` everywhere else (``Solver``, inference), and
+    layers then take their local spelling.
+
+    The fields are the JAX package's. ``axis`` names the data axis on the
+    explicit strategy path, where each replica normalizes by its own rows
+    unless a group is asked for; ``None`` on the implicit path
+    (``SyncAllReduce``), where the JAX step sees the global batch, so a
+    batch norm with no group takes its moments over every replica's rows.
+    ``n_shards`` is the data-axis width either way, ``bn_group_size`` the
+    trainer's default statistics group (a layer's own field wins);
+    ``ep_axis``/``ep_shards`` name an expert-parallel axis, which the port
+    does not run yet (ROADMAP A8 part 2).
+
+    The port runs one process per replica, so the context also carries
+    this replica's ``rank`` and ``groups``: for each group size the
+    ``torch.distributed`` process group of this rank's adjacent replicas
+    (the whole data axis under ``n_shards``), created on every rank by the
+    trainer."""
+
+    axis: Optional[str] = None
+    n_shards: int = 1
+    bn_group_size: Optional[int] = None
+    ep_axis: Optional[str] = None
+    ep_shards: int = 1
+    rank: int = 0
+    groups: Dict[int, Any] = dataclasses.field(default_factory=dict, compare=False)
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerContext:
     """Per-call dynamic context threaded through layer application."""
 
     train: bool = False
     rng: Optional[torch.Generator] = None  # dropout generator (None in inference)
     mask: Optional[torch.Tensor] = None  # sequence mask [batch, time] where applicable
-    # data-parallel context of a distributed trainer (ROADMAP A8, not
-    # ported): None everywhere in the port, so layers take their local path
-    dist: Optional[Any] = None
+    # the distributed trainer's DistContext; None elsewhere, so layers
+    # take their local path
+    dist: Optional[DistContext] = None
 
 
 @register_config
@@ -139,6 +171,10 @@ class LayerModule(nn.Module):
     def forward(self, x: torch.Tensor, state: Optional[State] = None,
                 ctx: Optional[LayerContext] = None) -> Tuple[torch.Tensor, State]:
         return self.conf.apply(self.params(), state or {}, x, ctx or LayerContext())
+
+
+def resolve(value, default):
+    return default if value is None else value
 
 
 def apply_input_dropout(cfg: Layer, x: torch.Tensor, ctx: LayerContext) -> torch.Tensor:

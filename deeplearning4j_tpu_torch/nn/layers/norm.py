@@ -22,6 +22,28 @@ from ..input_type import ConvolutionalType, InputType, RecurrentType
 from .base import Layer, LayerContext, Params, State
 
 
+class _GroupSum(torch.autograd.Function):
+    """``all_reduce`` (sum) over a process group, whose gradient is the
+    all-reduced gradient: every replica's loss reads the group's sum."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.detach().clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    return _GroupSum.apply(t, group)
+
+
 @register_config
 @dataclasses.dataclass(frozen=True, kw_only=True)
 class BatchNormalizationLayer(Layer):
@@ -33,10 +55,19 @@ class BatchNormalizationLayer(Layer):
 
     ``fused`` applies the normalization as one multiply-add with
     per-channel ``scale = gamma*rsqrt(var+eps)``, ``shift = beta -
-    mean*scale`` (the same math to rounding). ``stats_axis_group`` groups
-    the statistics over data-parallel replicas, which needs the
-    distributed trainer (ROADMAP A8): a context that carries one raises;
-    without one the statistics are local, as in the JAX package.
+    mean*scale`` (the same math to rounding). ``stats_axis_group``
+    averages the training statistics over groups of that many adjacent
+    data-parallel replicas (``None`` inherits the distributed trainer's
+    ``bn_group_size=``); outside a distributed trainer the statistics are
+    local, as in the JAX package.
+
+    Under the distributed trainer each replica holds its own rows, so a
+    group's moments are the replicas' sums of ``x`` and ``x**2``,
+    all-reduced over the group's process group, in the forward and again
+    in the backward. On the implicit path (``SyncAllReduce``, whose JAX
+    step sees the global batch) a layer with no group takes its moments
+    over the whole data axis; on the explicit strategies it keeps its own
+    rows' moments, as the JAX package does.
     """
 
     n_out: int = 0
@@ -81,21 +112,46 @@ class BatchNormalizationLayer(Layer):
         return {"mean": torch.zeros((self.n_out,), dtype=dtype),
                 "var": torch.ones((self.n_out,), dtype=dtype)}
 
+    def _stats_group(self, ctx: LayerContext) -> Optional[int]:
+        """Resolved statistics group size (replicas per group), or None for
+        the local spelling. The layer's field wins over the trainer's
+        ``bn_group_size=``; it must divide the data axis."""
+        dist = ctx.dist
+        if dist is None:
+            return None
+        g = (self.stats_axis_group if self.stats_axis_group is not None
+             else dist.bn_group_size)
+        if g is None:
+            return None
+        g = int(g)
+        if g < 1 or dist.n_shards % g:
+            raise ValueError(
+                f"BatchNormalization stats_axis_group={g} must divide the "
+                f"data axis ({dist.n_shards} shards)")
+        return g
+
     def apply(self, params: Params, state: State, x: torch.Tensor,
               ctx: LayerContext) -> Tuple[torch.Tensor, State]:
-        if ctx.train and ctx.dist is not None:
-            raise NotImplementedError(
-                "BatchNormalizationLayer statistics over data-parallel replicas "
-                "(stats_axis_group, the distributed trainer) are ROADMAP A8, not "
-                "ported yet")
         # reduce over all axes except the feature axis (1)
         axes = (0,) + tuple(range(2, x.ndim))
         bshape = (1, self.n_out) + (1,) * (x.ndim - 2)
         stat_dtype = torch.promote_types(x.dtype, torch.float32)
         x32 = x.to(stat_dtype)
-        if ctx.train:
+        group = self._stats_group(ctx) if ctx.train else None
+        if ctx.train and group is None and ctx.dist is not None and ctx.dist.axis is None:
+            group = ctx.dist.n_shards  # the implicit path: global-batch moments
+        if ctx.train and group is not None and group > 1:
+            # the group's moments: slice-local sums all-reduced over the
+            # group's replicas (each holds the same number of rows)
+            s = torch.stack([torch.sum(x32, dim=axes), torch.sum(torch.square(x32), dim=axes)])
+            tot = _group_sum(s, ctx.dist.groups[group])
+            denom = float(x32.numel() // self.n_out) * group
+            mean = tot[0] / denom
+            var = torch.clamp_min(tot[1] / denom - torch.square(mean), 0.0)
+        elif ctx.train:
             mean = torch.mean(x32, dim=axes)
             var = torch.var(x32, dim=axes, correction=0)
+        if ctx.train:
             # the running statistics are values, not part of the score's graph
             m, v = mean.detach(), var.detach()
             new_state = {

@@ -191,6 +191,7 @@ class MultiLayerNetwork(nn.Module):
         rnn_state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
         upto: Optional[int] = None,
         collect: bool = False,
+        dist=None,
     ):
         """Forward through layers [0, upto). Returns (out, new_state,
         new_rnn_state), and with ``collect`` each layer's output as a fourth
@@ -209,7 +210,7 @@ class MultiLayerNetwork(nn.Module):
             lstate = dict(state.get(name, {}))
             if rnn_state is not None and name in rnn_state:
                 lstate.update(rnn_state[name])
-            ctx = LayerContext(train=train, rng=rng, mask=cur_mask)
+            ctx = LayerContext(train=train, rng=rng, mask=cur_mask, dist=dist)
             y, lstate_out = apply_layer(layer, params.get(name, {}), lstate, x, ctx,
                                         remat=remat)
             persistent = self._persistent_keys.get(name, ())
@@ -240,9 +241,10 @@ class MultiLayerNetwork(nn.Module):
         return as_input(mask, self.dtype, False, self.device)
 
     def loss_pure(self, params, state, x, labels, *, rng=None, mask=None,
-                  label_mask=None, rnn_state=None, train: bool = True):
+                  label_mask=None, rnn_state=None, train: bool = True, dist=None):
         """Score = loss + regularization (reference: computeGradientAndScore).
-        Returns (score, (new_state, new_rnn_state))."""
+        Returns (score, (new_state, new_rnn_state)). ``dist`` is the
+        distributed trainer's ``DistContext``."""
         out_layer = self.layers[-1]
         if not isinstance(out_layer, BaseOutputLayer):
             raise ValueError("Last layer must be an output/loss layer to compute a score")
@@ -252,7 +254,7 @@ class MultiLayerNetwork(nn.Module):
         params, x = self._to_compute(params, x)
         feat, new_state, new_rnn = self.forward_pure(
             params, state, x, train=train, rng=rng, mask=mask,
-            rnn_state=rnn_state, upto=len(self.layers) - 1)
+            rnn_state=rnn_state, upto=len(self.layers) - 1, dist=dist)
         cur_mask = mask
         it = self.conf.input_type
         if it is not None and cur_mask is not None:
@@ -260,7 +262,7 @@ class MultiLayerNetwork(nn.Module):
                 cur_mask = self.layers[i].feed_forward_mask(cur_mask, it)
                 it = self.layers[i].output_type(it)
         name = self.conf.layer_name(len(self.layers) - 1)
-        ctx = LayerContext(train=train, rng=rng, mask=cur_mask)
+        ctx = LayerContext(train=train, rng=rng, mask=cur_mask, dist=dist)
         loss = out_layer.compute_loss(params.get(name, {}), feat, labels, ctx,
                                       label_mask=label_mask)
         new_state[name] = dict(state.get(name, {}))

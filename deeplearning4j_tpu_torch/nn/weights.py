@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -138,3 +138,11 @@ def init_weights(
         raise ValueError(f"Unhandled weight init {w}")
 
     return draw().to(device=device, dtype=dtype)
+
+
+def conv_fans(kernel: Sequence[int], c_in: int, c_out: int, depth_mult: int = 1) -> Tuple[float, float]:
+    """Fan-in/out for conv kernels, matching the reference's convention."""
+    rf = 1
+    for k in kernel:
+        rf *= int(k)
+    return float(c_in * rf), float(c_out * rf * depth_mult) / max(1, depth_mult)

@@ -1,0 +1,234 @@
+"""Device mesh and process-group bring-up (port of
+``deeplearning4j_tpu/parallel/mesh.py``).
+
+The JAX package drives every device from one process over a
+``jax.sharding.Mesh``. The port runs one process (one rank) per replica,
+joined by ``torch.distributed``: :func:`initialize_distributed` starts the
+process group, and :func:`make_mesh` names its axes over the ranks with
+``torch.distributed.device_mesh.init_device_mesh``. :class:`PartitionSpec`
+is the port's own spec type in place of JAX's; the distributed trainer
+reads it only for ZeRO-1's updater slicing.
+
+Two JAX names have no counterpart, by design: ``shmap`` (the
+``shard_map`` shim: each rank runs its own step, with the collectives
+spelled by hand) and ``force_host_device_count`` (virtual XLA host
+devices: the port spawns processes instead).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+import subprocess
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+class PartitionSpec(tuple):
+    """``PartitionSpec("data")``: per dimension, the mesh axis it is split
+    over, or ``None`` (the counterpart of ``jax.sharding.PartitionSpec``)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Named mesh axes and sizes, e.g. ``MeshSpec(data=4)``. A size of -1
+    means "all remaining ranks". The port's trainer runs the ``data`` axis;
+    the JAX package's ``model``, ``seq`` and ``pipe`` axes are ROADMAP A8
+    part 2."""
+
+    axes: Tuple[Tuple[str, int], ...]
+
+    def __init__(self, axes: Optional[Dict[str, int]] = None, **kw: int) -> None:
+        merged = dict(axes or {})
+        merged.update(kw)
+        if not merged:
+            merged = {"data": -1}
+        object.__setattr__(self, "axes", tuple(merged.items()))
+
+    def resolve(self, n_devices: int) -> Dict[str, int]:
+        sizes = dict(self.axes)
+        wild = [k for k, v in sizes.items() if v == -1]
+        if len(wild) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        fixed = int(np.prod([v for v in sizes.values() if v != -1])) if sizes else 1
+        if wild:
+            if n_devices % fixed:
+                raise ValueError(f"{n_devices} devices not divisible by {fixed}")
+            sizes[wild[0]] = n_devices // fixed
+        elif fixed != n_devices:
+            raise ValueError(f"mesh {sizes} wants {fixed} devices, have {n_devices}")
+        return sizes
+
+
+def free_port() -> int:
+    """A free local TCP port for a process group's rendezvous."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(argv: Sequence[str], world: int, *, env: Optional[Mapping[str, str]] = None,
+                stdout=None, stderr=None) -> List[subprocess.Popen]:
+    """Start ``world`` processes of ``argv`` joined on a free local port:
+    rank ``r`` gets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``, which :func:`initialize_distributed` called with no
+    address reads. ``env`` defaults to this process's environment; the
+    port's root goes on ``PYTHONPATH``, so ``python -m
+    deeplearning4j_tpu_torch...`` works from any directory. ``stdout`` /
+    ``stderr`` are passed to every rank, or one per rank as a list. Wait
+    with :func:`wait_ranks`."""
+    base = dict(os.environ if env is None else env)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    base["PYTHONPATH"] = root + os.pathsep + base.get("PYTHONPATH", "")
+    port = free_port()
+
+    def pick(stream, r):
+        return stream[r] if isinstance(stream, (list, tuple)) else stream
+
+    return [subprocess.Popen(list(argv), env={**base, "RANK": str(r), "WORLD_SIZE": str(world),
+                                              "MASTER_ADDR": "127.0.0.1",
+                                              "MASTER_PORT": str(port)},
+                             stdout=pick(stdout, r), stderr=pick(stderr, r))
+            for r in range(world)]
+
+
+def wait_ranks(procs: Sequence[subprocess.Popen], timeout: Optional[float] = None,
+               grace: float = 30.0) -> int:
+    """Wait for a world's ranks. When one rank fails the others would block
+    in their next collective, so they are killed after ``grace`` seconds;
+    at ``timeout`` every rank still running is killed. Returns the first
+    nonzero exit code (rank order), else 0."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        now = time.monotonic()
+        if any(p.poll() not in (None, 0) for p in procs):
+            deadline = min(deadline or now + grace, now + grace)
+        if deadline is not None and now >= deadline:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            break
+        time.sleep(0.05)
+    return next((p.returncode for p in procs if p.returncode != 0), 0)
+
+
+def initialize_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    *,
+    backend: Optional[str] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> str:
+    """Start this rank's process group; returns the backend.
+
+    ``coordinator_address`` is ``host:port`` of rank 0 (``MASTER_ADDR`` /
+    ``MASTER_PORT`` when omitted), ``num_processes`` the world size and
+    ``process_id`` this rank (``WORLD_SIZE`` / ``RANK``). With none of them
+    the process runs alone: a world of one on a free local port, so the
+    trainer's code is the same at every width.
+
+    ``backend=None`` picks NCCL for a CUDA ``device`` (the default: the
+    current CUDA device) and gloo for ``device="cpu"``. Ranks that share one
+    card pass ``backend="gloo"``: NCCL takes one device per rank. Nothing
+    switches backend or device behind the caller's back; a backend that
+    cannot start raises. Safe to call again once initialized (no-op)."""
+    if dist.is_initialized():
+        return dist.get_backend()
+    from ..core.dtypes import default_device
+
+    dev = default_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    world = num_processes if num_processes is not None else os.environ.get("WORLD_SIZE")
+    rank = process_id if process_id is not None else os.environ.get("RANK")
+    if coordinator_address is None and "MASTER_ADDR" in os.environ:
+        coordinator_address = f"{os.environ['MASTER_ADDR']}:{os.environ.get('MASTER_PORT', 29500)}"
+    if world is None or int(world) == 1:
+        world, rank = 1, 0
+        if coordinator_address is None:
+            coordinator_address = f"127.0.0.1:{free_port()}"
+    elif coordinator_address is None or rank is None:
+        raise ValueError(
+            f"a world of {world} processes needs coordinator_address and process_id")
+    kw = {}
+    if backend == "nccl":
+        kw["device_id"] = dev
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                            world_size=int(world), rank=int(rank), **kw)
+    return backend
+
+
+def make_mesh(spec: Optional[MeshSpec] = None, *, device_type: Optional[str] = None,
+              **axes: int):
+    """A ``DeviceMesh`` over the process group's ranks:
+    ``make_mesh(data=4)``, or ``make_mesh()`` for every rank on ``data``.
+    Needs :func:`initialize_distributed` first. ``device_type`` defaults
+    to ``"cuda"`` under NCCL and ``"cpu"`` otherwise (gloo ranks on a card
+    pass ``"cuda"``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: call initialize_distributed() first")
+    spec = spec or MeshSpec(axes or None)
+    sizes = spec.resolve(dist.get_world_size())
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    names = tuple(sizes)
+    return init_device_mesh(device_type, tuple(sizes[n] for n in names), mesh_dim_names=names)
+
+
+def mesh_axis_size(mesh, axis: str = "data") -> int:
+    """The number of ranks along ``axis`` of a ``DeviceMesh``."""
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"mesh has no {axis!r} axis: {mesh.mesh_dim_names}")
+    return int(mesh.size(mesh.mesh_dim_names.index(axis)))
+
+
+def local_batch_slice(global_batch: int, mesh, axis: str = "data") -> slice:
+    """The rows of a global batch this rank owns: rank ``i`` of the data
+    axis takes the ``i``-th of its equal row blocks. The batch must divide
+    the axis (an error, not overlapping or dropped rows)."""
+    n = mesh_axis_size(mesh, axis)
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by {n} data shards")
+    per = global_batch // n
+    start = mesh.get_local_rank(axis) * per
+    return slice(start, start + per)
+
+
+def zero1_partition_spec(
+    shape: Tuple[int, ...],
+    n_shards: int,
+    axis: str = "data",
+    base: Optional[PartitionSpec] = None,
+) -> PartitionSpec:
+    """Updater-state sharding rule for ZeRO-1 ("Automatic Cross-Replica
+    Sharding of Weight Update in Data-Parallel Training"): split dim 0 of
+    a param-shaped updater leaf over the data axis when the axis divides
+    it, keeping ``base`` on the other dims. ``base`` comes back unchanged
+    for a scalar or zero-sized leaf, a dim 0 the axis does not divide, one
+    shard, or a ``base`` that already splits dim 0."""
+    base = base if base is not None else PartitionSpec()
+    if not shape or not shape[0] or shape[0] % max(n_shards, 1) or n_shards <= 1:
+        return base
+    existing = tuple(base)
+    if existing and existing[0] is not None:
+        return base
+    if existing:
+        return PartitionSpec(axis, *existing[1:])
+    return PartitionSpec(axis)

@@ -37,7 +37,7 @@ registry. Two configurations:
   ``Adam(1e-4)``), 6 iterations of [8, 1024] tokens, the main training
   path's batch; one checkpoint at iteration 4 (its zip holds the
   parameters and Adam's two moments, about 1.1 GB; 1.96 GB at 12 blocks,
-  which is why the depth is cut). Each write takes tens of seconds, so
+  which is why the depth is cut). Each write takes seconds, so
   the faults land at fixed points: at iteration 5 the child holds until a
   signal comes, the SIGKILL and SIGTERM legs send theirs once iteration
   4's checkpoint is committed, and the stall leg stops beating at

@@ -30,6 +30,7 @@ from .schedules import (
     StepSchedule,
     WarmupSchedule,
 )
+from .orbax_checkpoint import OrbaxCheckpointer
 from .solver import LayerOptimizers, Solver
 from .updaters import (
     AdaDelta,
@@ -58,7 +59,8 @@ __all__ = ["AdaDelta", "AdaGrad", "AdaMax", "Adam", "AdamW", "AMSGrad",
            "GradientTransformation", "HeartbeatListener", "ISchedule", "InverseSchedule",
            "IUpdater", "Lamb", "Lars", "LayerOptimizers", "MapSchedule",
            "MaxEpochsTerminationCondition", "MaxScoreIterationTerminationCondition",
-           "MaxTimeTerminationCondition", "Nadam", "Nesterovs", "NoOp", "PREEMPTED_EXIT_CODE",
+           "MaxTimeTerminationCondition", "Nadam", "Nesterovs", "NoOp", "OrbaxCheckpointer",
+           "PREEMPTED_EXIT_CODE",
            "PolySchedule", "PreemptionHandler", "RampSchedule", "RegressionEvaluation",
            "RmsProp", "ROC", "ROCBinary", "ROCMultiClass", "STALL_EXIT_CODE",
            "ScheduleType", "ScoreCalculator", "ScoreImprovementEpochTerminationCondition",
@@ -66,5 +68,5 @@ __all__ = ["AdaDelta", "AdaGrad", "AdaMax", "Adam", "AdamW", "AMSGrad",
            "WarmupSchedule", "Watchdog", "elastic_fit", "read_heartbeat",
            "registered_updaters", "restore_training_state",
            # the submodules, which the JAX package's ``dir()``-built list names too
-           "checkpoint", "early_stopping", "evaluation", "fault_tolerance", "schedules",
-           "solver", "updaters"]
+           "checkpoint", "early_stopping", "evaluation", "fault_tolerance", "orbax_checkpoint",
+           "schedules", "solver", "updaters"]

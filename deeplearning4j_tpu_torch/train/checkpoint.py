@@ -7,7 +7,7 @@ EvaluativeListener.
 
 With ``async_save=True`` the step thread only SNAPSHOTS the training state
 into host memory; a bounded background writer serializes it, fsyncs it and
-flips ``lastCheckpoint.json``, so the zip's deflate is off the step's
+flips ``lastCheckpoint.json``, so the zip's write is off the step's
 critical path. Crash consistency: the pointer only ever names a fully
 fsynced artifact (zip, then sidecar, then pointer, each atomic through a
 temp file, fsync and ``os.replace``), and it only moves FORWARD in
@@ -140,7 +140,12 @@ class _ModelSnapshot:
         self._order = model._ravel_order()
         src = dist_trainer if (dist_trainer is not None and getattr(
             dist_trainer, "opt_state", None) is not None) else getattr(model, "_trainer", None)
-        opt_state = src.opt_state if (save_updater and src is not None) else None
+        opt_state = None
+        if save_updater and src is not None:
+            # a distributed trainer's updater state at global shapes (its
+            # ZeRO-1 slices gathered: a collective every rank takes part in)
+            gathered = getattr(src, "gathered_updater_state", None)
+            opt_state = gathered() if callable(gathered) else src.opt_state
         trees = ({l: dict(lp) for l, lp in model.params.items()}, model.state, opt_state)
         copies = [t.detach().to("cpu", copy=True) for t in _tensors(trees, [])]
         self.params, self.state, opt = _rebuild(trees, iter(copies))
@@ -177,10 +182,11 @@ class CheckpointListener(TrainingListener):
         max_pending_writes: int = 2,
     ) -> None:
         """``trainer=`` takes any object with ``sync_to_model()``,
-        ``model`` and ``opt_state`` (the JAX package's DistributedTrainer;
-        the port's comes with distributed training): each save first
-        writes the trainer's state back onto the model, and the zip carries
-        the trainer's updater state.
+        ``model`` and ``opt_state`` (a ``DistributedTrainer``): each save
+        first writes the trainer's state back onto the model, and the zip
+        carries the trainer's updater state at global shapes. Every rank
+        runs the listener (the snapshot gathers ZeRO-1 slices); only the
+        trainer's rank 0 writes.
 
         ``async_save=True`` moves serialization and fsync off the step
         thread: the step pays the host snapshot, a bounded daemon writer
@@ -426,10 +432,17 @@ class CheckpointListener(TrainingListener):
             else:
                 warnings.warn(msg, stacklevel=2)
             return
+        if not self._writes():
+            return
         if self.async_save:
             self._enqueue(job)
         else:
             self._write(job, "sync")
+
+    def _writes(self) -> bool:
+        """Whether this process writes: under a distributed trainer only its
+        rank 0 does (every rank takes the snapshot, which gathers)."""
+        return int(getattr(self.trainer, "rank", 0) or 0) == 0
 
     def save_now(self, model, iteration: Optional[int] = None,
                  epoch: Optional[int] = None,
@@ -449,6 +462,8 @@ class CheckpointListener(TrainingListener):
         except BaseException:
             self._c_failures.inc()
             return False
+        if not self._writes():
+            return True
         ok = self._write(job, "sync")
         self.flush(timeout=10.0)  # let stragglers lose to the pointer rule
         return ok

@@ -21,11 +21,13 @@ control to Python, so recovery means process supervision:
   the child imports it fresh and loads the kernels the parent built (the
   build directory is shared; nothing is rebuilt).
 
-``elastic_fit(mesh_size_fn=...)`` re-resolves the device count before every
-child boot and hands it to the child as ``DL4J_ELASTIC_MESH_SIZE``, which
-``_child_main`` forwards to a resize-aware entry. The JAX package also
-rewrites the child's XLA flags to force that many host devices; torch has
-no such flag, so the port only passes the variable on. The supervisor keeps
+``elastic_fit(mesh_size_fn=...)`` re-resolves the width before every boot
+and hands it to the child as ``DL4J_ELASTIC_MESH_SIZE``, which
+``_child_main`` forwards to a resize-aware entry. The JAX package's child
+is one process that forces that many host devices; the port runs one
+process per replica, so a boot at width N starts N ranks of the entry
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT`` set for
+``initialize_distributed()``), and a rank that dies takes its boot down. The supervisor keeps
 a goodput ledger: ``dl4j_tpu_training_goodput_ratio`` and
 ``dl4j_tpu_training_downtime_seconds_total{reason=}`` itemized by
 ``backoff``/``preempted``/``reshard``/``stall``/``crash``, returned under
@@ -304,13 +306,27 @@ def _child_argv(entry_ref: str, checkpoint_dir: str, stall_timeout: float) -> Li
             "child", entry_ref, checkpoint_dir, str(stall_timeout)]
 
 
+def _spawn_world(entry_ref: str, checkpoint_dir: str, stall_timeout: float,
+                 env: Optional[dict], mesh_size: Optional[int] = None,
+                 stderr=None) -> List[subprocess.Popen]:
+    """Start one boot: a single child, or with a width above one that many
+    ranks of the entry (one process per replica, joined by
+    ``torch.distributed`` on a free local port). Wait with
+    :func:`~deeplearning4j_tpu_torch.parallel.mesh.wait_ranks`."""
+    base = _mesh_child_env({**os.environ, **(env or {})}, mesh_size)
+    argv = _child_argv(entry_ref, checkpoint_dir, stall_timeout)
+    if not mesh_size or int(mesh_size) <= 1:
+        return [subprocess.Popen(argv, env=base, stderr=stderr)]
+    from ..parallel.mesh import spawn_ranks
+
+    return spawn_ranks(argv, int(mesh_size), env=base, stderr=stderr)
+
+
 def _spawn_child(entry_ref: str, checkpoint_dir: str, stall_timeout: float,
                  env: Optional[dict], mesh_size: Optional[int] = None) -> int:
-    proc = subprocess.run(
-        _child_argv(entry_ref, checkpoint_dir, stall_timeout),
-        env=_mesh_child_env({**os.environ, **(env or {})}, mesh_size),
-    )
-    return proc.returncode
+    from ..parallel.mesh import wait_ranks
+
+    return wait_ranks(_spawn_world(entry_ref, checkpoint_dir, stall_timeout, env, mesh_size))
 
 
 def _call_spawn(spawn_fn: Callable, mesh_size: Optional[int]) -> int:

@@ -90,27 +90,46 @@ def _normalize_gradients(grads: Grads, mode: GradientNormalization,
 
 
 class LayerOptimizers:
-    """Per-layer transformation chains (reference: UpdaterBlock boundaries)."""
+    """Per-layer transformation chains (reference: UpdaterBlock boundaries).
 
-    def __init__(self, model) -> None:
+    ``zero1_axis``/``zero1_sliced`` pick the ZeRO-1 spelling of each
+    layer's transformation (``IUpdater.to_transform_zero1``): ``zero1_axis``
+    is the data axis's process group and ``zero1_sliced`` says, per layer
+    and param, which params arrive as 1/N slices. Updaters whose math
+    reduces across elements (the LARS/LAMB norms) then all-reduce their
+    slice-local sums, so the sliced update stays the replicated one. The
+    state is the same either way. ``elementwise`` records, per layer,
+    whether its chain may be sliced at all."""
+
+    def __init__(self, model, *, zero1_axis: Any = None,
+                 zero1_sliced: Optional[Dict[str, Dict[str, bool]]] = None) -> None:
         conf = model.conf
         self.txs: Dict[str, GradientTransformation] = {}
         self.updaters: Dict[str, Any] = {}  # the updater config of each non-frozen layer
+        # per layer: is the whole chain elementwise (the weight-decay
+        # prologue is, so the chain inherits the updater's flag)
+        self.elementwise: Dict[str, bool] = {}
         global_updater = updater_from_any(conf.updater) if conf.updater is not None else Sgd()
         for name, layer in model.named_param_layers():
             if layer.frozen:
                 self.txs[name] = set_to_zero()
+                self.elementwise[name] = True
                 continue
             updater = (updater_from_any(layer.updater) if layer.updater is not None
                        else global_updater)
             self.updaters[name] = updater
+            self.elementwise[name] = bool(getattr(updater, "elementwise", False))
+            sliced = (zero1_sliced or {}).get(name)
             parts = []
             wd = layer.weight_decay
             if wd:
                 weight_names = set(layer.weight_param_names())
                 parts.append(add_decayed_weights(
                     wd, {k: (k in weight_names) for k in layer.trainable_param_names()}))
-            parts.append(updater.to_transform())
+            if zero1_axis is not None and sliced and any(sliced.values()):
+                parts.append(updater.to_transform_zero1(zero1_axis, sliced))
+            else:
+                parts.append(updater.to_transform())
             self.txs[name] = chain(*parts) if len(parts) > 1 else parts[0]
 
     def init(self, params) -> Dict[str, Any]:

@@ -318,6 +318,33 @@ def apply_updates(params: Tree, updates: Tree) -> None:
 # ---- layer-wise trust-ratio updaters (LARS/LAMB) ----------------------------
 
 
+NormFn = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def make_norm_fn(axis: Any = None, sliced: Optional[Dict[str, bool]] = None) -> NormFn:
+    """Squared-norm reducer for the trust-ratio updaters, called with the
+    param's name and its local squared sum.
+
+    Default (``axis=None``): identity, the local squared sum is the whole
+    norm. Under ZeRO-1 each replica holds a 1/N slice of the params named
+    in ``sliced``, so their norm is the slice-local squared sum all-reduced
+    over ``axis`` (the data axis's ``torch.distributed`` process group).
+    The norms are the only coupling between elements in LARS/LAMB, and
+    they reduce, so the sliced update stays the replicated update to
+    rounding. Leaves not sliced are whole on every replica, and summing
+    them would count them N times."""
+    if axis is None:
+        return lambda name, s: s
+    flags = dict(sliced or {})
+
+    def fn(name, s):
+        if flags.get(name, False):
+            torch.distributed.all_reduce(s, group=axis)  # s is a fresh sum
+        return s
+
+    return fn
+
+
 def _sq_sum(a: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(a.float()))
 
@@ -334,8 +361,9 @@ def _scalar_tree(params: Tree) -> Tree:
 
 
 def _lars_tx(lr: LR, momentum: float, weight_decay: float, trust_coefficient: float,
-             eps: float) -> GradientTransformation:
+             eps: float, norm_fn: Optional[NormFn] = None) -> GradientTransformation:
     lr_fn = _lr_fn(lr)
+    norm_fn = norm_fn or make_norm_fn()
 
     def init(params):
         return {"count": 0, "trace": _zeros(params), "trust": _scalar_tree(params),
@@ -350,7 +378,7 @@ def _lars_tx(lr: LR, momentum: float, weight_decay: float, trust_coefficient: fl
         for k, g in updates.items():
             p, m = params[k], state["trace"][k]
             u = g + weight_decay * p if weight_decay else g
-            wn, un = torch.sqrt(_sq_sum(p)), torch.sqrt(_sq_sum(u))
+            wn, un = torch.sqrt(norm_fn(k, _sq_sum(p))), torch.sqrt(norm_fn(k, _sq_sum(u)))
             trust = _trust_ratio(wn, un, trust_coefficient, eps)
             m.mul_(momentum).add_((trust * u.float()).to(m.dtype))
             out[k] = (-lr_t * m).to(g.dtype)
@@ -362,8 +390,9 @@ def _lars_tx(lr: LR, momentum: float, weight_decay: float, trust_coefficient: fl
 
 
 def _lamb_tx(lr: LR, b1: float, b2: float, eps: float, weight_decay: float,
-             trust_coefficient: float) -> GradientTransformation:
+             trust_coefficient: float, norm_fn: Optional[NormFn] = None) -> GradientTransformation:
     lr_fn = _lr_fn(lr)
+    norm_fn = norm_fn or make_norm_fn()
 
     def init(params):
         return {"count": 0, "mu": _zeros(params), "nu": _zeros(params),
@@ -386,7 +415,7 @@ def _lamb_tx(lr: LR, b1: float, b2: float, eps: float, weight_decay: float,
             v = _moment(g, state["nu"][k], b2, 2)
             adam = (m / c1) / (torch.sqrt(v / c2) + eps)
             u = adam + weight_decay * p if weight_decay else adam
-            wn, un = torch.sqrt(_sq_sum(p)), torch.sqrt(_sq_sum(u))
+            wn, un = torch.sqrt(norm_fn(k, _sq_sum(p))), torch.sqrt(norm_fn(k, _sq_sum(u)))
             trust = _trust_ratio(wn, un, trust_coefficient, 0.0)
             out[k] = (-lr_t * trust * u).to(g.dtype)
             trust_t[k], gnorm[k] = trust, un
@@ -408,6 +437,44 @@ class IUpdater:
         ``to_optax()``."""
         raise NotImplementedError
 
+    @property
+    def has_state(self) -> bool:
+        return True
+
+    @property
+    def elementwise(self) -> bool:
+        """True when the update is independent per tensor element (every
+        built-in updater). ZeRO-1 relies on it: the update applied to each
+        replica's 1/N slice of grads, params and state, then an all-gather
+        of the param slices, is the replicated update. An updater whose
+        only coupling is a reduction (the LARS/LAMB norms) stays ``True``
+        by re-spelling the reduction in :meth:`to_transform_zero1`; one
+        whose state couples elements otherwise must return ``False``, and
+        the trainer then keeps that layer's state whole."""
+        return True
+
+    def to_transform_zero1(self, axis: Any, sliced: Dict[str, bool]) -> GradientTransformation:
+        """The transformation as applied to 1/N parameter slices under
+        ZeRO-1 (the counterpart of the JAX package's ``to_optax_zero1``).
+        ``axis`` is the data axis's process group and ``sliced`` says which
+        params arrive sliced. An elementwise updater needs no collective,
+        so the default is :meth:`to_transform`; Lars and Lamb all-reduce
+        their slice-local squared norms (:func:`make_norm_fn`). The state
+        is the same in both spellings."""
+        return self.to_transform()
+
+    def state_partition_spec(self, param_shape, n_shards: int, axis: str = "data",
+                             base=None):
+        """Partition spec of a param-shaped state leaf under ZeRO-1: dim 0
+        over the data axis when it divides (``parallel.mesh.
+        zero1_partition_spec``), else ``base``. A non-elementwise updater
+        keeps ``base`` (whole)."""
+        from ..parallel.mesh import PartitionSpec, zero1_partition_spec
+
+        if not self.elementwise:
+            return base if base is not None else PartitionSpec()
+        return zero1_partition_spec(tuple(param_shape), n_shards, axis, base)
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
@@ -416,6 +483,10 @@ class Sgd(IUpdater):
 
     def to_transform(self) -> GradientTransformation:
         return chain(identity(), scale_by_learning_rate(self.learning_rate))
+
+    @property
+    def has_state(self) -> bool:
+        return False
 
 
 @register_config
@@ -558,6 +629,11 @@ class Lars(IUpdater):
         return _lars_tx(self.learning_rate, self.momentum, self.weight_decay,
                         self.trust_coefficient, self.epsilon)
 
+    def to_transform_zero1(self, axis, sliced) -> GradientTransformation:
+        return _lars_tx(self.learning_rate, self.momentum, self.weight_decay,
+                        self.trust_coefficient, self.epsilon,
+                        norm_fn=make_norm_fn(axis, sliced))
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
@@ -577,6 +653,11 @@ class Lamb(IUpdater):
         return _lamb_tx(self.learning_rate, self.beta1, self.beta2, self.epsilon,
                         self.weight_decay, self.trust_coefficient)
 
+    def to_transform_zero1(self, axis, sliced) -> GradientTransformation:
+        return _lamb_tx(self.learning_rate, self.beta1, self.beta2, self.epsilon,
+                        self.weight_decay, self.trust_coefficient,
+                        norm_fn=make_norm_fn(axis, sliced))
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
@@ -585,6 +666,10 @@ class NoOp(IUpdater):
 
     def to_transform(self) -> GradientTransformation:
         return set_to_zero()
+
+    @property
+    def has_state(self) -> bool:
+        return False
 
 
 def updater_from_any(u: Any) -> IUpdater:

@@ -49,7 +49,8 @@ from deeplearning4j_tpu_torch.core.listeners import CollectScoresListener
 from deeplearning4j_tpu_torch.core.resilience import FaultInjector, set_fault_injector
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterators import ListDataSetIterator
-from deeplearning4j_tpu_torch.model import restore_model, restore_multi_layer_network
+from deeplearning4j_tpu_torch.model import (restore_model, restore_multi_layer_network,
+                                            write_model)
 from deeplearning4j_tpu_torch.nn import (Activation, InputType, LossFunction,
                                          NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
@@ -258,6 +259,112 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path):
     assert (port.iteration_count, port.epoch_count) == (3, 0)
     _train_to(port, it)
     np.testing.assert_allclose(_flat(port), _jax_flat(jm), rtol=0, atol=TOL)
+
+
+def test_zip_stores_arrays_and_jax_reads_it(tmp_path):
+    """The array members are stored, the JSON members deflated; the JAX
+    package reads the zip, updater state included."""
+    import zipfile
+
+    x, y = _data()
+    m = _port_model()
+    m.fit(x, y)
+    path = str(tmp_path / "m.zip")
+    write_model(m, path, save_updater=True)
+    with zipfile.ZipFile(path) as zf:
+        kinds = {i.filename: i.compress_type for i in zf.infolist()}
+    assert {n for n, k in kinds.items() if k == zipfile.ZIP_STORED} == {
+        "coefficients.npy", "state.npz", "updaterState.npz"}
+    assert kinds["configuration.json"] == zipfile.ZIP_DEFLATED
+    jr = jax_restore(path, load_updater=True)
+    np.testing.assert_array_equal(_jax_flat(jr), _flat(m))
+    assert jr._trainer is not None
+
+
+# ---- a ComputationGraph: two inputs, batch norm, two heads, Adam -----------
+
+
+def _graph_conf(nn_, L, V, adam):
+    g = (nn_.NeuralNetConfiguration.builder().seed(7).data_type("float64")
+         .updater(adam(1e-2)).weight_init(nn_.WeightInit.XAVIER)
+         .graph_builder().add_inputs("a", "b"))
+    g.add_layer("da", L.DenseLayer(n_in=5, n_out=6, activation=nn_.Activation.TANH), "a")
+    g.add_layer("db", L.DenseLayer(n_in=3, n_out=4, activation=nn_.Activation.RELU), "b")
+    g.add_vertex("merge", V.MergeVertex(), "da", "db")
+    g.add_layer("bn", L.BatchNormalizationLayer(n_out=10), "merge")
+    g.add_layer("cls", L.OutputLayer(n_in=10, n_out=3, loss=nn_.LossFunction.MCXENT,
+                                     activation=nn_.Activation.SOFTMAX), "bn")
+    g.add_layer("reg", L.OutputLayer(n_in=10, n_out=2, loss=nn_.LossFunction.MSE,
+                                     activation=nn_.Activation.IDENTITY), "bn")
+    g.set_outputs("cls", "reg")
+    g.set_input_types(nn_.InputType.feed_forward(5), nn_.InputType.feed_forward(3))
+    return g.build()
+
+
+def _graph_batches(n=6):
+    rs = np.random.RandomState(21)
+    return [((rs.randn(8, 5), rs.randn(8, 3)), (np.eye(3)[rs.randint(0, 3, 8)], rs.randn(8, 2)))
+            for _ in range(n)]
+
+
+def _port_graph_start(tmp_path):
+    import deeplearning4j_tpu.nn as jnn
+    import deeplearning4j_tpu.nn.layers as jl
+    import deeplearning4j_tpu.nn.vertices as jv
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JaxCG
+
+    start = str(tmp_path / "graph_start.zip")
+    jax_write(JaxCG(_graph_conf(jnn, jl, jv, JAdam)).init(), start)
+    return start
+
+
+def _graph_flat(m):
+    return m.params_flat().copy()
+
+
+def test_graph_checkpoints_and_resumes_bitwise(tmp_path):
+    """The port's CheckpointListener every 3 iterations leaves a graph's
+    run bit for bit the plain run, and the resume from iteration 3 ends
+    bit for bit on the uninterrupted parameters."""
+    start = _port_graph_start(tmp_path)
+    data = _graph_batches()
+    plain = restore_model(start, device="cpu")
+    plain.fit(data)
+    listened = restore_model(start, device="cpu")
+    d = str(tmp_path / "ckpt")
+    listened.add_listeners(CheckpointListener(d, save_every_n_iterations=3,
+                                              registry=MetricsRegistry()))
+    listened.fit(data)
+    assert np.array_equal(_graph_flat(listened), _graph_flat(plain))
+    resumed = restore_model(os.path.join(d, "checkpoint_iter3_epoch0.zip"), device="cpu",
+                            load_updater=True)
+    assert type(resumed._trainer).__name__ == "GraphSolver"
+    resumed.fit(data[3:])
+    assert np.array_equal(_graph_flat(resumed), _graph_flat(plain))
+
+
+def test_graph_checkpoint_resumes_in_jax(tmp_path):
+    """The JAX package resumes the port's graph zip to 1e-10. Its
+    restore_computation_graph(load_updater=True) attaches a plain Solver,
+    which cannot step a graph, so its GraphSolver is attached by hand with
+    the restored updater state."""
+    from deeplearning4j_tpu.model.serializer import restore_computation_graph as jax_restore_cg
+    from deeplearning4j_tpu.train.graph_solver import GraphSolver as JaxGraphSolver
+
+    start = _port_graph_start(tmp_path)
+    data = _graph_batches()
+    port = restore_model(start, device="cpu")
+    d = str(tmp_path / "ckpt")
+    port.add_listeners(CheckpointListener(d, save_every_n_iterations=3,
+                                          registry=MetricsRegistry()))
+    port.fit(data)
+    jr = jax_restore_cg(os.path.join(d, "checkpoint_iter3_epoch0.zip"), load_updater=True)
+    solver = JaxGraphSolver(jr)
+    solver.opt_state = jr._trainer.opt_state
+    for xs, ys in data[3:]:
+        solver.fit_batch(xs, ys)
+    np.testing.assert_allclose(np.asarray(ravel_pytree(jr.params)[0]), _graph_flat(port),
+                               rtol=0, atol=TOL)
 
 
 _KILLED_MID_WRITE = """

@@ -186,3 +186,13 @@ def test_helper_registry_switches_every_layer():
         helpers.set_helper("conv2d", "cudnn")
         del helpers._IMPLS["conv2d"]["spy"]
     assert helpers.helper_name("conv2d") == "cudnn"
+
+
+@pytest.mark.parametrize("kernel,c_in,c_out,mult", [((3, 3), 2, 4, 1), ((5,), 3, 8, 1),
+                                                     ((2, 3, 4), 1, 6, 2), ((1, 1), 16, 16, 4)])
+def test_conv_fans_match_jax(kernel, c_in, c_out, mult):
+    from deeplearning4j_tpu.nn.weights import conv_fans as jax_conv_fans
+
+    from deeplearning4j_tpu_torch.nn.weights import conv_fans
+
+    assert conv_fans(kernel, c_in, c_out, mult) == jax_conv_fans(kernel, c_in, c_out, mult)

@@ -13,7 +13,8 @@ TRUNCATE padding (MAX pads with -inf; AVG divides by the unpadded count);
 global pooling with and without a [b, t] mask; zero padding, cropping,
 upsampling and space-to-depth; batch norm on FF, recurrent and CNN input,
 plain and fused, with locked gamma/beta, 3 training steps then inference;
-LRN; and batch norm's refusal of a distributed context (ROADMAP A8).
+LRN; and batch norm's refusal of a statistics group that does not divide
+the data axis.
 """
 
 import jax
@@ -23,9 +24,11 @@ import pytest
 import torch
 
 from deeplearning4j_tpu.nn import layers as jl
+from deeplearning4j_tpu.nn.layers.base import DistContext as JaxDist
 from deeplearning4j_tpu.nn.layers.base import LayerContext as JaxCtx
 
 from deeplearning4j_tpu_torch.nn.layers import LayerContext
+from deeplearning4j_tpu_torch.nn.layers.base import DistContext
 
 from torch_layer_helpers import layer_errors, port_of, rand
 
@@ -153,12 +156,21 @@ def test_batch_norm_training_then_inference(kind, variant):
 
 
 def test_batch_norm_refuses_a_distributed_context():
-    player = port_of(jl.BatchNormalizationLayer(n_out=3, stats_axis_group=2))
+    # a statistics group that does not divide the data axis is refused, as
+    # in the JAX package (grouped statistics themselves are held against
+    # the JAX trainer in tests/test_torch_dp_cnn.py)
+    jlayer = jl.BatchNormalizationLayer(n_out=3, stats_axis_group=2)
+    player = port_of(jlayer)
     params = player.init(torch.Generator().manual_seed(0), torch.float64)
     state = {k: v.double() for k, v in player.init_state(torch.float64).items()}
     x = torch.tensor(rand(4, 3))
-    with pytest.raises(NotImplementedError, match="A8"):
-        player.apply(params, state, x, LayerContext(train=True, dist=object()))
+    with pytest.raises(ValueError, match="must divide"):
+        player.apply(params, state, x, LayerContext(train=True, dist=DistContext(
+            axis="data", n_shards=3)))
+    jp = jlayer.init(jax.random.PRNGKey(0), jnp.float64)
+    with pytest.raises(ValueError, match="must divide"):
+        jlayer.apply(jp, jlayer.init_state(jnp.float64), jnp.asarray(rand(4, 3)),
+                     JaxCtx(train=True, dist=JaxDist(axis="data", n_shards=3)))
     # without a distributed context the statistics are local, as in JAX
     y, _ = player.apply(params, state, x, LayerContext(train=True))
     assert torch.allclose(y.mean(0), torch.zeros(3, dtype=torch.float64), atol=1e-12)

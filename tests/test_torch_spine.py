@@ -37,9 +37,9 @@ from deeplearning4j_tpu_torch.model import restore_multi_layer_network
 
 TOL = 1e-10
 
-# names the JAX package exports that the port leaves for distributed
-# training (ROADMAP A8): the orbax checkpointer and its module
-LEFT_FOR_LATER = {"OrbaxCheckpointer", "orbax_checkpoint"}
+# names the JAX package exports that the port leaves for later: none since
+# the data-parallel slice brought the orbax checkpointer and its module
+LEFT_FOR_LATER = set()
 
 
 @pytest.mark.parametrize("pkg", ["core", "ops", "nn", "obs", "train"])

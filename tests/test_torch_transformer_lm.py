@@ -13,6 +13,7 @@ float32 arithmetic with different summation orders. The 9-block case has
 coefficient vector."""
 
 import importlib
+import json
 
 import jax
 import numpy as np
@@ -149,3 +150,22 @@ def test_zip_from_a_foreign_framework_is_refused(jax_zips, tmp_path):
             dst.writestr(name, data)
     with pytest.raises(ValueError, match="framework"):
         restore_multi_layer_network(other, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{}, {"hidden": 32, "n_layers": 2, "n_heads": 4, "seed": 5}])
+def test_draft_of_pairs_the_draft_as_jax_does(kw):
+    """``TransformerLM.draft_of``: the same vocab, max_len and dtype as the
+    target, the draft's own stack, the target's seed plus one by default;
+    its config JSON is the JAX package's."""
+    from deeplearning4j_tpu.core.config import to_json as jax_to_json
+
+    from deeplearning4j_tpu_torch.core.config import to_json
+
+    target = dict(vocab_size=50, hidden=48, n_layers=3, n_heads=4, max_len=24, seed=11,
+                  dtype="float64")
+    jd = JaxLM.draft_of(JaxLM(**target), **kw)
+    pd = PortLM.draft_of(PortLM(**target), **kw)
+    for f in ("vocab_size", "hidden", "n_layers", "n_heads", "ffn_size", "max_len", "seed",
+              "dtype"):
+        assert getattr(pd, f) == getattr(jd, f), f
+    assert json.loads(to_json(pd.conf())) == json.loads(jax_to_json(jd.conf()))
