@@ -171,6 +171,26 @@ card); and the port's elastic resize harness
 width, [8, 1024], ZeRO-1, ``OrbaxCheckpointer``) resized 2 -> 1 -> 2 ranks
 by two SIGKILLs, nothing consumed twice or skipped, and each resumed boot
 restoring the killed boot's checkpoint bit for bit (width 2 -> 1, 1 -> 2).
+Then pipeline and sequence parallelism (``parallel/pipeline.py``,
+``PipelineParallelTrainer``, ``parallel/sequence.py``,
+``parallel/sharded_embedding.py``), gloo ranks sharing ``cuda:0``
+(``tools/pp_legs.py``): the GPT-2-small-width LM over two stages (6 blocks
+each), [8, 1024] in 4 microbatches, 3 steps under 1F1B and 3 under GPipe,
+held against the data-parallel world-1 run (``Solver.fit_batch``'s params)
+within ``TOL_PP``, with three planted faults (a microbatch's loss dropped,
+the last stage's update skipped, the head gradients unsummed over pipe)
+read above it, and exactly 2·6·4 B1 and 6·4 B2 and B3 launches a step a
+rank (the stash-and-rerun design); the 2-block float64 LM over pipe=2 x
+data=2 on four ranks, replicated and ZeRO-1 (bit for bit equal), within
+1e-10 of ``Solver``, its checkpoint restored into ``DistributedTrainer``
+and ``Solver`` for their next step (1e-10); and on two ranks ring and
+Ulysses attention at [8, 12, 1024, 64] and [1, 12, 16384, 64] in float32,
+causal and not, and a cross-length causal ring, held against
+``flash_attention`` on the whole sequence in one process, with a
+50257 x 768 ``ShardedEmbeddingTable`` against a dense table. B1-B3 are
+also held, at the ring's explicit causal offsets, against their plain
+versions, and at the default offset bit for bit against an explicit
+``tk - tq``.
 It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
@@ -613,7 +633,11 @@ def phase_flash_forward(gen) -> dict:
             mask = _key_mask(gen, tk).cuda() if masked else None
             out, lse = fa.flash_attention(q, k, v, mask, causal, return_lse=True)
             p_out, p_lse = fa.flash_attention_plain(q, k, v, mask, causal)
+            x_out, x_lse = fa.flash_attention(q, k, v, mask, causal, return_lse=True,
+                                              causal_offset=tk - tq)
             torch.cuda.synchronize()
+            check(torch.equal(out, x_out) and torch.equal(lse, x_lse),
+                  "B1 at the default causal offset must equal an explicit tk - tq bit for bit")
             e_out, e_lse = max_err(out, p_out), max_err(lse, p_lse)
             print(f"flash_forward {str(dtype)[6:]:8s} tq={tq:4d} tk={tk:4d} "
                   f"causal={causal!s:5s} mask={masked!s:5s}: out max_abs={e_out:.3e} "
@@ -624,6 +648,26 @@ def phase_flash_forward(gen) -> dict:
             if masked:
                 check(bool((out[3] == 0).all()) and bool((lse[3] == 1e30).all()),
                       "fully masked row must give 0 and lse +1e30")
+            if dtype == torch.float32:
+                worst = max(worst, e_out, e_lse)
+    # the ring's blocks: rank i's queries against block src at the offset
+    # i·tq + n·(tk - tq) - src·tk (n = 2 ranks of [8, 12, 1024, 64], and the
+    # cross-length ring, tq 512 / tk 1024 split over 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for tq, tk, off in ((512, 512, 0), (512, 512, 512), (256, 512, 256), (256, 512, 768),
+                            (256, 512, -256)):
+            q = torch.randn(B, H, tq, D, generator=gen).to("cuda", dtype)
+            k = torch.randn(B, H, tk, D, generator=gen).to("cuda", dtype)
+            v = torch.randn(B, H, tk, D, generator=gen).to("cuda", dtype)
+            out, lse = fa.flash_attention(q, k, v, None, True, return_lse=True,
+                                          causal_offset=off)
+            p_out, p_lse = fa.flash_attention_plain(q, k, v, None, True, causal_offset=off)
+            torch.cuda.synchronize()
+            e_out, e_lse = max_err(out, p_out), max_err(lse, p_lse)
+            print(f"flash_forward {str(dtype)[6:]:8s} tq={tq:4d} tk={tk:4d} causal offset "
+                  f"{off:5d}: out max_abs={e_out:.3e}, lse max_abs={e_lse:.3e}")
+            check(e_out <= TOL_OUT[dtype] and e_lse <= TOL_LSE[dtype],
+                  "flash_forward at an explicit causal offset disagrees with its plain version")
             if dtype == torch.float32:
                 worst = max(worst, e_out, e_lse)
 
@@ -765,6 +809,10 @@ def phase_flash_backward(gen) -> dict:
             mask = _key_mask(gen, tk).cuda() if masked else None
             out, lse = fa.flash_attention_plain(q, k, v, mask, causal)
             dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g, mask, causal)
+            explicit = fa.flash_attention_bwd(q, k, v, out, lse, g, mask, causal,
+                                              causal_offset=tk - tq)
+            check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), explicit)),
+                  "B2/B3 at the default causal offset must equal an explicit tk - tq bit for bit")
             delta = torch.sum(g.float() * out.float(), dim=-1)
             args = (q, k, v, g, lse, delta, mask, causal)
             p_dq = fa.flash_attention_bwd_dq_plain(*args)
@@ -785,6 +833,25 @@ def phase_flash_backward(gen) -> dict:
                 worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], max_err(dq, p_dq))
                 worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], max_err(dk, p_dk),
                                              max_err(dv, p_dv))
+
+    # the ring's backward blocks (the forward phase's offsets), with the
+    # row's lse and delta from the whole sequence, as the ring passes them
+    for dtype in (torch.float32, torch.bfloat16):
+        for tq, tk, off in ((512, 512, 512), (256, 512, 768), (256, 512, 256)):
+            q, k, v, g = (torch.randn(B, H, t, D, generator=gen).to("cuda", dtype)
+                          for t in (tq, tk, tk, tq))
+            out, lse = fa.flash_attention_plain(q, k, v, None, True, causal_offset=off)
+            delta = torch.sum(g.float() * out.float(), dim=-1).contiguous()
+            args = (q, k, v, g, lse, delta, None, True, D ** -0.5, off)
+            got = (fa_mod._flash_bwd_dq_cuda(*args), *fa_mod._flash_bwd_dkv_cuda(*args))
+            want = (fa.flash_attention_bwd_dq_plain(*args),
+                    *fa.flash_attention_bwd_dkv_plain(*args))
+            torch.cuda.synchronize()
+            rel = [rel_err(a, b) for a, b in zip(got, want)]
+            print(f"flash_backward {str(dtype)[6:]:8s} tq={tq:4d} tk={tk:4d} causal offset "
+                  f"{off:5d}: rel dq/dk/dv {['%.3e' % r for r in rel]}")
+            check(max(rel) <= TOL_BWD_REL[dtype],
+                  "B2/B3 at an explicit causal offset disagree with their plain versions")
 
     # timing at the training path's shape: [8, 12, 1024, 64], causal, no mask
     rows = {n: {"max_abs_err": w} for n, w in worst.items()}
@@ -4631,6 +4698,261 @@ def phase_dp_elastic_resize(card: str) -> dict:
     counts.setdefault("grouped_matmul", 0)
     return counts
 
+# ---------------------------------------------------------------------------
+# pipeline and sequence parallelism: gloo ranks sharing cuda:0
+# ---------------------------------------------------------------------------
+
+PP_MICRO = 4  # microbatches of the pipelined LM: 2 rows of [8, 1024] each
+# the pipelined LM's params after 3 steps vs the world-1 run's (Solver's),
+# max |diff|: between the sound gap and what a planted fault reads, both of
+# which the phase reads in every run and the gate checks against this limit
+TOL_PP = 3e-5
+PP_F64_BATCH = 4  # the float64 pipe x data LM: [4, 1024], 2 microbatches
+TOL_PP_F64 = 1e-10
+
+
+def _sum_launches(reps, legs) -> dict:
+    counts: dict = {}
+    for r in reps:
+        for leg in legs:
+            for step in r["legs"][leg]["launches"]:
+                for k, v in step.items():
+                    counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def phase_pp_lm(card: str, world1) -> dict:
+    """``PipelineParallelTrainer`` on two ranks sharing ``cuda:0`` (one
+    stage each: the prelude and 6 blocks, then 6 blocks and the head), the
+    GPT-2-small-width LM from the world-1 phase's seed, its [8, 1024] batch
+    in 4 microbatches, 3 steps under 1F1B and 3 under GPipe; each held
+    against the world-1 run's params (bit for bit ``Solver.fit_batch``'s)
+    within ``TOL_PP``, which each planted fault must exceed. Returns the
+    launch counts of both ranks' steps under the two schedules."""
+    from deeplearning4j_tpu_torch.tools import dp_legs, pp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec = {"kind": "pp_lm", "lm": dict(dp_legs.GPT2_SMALL), "seed": SEED, "global_batch": B,
+            "seq": T_FULL, "steps": DP_STEPS, "n_micro": PP_MICRO,
+            "schedules": ["1f1b", "gpipe"], "faults": list(pp_legs.FAULTS)}
+    out = tempfile.mkdtemp(prefix="pp_lm_")
+    try:
+        reps = pp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
+                                 timeout=900)
+        gaps = {}
+        for leg in ("1f1b", "gpipe", *pp_legs.FAULTS):
+            check(reps[0]["legs"][leg]["scores"] == reps[1]["legs"][leg]["scores"],
+                  f"pipelined {leg}: the ranks' scores differ")
+            gaps[leg] = float(np.abs(np.load(reps[0]["legs"][leg]["params_path"])
+                                     - world1["params"]).max())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for leg in ("1f1b", "gpipe"):
+        rec = reps[0]["legs"][leg]
+        check(gaps[leg] <= TOL_PP,
+              f"pipelined {leg} must be within {TOL_PP} of Solver's params: {gaps[leg]:.3e}")
+        check(rec["scores"][-1] < rec["scores"][0], f"the score must fall: {rec['scores']}")
+        for r in reps:
+            k = r["legs"][leg]["blocks"]
+            want = {"flash_forward": 2 * k * PP_MICRO, "flash_bwd_dq": k * PP_MICRO,
+                    "flash_bwd_dkv": k * PP_MICRO, "flash_decode": 0, "grouped_matmul": 0}
+            for step in r["legs"][leg]["launches"]:
+                check(step == want, f"pipelined {leg} rank {r['rank']} ({k} blocks) must launch "
+                                    f"{want} a step: {step}")
+    for f in pp_legs.FAULTS:
+        check(gaps[f] > TOL_PP, f"the planted fault {f} must read above {TOL_PP}: {gaps[f]:.3e}")
+    for leg in ("1f1b", "gpipe"):
+        for r in reps:
+            rec = r["legs"][leg]
+            meas = [c["exchange"] / (c["compute"] + c["exchange"]) for c in rec["clock"]]
+            hs = rec["host_staged"]
+            print(f"pipeline-parallel lm 2 stages {leg} rank {r['rank']} ({card}; gloo, "
+                  f"[8,1024] in {PP_MICRO} microbatches, stage {rec['stage']} of "
+                  f"{rec['blocks']} blocks): ms/step {[round(t, 2) for t in rec['step_ms']]}, "
+                  f"scores {[round(x, 5) for x in rec['scores']]}, bubble share of the "
+                  f"schedule {rec['bubble_share']:.4f}, measured exchange-and-wait share of "
+                  f"the tick walk {[round(x, 3) for x in meas]}, max_inflight "
+                  f"{rec['max_inflight']}, stage times s "
+                  f"{[round(x, 5) for x in rec['stage_times']]}, stage_param_bytes "
+                  f"{rec['stage_param_bytes']} of {rec['stage_param_bytes_global']}, host "
+                  f"transport {hs['calls']} calls, {hs['bytes'] / 1e6:.1f} MB, "
+                  f"{1e3 * hs['seconds']:.1f} ms over {DP_STEPS} steps")
+    counts = _sum_launches(reps, ("1f1b", "gpipe"))
+    print(f"pipeline-parallel lm 2 stages ({card}): params vs the world-1 run (Solver's), max "
+          f"|diff| 1f1b {gaps['1f1b']:.3e}, gpipe {gaps['gpipe']:.3e} (gate {TOL_PP:g}); "
+          f"planted faults read { {f: f'{gaps[f]:.3e}' for f in pp_legs.FAULTS} }; launches "
+          f"{counts}; the two ranks time-slice one card, so no speed-up from pipelining is "
+          f"claimed; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_pp_dp_f64(card: str) -> dict:
+    """The 2-block GPT-2-width LM in float64 (the f64 kernels) over
+    pipe=2 x data=2, four gloo ranks on ``cuda:0``, [4, 1024] in 2
+    microbatches, 3 steps replicated and 3 under ZeRO-1 (bit for bit equal),
+    within 1e-10 of ``Solver.fit_batch``; the replicated run's checkpoint
+    restored into a ``DistributedTrainer`` over the four ranks and a
+    ``Solver``, each of whose next step is within 1e-10 of Solver's fourth.
+    Returns the launch counts of the trainers' steps."""
+    from deeplearning4j_tpu_torch.tools import dp_legs, pp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm = dict(dp_legs.GPT2_SMALL, n_layers=2)
+    spec = {"kind": "ppdp", "lm": lm, "seed": SEED, "global_batch": PP_F64_BATCH,
+            "seq": T_FULL, "steps": DP_STEPS, "n_micro": 2}
+    out = tempfile.mkdtemp(prefix="pp_dp_")
+    try:
+        reps = pp_legs.run_world(spec, world=4, backend="gloo", device="cuda", out_dir=out,
+                                 timeout=900)
+        legs = reps[0]["legs"]
+        rep_p = np.load(legs["replicated"]["params_path"])
+        z_p = np.load(legs["zero1"]["params_path"])
+        dp_p = np.load(os.path.join(out, "params_dp_next.npy"))
+        sv_p = np.load(os.path.join(out, "params_solver_next.npy"))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    ids, labels = (torch.from_numpy(a).cuda() for a in pp_legs._lm_batch(spec))
+    ref = TransformerLM(**lm, seed=SEED, dtype="float64").init()
+    solver = Solver(ref)
+    want = [float(solver.fit_batch(ids, labels)[0]) for _ in range(DP_STEPS)]
+    ref3 = ref.params_flat().copy()
+    want.append(float(solver.fit_batch(ids, labels)[0]))
+    ref4 = ref.params_flat().copy()
+    del ref, solver
+    torch.cuda.empty_cache()
+    for r in reps:
+        for leg in ("replicated", "zero1"):
+            check(r["legs"][leg]["scores"] == legs[leg]["scores"],
+                  f"pipe x data {leg}: rank {r['rank']}'s scores differ")
+    check(legs["zero1"]["scores"] == legs["replicated"]["scores"] and np.array_equal(z_p, rep_p),
+          "ZeRO-1 must equal the replicated pipe x data run bit for bit")
+    gap = float(np.abs(rep_p - ref3).max())
+    s_gap = max(abs(a - b) for a, b in zip(legs["replicated"]["scores"], want))
+    check(gap <= TOL_PP_F64 and s_gap <= TOL_PP_F64,
+          f"pipe x data float64 must be within {TOL_PP_F64} of Solver: params {gap:.3e}, "
+          f"scores {s_gap:.3e}")
+    check(legs["restored_stages"] == 2, f"the checkpoint must record 2 stages: "
+                                        f"{legs['restored_stages']}")
+    next_gaps = {"DistributedTrainer": (abs(legs["dp_next"] - want[3]),
+                                        float(np.abs(dp_p - ref4).max())),
+                 "Solver": (abs(legs["solver_next"] - want[3]),
+                            float(np.abs(sv_p - ref4).max()))}
+    for name, (sg, pg) in next_gaps.items():
+        check(sg <= TOL_PP_F64 and pg <= TOL_PP_F64,
+              f"the pipelined checkpoint restored into {name}: its next step must be within "
+              f"{TOL_PP_F64} of Solver's: score {sg:.3e}, params {pg:.3e}")
+    counts = _sum_launches(reps, ("replicated", "zero1"))
+    for r in reps:
+        k = r["legs"]["replicated"]["blocks"]
+        want_l = {"flash_forward": 2 * k * 2, "flash_bwd_dq": k * 2, "flash_bwd_dkv": k * 2,
+                  "flash_decode": 0, "grouped_matmul": 0}
+        for leg in ("replicated", "zero1"):
+            for step in r["legs"][leg]["launches"]:
+                check(step == want_l, f"pipe x data rank {r['rank']} must launch {want_l} a "
+                                      f"step: {step}")
+    rec = legs["replicated"]
+    print(f"pipeline x data lm float64 ({card}; 4 gloo ranks, pipe=2 x data=2, 2 blocks at "
+          f"GPT-2 widths, [4,1024] in 2 microbatches): ms/step replicated "
+          f"{[round(t, 2) for t in rec['step_ms']]}, ZeRO-1 "
+          f"{[round(t, 2) for t in legs['zero1']['step_ms']]}; scores "
+          f"{[round(x, 8) for x in rec['scores']]}; ZeRO-1 bit for bit replicated; vs Solver "
+          f"params {gap:.3e}, scores {s_gap:.3e} (gate {TOL_PP_F64:g}); the checkpoint's next "
+          f"step (score, params) { {k: (f'{a:.3e}', f'{b:.3e}') for k, (a, b) in next_gaps.items()} }; "
+          f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# ring and Ulysses (2 ranks) vs flash_attention on the whole sequence in
+# one process, float32: outputs max |diff| (the ring combines two blocks'
+# normalised outputs by their lse, one more float32 rounding than the
+# whole-sequence kernel), gradients relative to the largest value: B2/B3's
+# own float32 limit against their plain versions, set for sums of up to
+# t = 1024 terms, scaled by t / 1024, since a float32 sum's rounding grows
+# with its length (H100 80GB HBM3, 700 W: the ring's dk at t = 1024 read
+# 7.8e-06, at t = 16384 1.09e-04; a block lost or misplaced reads O(1))
+TOL_SEQ_OUT = TOL_OUT[torch.float32]
+TOL_SEQ_GRAD = TOL_BWD_REL[torch.float32]
+# a 50257 x 768 float32 table's sparse update against numpy's np.add.at:
+# index_add_ on the card adds repeated ids in another order (one float32
+# ulp of values below 4)
+TOL_TABLE = 1e-6
+
+
+def phase_sequence(card: str) -> dict:
+    """Ring and Ulysses attention on two gloo ranks sharing ``cuda:0`` at
+    [8, 12, 1024, 64] and [1, 12, 16384, 64] in float32, causal and not,
+    and a causal ring across lengths (q 512, k 1024), against
+    ``flash_attention`` on the whole sequence in one process (forward and
+    q/k/v gradients); then a 50257 x 768 ``ShardedEmbeddingTable`` over the
+    two ranks against a dense table. Returns the launch counts of the ring
+    and Ulysses runs."""
+    from deeplearning4j_tpu_torch.tools import pp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cases = []
+    for kind in ("ring", "ulysses"):
+        for shape in ([B, H, T_FULL, T_FULL, D], [1, H, 16384, 16384, D]):
+            for causal in (True, False):
+                cases.append(dict(label=f"{kind} [{shape[0]},{H},{shape[2]},{D}] causal={causal}",
+                                  kind=kind, shape=shape, causal=causal, seed=SEED + len(cases)))
+    cases.append(dict(label=f"ring cross-length q [{B},{H},512,{D}] k [{B},{H},{T_FULL},{D}] "
+                            "causal", kind="ring", shape=[B, H, 512, T_FULL, D], causal=True,
+                      seed=SEED + 99))
+    spec = {"kind": "seq", "cases": cases,
+            "table": {"vocab": 50257, "dim": 768, "seed": SEED, "lookups": 8 * T_FULL}}
+    out = tempfile.mkdtemp(prefix="seq_")
+    try:
+        reps = pp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
+                                 timeout=900)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    r0, r1 = (r["legs"] for r in reps)
+    for rec, other in zip(r0["cases"], r1["cases"]):
+        b, h, tq, tk, d = rec["shape"]
+        errs = (rec["max_abs_out"], rec["rel_dq"], rec["rel_dk"], rec["rel_dv"])
+        tol_grad = TOL_SEQ_GRAD * max(1.0, max(tq, tk) / T_FULL)
+        check(rec["max_abs_out"] <= TOL_SEQ_OUT and max(errs[1:]) <= tol_grad,
+              f"{rec['label']}: against the whole-sequence kernel: out {errs[0]:.3e} (tol "
+              f"{TOL_SEQ_OUT:g}), rel dq/dk/dv {errs[1:]} (tol {tol_grad:g})")
+        got = {n: rec["launches"][n] + other["launches"][n]
+               for n in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")}
+        if rec["kind"] == "ulysses":
+            want = 2
+        else:  # 2 ranks x 2 blocks, less the blocks wholly in the causal future
+            skipped = sum(1 for i in range(2) for src in range(2)
+                          if rec["causal"] and i * (tq // 2) + 2 * ((tk - tq) // 2)
+                          - src * (tk // 2) + tq // 2 - 1 < 0)
+            want = 4 - skipped
+        check(all(v == want for v in got.values()),
+              f"{rec['label']}: the two ranks must launch {want} of each of B1, B2, B3: {got}")
+        hs = rec["host_staged"]
+        print(f"sequence parallel {rec['label']} ({card}; 2 gloo ranks): forward "
+              f"{rec['fwd_ms']:.2f} ms, backward {rec['bwd_ms']:.2f} ms (rank 0, host clock, "
+              f"fenced), whole-sequence flash_attention forward {rec['whole_ms']:.3f} ms; out "
+              f"max |diff| {errs[0]:.3e} (|out| <= {rec['ref_max_out']:.3f}), rel dq "
+              f"{errs[1]:.3e} dk {errs[2]:.3e} dv {errs[3]:.3e} (tol {tol_grad:g}); launches "
+              f"{got}; host "
+              f"transport {hs['calls']} calls, {hs['bytes'] / 1e6:.1f} MB, "
+              f"{1e3 * hs['seconds']:.1f} ms")
+    tab = r0["table"]
+    check(tab["lookup_err"] == 0.0, f"sharded table lookups must equal the dense rows: "
+                                    f"{tab['lookup_err']}")
+    check(tab["update_err"] <= TOL_TABLE, f"sharded table sparse update vs dense: "
+                                          f"{tab['update_err']:.3e} (tol {TOL_TABLE:g})")
+    counts: dict = {}
+    for r in reps:
+        for k, v in r["legs"]["main_launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    print(f"sharded embedding table 50257x768 over 2 ranks ({card}): {tab['local_rows']} rows a "
+          f"rank; {tab['lookups']} lookups (repeated ids) {tab['lookup_ms']:.2f} ms, exact; "
+          f"sparse update {tab['add_ms']:.2f} ms, max |diff| vs np.add.at "
+          f"{tab['update_err']:.3e}; sequence-parallel launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4699,9 +5021,12 @@ def main() -> int:
     dp1, world1 = timed("data-parallel LM, world 1", phase_dp_world1, card)
     paths += [dp1, timed("data-parallel LM, 2 ranks on one card", phase_dp_two_ranks, card,
                          world1)]
-    del world1
     paths += [timed("ResNet-50 gradient sharing, 2 ranks", phase_dp_resnet50, card),
-              timed("elastic resize", phase_dp_elastic_resize, card)]
+              timed("elastic resize", phase_dp_elastic_resize, card),
+              timed("pipeline-parallel LM, 2 stages", phase_pp_lm, card, world1)]
+    del world1
+    paths += [timed("pipeline x data, 4 ranks", phase_pp_dp_f64, card),
+              timed("ring and Ulysses attention, 2 ranks", phase_sequence, card)]
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
@@ -4716,7 +5041,10 @@ def main() -> int:
     # elastic restart's children (counted in their own processes), early
     # stopping and the profiled steps (B1-B3); then data-parallel training:
     # the world-1 trainer, the two ranks' legs and the elastic resize's ranks
-    # (B1-B3, counted in their processes) and the ResNet-50 ranks (none)
+    # (B1-B3, counted in their processes) and the ResNet-50 ranks (none);
+    # then pipeline and sequence parallelism: the two stages' steps under
+    # both schedules, the float64 pipe x data trainers' steps, and the ring
+    # and Ulysses runs (B1-B3, counted in the ranks' processes)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

@@ -9,7 +9,8 @@
 // the output gradient g [b,h,tq,dv], the forward's row logsumexp lse [b,h,tq]
 // and delta = rowsum(g * out) [b,h,tq] (both float32, computed outside):
 //   s  = q·kᵀ·scale, masked to the finite -1e30 by the [b,tk] key mask
-//        (> 0 keeps) and the bottom-right causal test q_i + (tk - tq) >= k_j
+//        (> 0 keeps) and the causal test q_i + causal_offset >= k_j (the
+//        offset tk - tq by default: bottom-right aligned)
 //   p  = s > -0.5e30 ? exp(s - lse) : 0
 //   ds = p ∘ (g·vᵀ - delta)
 //   dq = ds·k·scale            (kernel 1)
@@ -107,7 +108,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ g, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ mask,
                     T* __restrict__ dq, int h, int tq, int tk, int d, int dv, float scale,
-                    int causal, int vec_d, int vec_dv) {
+                    int causal, int tk_off, int vec_d, int vec_dv) {
   constexpr bool kSplit = std::is_same<T, float>::value;  // bf16, f16 are exact in TF32
   constexpr int S = row_stride<T, DMAX>();
   constexpr int NK = BN / 8;  // 8-key column tiles of s
@@ -128,7 +129,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int b = bh / h;
   // the last q tiles see the most keys under the causal mask: start them first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int tk_off = tk - tq;
   // float32 folds the scale into q; bf16 keeps q exact and scales s
   const float s_mul = kSplit ? 1.f : scale;
 
@@ -243,7 +243,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ g, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ mask,
                      T* __restrict__ dk, T* __restrict__ dvo, int h, int tq, int tk, int d,
-                     int dv, float scale, int causal, int vec_d, int vec_dv) {
+                     int dv, float scale, int causal, int tk_off, int vec_d, int vec_dv) {
   constexpr bool kSplit = std::is_same<T, float>::value;
   constexpr int S = row_stride<T, DMAX>();
   constexpr int NQ = BN / 8;  // 8-query column tiles of sᵀ
@@ -263,7 +263,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int bh = blockIdx.x;
   const int b = bh / h;
   const int k0 = blockIdx.y * kRows;  // the first k tiles see the most q rows: they go first
-  const int tk_off = tk - tq;
   const float s_mul = kSplit ? 1.f : scale;  // as in the dq kernel
 
   const T* qb = q + (size_t)bh * tq * d;
@@ -382,7 +381,7 @@ struct Args {
   void *out0, *out1;  // dq; or dk, dv
   int b, h, tq, tk, d, dv;
   float scale;
-  int causal;
+  int causal, causal_offset;
   cudaStream_t stream;
 };
 
@@ -409,7 +408,7 @@ cudaError_t launch_dq(const Args& a) {
   flash_bwd_dq_kernel<T, DMAX, BN><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), a.lse, a.delta, a.mask, static_cast<T*>(a.out0), a.h, a.tq,
-      a.tk, a.d, a.dv, a.scale, a.causal, copy_bytes(a.d, sizeof(T), a.q, a.k),
+      a.tk, a.d, a.dv, a.scale, a.causal, a.causal_offset, copy_bytes(a.d, sizeof(T), a.q, a.k),
       copy_bytes(a.dv, sizeof(T), a.v, a.g));
   return cudaGetLastError();
 }
@@ -425,7 +424,7 @@ cudaError_t launch_dkv(const Args& a) {
   flash_bwd_dkv_kernel<T, DMAX, BN><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), a.lse, a.delta, a.mask, static_cast<T*>(a.out0),
-      static_cast<T*>(a.out1), a.h, a.tq, a.tk, a.d, a.dv, a.scale, a.causal,
+      static_cast<T*>(a.out1), a.h, a.tq, a.tk, a.d, a.dv, a.scale, a.causal, a.causal_offset,
       copy_bytes(a.d, sizeof(T), a.q, a.k), copy_bytes(a.dv, sizeof(T), a.v, a.g));
   return cudaGetLastError();
 }
@@ -457,25 +456,29 @@ int run(const Args& a, int dtype) {
 
 // Both return cudaGetLastError() after the launch (0 on success). They
 // allocate nothing and launch on `stream`. `mask` may be null (every key
-// valid); lse and delta are float32 [b, h, tq]. dtype: 0 float32, 1
+// valid); lse and delta are float32 [b, h, tq]. Under `causal`, query i
+// sees keys <= i + causal_offset (tk - tq: the bottom-right alignment).
+// dtype: 0 float32, 1
 // bfloat16, 2 float16 (mma_tf32.cuh's DType); any other code is
 // cudaErrorInvalidValue.
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                                  const void* lse, const void* delta, const void* mask,
                                  void* dq, int b, int h, int tq, int tk, int d, int dv,
-                                 float scale, int causal, int dtype, void* stream) {
+                                 float scale, int causal, int causal_offset, int dtype,
+                                 void* stream) {
   const Args a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const float*>(mask), dq, nullptr, b, h, tq, tk, d, dv, scale,
-               causal, static_cast<cudaStream_t>(stream)};
+               causal, causal_offset, static_cast<cudaStream_t>(stream)};
   return run<true>(a, dtype);
 }
 
 extern "C" int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                   const void* lse, const void* delta, const void* mask,
                                   void* dk, void* dv_out, int b, int h, int tq, int tk, int d,
-                                  int dv, float scale, int causal, int dtype, void* stream) {
+                                  int dv, float scale, int causal, int causal_offset, int dtype,
+                                  void* stream) {
   const Args a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const float*>(mask), dk, dv_out, b, h, tq, tk, d, dv, scale,
-               causal, static_cast<cudaStream_t>(stream)};
+               causal, causal_offset, static_cast<cudaStream_t>(stream)};
   return run<false>(a, dtype);
 }

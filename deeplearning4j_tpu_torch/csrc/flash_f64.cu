@@ -11,7 +11,8 @@
 // scale and the row logsumexp in float64 (lse and delta are float64 [b,h,tq]):
 // masked scores are the finite -1e30, p = s > -0.5e30 ? exp(s - m) : 0, a row
 // with no valid key outputs 0 with lse = +1e30 and gets zero gradients, the
-// causal mask is aligned bottom-right (query i sees keys <= i + tk - tq), the
+// causal mask lets query i see keys <= i + causal_offset (tk - tq by default:
+// bottom-right aligned), the
 // key mask is float32 [b,tk] (> 0 keeps), and decode row b reads positions
 // [0, min(start_pos[b] + 1, L)). Head dims up to 256.
 //
@@ -146,7 +147,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_forward_f64_kernel(const double* __restrict__ q, const double* __restrict__ k,
                          const double* __restrict__ v, const float* __restrict__ mask,
                          double* __restrict__ out, double* __restrict__ lse, int h, int tq,
-                         int tk, int d, int dv, double scale, int causal) {
+                         int tk, int d, int dv, double scale, int causal, int tk_off) {
   constexpr int R = rows_per_thread<DMAX>();
   constexpr int BT = 16 * R;
   constexpr int QS = DMAX + 1, PS = BT + 1, NJ = DMAX / 16;
@@ -160,7 +161,6 @@ flash_forward_f64_kernel(const double* __restrict__ q, const double* __restrict_
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x, b = bh / h;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;  // the most causal work first
-  const int tk_off = tk - tq;
   const double* kb = k + (size_t)bh * tk * d;
   const double* vb = v + (size_t)bh * tk * dv;
   load_tile<BT, DMAX>(Qs, QS, q + (size_t)bh * tq * d, q0, tq, d, scale);
@@ -250,7 +250,7 @@ flash_bwd_dq_f64_kernel(const double* __restrict__ q, const double* __restrict__
                         const double* __restrict__ v, const double* __restrict__ g,
                         const double* __restrict__ lse, const double* __restrict__ delta,
                         const float* __restrict__ mask, double* __restrict__ dq, int h, int tq,
-                        int tk, int d, int dv, double scale, int causal) {
+                        int tk, int d, int dv, double scale, int causal, int tk_off) {
   constexpr int R = rows_per_thread<DMAX>();
   constexpr int BT = 16 * R;
   constexpr int S = DMAX + 1, PS = BT + 1, NJ = DMAX / 16;
@@ -267,7 +267,6 @@ flash_bwd_dq_f64_kernel(const double* __restrict__ q, const double* __restrict__
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x, b = bh / h;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;
-  const int tk_off = tk - tq;
   const double* kb = k + (size_t)bh * tk * d;
   const double* vb = v + (size_t)bh * tk * dv;
   load_tile<BT, DMAX>(Qs, S, q + (size_t)bh * tq * d, q0, tq, d, scale);
@@ -337,7 +336,7 @@ flash_bwd_dkv_f64_kernel(const double* __restrict__ q, const double* __restrict_
                          const double* __restrict__ lse, const double* __restrict__ delta,
                          const float* __restrict__ mask, double* __restrict__ dk,
                          double* __restrict__ dvo, int h, int tq, int tk, int d, int dv,
-                         double scale, int causal) {
+                         double scale, int causal, int tk_off) {
   constexpr int R = rows_per_thread<DMAX>();
   constexpr int BT = 16 * R;
   constexpr int S = DMAX + 1, PS = BT + 1, NJ = DMAX / 16;
@@ -355,7 +354,6 @@ flash_bwd_dkv_f64_kernel(const double* __restrict__ q, const double* __restrict_
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x, b = bh / h;
   const int k0 = blockIdx.y * BT;  // the first k tiles see the most q rows: they go first
-  const int tk_off = tk - tq;
   const double* qb = q + (size_t)bh * tq * d;
   const double* gb = g + (size_t)bh * tq * dv;
   load_tile<BT, DMAX>(Ks, S, k + (size_t)bh * tk * d, k0, tk, d, 1.0);
@@ -491,7 +489,7 @@ struct Args {
   double *out0, *out1;  // out, lse (forward); dq (B2); dk, dv (B3)
   int b, h, tq, tk, d, dv;
   double scale;
-  int causal;
+  int causal, causal_offset;
   cudaStream_t stream;
 };
 
@@ -510,7 +508,8 @@ cudaError_t launch(const Args& a) {
                                            (int)bytes);
     if (err != cudaSuccess) return err;
     flash_forward_f64_kernel<DMAX><<<grid, kThreads, bytes, a.stream>>>(
-        a.q, a.k, a.v, a.mask, a.out0, a.out1, a.h, a.tq, a.tk, a.d, a.dv, a.scale, a.causal);
+        a.q, a.k, a.v, a.mask, a.out0, a.out1, a.h, a.tq, a.tk, a.d, a.dv, a.scale, a.causal,
+        a.causal_offset);
   } else if constexpr (W == kDq) {
     constexpr size_t bytes = dq_smem_bytes<DMAX>();
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f64_kernel<DMAX>,
@@ -519,7 +518,7 @@ cudaError_t launch(const Args& a) {
     if (err != cudaSuccess) return err;
     flash_bwd_dq_f64_kernel<DMAX><<<grid, kThreads, bytes, a.stream>>>(
         a.q, a.k, a.v, a.g, a.lse, a.delta, a.mask, a.out0, a.h, a.tq, a.tk, a.d, a.dv,
-        a.scale, a.causal);
+        a.scale, a.causal, a.causal_offset);
   } else {
     constexpr size_t bytes = dkv_smem_bytes<DMAX>();
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_f64_kernel<DMAX>,
@@ -528,7 +527,7 @@ cudaError_t launch(const Args& a) {
     if (err != cudaSuccess) return err;
     flash_bwd_dkv_f64_kernel<DMAX><<<grid, kThreads, bytes, a.stream>>>(
         a.q, a.k, a.v, a.g, a.lse, a.delta, a.mask, a.out0, a.out1, a.h, a.tq, a.tk, a.d,
-        a.dv, a.scale, a.causal);
+        a.dv, a.scale, a.causal, a.causal_offset);
   }
   return cudaGetLastError();
 }
@@ -558,16 +557,18 @@ cudaError_t launch_decode(const double* q, const double* k, const double* v, con
 
 // Each returns cudaGetLastError() after the launch (0 on success), allocates
 // nothing and launches on `stream`. Operands, lse and delta are float64; the
-// key mask is float32 [b, tk] and may be null (every key valid). dtype must be
-// 3 (float64; mma_tf32.cuh's DType), else cudaErrorInvalidValue.
+// key mask is float32 [b, tk] and may be null (every key valid). Under
+// `causal`, query i sees keys <= i + causal_offset (tk - tq: the bottom-right
+// alignment). dtype must be 3 (float64; mma_tf32.cuh's DType), else
+// cudaErrorInvalidValue.
 extern "C" int dl4j_flash_forward_f64(const void* q, const void* k, const void* v,
                                       const void* mask, void* out, void* lse, int b, int h,
                                       int tq, int tk, int d, int dv, double scale, int causal,
-                                      int dtype, void* stream) {
+                                      int causal_offset, int dtype, void* stream) {
   const Args a{static_cast<const double*>(q), static_cast<const double*>(k),
                static_cast<const double*>(v), nullptr, nullptr, nullptr,
                static_cast<const float*>(mask), static_cast<double*>(out),
-               static_cast<double*>(lse), b, h, tq, tk, d, dv, scale, causal,
+               static_cast<double*>(lse), b, h, tq, tk, d, dv, scale, causal, causal_offset,
                static_cast<cudaStream_t>(stream)};
   return dispatch<kForward>(a, dtype);
 }
@@ -575,25 +576,26 @@ extern "C" int dl4j_flash_forward_f64(const void* q, const void* k, const void* 
 extern "C" int dl4j_flash_bwd_dq_f64(const void* q, const void* k, const void* v, const void* g,
                                      const void* lse, const void* delta, const void* mask,
                                      void* dq, int b, int h, int tq, int tk, int d, int dv,
-                                     double scale, int causal, int dtype, void* stream) {
+                                     double scale, int causal, int causal_offset, int dtype,
+                                     void* stream) {
   const Args a{static_cast<const double*>(q), static_cast<const double*>(k),
                static_cast<const double*>(v), static_cast<const double*>(g),
                static_cast<const double*>(lse), static_cast<const double*>(delta),
                static_cast<const float*>(mask), static_cast<double*>(dq), nullptr, b, h, tq,
-               tk, d, dv, scale, causal, static_cast<cudaStream_t>(stream)};
+               tk, d, dv, scale, causal, causal_offset, static_cast<cudaStream_t>(stream)};
   return dispatch<kDq>(a, dtype);
 }
 
 extern "C" int dl4j_flash_bwd_dkv_f64(const void* q, const void* k, const void* v, const void* g,
                                       const void* lse, const void* delta, const void* mask,
                                       void* dk, void* dv_out, int b, int h, int tq, int tk,
-                                      int d, int dv, double scale, int causal, int dtype,
-                                      void* stream) {
+                                      int d, int dv, double scale, int causal,
+                                      int causal_offset, int dtype, void* stream) {
   const Args a{static_cast<const double*>(q), static_cast<const double*>(k),
                static_cast<const double*>(v), static_cast<const double*>(g),
                static_cast<const double*>(lse), static_cast<const double*>(delta),
                static_cast<const float*>(mask), static_cast<double*>(dk),
-               static_cast<double*>(dv_out), b, h, tq, tk, d, dv, scale, causal,
+               static_cast<double*>(dv_out), b, h, tq, tk, d, dv, scale, causal, causal_offset,
                static_cast<cudaStream_t>(stream)};
   return dispatch<kDkv>(a, dtype);
 }

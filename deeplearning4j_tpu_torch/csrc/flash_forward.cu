@@ -6,8 +6,10 @@
 //
 // Computes, per (batch, head), out = softmax(q·kᵀ·scale + bias)·v and the row
 // logsumexp, over q [b,h,tq,d], k [b,h,tk,d], v [b,h,tk,dv], with an optional
-// [b,tk] float key mask (> 0 keeps) and an optional causal mask aligned
-// bottom-right (query i sees keys <= i + tk - tq). Masked scores are the
+// [b,tk] float key mask (> 0 keeps) and an optional causal mask: query i
+// sees keys <= i + causal_offset (bottom-right aligned at the offset tk - tq,
+// which the wrapper passes unless it is told otherwise; a ring-attention
+// block passes its place in the whole sequence). Masked scores are the
 // finite -1e30; p = s > -0.5e30 ? exp(s - m) : 0; a row with no valid key
 // outputs 0 and gets lse = +1e30 (the backward kernels rely on both). out has
 // the input dtype, lse is float32; every sum is in float32. Head dims up to
@@ -86,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ mask, T* __restrict__ out,
                      float* __restrict__ lse, int h, int tq, int tk, int d, int dv, float scale,
-                     int causal, int vec_d, int vec_dv) {
+                     int causal, int tk_off, int vec_d, int vec_dv) {
   constexpr bool kSplit = std::is_same<T, float>::value;  // bf16, f16 are exact in TF32
   constexpr int S = row_stride<T, DMAX>();
   constexpr int BN = tile_keys<T, DMAX>();
@@ -105,7 +107,6 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int b = bh / h;
   // the last q tiles see the most keys under the causal mask: start them first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int tk_off = tk - tq;
   // float32 folds the scale into q; bf16 keeps q exact and scales s
   const float s_mul = kSplit ? 1.f : scale;
 
@@ -240,7 +241,7 @@ struct Args {
   float* lse;
   int b, h, tq, tk, d, dv;
   float scale;
-  int causal;
+  int causal, causal_offset;
   cudaStream_t stream;
 };
 
@@ -254,7 +255,7 @@ cudaError_t launch(const Args& a) {
   flash_forward_kernel<T, DMAX><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.mask, static_cast<T*>(a.out), a.lse, a.h, a.tq, a.tk, a.d, a.dv, a.scale, a.causal,
-      copy_bytes(a.d, sizeof(T), a.q, a.k), copy_bytes(a.dv, sizeof(T), a.v, a.v));
+      a.causal_offset, copy_bytes(a.d, sizeof(T), a.q, a.k), copy_bytes(a.dv, sizeof(T), a.v, a.v));
   return cudaGetLastError();
 }
 
@@ -272,15 +273,19 @@ cudaError_t dispatch(const Args& a) {
 
 // Returns cudaGetLastError() after the launch (0 on success). Allocates
 // nothing; launches on `stream`. `mask` may be null (every key valid).
+// Under `causal`, query i sees keys <= i + causal_offset (tk - tq: the
+// bottom-right alignment).
 // dtype: 0 float32, 1 bfloat16, 2 float16 (mma_tf32.cuh's DType); any other
 // code is cudaErrorInvalidValue.
 extern "C" int dl4j_flash_forward(const void* q, const void* k, const void* v,
                                   const void* mask, void* out, void* lse,
                                   int b, int h, int tq, int tk, int d, int dv,
-                                  float scale, int causal, int dtype, void* stream) {
+                                  float scale, int causal, int causal_offset, int dtype,
+                                  void* stream) {
   if (b * h <= 0 || tq <= 0 || (tq + kRows - 1) / kRows > 65535) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const float*>(mask), out, static_cast<float*>(lse),
-               b, h, tq, tk, d, dv, scale, causal, static_cast<cudaStream_t>(stream)};
+               b, h, tq, tk, d, dv, scale, causal, causal_offset,
+               static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case kF32: return (int)dispatch<float>(a);
     case kBF16: return (int)dispatch<__nv_bfloat16>(a);

@@ -105,6 +105,37 @@ class ComputationGraph(nn.Module):
     def named_param_layers(self) -> List[Tuple[str, Layer]]:
         return [(s.name, s.layer) for s in self._layer_specs() if s.layer.has_params()]
 
+    def linear_chain(self) -> List[VertexSpec]:
+        """The vertex sequence when this graph is one input-to-output chain
+        of layers (each vertex a layer consuming exactly the previous
+        vertex's output): the shape pipeline-stage partitioning needs.
+        Raises ``ValueError`` for branching or merging topologies and for
+        op vertices."""
+        conf = self.conf
+        if len(conf.network_inputs) != 1 or len(conf.network_outputs) != 1:
+            raise ValueError(
+                "pipeline partitioning needs exactly one graph input and "
+                f"one output, got {len(conf.network_inputs)}/"
+                f"{len(conf.network_outputs)}")
+        prev = conf.network_inputs[0]
+        chain: List[VertexSpec] = []
+        for spec in conf.vertices:
+            if spec.layer is None:
+                raise ValueError(
+                    f"vertex {spec.name!r} is an op vertex — pipeline "
+                    "partitioning needs a pure layer chain")
+            if tuple(spec.inputs) != (prev,):
+                raise ValueError(
+                    f"vertex {spec.name!r} consumes {spec.inputs}, not the "
+                    f"previous vertex {prev!r} — not a linear chain")
+            chain.append(spec)
+            prev = spec.name
+        if prev != conf.network_outputs[0]:
+            raise ValueError(
+                f"the chain ends at {prev!r}, not the network output "
+                f"{conf.network_outputs[0]!r}")
+        return chain
+
     def _next_generator(self) -> torch.Generator:
         """A fresh CPU generator for one training step's dropout draws; the
         model's own stream (seeded from the config's seed) advances once

@@ -51,7 +51,7 @@ class DistContext:
     ``n_shards`` is the data-axis width either way, ``bn_group_size`` the
     trainer's default statistics group (a layer's own field wins);
     ``ep_axis``/``ep_shards`` name an expert-parallel axis, which the port
-    does not run yet (ROADMAP A8 part 2).
+    does not run yet (ROADMAP A8 part 3).
 
     The port runs one process per replica, so the context also carries
     this replica's ``rank`` and ``groups``: for each group size the

@@ -28,7 +28,7 @@ load-balance term, which the score adds when ``balance_loss_weight > 0``),
 
 Explicit expert parallelism (expert params sliced over a mesh axis, the
 JAX package's ``shard_map`` path) needs ``torch.distributed`` and is not
-ported yet (ROADMAP A8): expert params with fewer than ``num_experts``
+ported yet (ROADMAP A8 part 3): expert params with fewer than ``num_experts``
 slabs raise.
 """
 
@@ -251,7 +251,7 @@ class MixtureOfExpertsLayer(Layer):
         if self._expert_kernel(params, "We1")[0].shape[0] != e:
             raise NotImplementedError(
                 "explicit expert parallelism (expert params sliced over a mesh axis) "
-                "needs torch.distributed and is not ported yet (ROADMAP A8)")
+                "needs torch.distributed and is not ported yet (ROADMAP A8 part 3)")
 
         gates = torch.softmax(x2 @ params["Wg"], dim=-1)         # [b, E]
         if self.dispatch_mode in ("sort", "grouped"):

@@ -190,12 +190,18 @@ class MultiLayerNetwork(nn.Module):
         mask: Optional[torch.Tensor] = None,
         rnn_state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
         upto: Optional[int] = None,
+        start: int = 0,
         collect: bool = False,
         dist=None,
     ):
-        """Forward through layers [0, upto). Returns (out, new_state,
+        """Forward through layers [start, upto). Returns (out, new_state,
         new_rnn_state), and with ``collect`` each layer's output as a fourth
-        element. Decode caches in ``rnn_state`` are written in place."""
+        element. Decode caches in ``rnn_state`` are written in place.
+
+        With ``start > 0`` (a pipeline stage folds a layer range), ``x`` is
+        the activation entering layer ``start`` and ``mask`` the mask at
+        that boundary; the InputType walk still advances from the input, so
+        mask propagation stays aligned with the full forward."""
         params, x = self._to_compute(params, x)
         remat = self.conf.gradient_checkpointing and train
         new_state: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -204,7 +210,10 @@ class MultiLayerNetwork(nn.Module):
         cur_mask = mask
         n = len(self.layers) if upto is None else upto
         it = self.conf.input_type
-        for i in range(n):
+        for i in range(start):
+            if it is not None:
+                it = self.layers[i].output_type(it)
+        for i in range(start, n):
             layer = self.layers[i]
             name = self.conf.layer_name(i)
             lstate = dict(state.get(name, {}))

@@ -161,10 +161,18 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def _masked_scores(q, k, mask, causal: bool, scale: float) -> torch.Tensor:
+def _offset(q, k, causal_offset: Optional[int]) -> int:
+    """The causal offset: query ``i`` sees keys ``<= i + offset``; ``None``
+    is ``tk - tq``, the bottom-right alignment."""
+    return k.shape[2] - q.shape[2] if causal_offset is None else int(causal_offset)
+
+
+def _masked_scores(q, k, mask, causal: bool, scale: float,
+                   causal_offset: Optional[int] = None) -> torch.Tensor:
     """``(q·scale)·kᵀ`` [b, h, tq, tk] in the arithmetic type, with masked
-    entries set to ``-1e30``: the key mask, and the bottom-right causal test
-    ``q_i + (tk - tq) >= k_j``."""
+    entries set to ``-1e30``: the key mask, and the causal test
+    ``q_i + causal_offset >= k_j`` (the offset ``tk - tq`` by default:
+    bottom-right aligned)."""
     acc = _acc_dtype(q)
     tq, tk = q.shape[2], k.shape[2]
     s = (q.to(acc) * scale) @ k.to(acc).transpose(-1, -2)
@@ -172,21 +180,22 @@ def _masked_scores(q, k, mask, causal: bool, scale: float) -> torch.Tensor:
     if mask is not None:
         keep = keep & (mask[:, None, None, :] > 0)
     if causal:
-        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        qi = torch.arange(tq, device=q.device)[:, None] + _offset(q, k, causal_offset)
         ki = torch.arange(tk, device=q.device)[None, :]
         keep = keep & (qi >= ki)
     return torch.where(keep, s, torch.full_like(s, _NEG))
 
 
 def flash_attention_plain(q, k, v, mask=None, causal: bool = False,
-                          scale: Optional[float] = None
+                          scale: Optional[float] = None,
+                          causal_offset: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the flash forward kernel: the same function
     in float32 (scores materialised), returning ``(out in q's dtype, lse
-    [b, h, tq] f32)``."""
+    [b, h, tq] f32)``. ``causal_offset`` as for :func:`flash_attention`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    s = _masked_scores(q, k, mask, causal, scale)
+    s = _masked_scores(q, k, mask, causal, scale, causal_offset)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.where(s > _NEG * 0.5, torch.exp(s - m), torch.zeros_like(s))
     l = torch.sum(p, dim=-1, keepdim=True)
@@ -196,10 +205,10 @@ def flash_attention_plain(q, k, v, mask=None, causal: bool = False,
     return out.to(q.dtype), lse[..., 0]
 
 
-def _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale):
+def _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale, causal_offset=None):
     """``(p, ds)`` of the backward, materialised: ``p = exp(s - lse)`` on
     the kept scores and ``ds = p ∘ (g·vᵀ - delta)``."""
-    s = _masked_scores(q, k, mask, causal, scale)
+    s = _masked_scores(q, k, mask, causal, scale, causal_offset)
     acc = s.dtype
     p = torch.where(s > _NEG * 0.5, torch.exp(s - lse.to(acc)[..., None]),
                     torch.zeros_like(s))
@@ -209,20 +218,23 @@ def _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale):
 
 def flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, mask=None,
                                  causal: bool = False,
-                                 scale: Optional[float] = None) -> torch.Tensor:
+                                 scale: Optional[float] = None,
+                                 causal_offset: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the dq kernel (B2): ``dq = ds·k·scale`` with
     materialised scores, in float32; returns dq in q's dtype. ``g`` is the
     output gradient [b, h, tq, dv], ``lse`` the forward's row logsumexp and
-    ``delta = rowsum(g ∘ out)``, both [b, h, tq]."""
+    ``delta = rowsum(g ∘ out)``, both [b, h, tq]; ``causal_offset`` as for
+    :func:`flash_attention`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    _, ds = _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale)
+    _, ds = _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale, causal_offset)
     return ((ds @ k.to(ds.dtype)) * scale).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask=None,
                                   causal: bool = False,
-                                  scale: Optional[float] = None
+                                  scale: Optional[float] = None,
+                                  causal_offset: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the dk/dv kernel (B3): ``dk = dsᵀ·q·scale``
     and ``dv = pᵀ·g`` with materialised scores, in float32; returns
@@ -230,7 +242,7 @@ def flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask=None,
     :func:`flash_attention_bwd_dq_plain`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    p, ds = _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale)
+    p, ds = _bwd_probs(q, k, v, g, lse, delta, mask, causal, scale, causal_offset)
     acc = p.dtype
     dk = ds.transpose(-1, -2) @ (q.to(acc) * scale)
     dv = p.transpose(-1, -2) @ g.to(acc)
@@ -316,7 +328,7 @@ def _cuda_mask(name: str, mask, b: int, tk: int, device) -> Optional[torch.Tenso
     return mask.to(torch.float32).contiguous()
 
 
-def _flash_forward_cuda(q, k, v, mask, causal, scale):
+def _flash_forward_cuda(q, k, v, mask, causal, scale, causal_offset=None):
     _check_cuda_operands("flash_attention", q, k, v)
     _check_qkv_shapes("flash_attention", q, k, v)
     b, h, tq, d = q.shape
@@ -327,13 +339,14 @@ def _flash_forward_cuda(q, k, v, mask, causal, scale):
     if b * h * tq == 0:
         return out, lse
     fn = _kernel("flash_forward", "dl4j_flash_forward", q.dtype,
-                 [_P] * 6 + [_I] * 6, [_I, _I, _P])
+                 [_P] * 6 + [_I] * 6, [_I, _I, _I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if mask is None else mask.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), b, h, tq, tk, d, dv,
-                 float(scale), int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
+                 float(scale), int(bool(causal)), _offset(q, k, causal_offset),
+                 _KERNEL_DTYPES[q.dtype], stream)
     _raise_on("flash_attention", err)
     LAUNCH_COUNTS["flash_forward"] += 1
     return out, lse
@@ -353,7 +366,7 @@ def _check_bwd_stats(name: str, q, lse, delta) -> None:
 _BWD_ARGTYPES = [_P] * 7  # q, k, v, g, lse, delta, mask
 
 
-def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, scale):
+def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, scale, causal_offset=None):
     _check_cuda_operands("flash_attention_bwd_dq", q, k, v, g)
     _check_qkv_shapes("flash_attention_bwd_dq", q, k, v)
     b, h, tq, d = q.shape
@@ -367,20 +380,20 @@ def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, scale):
     if b * h * tq == 0:
         return dq
     fn = _kernel("flash_backward", "dl4j_flash_bwd_dq", q.dtype,
-                 _BWD_ARGTYPES + [_P] + [_I] * 6, [_I, _I, _P])
+                 _BWD_ARGTYPES + [_P] + [_I] * 6, [_I, _I, _I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
                  None if mask is None else mask.data_ptr(), dq.data_ptr(),
                  b, h, tq, tk, d, dv, float(scale), int(bool(causal)),
-                 _KERNEL_DTYPES[q.dtype], stream)
+                 _offset(q, k, causal_offset), _KERNEL_DTYPES[q.dtype], stream)
     _raise_on("flash_attention_bwd_dq", err)
     LAUNCH_COUNTS["flash_bwd_dq"] += 1
     return dq
 
 
-def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, scale):
+def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, scale, causal_offset=None):
     _check_cuda_operands("flash_attention_bwd_dkv", q, k, v, g)
     _check_qkv_shapes("flash_attention_bwd_dkv", q, k, v)
     b, h, tq, d = q.shape
@@ -394,46 +407,53 @@ def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, scale):
     if b * h * tk == 0:
         return dk, dv_out
     fn = _kernel("flash_backward", "dl4j_flash_bwd_dkv", q.dtype,
-                 _BWD_ARGTYPES + [_P, _P] + [_I] * 6, [_I, _I, _P])
+                 _BWD_ARGTYPES + [_P, _P] + [_I] * 6, [_I, _I, _I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
                  None if mask is None else mask.data_ptr(), dk.data_ptr(),
                  dv_out.data_ptr(), b, h, tq, tk, d, dv, float(scale),
-                 int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
+                 int(bool(causal)), _offset(q, k, causal_offset),
+                 _KERNEL_DTYPES[q.dtype], stream)
     _raise_on("flash_attention_bwd_dkv", err)
     LAUNCH_COUNTS["flash_bwd_dkv"] += 1
     return dk, dv_out
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, mask=None, causal: bool = False,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, *, delta=None,
+                        causal_offset: Optional[int] = None):
     """The flash backward: ``(dq, dk, dv)`` from the forward's inputs,
     output and row logsumexp, and the output gradient ``g``. ``delta =
     rowsum(g ∘ out)`` is computed here in plain PyTorch (the JAX package
-    computes it in XLA, outside its kernels). CUDA tensors launch B2 and
-    B3; CPU tensors run their plain versions."""
+    computes it in XLA, outside its kernels) unless it is given (then
+    ``out`` is not read): ring attention passes the whole row's ``lse``
+    and ``delta`` for each block of keys. ``causal_offset`` as for
+    :func:`flash_attention`. CUDA tensors launch B2 and B3; CPU tensors
+    run their plain versions."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     g = g.to(q.dtype).contiguous()
-    delta = torch.sum(g.to(_acc_dtype(q)) * out.to(_acc_dtype(q)), dim=-1)
+    if delta is None:
+        delta = torch.sum(g.to(_acc_dtype(q)) * out.to(_acc_dtype(q)), dim=-1)
+    args = (q, k, v, g, lse, delta, mask, causal, scale, causal_offset)
     if q.device.type == "cuda":
-        dq = _flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, scale)
-        dk, dv = _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, scale)
+        dq = _flash_bwd_dq_cuda(*args)
+        dk, dv = _flash_bwd_dkv_cuda(*args)
     elif q.device.type == "cpu":
-        dq = flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, mask, causal, scale)
-        dk, dv = flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask, causal, scale)
+        dq = flash_attention_bwd_dq_plain(*args)
+        dk, dv = flash_attention_bwd_dkv_plain(*args)
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return dq, dk, dv
 
 
-def _flash_forward(q, k, v, mask, causal, scale):
+def _flash_forward(q, k, v, mask, causal, scale, causal_offset=None):
     if q.device.type == "cuda":
-        return _flash_forward_cuda(q, k, v, mask, causal, scale)
+        return _flash_forward_cuda(q, k, v, mask, causal, scale, causal_offset)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, mask, causal, scale)
+        return flash_attention_plain(q, k, v, mask, causal, scale, causal_offset)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
@@ -443,10 +463,10 @@ class _FlashAttention(torch.autograd.Function):
     the mask, the causal flag and the scale get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, causal, scale):
-        out, lse = _flash_forward(q, k, v, mask, causal, scale)
+    def forward(ctx, q, k, v, mask, causal, scale, causal_offset):
+        out, lse = _flash_forward(q, k, v, mask, causal, scale, causal_offset)
         ctx.save_for_backward(q, k, v, mask, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.causal_offset = causal, scale, causal_offset
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -454,17 +474,21 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g, _g_lse):
         q, k, v, mask, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, mask,
-                                         ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None
+                                         ctx.causal, ctx.scale,
+                                         causal_offset=ctx.causal_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, causal: bool = False,
-                    scale: Optional[float] = None, *, return_lse: bool = False):
+                    scale: Optional[float] = None, *, return_lse: bool = False,
+                    causal_offset: Optional[int] = None):
     """Flash attention over [b, h, t, d] tensors. ``mask`` is a [b, tk]
-    key-padding mask (1 = keep); ``causal`` is bottom-right aligned
-    (query ``i`` sees keys ``<= i + tk - tq``). Returns the output in q's
-    dtype, and with ``return_lse`` also the row logsumexp [b, h, tq]
-    (float32; float64 for float64 inputs).
+    key-padding mask (1 = keep); ``causal`` lets query ``i`` see keys
+    ``<= i + causal_offset``, the offset being ``tk - tq`` (bottom-right
+    aligned) unless given: a ring-attention block passes its place in the
+    whole sequence. Returns the output in q's dtype, and with
+    ``return_lse`` also the row logsumexp [b, h, tq] (float32; float64 for
+    float64 inputs).
 
     CUDA tensors launch the kernel (float32, bfloat16, float16 or float64,
     contiguous, head dims <= 256); CPU tensors run
@@ -475,9 +499,10 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out, lse = _FlashAttention.apply(q, k, v, mask, bool(causal), float(scale))
+        out, lse = _FlashAttention.apply(q, k, v, mask, bool(causal), float(scale),
+                                         causal_offset)
     else:
-        out, lse = _flash_forward(q, k, v, mask, causal, scale)
+        out, lse = _flash_forward(q, k, v, mask, causal, scale, causal_offset)
     return (out, lse) if return_lse else out
 
 

@@ -6,8 +6,17 @@ The JAX package drives every device from one process over a
 joined by ``torch.distributed``: :func:`initialize_distributed` starts the
 process group, and :func:`make_mesh` names its axes over the ranks with
 ``torch.distributed.device_mesh.init_device_mesh``. :class:`PartitionSpec`
-is the port's own spec type in place of JAX's; the distributed trainer
-reads it only for ZeRO-1's updater slicing.
+is the port's own spec type in place of JAX's; the distributed trainers
+read it only for ZeRO-1's updater slicing.
+
+Between neighbouring ranks (pipeline stages, the ring of ring attention)
+:func:`exchange` posts every send and receive of a step at once. Gloo
+cannot send a tensor that lies on a card (``send`` fails with "Bad
+address", ``batch_isend_irecv`` aborts the process:
+``tools/dp_collectives_probe.py``), so gloo ranks on a card go through
+:func:`gloo_host_staged_exchange`, which stages through host tensors and
+counts its calls, bytes and seconds in :data:`HOST_STAGED_STATS`; NCCL
+sends the device tensors themselves.
 
 Two JAX names have no counterpart, by design: ``shmap`` (the
 ``shard_map`` shim: each rank runs its own step, with the collectives
@@ -42,10 +51,17 @@ class PartitionSpec(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Named mesh axes and sizes, e.g. ``MeshSpec(data=4)``. A size of -1
-    means "all remaining ranks". The port's trainer runs the ``data`` axis;
-    the JAX package's ``model``, ``seq`` and ``pipe`` axes are ROADMAP A8
-    part 2."""
+    """Named mesh axes and sizes, e.g. ``MeshSpec(pipe=2, data=2)``. A size
+    of -1 means "all remaining ranks". Axis vocabulary:
+
+    * ``data`` — batch (``DistributedTrainer``; ZeRO-1 inside a stage);
+    * ``pipe`` — layer sequence (``PipelineParallelTrainer`` stages);
+    * ``seq`` — sequence (``ring_attention``, ``ulysses_attention``);
+    * ``model`` — rows of a ``ShardedEmbeddingTable``. Tensor parallelism
+      over ``model`` (``param_sharding_rules``) is ROADMAP A8 part 3.
+
+    :func:`make_mesh` gives one process group per axis; rank ``r`` of a
+    ``(pipe, data)`` mesh sits at ``(r // data, r % data)``."""
 
     axes: Tuple[Tuple[str, int], ...]
 
@@ -190,6 +206,89 @@ def make_mesh(spec: Optional[MeshSpec] = None, *, device_type: Optional[str] = N
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     names = tuple(sizes)
     return init_device_mesh(device_type, tuple(sizes[n] for n in names), mesh_dim_names=names)
+
+
+#: the host transport's use: calls, bytes carried (sent and received), and
+#: the host-timed seconds of its calls, each fenced by the device
+HOST_STAGED_STATS: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_host_staged_stats() -> None:
+    HOST_STAGED_STATS.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _is_gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def gloo_host_staged_exchange(sends: Sequence[Tuple[torch.Tensor, int]],
+                              recvs: Sequence[Tuple[torch.Tensor, int]], group=None) -> None:
+    """The point-to-point transport of gloo ranks whose tensors lie on a
+    card: each send is copied to the host, every send and receive is posted
+    in one ``batch_isend_irecv`` on host tensors, and each received host
+    tensor is copied into its buffer on the card. ``sends`` are ``(tensor,
+    peer)`` and ``recvs`` ``(buffer, peer)``, peers being global ranks.
+    Used only on gloo (it raises on another backend); every call adds to
+    :data:`HOST_STAGED_STATS`."""
+    if not _is_gloo(group):
+        raise RuntimeError("gloo_host_staged_exchange is gloo's transport; "
+                           f"the group's backend is {dist.get_backend(group)}")
+    t0 = time.perf_counter()
+    host_out = [(t.detach().to("cpu", copy=True).contiguous(), p) for t, p in sends]
+    host_in = [(torch.empty(b.shape, dtype=b.dtype), p) for b, p in recvs]
+    _post_and_wait(host_out, host_in, group)
+    for (buf, _), (t, _) in zip(recvs, host_in):
+        buf.copy_(t)
+    if any(b.is_cuda for b, _ in recvs):
+        torch.cuda.synchronize()
+    HOST_STAGED_STATS["calls"] += 1
+    HOST_STAGED_STATS["bytes"] += sum(t.numel() * t.element_size()
+                                      for t, _ in (*host_out, *host_in))
+    HOST_STAGED_STATS["seconds"] += time.perf_counter() - t0
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """What a tensor travels as: bool as a uint8 view of its storage."""
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
+             recvs: Sequence[Tuple[torch.Tensor, int]], group=None) -> None:
+    """Post every send ``(tensor, peer)`` and every receive ``(buffer,
+    peer)`` at once, then wait for all of them: the point-to-point step of
+    the pipeline schedules, where a stage may send an activation down while
+    its neighbour sends a cotangent up. Peers are global ranks; received
+    values land in the buffers. On NCCL, and for host tensors, it is one
+    ``batch_isend_irecv``; gloo ranks whose tensors lie on a card go through
+    :func:`gloo_host_staged_exchange`."""
+    sends = [(_wire(t), p) for t, p in sends]
+    recvs = [(_wire(b), p) for b, p in recvs]
+    if not sends and not recvs:
+        return
+    on_card = any(t.is_cuda for t, _ in (*sends, *recvs))
+    if on_card and _is_gloo(group):
+        gloo_host_staged_exchange(sends, recvs, group)
+        return
+    _post_and_wait([(t.contiguous(), p) for t, p in sends], recvs, group)
+
+
+def _tagged(pairs):
+    """``(tensor, peer, tag)``: the n-th message to (or from) one peer
+    carries tag n, so several between one pair match in order."""
+    seen: Dict[int, int] = {}
+    out = []
+    for t, p in pairs:
+        out.append((t, p, seen.get(p, 0)))
+        seen[p] = seen.get(p, 0) + 1
+    return out
+
+
+def _post_and_wait(sends, recvs, group) -> None:
+    ops = ([dist.P2POp(dist.isend, t, p, group, tag) for t, p, tag in _tagged(sends)]
+           + [dist.P2POp(dist.irecv, b, p, group, tag) for b, p, tag in _tagged(recvs)])
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
 
 
 def mesh_axis_size(mesh, axis: str = "data") -> int:

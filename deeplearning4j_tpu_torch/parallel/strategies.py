@@ -39,25 +39,37 @@ def _pmean_(t: torch.Tensor, group) -> torch.Tensor:
     return t.div_(dist.get_world_size(group))
 
 
-def pmean_flat(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
-    """The mean over ``group`` of each tensor, exchanged as one flat buffer
-    per dtype (one collective for a whole tree of one dtype, as the JAX
-    package's fused all-reduce is). Returns new tensors."""
+def _flat_all_reduce(tensors: List[torch.Tensor], group, mean: bool) -> List[torch.Tensor]:
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
-        if len(idx) == 1:
-            out[idx[0]] = _pmean_(tensors[idx[0]].detach().clone(), group)
-            continue
-        flat = _pmean_(torch.cat([tensors[i].detach().reshape(-1) for i in idx]), group)
+        flat = (tensors[idx[0]].detach().reshape(-1).clone() if len(idx) == 1
+                else torch.cat([tensors[i].detach().reshape(-1) for i in idx]))
+        if mean:
+            _pmean_(flat, group)
+        else:
+            dist.all_reduce(flat, group=group)
         off = 0
         for i in idx:
             n = tensors[i].numel()
             out[i] = flat[off:off + n].view(tensors[i].shape)
             off += n
     return out
+
+
+def pmean_flat(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The mean over ``group`` of each tensor, exchanged as one flat buffer
+    per dtype (one collective for a whole tree of one dtype, as the JAX
+    package's fused all-reduce is). Returns new tensors."""
+    return _flat_all_reduce(tensors, group, mean=True)
+
+
+def psum_flat(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The sum over ``group`` of each tensor, as :func:`pmean_flat`
+    exchanges it."""
+    return _flat_all_reduce(tensors, group, mean=False)
 
 
 def _leaves(tree: Tree) -> List[Tuple[str, str]]:

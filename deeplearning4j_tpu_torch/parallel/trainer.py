@@ -31,8 +31,11 @@ slices are all-gathered (one collective per dtype), as the JAX package's
 explicit path spells it. The parameters live on the model and are updated
 in place, as ``Solver`` does.
 
-Tensor parallelism (``param_sharding_rules``) and explicit expert
-parallelism (``moe_expert_parallel_rules``) are ROADMAP A8 part 2.
+:class:`PipelineParallelTrainer` (below) splits the layer stack over a
+``pipe`` axis and composes with ``data``; sequence parallelism is
+``parallel/sequence.py``. Tensor parallelism (``param_sharding_rules``) and
+explicit expert parallelism (``moe_expert_parallel_rules``) are ROADMAP A8
+part 3.
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ from ..core.dtypes import as_input, to_numpy
 from ..nn.layers.base import DistContext
 from ..nn.sequential import grads_of
 from ..train.solver import LayerOptimizers, _normalize_gradients
+from ..train.updaters import apply_updates
 from .mesh import PartitionSpec, make_mesh, mesh_axis_size, zero1_partition_spec
-from .strategies import GradientSyncStrategy, SyncAllReduce, pmean_flat
+from .strategies import GradientSyncStrategy, SyncAllReduce, pmean_flat, psum_flat
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -97,7 +101,7 @@ class DistributedTrainer:
     divide the data axis), ``registry`` and ``metrics_every``.
     ``donate_inputs`` is accepted and has no effect (an eager step keeps no
     buffers). ``param_sharding_rules`` (tensor and expert parallelism)
-    raises: ROADMAP A8 part 2.
+    raises: ROADMAP A8 part 3.
     """
 
     def __init__(self, model, mesh=None, strategy: Optional[GradientSyncStrategy] = None,
@@ -109,7 +113,9 @@ class DistributedTrainer:
             raise ValueError(
                 "param_sharding_rules (tensor parallelism, and the expert "
                 "parallelism of moe_expert_parallel_rules) is not ported: the "
-                "port's DistributedTrainer is data-parallel (ROADMAP A8 part 2)")
+                "port's DistributedTrainer is data-parallel; pipeline and "
+                "sequence parallelism are PipelineParallelTrainer and "
+                "parallel.sequence (ROADMAP A8 part 3)")
         self.model = model
         self.donate_inputs = bool(donate_inputs)
         self.mesh = mesh if mesh is not None else make_mesh(
@@ -673,3 +679,716 @@ def _all_gather_rows(params, rank: int, n: int, group) -> None:
                 size = s * (p[0].numel() if p.ndim > 1 else 1)
                 p[r * s:(r + 1) * s].copy_(chunks[r, off:off + size].view((s,) + tuple(p.shape[1:])))
                 off += size
+
+
+# ===========================================================================
+# Pipeline-parallel training (PP × DP)
+# ===========================================================================
+
+
+def _rebuild(template, it):
+    """``template``'s structure with each leaf the next of ``it``."""
+    if isinstance(template, dict):
+        return {k: _rebuild(v, it) for k, v in template.items()}
+    if isinstance(template, tuple):
+        items = [_rebuild(v, it) for v in template]
+        return type(template)(*items) if hasattr(template, "_fields") else tuple(items)
+    if isinstance(template, list):
+        return [_rebuild(v, it) for v in template]
+    return next(it)
+
+
+def _broadcast_leaves(leaves: list, src: int, group, device) -> list:
+    """``leaves`` (tensors and host numbers) as rank ``src`` holds them, on
+    every rank of ``group``: the other ranks pass templates of the same
+    shapes and dtypes. One flat buffer per dtype; host numbers ride as one
+    float64 tensor."""
+    out = list(leaves)
+    by_dtype: Dict[torch.dtype, list] = {}
+    nums = []
+    for j, v in enumerate(leaves):
+        if isinstance(v, torch.Tensor):
+            by_dtype.setdefault(v.dtype, []).append(j)
+        elif isinstance(v, (bool, int, float, np.number)):
+            nums.append(j)
+    for dtype, idx in by_dtype.items():
+        flat = torch.cat([leaves[j].detach().reshape(-1).to(device) for j in idx])
+        dist.broadcast(flat, src, group=group)
+        off = 0
+        for j in idx:
+            n = leaves[j].numel()
+            out[j] = flat[off:off + n].view(leaves[j].shape).clone()
+            off += n
+    if nums:
+        flat = torch.tensor([float(leaves[j]) for j in nums], dtype=torch.float64, device=device)
+        dist.broadcast(flat, src, group=group)
+        for j, v in zip(nums, flat.tolist()):
+            out[j] = type(leaves[j])(v)
+    return out
+
+
+class PipelineParallelTrainer:
+    """Pipeline-parallel trainer (port of ``PipelineParallelTrainer`` in
+    ``deeplearning4j_tpu/parallel/trainer.py``): the layer sequence split
+    over a ``pipe`` mesh axis, microbatches streamed through the stages
+    under a GPipe or 1F1B tick schedule, composing with data parallelism
+    (and ZeRO-1) inside each stage across the ``data`` axis.
+
+    One process per rank, as :class:`DistributedTrainer`: every rank
+    builds the same model (one seed or one zip) and a trainer on it, over
+    a mesh such as ``make_mesh(pipe=2, data=2)``. Rank ``(s, d)`` runs
+    stage ``s`` on the ``d``-th block of rows of every microbatch.
+
+    Layout: :func:`~deeplearning4j_tpu_torch.parallel.pipeline.partition_stages`
+    splits the model into prelude (stage 0), periodic blocks and head
+    (last stage). A rank keeps the parameters of its own stage's blocks
+    and releases the others' storage (``stage_param_bytes``); prelude and
+    head parameters are replicated on every rank (embeddings and heads:
+    small) but computed on their owning stage only, so their gradients are
+    summed over ``pipe``. :meth:`sync_to_model` brings every block back
+    onto every rank's model.
+
+    A step (:meth:`fit_batch`, on the GLOBAL batch, as in the JAX package)
+    walks this rank's column of the tick tables
+    (:func:`~deeplearning4j_tpu_torch.parallel.pipeline.run_pipeline_schedule`):
+    each in-flight microbatch's stage input is stashed and the stage
+    forward rerun under autograd at its backward tick. The loss is the last
+    stage's sum times 1/M; prelude and head gradients are summed over
+    ``pipe``, every gradient is averaged over ``data``; regularization and
+    elementwise clipping come after, then the updaters (under ``zero1``,
+    each rank updates its dim-0 slice and the slices are all-gathered over
+    ``data``).
+
+    The checkpoint surface (``params`` / ``opt_state`` / ``state``) speaks
+    GLOBAL name-keyed trees structurally identical to the single-device
+    model's, so checkpoints interchange with ``Solver`` and
+    ``DistributedTrainer`` both ways; reading ``params`` or ``opt_state``
+    is a collective (every rank calls it).
+
+    Scope, with the JAX package's errors otherwise: sequential models or
+    linear-chain graphs with a periodic middle; stateless layers;
+    full-precision compute; no masks; gradient normalization NONE or
+    elementwise clipping; elementwise updaters on block layers.
+    """
+
+    def __init__(self, model, mesh=None, *, n_micro: int = 8, schedule: str = "1f1b",
+                 pipe_axis: str = "pipe", data_axis: str = "data", zero1: bool = False,
+                 partition=None, registry=None, stage_time_probe: bool = True) -> None:
+        from ..nn.conf import GradientNormalization as _GN
+        from ..nn.layers.output import BaseOutputLayer
+        from ..train.updaters import IUpdater, Sgd, updater_from_any
+        from .pipeline import _model_units, build_pipeline_schedule, partition_stages
+
+        if mesh is None:
+            mesh = make_mesh(device_type=torch.device(model.device).type,
+                             pipe=dist.get_world_size())
+        names = tuple(mesh.mesh_dim_names or ())
+        if pipe_axis not in names:
+            raise ValueError(f"mesh has no {pipe_axis!r} axis: {names}")
+        self.model = model
+        self.mesh = mesh
+        self.pipe_axis = pipe_axis
+        self.data_axis = data_axis
+        self.n_stages = mesh_axis_size(mesh, pipe_axis)
+        self._n_data = mesh_axis_size(mesh, data_axis) if data_axis in names else 1
+        self.stage = int(mesh.get_local_rank(pipe_axis))
+        self.pipe_group = mesh.get_group(pipe_axis)
+        self.data_rank = int(mesh.get_local_rank(data_axis)) if self._n_data > 1 else 0
+        self.data_group = mesh.get_group(data_axis) if self._n_data > 1 else None
+        ranks = mesh.mesh.flatten().tolist()
+        self._all_group = (None if len(ranks) == dist.get_world_size()
+                           else dist.new_group(sorted(ranks)))
+        self.n_micro = int(n_micro)
+        self.schedule = schedule
+        self.zero1 = bool(zero1) and self._n_data > 1
+        self.iteration = 0
+        self._stage_probe_pending = bool(stage_time_probe)
+        self.stage_times: Optional[list] = None
+        self._boundaries: dict = {}
+        #: set to a dict to time every tick's compute and exchange (fenced)
+        self.clock: Optional[dict] = None
+
+        model._check_init()
+        conf = model.conf
+        if getattr(conf, "compute_dtype", None):
+            raise ValueError(
+                "PipelineParallelTrainer does not support compute_dtype "
+                "mixed precision yet — drop compute_dtype or use "
+                "DistributedTrainer")
+        if conf.gradient_normalization not in (_GN.NONE, _GN.CLIP_ELEMENT_WISE_ABSOLUTE_VALUE):
+            raise ValueError(
+                f"gradient normalization {conf.gradient_normalization} "
+                "computes per-layer/param-type norms that would span the "
+                "pipeline stages; use NONE or CLIP_ELEMENT_WISE_ABSOLUTE_VALUE")
+        for name, st in model.state.items():
+            if st:
+                raise ValueError(
+                    f"layer {name!r} carries persistent state "
+                    f"({sorted(st)}): stateful layers (batch norm running "
+                    "stats, MoE counters) do not pipeline here yet")
+
+        self._units = _model_units(model)
+        self._n_units = len(self._units)
+        if not isinstance(self._units[-1][1], BaseOutputLayer):
+            raise ValueError("the last layer must be an output/loss layer")
+        self.partition = (partition if partition is not None
+                          else partition_stages(model, self.n_stages))
+        if self.partition.n_stages != self.n_stages:
+            raise ValueError(
+                f"partition is for {self.partition.n_stages} stages, mesh "
+                f"{pipe_axis!r} axis has {self.n_stages}")
+        self._sched = build_pipeline_schedule(self.n_stages, self.n_micro, schedule)
+
+        part = self.partition
+        self.optim = LayerOptimizers(model)
+        global_upd = updater_from_any(conf.updater) if conf.updater is not None else Sgd()
+        params = model.params
+        for i0 in part.blocks[0]:
+            name0, layer0, _ = self._units[i0]
+            if not params.get(name0):
+                continue
+            upd = updater_from_any(layer0.updater) if layer0.updater is not None else global_upd
+            # the JAX package stacks the blocks into [S, k] leaves, which a
+            # per-tensor trust-ratio norm would span; its override of the
+            # ZeRO-1 spelling marks that coupling
+            coupled = (not getattr(upd, "elementwise", False)
+                       or type(upd).to_transform_zero1 is not IUpdater.to_transform_zero1)
+            if not layer0.frozen and coupled:
+                raise ValueError(
+                    f"block layer {name0!r} uses {type(upd).__name__}, "
+                    "whose per-tensor (trust-ratio) norms would span the "
+                    "stacked [S, k] pipeline leaves; use an elementwise "
+                    "updater (Sgd/Adam/...) on block layers")
+
+        # ---- ownership ---------------------------------------------------
+        self._block_stage = {}  # unit index -> owning stage
+        for b, blk in enumerate(part.blocks):
+            s, _ = part.locate_block(b)
+            for i in blk:
+                self._block_stage[i] = s
+        self._aux_names = [self._units[i][0] for i in (*part.prelude, *part.head)
+                           if params.get(self._units[i][0])]
+        self._own_units = [i for i in part.stage_units[self.stage] if i in self._block_stage]
+        self._owned = list(self._aux_names) + [self._units[i][0] for i in self._own_units
+                                               if params.get(self._units[i][0])]
+        self._shapes = {ln: {pn: (tuple(p.shape), p.dtype) for pn, p in lp.items()}
+                        for ln, lp in params.items()}
+        self._released = False
+        self._release_foreign_blocks()
+
+        # ---- updater state (owned layers only; ZeRO-1 slices) -------------
+        self._zero1_flags = {
+            ln: {pn: bool(self.zero1 and self.optim.elementwise.get(ln, False)
+                          and zero1_partition_spec(tuple(p.shape), self._n_data, data_axis)
+                          != PartitionSpec())
+                 for pn, p in params[ln].items()}
+            for ln in self._owned}
+        self._zoptim = (LayerOptimizers(model, zero1_axis=self.data_group,
+                                        zero1_sliced=self._zero1_flags)
+                        if any(any(f.values()) for f in self._zero1_flags.values())
+                        else self.optim)
+        local = self._local_params()
+        self._opt = {ln: self.optim.txs[ln].init(local[ln]) for ln in self._owned
+                     if ln in self.optim.txs}
+
+        self._has_reg = any(getattr(layer, f, None) for _, layer, _ in self._units
+                            for f in ("l1", "l2", "l1_bias", "l2_bias"))
+        self._init_metrics(registry)
+
+    # ------------------------------------------------------------ metrics
+    def _init_metrics(self, registry) -> None:
+        from ..obs import get_registry
+
+        self.registry = registry if registry is not None else get_registry()
+        self.registry.gauge(
+            "dl4j_tpu_training_pipeline_bubble_share",
+            "Fraction of pipeline stage-ticks idle under the tick "
+            "schedule: (S-1)/(M+S-1) for GPipe and 1F1B both",
+            labelnames=("schedule",)).labels(self.schedule).set(self._sched.bubble_share)
+        self.registry.gauge(
+            "dl4j_tpu_training_pipeline_resident_microbatches",
+            "Peak per-stage stashed boundary activations (microbatches): "
+            "min(S, M) under 1F1B vs M under GPipe",
+            labelnames=("schedule",)).labels(self.schedule).set(self._sched.max_inflight)
+        spg = self.registry.gauge(
+            "dl4j_tpu_training_pipeline_stage_params",
+            "Parameter count owned per pipeline stage (partition balance)",
+            labelnames=("stage",))
+        for s, c in enumerate(self.partition.stage_costs):
+            spg.labels(str(s)).set(float(c))
+        self._stage_time_gauge = self.registry.gauge(
+            "dl4j_tpu_training_pipeline_stage_step_seconds",
+            "Per-stage fold time of one microbatch (one-off probe at the "
+            "first fit_batch): the schedule's tick length is the max over "
+            "stages", labelnames=("stage",))
+
+    # ------------------------------------------------------------ layout
+    @property
+    def n_data_shards(self) -> int:
+        return self._n_data
+
+    def _release_foreign_blocks(self) -> None:
+        """Free the storage of the blocks other stages own: this rank holds
+        its own stage's blocks only."""
+        params = self.model.params
+        with torch.no_grad():
+            for i, s in self._block_stage.items():
+                if s == self.stage:
+                    continue
+                for p in params[self._units[i][0]].values():
+                    p.data = p.data.new_empty((0,))
+        self._released = True
+
+    def _rows(self, size: int) -> slice:
+        per = size // self._n_data
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
+
+    def _local_params(self):
+        """Each owned param, or this rank's dim-0 slice of it under ZeRO-1
+        (a view of the live parameter)."""
+        params = self.model.params
+        return {ln: {pn: (p[self._rows(p.shape[0])] if self._zero1_flags[ln][pn] else p)
+                     for pn, p in params[ln].items()}
+                for ln in self._owned}
+
+    def _is_sliced(self, lname: str, path, leaf) -> bool:
+        flags = self._zero1_flags.get(lname, {})
+        return (isinstance(leaf, torch.Tensor) and leaf.ndim > 0 and bool(path)
+                and isinstance(path[-1], str) and flags.get(path[-1], False))
+
+    # ---------------------------------------------------- layer folding
+    def _generator(self, seed: int, m: int, i: int) -> torch.Generator:
+        """The dropout generator of unit ``i`` on microbatch ``m`` this
+        step: seeded from the step's draw, so the backward tick's rerun
+        draws the forward tick's masks."""
+        return torch.Generator().manual_seed(
+            hash((seed, self.data_rank, m, i)) & ((1 << 63) - 1))
+
+    def _apply_unit(self, i: int, h, seed: int, m: int):
+        from ..nn.layers.base import LayerContext, apply_layer
+
+        name, layer, preproc = self._units[i]
+        ctx = LayerContext(train=True, rng=self._generator(seed, m, i), mask=None, dist=None)
+        if preproc is not None:
+            h, _ = preproc.apply({}, {}, h, ctx)
+        y, _ = apply_layer(layer, self.model.params.get(name, {}), {}, h, ctx)
+        return y
+
+    def _fold_prelude(self, x, seed: int, m: int):
+        h = x
+        for i in self.partition.prelude:
+            h = self._apply_unit(i, h, seed, m)
+        return h
+
+    def _fold_body(self, h, seed: int, m: int):
+        for i in self._own_units:
+            h = self._apply_unit(i, h, seed, m)
+        return h
+
+    def _fold_head_loss(self, h, y, seed: int, m: int):
+        from ..nn.layers.base import LayerContext
+
+        part = self.partition
+        for i in part.head[:-1]:
+            h = self._apply_unit(i, h, seed, m)
+        i = part.head[-1]
+        name, layer, preproc = self._units[i]
+        ctx = LayerContext(train=True, rng=self._generator(seed, m, i), mask=None, dist=None)
+        if preproc is not None:
+            h, _ = preproc.apply({}, {}, h, ctx)
+        loss = layer.compute_loss(self.model.params.get(name, {}), h, y, ctx)
+        return loss.to(self._score_dtype)
+
+    @property
+    def _score_dtype(self) -> torch.dtype:
+        return torch.promote_types(self.model.dtype, torch.float32)
+
+    def _reg_score(self):
+        """(aux regularization, this stage's blocks' regularization)."""
+        from ..nn.sequential import _layer_reg_score
+
+        params = self.model.params
+        aux = torch.zeros((), dtype=self._score_dtype, device=self.model.device)
+        body = torch.zeros_like(aux)
+        for i, (name, layer, _) in enumerate(self._units):
+            if not params.get(name):
+                continue
+            if i in self._block_stage:
+                if self._block_stage[i] == self.stage:
+                    body = body + _layer_reg_score(layer, params[name], self._score_dtype)
+            else:
+                aux = aux + _layer_reg_score(layer, params[name], self._score_dtype)
+        return aux, body
+
+    # ---------------------------------------------------------- the step
+    def _inputs(self, x, y):
+        model = self.model
+        if hasattr(model.conf, "network_inputs"):
+            x = model._as_inputs((x,))[0]
+        else:
+            x = model._input(x)
+        return x, as_input(y, model.dtype, True, model.device)
+
+    def _microbatches(self, x, y):
+        B = int(x.shape[0])
+        M, D = self.n_micro, self._n_data
+        if B % M or (B // M) % D:
+            raise ValueError(
+                f"global batch {B} must split into n_micro={M} microbatches "
+                f"of {D}-divisible size (data axis); got {B}/{M} = {B / M:g}")
+        mb, per = B // M, B // M // D
+        lo = self.data_rank * per
+        xs = [x[m * mb + lo:m * mb + lo + per] for m in range(M)]
+        ys = [y[m * mb + lo:m * mb + lo + per] for m in range(M)]
+        return xs, ys
+
+    def _boundary(self, x0):
+        """(shape, dtype, device) of the activation between stages: the
+        prelude's output on one row of a microbatch, run once per input
+        shape."""
+        key = (tuple(x0.shape), x0.dtype)
+        if key not in self._boundaries:
+            with torch.no_grad():
+                h = self._fold_prelude(x0[:1], 0, 0)
+            self._boundaries[key] = ((int(x0.shape[0]),) + tuple(h.shape[1:]), h.dtype, h.device)
+        return self._boundaries[key]
+
+    def _step(self, xs, ys):
+        from .pipeline import run_pipeline_schedule
+
+        model = self.model
+        S, D, M = self.n_stages, self._n_data, self.n_micro
+        seed = int(torch.randint(0, 2**62, (), generator=model._next_generator()))
+        params = model.params
+        owned = {ln: params[ln] for ln in self._owned}
+
+        def fwd(p, m, xi):
+            h = self._fold_prelude(xs[m], seed, m) if self.stage == 0 else xi
+            return self._fold_body(h, seed, m)
+
+        def lfn(p, h, m):
+            return self._fold_head_loss(h, ys[m], seed, m)
+
+        loss, grads = run_pipeline_schedule(fwd, lfn, owned, self._sched, self.pipe_group,
+                                            self._boundary(xs[0]), self.clock)
+        if self.stage != S - 1:
+            loss = torch.zeros_like(loss)
+        if self._has_reg:
+            with torch.enable_grad():
+                reg_aux, reg_body = self._reg_score()
+                reg_grads = grads_of(reg_aux + reg_body, owned)
+            reg_aux, reg_body = reg_aux.detach(), reg_body.detach()
+        else:
+            reg_aux = reg_body = torch.zeros_like(loss)
+        inv = 1.0 / (M * D)
+        # prelude/head grads live on one stage, zero elsewhere: one sum over
+        # the whole mesh is the sum over pipe and the sum over data; the loss
+        # (last stage) and the blocks' regularization ride along
+        aux = [(ln, pn) for ln in self._aux_names for pn in grads[ln]]
+        summed = psum_flat([grads[ln][pn] for ln, pn in aux] + [loss, reg_body],
+                            self._all_group)
+        for (ln, pn), g in zip(aux, summed):
+            grads[ln][pn] = g * inv
+        loss = summed[-2] * inv + reg_aux + summed[-1] / D
+        body = [(ln, pn) for ln in self._owned if ln not in self._aux_names for pn in grads[ln]]
+        if D > 1:
+            for (ln, pn), g in zip(body, psum_flat([grads[ln][pn] for ln, pn in body],
+                                                     self.data_group)):
+                grads[ln][pn] = g * inv
+        else:
+            for ln, pn in body:
+                grads[ln][pn] = grads[ln][pn] * inv
+        if self._has_reg:
+            grads = {ln: {pn: g + reg_grads[ln][pn] for pn, g in lg.items()}
+                     for ln, lg in grads.items()}
+        conf = model.conf
+        grads = _normalize_gradients(grads, conf.gradient_normalization,
+                                     conf.gradient_normalization_threshold)
+        with torch.no_grad():
+            self._update(grads)
+        return loss
+
+    def _update(self, grads) -> None:
+        params = self.model.params
+        local = self._local_params()
+        flags = self._zero1_flags
+        g_local = {ln: {pn: (g[self._rows(g.shape[0])] if flags[ln][pn] else g)
+                        for pn, g in grads[ln].items()}
+                   for ln in self._owned}
+        new = {}
+        for ln in self._owned:
+            if ln not in self._zoptim.txs:
+                continue
+            upd, new[ln] = self._zoptim.txs[ln].update(g_local[ln], self._opt[ln], local[ln])
+            apply_updates(local[ln], upd)
+        self._opt = new
+        sliced = [params[ln][pn] for ln in self._owned for pn in params[ln] if flags[ln][pn]]
+        if sliced:
+            _all_gather_rows(sliced, self.data_rank, self._n_data, self.data_group)
+
+    # ------------------------------------------------------------- train
+    def fit_batch(self, x, y) -> torch.Tensor:
+        """One optimizer step on a GLOBAL batch, the same on every rank: split
+        into ``n_micro`` microbatches along dim 0 (rank ``d`` of the data
+        axis takes the ``d``-th block of rows of each), streamed through the
+        stages under the tick schedule. Returns the score (loss +
+        regularization) on every rank, equal to the single-device Solver's
+        at the same global batch."""
+        x, y = self._inputs(x, y)
+        xs, ys = self._microbatches(x, y)
+        if not self._released:
+            self._release_foreign_blocks()
+        if self._stage_probe_pending:
+            self._probe(xs, ys)
+        self.model.last_batch_size = int(x.shape[0])
+        loss = self._step(xs, ys)
+        self.iteration += 1
+        return loss
+
+    def fit(self, x, y, *, batch_size: int, epochs: int = 1):
+        """Minimal epoch loop over host arrays (shuffling and iterators stay
+        the caller's). Returns the last score."""
+        n = int(np.shape(x)[0])
+        loss = None
+        for _ in range(int(epochs)):
+            for lo in range(0, n - batch_size + 1, batch_size):
+                loss = self.fit_batch(x[lo:lo + batch_size], y[lo:lo + batch_size])
+        return loss
+
+    def probe_stage_times(self, x, y) -> list:
+        """Time each stage's fold of one microbatch (its blocks, with the
+        prelude on stage 0 and the head and loss on the last), fenced by the
+        device, after one untimed fold: every rank times its own stage and
+        the times are all-gathered over ``pipe``. Feeds the
+        ``dl4j_tpu_training_pipeline_stage_step_seconds`` gauge; the
+        schedule's tick length is the max over stages. Runs at the first
+        :meth:`fit_batch` unless called before (a collective)."""
+        xs, ys = self._microbatches(*self._inputs(x, y))
+        return self._probe(xs, ys)
+
+    def _probe(self, xs, ys) -> list:
+        import time as _time
+
+        from ..obs.step_profiler import fence
+
+        self._stage_probe_pending = False
+        dev = self.model.device
+        last = self.stage == self.n_stages - 1
+        with torch.no_grad():
+            h0 = self._fold_prelude(xs[0], 0, 0) if self.stage > 0 else None
+
+            def fold():
+                h = self._fold_prelude(xs[0], 0, 0) if self.stage == 0 else h0
+                h = self._fold_body(h, 0, 0)
+                return self._fold_head_loss(h, ys[0], 0, 0) if last else h
+
+            fold()
+            fence(dev)
+            t0 = _time.perf_counter()
+            fold()
+            fence(dev)
+            mine = torch.tensor([_time.perf_counter() - t0], dtype=torch.float64, device=dev)
+        parts = [torch.empty_like(mine) for _ in range(self.n_stages)]
+        dist.all_gather(parts, mine, group=self.pipe_group)
+        self.stage_times = [float(p) for p in parts]
+        for s, v in enumerate(self.stage_times):
+            self._stage_time_gauge.labels(str(s)).set(v)
+        return self.stage_times
+
+    # ------------------------------------------- checkpoint-facing views
+    def _stage_layers(self, s: int) -> list:
+        """The names of stage ``s``'s block layers that have params."""
+        return [self._units[i][0] for i in self.partition.stage_units[s]
+                if self._block_stage.get(i) == s and self._shapes[self._units[i][0]]]
+
+    def _gather_blocks(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Every stage's block params, broadcast from their owners over the
+        pipe group (a collective)."""
+        params = self.model.params
+        dev = self.model.device
+        out = {}
+        for s in range(self.n_stages):
+            names = self._stage_layers(s)
+            keys = [(ln, pn) for ln in names for pn in self._shapes[ln]]
+            if s == self.stage:
+                leaves = [params[ln][pn].detach() for ln, pn in keys]
+            else:
+                leaves = [torch.empty(self._shapes[ln][pn][0], dtype=self._shapes[ln][pn][1], device=dev)
+                          for ln, pn in keys]
+            if self.n_stages > 1 and keys:
+                leaves = _broadcast_leaves(leaves, dist.get_global_rank(self.pipe_group, s),
+                                           self.pipe_group, dev)
+            for (ln, pn), v in zip(keys, leaves):
+                out.setdefault(ln, {})[pn] = v
+        return out
+
+    @property
+    def params(self):
+        """GLOBAL name-keyed params, structurally identical to
+        ``model.params`` (a collective: every stage's blocks are broadcast
+        from their owners)."""
+        blocks = self._gather_blocks()
+        live = self.model.params
+        out = {}
+        for i, (name, _, _) in enumerate(self._units):
+            if i in self._block_stage:
+                own = self._block_stage[i] == self.stage
+                out[name] = dict(live[name]) if own else blocks.get(name, {})
+            else:
+                out[name] = dict(live.get(name, {}))
+        return out
+
+    @params.setter
+    def params(self, tree) -> None:
+        """Install GLOBAL params: this rank copies in the prelude, head and
+        its own stage's blocks."""
+        live = self.model.params
+        with torch.no_grad():
+            for ln in self._owned:
+                for pn, p in live[ln].items():
+                    v = tree[ln][pn]
+                    v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                    p.copy_(v.to(device=p.device, dtype=p.dtype))
+
+    def _global_opt_template(self) -> Dict[str, Any]:
+        """The per-layer updater state at global shapes, on the meta device
+        (structure and shapes only)."""
+        return {ln: tx.init({pn: torch.empty(shape, dtype=dt, device="meta")
+                             for pn, (shape, dt) in self._shapes[ln].items()})
+                for ln, tx in self.optim.txs.items()}
+
+    def _owned_global_state(self, ln: str):
+        """This rank's state of an owned layer at global shapes (ZeRO-1
+        slices all-gathered over ``data``: a collective)."""
+        n = self._n_data
+
+        def fn(path, leaf):
+            if not self._is_sliced(ln, path, leaf):
+                return leaf
+            out = torch.empty((leaf.shape[0] * n,) + tuple(leaf.shape[1:]),
+                              dtype=leaf.dtype, device=leaf.device)
+            _gather_into(out, leaf.contiguous(), self.data_group)
+            return out
+
+        return _map_state(self._opt[ln], fn)
+
+    @property
+    def opt_state(self):
+        """GLOBAL per-layer updater state, ``{layer: state}`` as
+        ``LayerOptimizers`` lays it out (the checkpoint format): a
+        collective, every block layer's state broadcast from its owner."""
+        dev = self.model.device
+        template = self._global_opt_template()
+        out = {ln: self._owned_global_state(ln) for ln in self._owned if ln in self._opt}
+        for s in range(self.n_stages):
+            names = [ln for ln in self._stage_layers(s) if ln in template]
+            if not names or self.n_stages == 1:
+                continue
+            if s == self.stage:
+                leaves = [v for ln in names for v in _state_leaves(out[ln])]
+            else:
+                leaves = [torch.empty(v.shape, dtype=v.dtype, device=dev)
+                          if isinstance(v, torch.Tensor) else v
+                          for ln in names for v in _state_leaves(template[ln])]
+            got = iter(_broadcast_leaves(leaves, dist.get_global_rank(self.pipe_group, s),
+                                         self.pipe_group, dev))
+            for ln in names:
+                out[ln] = _rebuild(template[ln], got)
+        return {ln: out[ln] for ln in template}
+
+    @opt_state.setter
+    def opt_state(self, tree) -> None:
+        self.load_updater_state(tree)
+
+    def load_updater_state(self, host_opt) -> None:
+        """Install an updater-state tree saved by ANY trainer (global
+        per-layer shapes: ``Solver``, ``DistributedTrainer`` with or without
+        ZeRO-1, or a differently staged ``PipelineParallelTrainer``): this
+        rank takes its owned layers' states, cut to its ZeRO-1 slices."""
+        template = self._global_opt_template()
+        live = _state_leaves(template)
+        new = _state_leaves(host_opt)
+        if len(live) != len(new):
+            raise ValueError(
+                f"updater state leaf count mismatch: checkpoint has "
+                f"{len(new)}, trainer expects {len(live)}")
+        for a, b in zip(live, new):
+            if isinstance(a, torch.Tensor) and tuple(np.shape(b)) != tuple(a.shape):
+                raise ValueError(
+                    f"updater state leaf shape mismatch: {tuple(np.shape(b))} vs "
+                    f"expected {tuple(a.shape)} — was this saved with "
+                    "different GLOBAL shapes?")
+        for ln in self._opt:
+            it = iter(_state_leaves(host_opt[ln]))
+
+            def put(node, path=(), ln=ln, it=it):
+                if isinstance(node, dict):
+                    return {k: put(v, path + (k,)) for k, v in node.items()}
+                if isinstance(node, tuple):
+                    items = [put(v, path + (j,)) for j, v in enumerate(node)]
+                    return type(node)(*items) if hasattr(node, "_fields") else tuple(items)
+                if isinstance(node, list):
+                    return [put(v, path + (j,)) for j, v in enumerate(node)]
+                v = next(it)
+                if isinstance(node, torch.Tensor):
+                    arr = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                    arr = arr.to(device=node.device, dtype=node.dtype)
+                    if self._is_sliced(ln, path, node):
+                        arr = arr[self._rows(arr.shape[0])]
+                    return arr.clone()
+                return type(node)(np.asarray(v).item()) if node is not None else v
+
+            self._opt[ln] = put(self._opt[ln])
+
+    @property
+    def state(self):
+        """Per-layer persistent state: empty by construction (stateless
+        layers only), so this is the model's empty-dict tree."""
+        return {name: {} for name in self.model.state}
+
+    @state.setter
+    def state(self, tree) -> None:
+        pass  # stateless by construction
+
+    # ------------------------------------------------- trainer interop
+    def sync_to_model(self) -> None:
+        """Write every stage's blocks back into this rank's model (a
+        collective): afterwards the model holds the global params, as a
+        checkpoint or a non-PP trainer reads them. The next ``fit_batch``
+        releases the other stages' blocks again."""
+        blocks = self._gather_blocks()
+        live = self.model.params
+        with torch.no_grad():
+            for ln, lp in blocks.items():
+                for pn, v in lp.items():
+                    if live[ln][pn].numel() != v.numel():
+                        live[ln][pn].data = v.clone()
+        self._released = False
+
+    def stage_param_bytes(self, *, per_device: bool = True) -> int:
+        """Trainable-param bytes this rank holds (its own stage's blocks plus
+        the replicated prelude and head), or with ``per_device=False`` the
+        whole model's."""
+        total = 0
+        for i, (ln, _, _) in enumerate(self._units):
+            if per_device and i in self._block_stage and self._block_stage[i] != self.stage:
+                continue
+            for shape, dt in self._shapes.get(ln, {}).values():
+                total += int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+        return int(total)
+
+    def stats(self) -> dict:
+        return {
+            "iteration": self.iteration,
+            "schedule": self.schedule,
+            "n_stages": self.n_stages,
+            "n_micro": self.n_micro,
+            "data_shards": self._n_data,
+            "zero1": self.zero1,
+            "bubble_share": self._sched.bubble_share,
+            "resident_microbatches": self._sched.max_inflight,
+            "stage_costs": list(self.partition.stage_costs),
+            "stage_param_bytes": self.stage_param_bytes(),
+            "stage_param_bytes_global": self.stage_param_bytes(per_device=False),
+            "stage_times": self.stage_times,
+        }

@@ -42,8 +42,8 @@ VARIANTS = {
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SYMBOLS = {"dl4j_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
-           "dl4j_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]}
+SYMBOLS = {"dl4j_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P],
+           "dl4j_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]}
 
 
 def _rel(a, b) -> float:
@@ -72,11 +72,11 @@ def main() -> None:
         for name, lib in libs.items():
             def run_dq(lib=lib):
                 return lib.dl4j_flash_bwd_dq(*ptrs, None, dq.data_ptr(), B, H, T, T, D, D,
-                                             scale, 1, bf16, stream)
+                                             scale, 1, 0, bf16, stream)
 
             def run_dkv(lib=lib):
                 return lib.dl4j_flash_bwd_dkv(*ptrs, None, dk.data_ptr(), dv.data_ptr(), B, H, T,
-                                              T, D, D, scale, 1, bf16, stream)
+                                              T, D, D, scale, 1, 0, bf16, stream)
             if run_dq() or run_dkv():
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()

@@ -49,7 +49,7 @@ DECODE_VARIANTS = {
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-FORWARD_SYMBOLS = {"dl4j_flash_forward": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]}
+FORWARD_SYMBOLS = {"dl4j_flash_forward": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]}
 DECODE_SYMBOLS = {"dl4j_flash_decode": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P]}
 
 
@@ -75,7 +75,7 @@ def forward(libs) -> None:
             def run(lib=lib):
                 return lib.dl4j_flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
                                               out.data_ptr(), lse.data_ptr(), B, H, T, T, D, D,
-                                              D ** -0.5, 1, bf16, stream)
+                                              D ** -0.5, 1, 0, bf16, stream)
             if run():
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()

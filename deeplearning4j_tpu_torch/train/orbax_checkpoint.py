@@ -12,7 +12,13 @@ sections with ``torch.distributed.checkpoint`` (DCP):
   while training goes on; ``wait()`` joins the write on every rank;
 * the config-JSON sidecar (``configuration.json``, rank 0) and a
   ``meta.json`` per step with the JAX module's fields (iteration, zero1,
-  data_axis, the dropout stream's position) and the saved layout.
+  data_axis, pipeline_stages, the dropout stream's position) and the saved
+  layout.
+
+A ``PipelineParallelTrainer`` checkpoints at global shapes too (its
+``params`` and ``opt_state`` gather every stage's blocks), so a checkpoint
+restores into ``Solver``, ``DistributedTrainer`` and a differently staged
+pipeline trainer, each way round.
 
 A step is ``<directory>/<step>/``; its ``meta.json`` is written last, so a
 step without one is an unfinished write and is not restored. The on-disk
@@ -148,8 +154,11 @@ class OrbaxCheckpointer:
 
     def save(self, step: int, trainer: Any, *, extra: Optional[Dict] = None) -> None:
         """Checkpoint a DistributedTrainer-like object (``params``,
-        ``opt_state``, ``state``, ``iteration``) or a bare tree of tensors."""
+        ``opt_state``, ``state``, ``iteration``), a ``Solver``, or a bare
+        tree of tensors."""
         self.wait_write()
+        if _is_solver(trainer):
+            trainer = _SolverView(trainer)
         if hasattr(trainer, "params"):
             sections = self._sections(trainer)
             meta: Dict[str, Any] = {"iteration": int(getattr(trainer, "iteration", step))}
@@ -157,6 +166,8 @@ class OrbaxCheckpointer:
                 meta["zero1"] = bool(trainer.zero1)
             if hasattr(trainer, "n_data_shards"):
                 meta["data_axis"] = int(trainer.n_data_shards)
+            if hasattr(trainer, "n_stages"):  # pipeline-parallel layout
+                meta["pipeline_stages"] = int(trainer.n_stages)
             model = getattr(trainer, "model", None)
             rng = getattr(model, "_rng", None)
             if rng is not None:  # resume the exact dropout stream
@@ -246,8 +257,11 @@ class OrbaxCheckpointer:
 
     @staticmethod
     def _meta_hint(meta: dict) -> str:
-        return (f"saved zero1={meta.get('zero1')}, data_axis={meta.get('data_axis')}, "
+        hint = (f"saved zero1={meta.get('zero1')}, data_axis={meta.get('data_axis')}, "
                 f"iteration={meta.get('iteration')}")
+        if meta.get("pipeline_stages"):
+            hint += f", pipeline_stages={meta['pipeline_stages']}"
+        return hint
 
     def _read(self, step: int, template: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Fill ``template`` (host tensors at the saved shapes) from ``step``."""
@@ -281,6 +295,8 @@ class OrbaxCheckpointer:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         meta = self._meta(step)
         layout = meta.get("layout", {})
+        if _is_solver(trainer):
+            trainer = _SolverView(trainer)
         if not hasattr(trainer, "params"):
             flat = _flatten(trainer, "params", {})
             tmpl = {k: torch.empty(tuple(v.shape), dtype=v.dtype) for k, v in flat.items()}
@@ -307,9 +323,16 @@ class OrbaxCheckpointer:
                    if k in saved_ss}
         tmpl.update({k: _template_leaf(v) for k, v in ss_part.items()})
         got = self._read(step, tmpl)
-        with torch.no_grad():
-            for k, v in _flatten(trainer.params, "params", {}).items():
-                v.copy_(got[k].to(device=v.device, dtype=v.dtype))
+        prop = getattr(type(trainer), "params", None)
+        if isinstance(prop, property) and prop.fset is not None:
+            # a trainer that installs a global tree itself (the pipeline
+            # trainer keeps only its own stage's blocks)
+            trainer.params = _unflatten(live["params"], "params",
+                                        _placed(got, _flatten(live["params"], "params", {})))
+        else:
+            with torch.no_grad():
+                for k, v in _flatten(live["params"], "params", {}).items():
+                    v.copy_(got[k].to(device=v.device, dtype=v.dtype))
         trainer.state = _unflatten(trainer.state, "state",
                                    _placed(got, _flatten(trainer.state, "state", {})))
         opt = _unflatten(live["opt_state"], "opt_state",
@@ -352,3 +375,47 @@ def _placed(got: Dict[str, torch.Tensor], live: Dict[str, Any]) -> Dict[str, Any
         elif v is not None:
             out[k] = type(v)(got[k].item())
     return out
+
+
+def _is_solver(obj) -> bool:
+    """A single-device ``Solver``: a model and an updater state, no
+    trainer surface."""
+    return (not hasattr(obj, "params") and hasattr(obj, "model")
+            and hasattr(obj, "opt_state") and hasattr(obj, "optim"))
+
+
+class _SolverView:
+    """The trainer surface of a ``Solver``: its model's live params and
+    state, its updater state, and the model's iteration count."""
+
+    def __init__(self, solver) -> None:
+        self._solver = solver
+        self.model = solver.model
+
+    @property
+    def params(self):
+        return self.model.params
+
+    @property
+    def opt_state(self):
+        return self._solver.opt_state
+
+    @opt_state.setter
+    def opt_state(self, value) -> None:
+        self._solver.opt_state = value
+
+    @property
+    def state(self):
+        return self.model.state
+
+    @state.setter
+    def state(self, value) -> None:
+        self.model.state = value
+
+    @property
+    def iteration(self) -> int:
+        return int(self.model.iteration_count)
+
+    @iteration.setter
+    def iteration(self, value: int) -> None:
+        self.model.iteration_count = int(value)

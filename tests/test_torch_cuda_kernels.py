@@ -284,6 +284,53 @@ def test_flash_backward_is_deterministic(cuda, dtype, causal, masked):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", ALL)
+@pytest.mark.parametrize("tq,tk,off", [
+    (70, 90, -100),  # every key in the future: nothing kept, lse +1e30
+    (70, 90, -30),   # the first rows see no key
+    (64, 64, 0),
+    (64, 128, 500),  # every key visible
+    (33, 129, 17),
+])
+def test_flash_kernels_take_an_explicit_causal_offset(cuda, dtype, tq, tk, off):
+    """B1-B3 with query i seeing keys <= i + off (a ring-attention block's
+    place in the whole sequence), against the plain versions at the same
+    offset."""
+    gen = torch.Generator().manual_seed(tq + tk + off + 1000)
+    q, k, v, mask = _fwd_case(gen, dtype, cuda, 2, 3, tq, tk, 64, 64, True)
+    out, lse = ops.flash_attention(q, k, v, mask, True, return_lse=True, causal_offset=off)
+    ref, ref_lse = ops.flash_attention_plain(q, k, v, mask, True, causal_offset=off)
+    g = _rand(gen, (2, 3, tq, 64), dtype, cuda)
+    acc = ref_lse.dtype
+    delta = torch.sum(g.to(acc) * ref.to(acc), dim=-1).contiguous()
+    args = (q, k, v, g, ref_lse, delta, mask, True, 64 ** -0.5, off)
+    dq = pfa._flash_bwd_dq_cuda(*args)
+    dk, dv_ = pfa._flash_bwd_dkv_cuda(*args)
+    r_dq = ops.flash_attention_bwd_dq_plain(*args)
+    r_dk, r_dv = ops.flash_attention_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert float((out.double() - ref.double()).abs().max()) <= TOL[dtype]
+    assert float((lse - ref_lse).abs().max()) <= LSE_TOL[dtype]
+    for got, want in ((dq, r_dq), (dk, r_dk), (dv_, r_dv)):
+        assert _rel_err(got, want) <= BWD_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ALL)
+def test_default_causal_offset_is_bit_identical(cuda, dtype):
+    """Every launch that passes no offset is the launch with tk - tq."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, g, mask, lse, delta = _bwd_inputs(gen, dtype, cuda, 2, 3, 100, 140, 64, 64,
+                                               True, True)
+    a = ops.flash_attention(q, k, v, mask, True, return_lse=True)
+    b = ops.flash_attention(q, k, v, mask, True, return_lse=True, causal_offset=40)
+    args = (q, k, v, g, lse, delta, mask, True, 0.125)
+    da = (pfa._flash_bwd_dq_cuda(*args), *pfa._flash_bwd_dkv_cuda(*args))
+    db = (pfa._flash_bwd_dq_cuda(*args, 40), *pfa._flash_bwd_dkv_cuda(*args, 40))
+    torch.cuda.synchronize()
+    for x, y in zip((*a, *da), (*b, *db)):
+        assert torch.equal(x, y)
+
+
 def test_cuda_flash_attention_gives_gradients(cuda):
     """The fault the autograd Function repairs: a CUDA ``flash_attention``
     output used in a loss must give q, k and v their gradients, equal to
