@@ -190,7 +190,20 @@ causal and not, and a cross-length causal ring, held against
 50257 x 768 ``ShardedEmbeddingTable`` against a dense table. B1-B3 are
 also held, at the ring's explicit causal offsets, against their plain
 versions, and at the default offset bit for bit against an explicit
-``tk - tq``.
+``tk - tq``. Then tensor and expert parallelism (``DistributedTrainer(
+param_sharding_rules=...)``, ``parallel/tensor_parallel.py``), gloo ranks
+sharing ``cuda:0`` (``tools/tp_legs.py``): the GPT-2-small-width LM
+Megatron-split over two ranks (B1-B3 on 6 heads a rank), 3 steps held
+against the world-1 run within ``TOL_TP``, with one step under each of
+three planted faults (the row-parallel all-reduce skipped, *g*'s backward
+a sum, *f*'s backward skipped) read above it; the MoE network's 8 experts
+over two ranks (B5 over 4 a rank), grouped and sort, its gradients and
+output held against the replicated network at the MoE phase's gates, two
+planted faults read above; and in float64 over data=2 x model=2 the
+2-block LM (``CLIP_L2_PER_LAYER``, Lamb) replicated and ZeRO-1 within
+1e-10 of ``Solver``, its checkpoint restored into ``DistributedTrainer``
+and ``Solver``, and the MoE network under ``BucketedAllReduceSync`` with
+the expert rules, plain and ZeRO-1, within 1e-10 of it without them.
 It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
@@ -4954,6 +4967,245 @@ def phase_sequence(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism: gloo ranks sharing cuda:0
+# ---------------------------------------------------------------------------
+
+# the Megatron-split LM's params after 3 steps vs the world-1 run's
+# (Solver's), max |diff|: between the sound gap and what each planted fault
+# reads, both of which the phase reads in every run
+TOL_TP = 3e-5
+# float64 legs: params max |diff|, scores relative to the score (a score
+# of ~10.8 carries the params' gap through the loss: Lamb's layer norms are
+# float32 in both packages, and a norm summed over shards rounds otherwise)
+TOL_TP_F64 = 1e-10
+TPEP_F64_STEPS = 2  # the float64 legs' steps (each leg also boots a model)
+
+
+def _legs_check_ranks(reps, legs, what: str) -> None:
+    """The ranks of each sound leg agree on every score (a planted fault's
+    ranks need not: rank 0's params are read)."""
+    for leg in legs:
+        check(all(r["legs"][leg]["scores"] == reps[0]["legs"][leg]["scores"] for r in reps),
+              f"{what} {leg}: the ranks' scores differ")
+
+
+def _shares(rec) -> tuple:
+    return ([round(c / t, 3) for c, t in zip(rec["collective_ms"], rec["step_ms"])],
+            [round(c / t, 3) for c, t in zip(rec["activation_ms"], rec["step_ms"])])
+
+
+def phase_tp_lm(card: str, world1) -> dict:
+    """``DistributedTrainer`` under the Megatron rules on two ranks sharing
+    ``cuda:0`` (``data=1, model=2``): the GPT-2-small-width LM from the
+    world-1 phase's seed on its [8, 1024] batch, each rank holding half of
+    every block's Wq/Wk/Wv/W1/b1 columns and Wo/W2 rows, 3 steps; held
+    against the world-1 run's params (bit for bit ``Solver.fit_batch``'s)
+    within ``TOL_TP``, which one step under each planted fault must exceed
+    against the sound run's first step; ``output()`` over the shards
+    against the model's own after ``sync_to_model``.
+    Returns the launch counts of both ranks' sound steps."""
+    from deeplearning4j_tpu_torch.tools import dp_legs, tp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="tp_lm_")
+    spec = {"kind": "tp_lm", "lm": dict(dp_legs.GPT2_SMALL), "seed": SEED, "global_batch": B,
+            "seq": T_FULL, "steps": DP_STEPS, "faults": list(tp_legs.TP_FAULTS),
+            "probe_len": 256, "reference": os.path.join(out, "world1.npy")}
+    legs = ("sound", *tp_legs.TP_FAULTS)
+    try:
+        np.save(spec["reference"], world1["params"])
+        reps = tp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
+                                 timeout=900)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _legs_check_ranks(reps, ("sound",), "tensor-parallel")
+    gaps = {leg: reps[0]["legs"][leg]["fault_gap" if leg in tp_legs.TP_FAULTS else "params_gap"]
+            for leg in legs}
+    rec = reps[0]["legs"]["sound"]
+    check(gaps["sound"] <= TOL_TP,
+          f"the Megatron-split LM must be within {TOL_TP} of Solver's params: "
+          f"{gaps['sound']:.3e}")
+    check(rec["scores"][-1] < rec["scores"][0], f"the score must fall: {rec['scores']}")
+    for f in tp_legs.TP_FAULTS:
+        check(gaps[f] > TOL_TP, f"the planted fault {f} must read above {TOL_TP}: {gaps[f]:.3e}")
+    want = {"flash_forward": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12, "flash_decode": 0,
+            "grouped_matmul": 0}
+    heads = H // 2
+    for r in reps:
+        s = r["legs"]["sound"]
+        for step in s["launches"]:
+            check(step == want, f"rank {r['rank']} must launch {want} a step: {step}")
+        check(s["heads"] == {k: [heads] for k in ("flash_forward", "flash_bwd_dq",
+                                                  "flash_bwd_dkv")},
+              f"rank {r['rank']}: B1-B3 must run on {heads} heads: {s['heads']}")
+        check(s["output_gap"] <= TOL_OUT[torch.float32],
+              f"rank {r['rank']}: output() over the shards vs the whole model "
+              f"{s['output_gap']:.3e} (tol {TOL_OUT[torch.float32]:g})")
+        check(s["param_bytes"] < s["param_bytes_global"], "a rank must hold less than the model")
+        coll, act = _shares(s)
+        print(f"tensor-parallel lm 2 ranks rank {r['rank']} ({card}; gloo, data=1 x model=2, "
+              f"Megatron rules on 12 blocks, [8,1024] Adam(1e-4)): ms/step "
+              f"{[round(t, 2) for t in s['step_ms']]}, scores "
+              f"{[round(x, 5) for x in s['scores']]}, host-timed share of the step in all "
+              f"collectives {coll}, in the activation collectives {act}; B1-B3 heads "
+              f"{s['heads']}; param bytes a rank {s['param_bytes']} of {s['param_bytes_global']} "
+              f"({s['sharded_params']} params split); output() vs the whole model max |diff| "
+              f"{s['output_gap']:.3e}")
+    counts = _sum_launches(reps, ("sound",))
+    print(f"tensor-parallel lm 2 ranks ({card}): params vs the world-1 run (Solver's), max "
+          f"|diff| {gaps['sound']:.3e} (gate {TOL_TP:g}); one step under each planted fault "
+          f"against the sound run's first reads "
+          f"{ {f: f'{gaps[f]:.3e}' for f in tp_legs.TP_FAULTS} }; launches {counts}; the two "
+          f"ranks time-slice one card, so no speed-up from tensor parallelism is claimed; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_ep_moe(card: str) -> dict:
+    """``DistributedTrainer`` under ``moe_expert_parallel_rules`` on two
+    ranks sharing ``cuda:0`` (``data=1, model=2``): the MoE network of
+    phase "MoE network" on its [8, 1024] batch, each rank holding and
+    computing 4 of the 8 experts, in grouped dispatch (B5 over the rank's 4
+    experts) and in sort dispatch. From the seeded params, its gradients and
+    ``output()`` are held against the replicated network's at the MoE
+    phase's float32 gates (``TOL_GRAD_REL``, ``TOL_BWD_REL``), which each
+    planted fault's gradients (grouped) must exceed; then 3 steps, beside
+    the replicated network's 3 ``Solver`` steps. Returns the launch counts
+    of both ranks' training steps."""
+    from deeplearning4j_tpu_torch.tools import tp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    modes = ["grouped", "sort"]
+    spec = {"kind": "ep_moe", "seed": SEED, "global_batch": B, "seq": T_FULL,
+            "steps": DP_STEPS, "modes": modes, "faults": list(tp_legs.EP_FAULTS),
+            "probe_len": 256}
+    out = tempfile.mkdtemp(prefix="ep_moe_")
+    try:
+        reps = tp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
+                                 timeout=900)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _legs_check_ranks(reps, modes, "expert-parallel")
+    r0 = reps[0]["legs"]
+    gaps = {m: r0[m]["params_gap"] for m in modes}
+    tol_out = TOL_BWD_REL[torch.float32]
+    for m in modes:
+        rec = r0[m]
+        check(rec["grad_rel"][0] <= TOL_GRAD_REL and rec["out_rel"] <= tol_out,
+              f"expert-parallel {m} vs the replicated network: gradients worst rel "
+              f"{rec['grad_rel']} (tol {TOL_GRAD_REL:g}), output rel {rec['out_rel']:.3e} "
+              f"(tol {tol_out:g})")
+        check(rec["scores"][-1] < rec["scores"][0], f"the score must fall: {rec['scores']}")
+        want = {"flash_forward": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_decode": 0,
+                "grouped_matmul": 4 if m == "grouped" else 0}
+        for r in reps:
+            s = r["legs"][m]
+            for step in s["launches"]:
+                check(step == want, f"expert-parallel {m} rank {r['rank']} must launch {want} "
+                                    f"a step: {step}")
+            check(s["slabs"]["We1"] == [E_MOE // 2, 768, H_MOE] and s["ep_shards"] == 2,
+                  f"rank {r['rank']} must hold 4 experts: {s['slabs']}")
+            check(s["expert_tokens"] == rec["expert_tokens"]
+                  and sum(s["expert_tokens"]) + s["dropped_tokens"] == TOPK * B * T_FULL,
+                  f"rank {r['rank']}: the expert counts must be global: {s['expert_tokens']}")
+            coll, act = _shares(s)
+            print(f"expert-parallel moe 2 ranks {m} rank {r['rank']} ({card}; gloo, data=1 x "
+                  f"model=2, [8,1024] Adam(1e-4)): expert slabs a rank We1 {s['slabs']['We1']}, "
+                  f"We2 {s['slabs']['We2']}; ms/step {[round(t, 2) for t in s['step_ms']]}, "
+                  f"scores {[round(x, 5) for x in s['scores']]} (replicated "
+                  f"{[round(x, 5) for x in r0[f'replicated_{m}']['scores']]}); collectives "
+                  f"share {coll}, activation share {act}; last step routed "
+                  f"{[int(v) for v in s['expert_tokens']]}; param bytes a rank "
+                  f"{s['param_bytes']} of {s['param_bytes_global']}")
+    for f in tp_legs.EP_FAULTS:
+        check(r0[f]["grad_rel"][0] > TOL_GRAD_REL,
+              f"the planted fault {f} must read above {TOL_GRAD_REL}: {r0[f]['grad_rel']}")
+    counts = _sum_launches(reps, modes)
+    out_rel = {m: f"{r0[m]['out_rel']:.3e}" for m in modes}
+    print(f"expert-parallel moe 2 ranks ({card}): vs the replicated network from the seeded "
+          f"params, gradients worst rel { {m: r0[m]['grad_rel'] for m in modes} } (gate "
+          f"{TOL_GRAD_REL:g}), output rel {out_rel} (gate {tol_out:g}); planted faults' gradients read "
+          f"{ {f: r0[f]['grad_rel'] for f in tp_legs.EP_FAULTS} }; after 3 Adam steps params "
+          f"max |diff| from the replicated run { {m: f'{g:.3e}' for m, g in gaps.items()} } "
+          f"(no gate: a token whose top-2 or capacity slot flips on a float32 rounding moves "
+          f"its experts' update by up to 2 x lr a step); launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_tpep_f64(card: str) -> dict:
+    """Tensor and expert parallelism x data in float64 (the f64 kernels) on
+    four gloo ranks sharing ``cuda:0`` at ``data=2, model=2``: the 2-block
+    GPT-2-width LM under the Megatron rules with ``CLIP_L2_PER_LAYER`` and
+    Lamb(1e-4), [4, 1024], 2 steps replicated and 2 under ZeRO-1, each within
+    1e-10 of ``Solver.fit_batch``; the replicated leg's checkpoint restored
+    into ``DistributedTrainer`` without rules and ``Solver``, each of whose
+    next step is within 1e-10 of Solver's third; then the MoE network under
+    ``BucketedAllReduceSync`` with the expert rules, plain and ZeRO-1,
+    within 1e-10 of the trainer without rules. Returns the launch counts of
+    the trainers' steps."""
+    from deeplearning4j_tpu_torch.tools import dp_legs, tp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm = dict(dp_legs.GPT2_SMALL, n_layers=2)
+    spec = {"kind": "tpep_f64", "lm": lm, "seed": SEED, "global_batch": PP_F64_BATCH,
+            "seq": T_FULL, "steps": TPEP_F64_STEPS, "lamb_lr": 1e-4}
+    out = tempfile.mkdtemp(prefix="tpep_")
+    lm_legs, moe_legs = ("lm_replicated", "lm_zero1"), ("moe_ep", "moe_ep_zero1", "moe_replicated")
+    try:
+        reps = tp_legs.run_world(spec, world=4, backend="gloo", device="cuda", out_dir=out,
+                                 timeout=900)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _legs_check_ranks(reps, lm_legs + moe_legs, "float64")
+    legs = reps[0]["legs"]
+    pg, want = legs["gaps"], legs["solver"]
+    gaps = {leg: (pg[leg], max(abs(a - b) / abs(b) for a, b in zip(legs[leg]["scores"], want)))
+            for leg in lm_legs}
+    for leg, g in gaps.items():
+        check(max(g) <= TOL_TP_F64, f"{leg} must be within {TOL_TP_F64} of Solver: "
+                                    f"params, relative scores {g}")
+    z1_bitwise = legs["zero1_bitwise"]
+    nxt = want[TPEP_F64_STEPS]
+    next_gaps = {"DistributedTrainer": (abs(legs["dp_next"] - nxt) / abs(nxt), pg["dp_next"]),
+                 "Solver": (abs(legs["solver_next"] - nxt) / abs(nxt), pg["solver_next"])}
+    for name, (sg, gp) in next_gaps.items():
+        check(sg <= TOL_TP_F64 and gp <= TOL_TP_F64,
+              f"the tensor-parallel checkpoint restored into {name}: its next step must be "
+              f"within {TOL_TP_F64} of Solver's: relative score {sg:.3e}, params {gp:.3e}")
+    moe_gaps = {leg: pg[leg] for leg in ("moe_ep", "moe_ep_zero1")}
+    for leg, g in moe_gaps.items():
+        check(g <= TOL_TP_F64 and legs[leg]["ep_shards"] == 2,
+              f"{leg} must be within {TOL_TP_F64} of the trainer without rules: {g:.3e}")
+    moe_bitwise = {leg: legs[f"{leg}_bitwise"] for leg in moe_gaps}
+    for r in reps:
+        for leg in lm_legs + moe_legs:
+            moe = leg.startswith("moe")
+            want_l = ({"flash_forward": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                       "flash_decode": 0, "grouped_matmul": 4} if moe else
+                      {"flash_forward": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                       "flash_decode": 0, "grouped_matmul": 0})
+            for step in r["legs"][leg]["launches"]:
+                check(step == want_l, f"float64 {leg} rank {r['rank']} must launch {want_l} a "
+                                      f"step: {step}")
+    counts = _sum_launches(reps, lm_legs + moe_legs)
+    ms = {leg: [round(t, 2) for t in legs[leg]["step_ms"]] for leg in lm_legs + moe_legs}
+    print(f"tensor and expert parallel x data float64 ({card}; 4 gloo ranks, data=2 x model=2, "
+          f"[4,1024]): LM 2 blocks Megatron rules, CLIP_L2_PER_LAYER, Lamb(1e-4): vs Solver "
+          f"(params, relative scores) { {k: (f'{a:.3e}', f'{b:.3e}') for k, (a, b) in gaps.items()} } "
+          f"(gate {TOL_TP_F64:g}), ZeRO-1 bit for bit replicated: {z1_bitwise}; the "
+          f"checkpoint's next step (relative score, params) "
+          f"{ {k: (f'{a:.3e}', f'{b:.3e}') for k, (a, b) in next_gaps.items()} }; MoE under "
+          f"BucketedAllReduceSync with expert rules vs without, max |diff| "
+          f"{ {k: f'{v:.3e}' for k, v in moe_gaps.items()} }, bit for bit {moe_bitwise}; "
+          f"ms/step {ms}; launches {counts}; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5024,9 +5276,13 @@ def main() -> int:
     paths += [timed("ResNet-50 gradient sharing, 2 ranks", phase_dp_resnet50, card),
               timed("elastic resize", phase_dp_elastic_resize, card),
               timed("pipeline-parallel LM, 2 stages", phase_pp_lm, card, world1)]
-    del world1
     paths += [timed("pipeline x data, 4 ranks", phase_pp_dp_f64, card),
-              timed("ring and Ulysses attention, 2 ranks", phase_sequence, card)]
+              timed("ring and Ulysses attention, 2 ranks", phase_sequence, card),
+              timed("tensor-parallel LM, 2 ranks", phase_tp_lm, card, world1),
+              timed("expert-parallel MoE, 2 ranks", phase_ep_moe, card),
+              timed("tensor and expert parallel x data, 4 ranks, float64", phase_tpep_f64,
+                    card)]
+    del world1
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
@@ -5044,7 +5300,10 @@ def main() -> int:
     # (B1-B3, counted in their processes) and the ResNet-50 ranks (none);
     # then pipeline and sequence parallelism: the two stages' steps under
     # both schedules, the float64 pipe x data trainers' steps, and the ring
-    # and Ulysses runs (B1-B3, counted in the ranks' processes)
+    # and Ulysses runs (B1-B3, counted in the ranks' processes); then tensor
+    # and expert parallelism: the Megatron-split LM's steps (B1-B3 on 6
+    # heads), the expert-parallel MoE network's (B1-B3, B5 over 4 experts)
+    # and the float64 legs' (counted in the ranks' processes)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

@@ -36,9 +36,9 @@ from ..core.dtypes import as_input, cast_floats, default_device, to_numpy, torch
 from ..core.listeners import ListenerBus, TrainingListener
 from ..core.rng import RngState
 from .graph_conf import ComputationGraphConfiguration, VertexSpec
-from .layers.base import Layer, LayerContext, LayerModule, apply_layer
+from .layers.base import Layer, LayerContext, LayerModule, apply_layer, layer_dist, layer_loss
 from .layers.output import BaseOutputLayer
-from .sequential import _layer_reg_score, grads_of
+from .sequential import grads_of, layer_reg_score
 
 Tensors = Dict[str, Dict[str, torch.Tensor]]
 
@@ -216,15 +216,16 @@ class ComputationGraph(nn.Module):
                 vmasks[spec.name] = in_mask
                 continue
             x = xs[0]
-            ctx = LayerContext(train=train, rng=rng, mask=in_mask, dist=dist)
+            ctx = LayerContext(train=train, rng=rng, mask=in_mask,
+                               dist=layer_dist(dist, spec.name))
             if spec.preprocessor is not None:
                 x, _ = spec.preprocessor.apply({}, {}, x, ctx)
             lparams = params.get(spec.name, {})
             lstate = dict(state.get(spec.name, {}))
             persistent = self._persistent_keys.get(spec.name, ())
             if isinstance(spec.layer, BaseOutputLayer) and spec.name in label_by_output:
-                losses[spec.name] = spec.layer.compute_loss(
-                    lparams, x, label_by_output[spec.name], ctx,
+                losses[spec.name] = layer_loss(
+                    spec.layer, lparams, x, label_by_output[spec.name], ctx,
                     label_mask=lmask_by_output.get(spec.name))
                 if spec.name not in self._consumed:
                     new_state[spec.name] = {k: v for k, v in lstate.items() if k in persistent}
@@ -260,7 +261,7 @@ class ComputationGraph(nn.Module):
             total = total + self.output_weights.get(name, 1.0) * loss.to(score_dtype)
         for name, layer in self.named_param_layers():
             if params.get(name):
-                total = total + _layer_reg_score(layer, params[name], score_dtype)
+                total = total + layer_reg_score(dist, name, layer, params[name], score_dtype)
             # MoE load-balance aux loss (GShard): the forward left this
             # batch's term in the layer's state
             bl_w = getattr(layer, "balance_loss_weight", 0.0)

@@ -50,14 +50,19 @@ class DistContext:
     batch norm with no group takes its moments over every replica's rows.
     ``n_shards`` is the data-axis width either way, ``bn_group_size`` the
     trainer's default statistics group (a layer's own field wins);
-    ``ep_axis``/``ep_shards`` name an expert-parallel axis, which the port
-    does not run yet (ROADMAP A8 part 3).
+    ``ep_axis``/``ep_shards`` name the expert-parallel axis and its width:
+    a ``MixtureOfExpertsLayer`` whose expert params hold ``E/ep_shards``
+    experts computes them and combines over ``ep_group``, where it is shard
+    ``ep_rank``.
 
     The port runs one process per replica, so the context also carries
     this replica's ``rank`` and ``groups``: for each group size the
     ``torch.distributed`` process group of this rank's adjacent replicas
     (the whole data axis under ``n_shards``), created on every rank by the
-    trainer."""
+    trainer. Under ``param_sharding_rules``, ``tp`` is the trainer's
+    tensor-parallel plan (``parallel/tensor_parallel.py``) and ``layer``
+    the name of the layer being applied (:func:`layer_dist`): the plan
+    spells that layer over its shards."""
 
     axis: Optional[str] = None
     n_shards: int = 1
@@ -66,6 +71,19 @@ class DistContext:
     ep_shards: int = 1
     rank: int = 0
     groups: Dict[int, Any] = dataclasses.field(default_factory=dict, compare=False)
+    ep_group: Any = dataclasses.field(default=None, compare=False)
+    ep_rank: int = 0
+    tp: Any = dataclasses.field(default=None, compare=False)
+    layer: Optional[str] = None
+
+
+def layer_dist(dist: Optional[DistContext], name: str) -> Optional[DistContext]:
+    """The context as the layer ``name`` sees it: under a tensor-parallel
+    plan it names the layer; otherwise it is ``dist`` itself (``None``
+    outside a distributed step)."""
+    if dist is None or dist.tp is None:
+        return dist
+    return dataclasses.replace(dist, layer=name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +206,29 @@ def apply_input_dropout(cfg: Layer, x: torch.Tensor, ctx: LayerContext) -> torch
     return torch.where(keep, x / retain, torch.zeros_like(x))
 
 
+def _tp_plan(ctx: LayerContext):
+    return ctx.dist.tp if ctx.dist is not None else None
+
+
+def _apply(layer: Layer, lparams: Params, lstate: State, x: torch.Tensor,
+           ctx: LayerContext) -> Tuple[torch.Tensor, State]:
+    """``layer.apply``, or its tensor-parallel spelling under a plan."""
+    tp = _tp_plan(ctx)
+    if tp is not None:
+        return tp.apply(layer, lparams, lstate, x, ctx)
+    return layer.apply(lparams, lstate, x, ctx)
+
+
+def layer_loss(layer: Layer, lparams: Params, x: torch.Tensor, labels: torch.Tensor,
+               ctx: LayerContext, label_mask=None) -> torch.Tensor:
+    """An output layer's ``compute_loss``, or its tensor-parallel spelling
+    under a plan."""
+    tp = _tp_plan(ctx)
+    if tp is not None:
+        return tp.compute_loss(layer, lparams, x, labels, ctx, label_mask)
+    return layer.compute_loss(lparams, x, labels, ctx, label_mask=label_mask)
+
+
 def apply_layer(layer: Layer, lparams: Params, lstate: State, x: torch.Tensor,
                 ctx: LayerContext, *, remat: bool = False) -> Tuple[torch.Tensor, State]:
     """Layer apply, optionally under ``torch.utils.checkpoint``: the backward
@@ -200,7 +241,7 @@ def apply_layer(layer: Layer, lparams: Params, lstate: State, x: torch.Tensor,
     draws the masks of the forward, and the forward itself draws from
     ``ctx.rng``, which later layers go on drawing from."""
     if not remat:
-        return layer.apply(lparams, lstate, x, ctx)
+        return _apply(layer, lparams, lstate, x, ctx)
     from torch.utils.checkpoint import checkpoint
 
     rng_start = ctx.rng.get_state() if ctx.rng is not None else None
@@ -212,6 +253,6 @@ def apply_layer(layer: Layer, lparams: Params, lstate: State, x: torch.Tensor,
             rng = torch.Generator()
             rng.set_state(rng_start)
         calls[0] += 1
-        return layer.apply(lparams, lstate, xx, dataclasses.replace(ctx, rng=rng))
+        return _apply(layer, lparams, lstate, xx, dataclasses.replace(ctx, rng=rng))
 
     return checkpoint(fn, x, use_reentrant=False)

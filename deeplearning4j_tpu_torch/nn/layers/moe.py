@@ -26,10 +26,17 @@ load-balance term, which the score adds when ``balance_loss_weight > 0``),
 ``expert_tokens`` ([E] kept assignments), ``dropped_tokens`` and
 ``capacity_slots`` (E·C), counts in float32.
 
-Explicit expert parallelism (expert params sliced over a mesh axis, the
-JAX package's ``shard_map`` path) needs ``torch.distributed`` and is not
-ported yet (ROADMAP A8 part 3): expert params with fewer than ``num_experts``
-slabs raise.
+Expert parallelism (``DistributedTrainer(param_sharding_rules=
+moe_expert_parallel_rules())``): the trainer keeps ``E/n`` experts' slabs
+on each rank of the expert axis and sets ``ctx.dist.ep_axis``. Each rank
+routes the full token set with the replicated router and computes its
+local experts only: ``"sort"`` over the local ``[E/n, C]`` slice of the
+buffer, ``"grouped"`` through ``ops.grouped_matmul`` over the locally
+sorted rows, the other ranks' rows zeroed. Tokens and gates enter the local
+branch through ``copy_to_group`` (their gradient sums the ranks' parts),
+and the ranks' outputs are added by ``reduce_from_group`` (identity
+backward: each rank seeds the same loss cotangent). The state's counts stay
+global on every rank.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.config import register_config
-from ...ops.grouped_matmul import grouped_matmul
+from ...ops.grouped_matmul import _with_zero_row, grouped_matmul
 from ...ops.moe_dispatch import (
     combine_rows,
     gather_dispatch,
@@ -231,6 +238,35 @@ class MixtureOfExpertsLayer(Layer):
         inv = torch.empty_like(order).scatter_(0, order, torch.arange(kn, device=dev))
         return torch.index_select(out_rows, 0, inv)
 
+    def _ep_forward(self, params: Params, x2: torch.Tensor, gate_vals: torch.Tensor,
+                    plan, capacity: int, dist) -> torch.Tensor:
+        """Expert parallelism: this rank holds ``E/n`` experts, routes the
+        full token set, computes only the assignments its experts own and
+        adds the ranks' outputs over ``dist.ep_group``."""
+        from ...parallel import mesh as pmesh
+
+        e_loc = self._expert_kernel(params, "We1")[0].shape[0]
+        group = dist.ep_group
+        x2w = pmesh.copy_to_group(x2, group)
+        gate_w = pmesh.copy_to_group(gate_vals, group)
+        first_slot = dist.ep_rank * e_loc * capacity
+        local_idx = plan.buffer_idx.long() - first_slot
+        in_local = (local_idx >= 0) & (local_idx < e_loc * capacity)
+        local_idx = torch.where(in_local, local_idx, torch.full_like(local_idx, e_loc * capacity))
+        if self.dispatch_mode == "grouped":
+            first = dist.ep_rank * e_loc
+            rows = self._grouped_rows(params, x2w, local_idx,
+                                      plan.expert_tokens[first:first + e_loc], e_loc, capacity)
+            # other ranks' assignments carry real gates: their rows (bias
+            # only) must be zero, so only the owning rank contributes
+            rows = rows * in_local[:, None].to(rows.dtype)
+        else:  # "sort" over the local [E/n, C] slice of the buffer
+            slot_local = plan.slot_token[first_slot:first_slot + e_loc * capacity].long()
+            expert_in = _with_zero_row(x2w)[slot_local].reshape(e_loc, capacity, x2.shape[-1])
+            out_e = self._experts(params, expert_in)
+            rows = _with_zero_row(out_e.reshape(e_loc * capacity, -1))[local_idx]
+        return pmesh.reduce_from_group(combine_rows(rows, gate_w, plan.keep), group)
+
     def apply(self, params: Params, state: State, x: torch.Tensor,
               ctx: LayerContext) -> Tuple[torch.Tensor, State]:
         x = apply_input_dropout(self, x, ctx)
@@ -248,16 +284,30 @@ class MixtureOfExpertsLayer(Layer):
         if recurrent and ctx.mask is not None:  # [b, t] -> [b*t]
             token_mask = ctx.mask.to(device=x2.device, dtype=x2.dtype).reshape(b_ * t_)
 
-        if self._expert_kernel(params, "We1")[0].shape[0] != e:
-            raise NotImplementedError(
-                "explicit expert parallelism (expert params sliced over a mesh axis) "
-                "needs torch.distributed and is not ported yet (ROADMAP A8 part 3)")
+        e_loc = self._expert_kernel(params, "We1")[0].shape[0]
+        ep = ctx.dist is not None and ctx.dist.ep_axis is not None and e_loc != e
+        if ep:
+            if self.dispatch_mode == "einsum":
+                raise ValueError(
+                    "dispatch_mode='einsum' has no explicit expert-parallel "
+                    "spelling; use 'sort' or 'grouped'")
+            if e % e_loc != 0:
+                raise ValueError(
+                    f"num_experts={e} must divide evenly over the expert-"
+                    f"parallel axis (local shard holds {e_loc})")
+        elif e_loc != e:
+            raise ValueError(
+                f"the expert params hold {e_loc} of num_experts={e} experts outside "
+                "expert parallelism (a DistributedTrainer step under "
+                "moe_expert_parallel_rules sets ctx.dist.ep_axis)")
 
         gates = torch.softmax(x2 @ params["Wg"], dim=-1)         # [b, E]
         if self.dispatch_mode in ("sort", "grouped"):
             gate_vals, expert_idx = top_k_routing(gates, self.top_k)
             plan = make_dispatch_plan(expert_idx, e, capacity, token_mask=token_mask)
-            if self.dispatch_mode == "grouped":
+            if ep:
+                y = self._ep_forward(params, x2, gate_vals, plan, capacity, ctx.dist)
+            elif self.dispatch_mode == "grouped":
                 rows = self._grouped_rows(params, x2, plan.buffer_idx,
                                           plan.expert_tokens, e, capacity)
                 y = combine_rows(rows, gate_vals, plan.keep)      # [b, o]

@@ -41,7 +41,7 @@ from ..core.listeners import ListenerBus, TrainingListener
 from ..core.rng import RngState
 from .conf import MultiLayerConfiguration
 from .input_type import RecurrentType
-from .layers.base import Layer, LayerContext, LayerModule, apply_layer
+from .layers.base import Layer, LayerContext, LayerModule, apply_layer, layer_dist, layer_loss
 from .layers.output import BaseOutputLayer
 
 
@@ -60,6 +60,16 @@ def _layer_reg_score(layer: Layer, params: Dict[str, torch.Tensor],
         if l2:
             score = score + 0.5 * l2 * torch.sum(torch.square(arr)).to(score_dtype)
     return score
+
+
+def layer_reg_score(dist, lname: str, layer: Layer, params: Dict[str, torch.Tensor],
+                    score_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_layer_reg_score`, or under a tensor-parallel plan the sum over
+    the model group of its shards' parts."""
+    tp = getattr(dist, "tp", None)
+    if tp is not None:
+        return tp.reg_score(lname, layer, params, score_dtype)
+    return _layer_reg_score(layer, params, score_dtype)
 
 
 def grads_of(score: torch.Tensor, params: Dict[str, Dict[str, torch.Tensor]]
@@ -219,7 +229,7 @@ class MultiLayerNetwork(nn.Module):
             lstate = dict(state.get(name, {}))
             if rnn_state is not None and name in rnn_state:
                 lstate.update(rnn_state[name])
-            ctx = LayerContext(train=train, rng=rng, mask=cur_mask, dist=dist)
+            ctx = LayerContext(train=train, rng=rng, mask=cur_mask, dist=layer_dist(dist, name))
             y, lstate_out = apply_layer(layer, params.get(name, {}), lstate, x, ctx,
                                         remat=remat)
             persistent = self._persistent_keys.get(name, ())
@@ -271,9 +281,9 @@ class MultiLayerNetwork(nn.Module):
                 cur_mask = self.layers[i].feed_forward_mask(cur_mask, it)
                 it = self.layers[i].output_type(it)
         name = self.conf.layer_name(len(self.layers) - 1)
-        ctx = LayerContext(train=train, rng=rng, mask=cur_mask, dist=dist)
-        loss = out_layer.compute_loss(params.get(name, {}), feat, labels, ctx,
-                                      label_mask=label_mask)
+        ctx = LayerContext(train=train, rng=rng, mask=cur_mask, dist=layer_dist(dist, name))
+        loss = layer_loss(out_layer, params.get(name, {}), feat, labels, ctx,
+                          label_mask=label_mask)
         new_state[name] = dict(state.get(name, {}))
         score_dtype = torch.promote_types(self.dtype, torch.float32)
         score = loss.to(score_dtype)
@@ -281,7 +291,7 @@ class MultiLayerNetwork(nn.Module):
             lname = self.conf.layer_name(i)
             lparams = master_params.get(lname)
             if lparams:
-                score = score + _layer_reg_score(layer, lparams, score_dtype)
+                score = score + layer_reg_score(dist, lname, layer, lparams, score_dtype)
             # MoE load-balance aux loss (GShard): the layer computed this
             # batch's term in its forward and left it in its state
             bl_w = getattr(layer, "balance_loss_weight", 0.0)

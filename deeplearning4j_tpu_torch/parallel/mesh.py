@@ -18,6 +18,18 @@ address", ``batch_isend_irecv`` aborts the process:
 counts its calls, bytes and seconds in :data:`HOST_STAGED_STATS`; NCCL
 sends the device tensors themselves.
 
+Tensor and expert parallelism spell GSPMD's activation collectives by
+hand, with four autograd functions over a process group (Megatron-LM's
+*f* and *g* and their gather/scatter pair): :func:`copy_to_group`
+(identity forward, all-reduce backward), :func:`reduce_from_group`
+(all-reduce forward, identity backward), :func:`gather_from_group`
+(all-gather forward, slice backward) and :func:`scatter_to_group` (slice
+forward, all-gather backward). Every rank of the group seeds the same loss
+cotangent, so the backward of a forward sum is the identity: a summing
+transpose, as ``torch.distributed.nn.functional.all_reduce`` has, would
+scale the gradients by the group's size. Their calls, bytes and fenced
+seconds add up in :data:`COLLECTIVE_STATS`.
+
 Two JAX names have no counterpart, by design: ``shmap`` (the
 ``shard_map`` shim: each rank runs its own step, with the collectives
 spelled by hand) and ``force_host_device_count`` (virtual XLA host
@@ -57,11 +69,14 @@ class MeshSpec:
     * ``data`` — batch (``DistributedTrainer``; ZeRO-1 inside a stage);
     * ``pipe`` — layer sequence (``PipelineParallelTrainer`` stages);
     * ``seq`` — sequence (``ring_attention``, ``ulysses_attention``);
-    * ``model`` — rows of a ``ShardedEmbeddingTable``. Tensor parallelism
-      over ``model`` (``param_sharding_rules``) is ROADMAP A8 part 3.
+    * ``model`` — tensor and expert parallelism (``DistributedTrainer``'s
+      ``param_sharding_rules``: the shards of the matched params), and the
+      rows of a ``ShardedEmbeddingTable``.
 
     :func:`make_mesh` gives one process group per axis; rank ``r`` of a
-    ``(pipe, data)`` mesh sits at ``(r // data, r % data)``."""
+    ``(pipe, data)`` mesh sits at ``(r // data, r % data)``, and of a
+    ``(data, model)`` mesh at ``(r // model, r % model)``: the ranks of one
+    model group are adjacent."""
 
     axes: Tuple[Tuple[str, int], ...]
 
@@ -289,6 +304,125 @@ def _post_and_wait(sends, recvs, group) -> None:
     if ops:
         for w in dist.batch_isend_irecv(ops):
             w.wait()
+
+
+#: the activation collectives' use: calls, bytes in (each rank's tensor),
+#: and host-timed seconds, each call fenced by the device on a card
+COLLECTIVE_STATS: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_collective_stats() -> None:
+    COLLECTIVE_STATS.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _timed_collective(fn, t: torch.Tensor):
+    """Run ``fn()`` (a collective on ``t``) fenced by the device, adding to
+    :data:`COLLECTIVE_STATS`."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    out = fn()
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    COLLECTIVE_STATS["calls"] += 1
+    COLLECTIVE_STATS["bytes"] += t.numel() * t.element_size()
+    COLLECTIVE_STATS["seconds"] += time.perf_counter() - t0
+    return out
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group``, into a new contiguous tensor."""
+    out = t.contiguous().clone()
+    _timed_collective(lambda: dist.all_reduce(out, group=group), out)
+    return out
+
+
+def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in rank order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    _timed_collective(lambda: dist.all_gather(parts, t, group=group), t)
+    return torch.cat(parts, dim=dim)
+
+
+def _own_part(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (the group's size divides it)."""
+    n = dist.get_world_size(group)
+    size = t.shape[dim] // n
+    return t.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_part(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own_part(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, all-reduce backward (Megatron's *f*; the JAX
+    package's ``_psum_in_bwd``): a tensor that every rank of ``group``
+    holds whole enters a branch each rank computes on its own shard, so its
+    gradient is the sum of the ranks' parts."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce forward, identity backward (Megatron's *g*; the JAX
+    package's ``_ep_combine``): the ranks' partial sums added up. Every
+    rank seeds the same loss cotangent, so each partial's cotangent is the
+    output's as it is."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather forward (the ranks' blocks concatenated along ``dim``),
+    slice backward: the whole tensor is used alike on every rank, so each
+    rank's cotangent block is already the whole gradient of its block."""
+    return _GatherFromGroup.apply(x, group, dim)
+
+
+def scatter_to_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Slice forward (this rank's block of ``dim``, which the group's size
+    divides), all-gather backward: each rank computes with its block only,
+    so the whole gradient is the ranks' blocks put together."""
+    return _ScatterToGroup.apply(x, group, dim)
 
 
 def mesh_axis_size(mesh, axis: str = "data") -> int:

@@ -31,17 +31,26 @@ slices are all-gathered (one collective per dtype), as the JAX package's
 explicit path spells it. The parameters live on the model and are updated
 in place, as ``Solver`` does.
 
+Tensor and expert parallelism (``param_sharding_rules``, and
+:func:`moe_expert_parallel_rules`) run over a mesh such as
+``make_mesh(data=2, model=2)``: rank ``(d, m)`` feeds the ``d``-th block of
+rows of the global batch (the ranks of one model group feed the same rows)
+and holds its shard of every matched param; ``parallel/tensor_parallel.py``
+spells each layer over the shards. Gradients are all-reduced over ``data``
+only, the updater works on the shards, and what reads a whole param (the
+l1/l2 score, gradient normalization, the LARS/LAMB norms) sums the shards'
+parts over the model group.
+
 :class:`PipelineParallelTrainer` (below) splits the layer stack over a
 ``pipe`` axis and composes with ``data``; sequence parallelism is
-``parallel/sequence.py``. Tensor parallelism (``param_sharding_rules``) and
-explicit expert parallelism (``moe_expert_parallel_rules``) are ROADMAP A8
-part 3.
+``parallel/sequence.py``.
 """
 
 from __future__ import annotations
 
+import re
 import warnings
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +63,23 @@ from ..train.solver import LayerOptimizers, _normalize_gradients
 from ..train.updaters import apply_updates
 from .mesh import PartitionSpec, make_mesh, mesh_axis_size, zero1_partition_spec
 from .strategies import GradientSyncStrategy, SyncAllReduce, pmean_flat, psum_flat
+from .tensor_parallel import TensorParallelPlan
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
+
+
+def moe_expert_parallel_rules(axis: str = "model",
+                              layer_pattern: str = r".*") -> List[Tuple[str, PartitionSpec]]:
+    """``param_sharding_rules`` for expert parallelism over ``axis``: every
+    :class:`~deeplearning4j_tpu_torch.nn.layers.MixtureOfExpertsLayer`
+    expert param (``We1``/``be1``/``We2``/``be2``, each with a leading
+    ``E``) split over dim 0, the router ``Wg`` whole. Each rank of the axis
+    then holds and computes ``E/n`` experts (``dispatch_mode`` "sort" or
+    "grouped"), under any strategy, and composes with ``zero1=True``, whose
+    slices of the other params' updater state stay on the data axis.
+    ``layer_pattern`` narrows the match to some layer names (rules are
+    matched against ``"layername/paramname"``)."""
+    return [(rf"{layer_pattern}/(?:We1|be1|We2|be2)$", PartitionSpec(axis))]
 
 
 def _map_state(node, fn, path=()):
@@ -96,12 +120,29 @@ class DistributedTrainer:
 
     Parameters are the JAX package's: ``mesh`` (a ``DeviceMesh``; default
     :func:`make_mesh` over every rank on ``data``), ``strategy`` (default
-    :class:`SyncAllReduce`), ``data_axis``, ``zero1``, ``bn_group_size``
-    (batch-norm statistics over groups of that many adjacent ranks; it must
-    divide the data axis), ``registry`` and ``metrics_every``.
-    ``donate_inputs`` is accepted and has no effect (an eager step keeps no
-    buffers). ``param_sharding_rules`` (tensor and expert parallelism)
-    raises: ROADMAP A8 part 3.
+    :class:`SyncAllReduce`), ``param_sharding_rules``, ``data_axis``,
+    ``zero1``, ``bn_group_size`` (batch-norm statistics over groups of that
+    many adjacent ranks; it must divide the data axis), ``registry`` and
+    ``metrics_every``. ``donate_inputs`` is accepted and has no effect (an
+    eager step keeps no buffers).
+
+    ``param_sharding_rules`` are ``[(regex, PartitionSpec), ...]`` matched
+    against ``"layername/paramname"``, first hit wins; unmatched params
+    stay whole. As in the JAX package they need the default
+    :class:`SyncAllReduce`, except expert-parallel rules (every spec
+    ``P(axis)`` on dim 0 over one axis that is not the data axis, such as
+    :func:`moe_expert_parallel_rules`), which the MoE layers spell under any
+    strategy without per-replica persistent state. The JAX package's error
+    for rules in a multi-process run has no counterpart: the port always
+    runs one process per rank, and spells the layers over the shards.
+
+    Under rules the model holds each rank's shards between steps:
+    ``params`` reads the whole tensors (a collective), ``sync_to_model()``
+    writes them into the model (the next ``fit_batch`` or ``output`` cuts
+    the shards again), ``output(x)`` runs the sharded forward,
+    ``gathered_updater_state()`` reads the updater state at global shapes
+    and ``load_updater_state`` takes it so; ``opt_state`` is the rank's
+    own (its shards, and under ZeRO-1 its slices).
     """
 
     def __init__(self, model, mesh=None, strategy: Optional[GradientSyncStrategy] = None,
@@ -109,13 +150,6 @@ class DistributedTrainer:
                  donate_inputs: bool = False, zero1: bool = False,
                  bn_group_size: Optional[int] = None, registry=None,
                  metrics_every: int = 1) -> None:
-        if param_sharding_rules:
-            raise ValueError(
-                "param_sharding_rules (tensor parallelism, and the expert "
-                "parallelism of moe_expert_parallel_rules) is not ported: the "
-                "port's DistributedTrainer is data-parallel; pipeline and "
-                "sequence parallelism are PipelineParallelTrainer and "
-                "parallel.sequence (ROADMAP A8 part 3)")
         self.model = model
         self.donate_inputs = bool(donate_inputs)
         self.mesh = mesh if mesh is not None else make_mesh(
@@ -132,22 +166,52 @@ class DistributedTrainer:
             raise ValueError(
                 f"bn_group_size {self.bn_group_size} must divide the data "
                 f"axis ({n} shards)")
+        self._ep_axis = (self._resolve_ep_axis(param_sharding_rules)
+                         if param_sharding_rules else None)
+        if param_sharding_rules and self.strategy.explicit and self._ep_axis is None:
+            raise ValueError(
+                "param_sharding_rules (tensor parallelism) requires the "
+                "default SyncAllReduce strategy — explicit strategies "
+                "replicate params. Exception: expert-parallel rules "
+                "(every spec P(axis) on dim 0 over one non-data axis, "
+                "e.g. moe_expert_parallel_rules()) are spelled "
+                "explicitly by the MoE layers.")
         if self.zero1 and not getattr(self.strategy, "replicated_grads", True):
             raise ValueError(
                 "zero1 requires a strategy whose synced gradients are identical "
                 "on every replica; ParameterAveragingSync applies purely local "
                 "updates between sync points, so no replica may own a 1/N "
                 "parameter slice")
+        self.rules = [(re.compile(pat), spec) for pat, spec in (param_sharding_rules or [])]
+        if self._ep_axis is not None and self.strategy.explicit:
+            self._check_ep_divides()
+        self._tp = (TensorParallelPlan(model, self.rules, self.mesh, data_axis)
+                    if self.rules else None)
+        self._held_whole = True
+        self._hold_shards()
         self.dropped_rows = 0  # unshardable tail rows (see fit)
         self._stats_groups = self._make_stats_groups(n)
         self.optim = LayerOptimizers(model)
         self._zero1_flags = self._zero1_sliced_flags()
+        reductions = self._tp.norm_reductions() if self._tp is not None else {}
         self._zoptim = (LayerOptimizers(model, zero1_axis=self.group,
-                                        zero1_sliced=self._zero1_flags)
-                        if any(any(f.values()) for f in self._zero1_flags.values())
+                                        zero1_sliced=self._zero1_flags,
+                                        tp_reductions=reductions)
+                        if reductions or any(any(f.values()) for f in self._zero1_flags.values())
                         else self.optim)
         self.opt_state = self.optim.init(self._local_params())
+        # the sync strategy sees this rank's shards: shape-derived layouts
+        # are sized from them, and per-rank persistent state (error
+        # feedback) would diverge across the expert axis
         self.strat_state = self.strategy.init_state(model.params)
+        if self._ep_axis is not None and any(
+                isinstance(v, torch.Tensor) and v.ndim > 0
+                for v in _state_leaves(self.strat_state)):
+            raise ValueError(
+                "expert parallelism on the explicit path requires a sync "
+                "strategy without per-replica persistent state (error "
+                "feedback would diverge across expert shards); use "
+                "BucketedAllReduceSync or SyncAllReduce")
         self.iteration = 0
         self.metrics_every = int(metrics_every)
         self._init_metrics(registry)
@@ -159,8 +223,101 @@ class DistributedTrainer:
 
     @property
     def params(self) -> Tree:
-        """The model's live parameters (the trainer updates them in place)."""
-        return self.model.params
+        """The model's live parameters (the trainer updates them in place);
+        under ``param_sharding_rules``, their whole tensors gathered from
+        the shards (a collective: every rank reads it)."""
+        live = self.model.params
+        if self._tp is None or self._held_whole:
+            return live
+        tp = self._tp
+        return {ln: {pn: (p if tp.shard(ln, pn) is None else tp.full_value(p, tp.shard(ln, pn)))
+                     for pn, p in lp.items()} for ln, lp in live.items()}
+
+    @params.setter
+    def params(self, tree) -> None:
+        """Install whole params (a checkpoint's): each rank copies in its
+        shards."""
+        tp = self._tp
+        with torch.no_grad():
+            for ln, lp in self.model.params.items():
+                for pn, p in lp.items():
+                    v = tree[ln][pn]
+                    v = (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                         ).to(device=p.device, dtype=p.dtype)
+                    shard = None if tp is None or self._held_whole else tp.shard(ln, pn)
+                    p.copy_(v if shard is None else tp.local(v, shard))
+
+    # ----- tensor and expert parallelism --------------------------------
+    def _resolve_ep_axis(self, rules) -> Optional[str]:
+        """The expert-parallel mesh axis if every rule's spec is ``P(axis)``
+        on dim 0 over one shared axis that is not the data axis; None
+        otherwise."""
+        axes = set()
+        for _, spec in rules:
+            entries = tuple(spec)
+            if len(entries) != 1 or entries[0] is None or isinstance(entries[0], (tuple, list)):
+                return None
+            axes.add(entries[0])
+        if len(axes) != 1:
+            return None
+        ax = axes.pop()
+        if ax == self.data_axis or ax not in (self.mesh.mesh_dim_names or ()):
+            return None
+        return ax
+
+    @property
+    def ep_shards(self) -> int:
+        """The expert-parallel width (1 without expert-parallel rules)."""
+        return mesh_axis_size(self.mesh, self._ep_axis) if self._ep_axis else 1
+
+    def _spec_for(self, path: str) -> PartitionSpec:
+        for pat, spec in self.rules:
+            if pat.search(path):
+                return spec
+        return PartitionSpec()
+
+    def _check_ep_divides(self) -> None:
+        """Explicit expert parallelism slices dim 0 of every matched param
+        over the expert axis: it must divide."""
+        n = self.ep_shards
+        for ln, lp in self.model.params.items():
+            for pn, p in lp.items():
+                if tuple(self._spec_for(f"{ln}/{pn}")) and p.ndim and p.shape[0] % n:
+                    raise ValueError(
+                        f"expert-parallel param {ln}/{pn} dim 0 "
+                        f"({p.shape[0]}) must divide the {self._ep_axis!r} "
+                        f"axis ({n} shards)")
+
+    def _hold_shards(self) -> None:
+        """Cut every matched param to this rank's shard (the model holds the
+        shards until ``sync_to_model``)."""
+        if self._tp is None or not self._held_whole:
+            return
+        live = self.model.params
+        with torch.no_grad():
+            for ln, shards in self._tp.shards.items():
+                for pn, shard in shards.items():
+                    live[ln][pn].data = self._tp.local(live[ln][pn].data, shard)
+        self._held_whole = False
+
+    def _leaf_shard(self, lname: str, path, leaf):
+        """The param shard an updater-state leaf follows: the state of a
+        split param (keyed by its name), not one of its scalars."""
+        if self._tp is None or not (isinstance(leaf, torch.Tensor) and leaf.ndim > 0
+                                    and path and isinstance(path[-1], str)):
+            return None
+        return self._tp.shard(lname, path[-1])
+
+    def param_bytes(self, *, per_rank: bool = True) -> int:
+        """Param bytes this rank holds (its shards and the whole params),
+        or with ``per_rank=False`` the whole model's."""
+        total = 0
+        for ln, lp in self.model.params.items():
+            for pn, p in lp.items():
+                shard = self._tp.shard(ln, pn) if self._tp is not None else None
+                n = p.numel() if per_rank or shard is None or self._held_whole else shard.numel()
+                total += n * p.element_size()
+        return int(total)
 
     @property
     def state(self) -> Tree:
@@ -199,18 +356,23 @@ class DistributedTrainer:
     def _dist_context(self) -> DistContext:
         return DistContext(axis=self.data_axis if self.strategy.explicit else None,
                            n_shards=self.n_data_shards, bn_group_size=self.bn_group_size,
-                           rank=self.rank, groups=self._stats_groups)
+                           rank=self.rank, groups=self._stats_groups,
+                           ep_axis=self._ep_axis, ep_shards=self.ep_shards, tp=self._tp)
 
     def _zero1_sliced_flags(self) -> Dict[str, Dict[str, bool]]:
-        """Per layer and param: does ZeRO-1 slice it? Dim 0 divisible by
-        the data axis, the layer trained by an elementwise chain."""
+        """Per layer and param: does ZeRO-1 slice it? Dim 0 (of this rank's
+        shard) divisible by the data axis and not split by a rule, the layer
+        trained by an elementwise chain."""
         n = self.n_data_shards
+        tp = self._tp
         out = {}
         for lname, lparams in self.model.params.items():
             ok = (self.zero1 and n > 1 and lname in self.optim.txs
                   and self.optim.elementwise.get(lname, False))
             out[lname] = {pn: bool(ok and zero1_partition_spec(
-                tuple(p.shape), n, self.data_axis) != PartitionSpec())
+                tuple(p.shape), n, self.data_axis) != PartitionSpec()
+                and (tp is None or tp.shard(lname, pn) is None
+                     or tp.shard(lname, pn).axes[0] is None))
                 for pn, p in lparams.items()}
         return out
 
@@ -266,7 +428,8 @@ class DistributedTrainer:
         grads, self.strat_state = self.strategy.sync(grads, self.strat_state, self.group)
         conf = model.conf
         grads = _normalize_gradients(grads, conf.gradient_normalization,
-                                     conf.gradient_normalization_threshold)
+                                     conf.gradient_normalization_threshold,
+                                     sq_reduce=self._tp.reduce_sq_norms if self._tp else None)
         with torch.no_grad():
             if self._zoptim is not self.optim:
                 self._zero1_update(grads)
@@ -305,6 +468,7 @@ class DistributedTrainer:
         local batch on every rank); returns the score, the mean over the
         data axis, as a 0-dim tensor on the model's device."""
         model = self.model
+        self._hold_shards()
         x, y = self._prep_inputs(x, y)
         first = x[0] if isinstance(x, tuple) else x
         model.last_batch_size = int(first.shape[0])
@@ -415,11 +579,22 @@ class DistributedTrainer:
 
     def output(self, x):
         """Inference on this rank's local rows, after the replicas'
-        parameters are reconciled (a collective: every rank calls it)."""
+        parameters are reconciled (a collective: every rank calls it);
+        under ``param_sharding_rules`` the forward over the shards."""
         self._reconcile_params()
-        if self._is_graph:
-            return self.model.output(*self.model._as_tuple(x))
-        return self.model.output(x)
+        model = self.model
+        if self._tp is None:
+            return model.output(*model._as_tuple(x)) if self._is_graph else model.output(x)
+        self._hold_shards()
+        ctx = self._dist_context()
+        with torch.no_grad():
+            if self._is_graph:
+                acts, _ = model.forward_pure(model.params, model.state,
+                                             model._as_inputs(model._as_tuple(x)), dist=ctx)
+                outs = tuple(acts[n].to(model.dtype) for n in model.conf.network_outputs)
+                return outs[0] if len(outs) == 1 else outs
+            out, _, _ = model.forward_pure(model.params, model.state, model._input(x), dist=ctx)
+            return out.to(model.dtype)
 
     def _reconcile_params(self) -> None:
         """For strategies whose replicas drift between sync points
@@ -437,23 +612,34 @@ class DistributedTrainer:
 
     def sync_to_model(self) -> None:
         """The params and state already live on the model; under parameter
-        averaging this first takes the final average."""
+        averaging this first takes the final average, and under
+        ``param_sharding_rules`` the model's params become the whole
+        tensors (a collective)."""
         self._reconcile_params()
+        if self._tp is None or self._held_whole:
+            return
+        live = self.model.params
+        for ln, shards in self._tp.shards.items():
+            for pn, shard in shards.items():
+                live[ln][pn].data = self._tp.full_value(live[ln][pn], shard)
+        self._held_whole = True
 
     def gathered_updater_state(self) -> Any:
         """The updater state at global shapes: the ZeRO-1 slices
-        all-gathered (a collective: every rank calls it). This is what a
-        checkpoint holds, valid at any data-axis width."""
+        all-gathered, and the shards of split params' state (a collective:
+        every rank calls it). This is what a checkpoint holds, valid at any
+        data-axis width."""
         n = self.n_data_shards
 
         def full(lname):
             def fn(path, leaf):
-                if not self._is_sliced(lname, path, leaf):
-                    return leaf
-                out = torch.empty((leaf.shape[0] * n,) + tuple(leaf.shape[1:]),
-                                  dtype=leaf.dtype, device=leaf.device)
-                _gather_into(out, leaf.contiguous(), self.group)
-                return out
+                out = leaf
+                if self._is_sliced(lname, path, leaf):
+                    out = torch.empty((leaf.shape[0] * n,) + tuple(leaf.shape[1:]),
+                                      dtype=leaf.dtype, device=leaf.device)
+                    _gather_into(out, leaf.contiguous(), self.group)
+                shard = self._leaf_shard(lname, path, leaf)
+                return out if shard is None else self._tp.full_value(out, shard)
             return fn
 
         return {ln: _map_state(st, full(ln)) for ln, st in self.opt_state.items()}
@@ -484,7 +670,10 @@ class DistributedTrainer:
                 counter[0] += 1
                 arr = new if isinstance(new, torch.Tensor) else torch.as_tensor(np.asarray(new))
                 want = tuple(live.shape)
-                if self._is_sliced(lname, path, live):
+                shard = self._leaf_shard(lname, path, live)
+                if shard is not None:
+                    want = shard.shape
+                elif self._is_sliced(lname, path, live):
                     want = (want[0] * n,) + want[1:]
                 if tuple(arr.shape) != want:
                     raise ValueError(
@@ -493,6 +682,8 @@ class DistributedTrainer:
                         "checkpoint updater state must be saved at global "
                         "shape to restore onto a resized mesh")
                 arr = arr.to(device=live.device, dtype=live.dtype)
+                if shard is not None:
+                    arr = self._tp.local(arr, shard)
                 if self._is_sliced(lname, path, live):
                     arr = arr[self._rows(arr.shape[0])]
                 return arr.clone()
@@ -607,7 +798,10 @@ class DistributedTrainer:
         def count(lname):
             def fn(path, leaf):
                 b = leaf.numel() * leaf.element_size()
-                if not per_replica and self._is_sliced(lname, path, leaf):
+                shard = None if per_replica else self._leaf_shard(lname, path, leaf)
+                if shard is not None:
+                    b = shard.numel() * leaf.element_size()
+                elif not per_replica and self._is_sliced(lname, path, leaf):
                     b *= n
                 total[0] += b
                 return leaf
@@ -634,6 +828,10 @@ class DistributedTrainer:
             "bn_group_size": self.bn_group_size,
             "updater_state_bytes": self.updater_state_bytes(),
             "updater_state_bytes_global": self.updater_state_bytes(per_replica=False),
+            "ep_shards": self.ep_shards,
+            "sharded_params": sum(len(v) for v in self._tp.shards.values()) if self._tp else 0,
+            "param_bytes": self.param_bytes(),
+            "param_bytes_global": self.param_bytes(per_rank=False),
         }
         comp = self.compression_stats()
         if comp is not None:

@@ -74,8 +74,10 @@ _REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir, 
 CONFIGS = {
     "mlp": dict(total=24, batch=8, rows=64, save_every=1, keep_last=5, pacer=0.05,
                 stall_timeout=20.0, hold_at=0),
+    # the stall leg's watchdog: the 1.1 GB stored zip lands in about 7 s,
+    # and a restoring child beats first 14-16 s after its spawn (H100 runs)
     "lm": dict(total=6, batch=8, rows=48, seq=1024, save_every=4, keep_last=2, pacer=0.0,
-               stall_timeout=90.0, hold_at=5),
+               stall_timeout=30.0, hold_at=5),
 }
 LM_WIDTHS = dict(vocab_size=50257, hidden=768, n_layers=2, n_heads=12, ffn_size=3072,
                  max_len=1024)

@@ -23,6 +23,17 @@ hands it a partition for another stage count), ``ring`` and
 ``ulysses`` (whole-sequence attention with the gradients of
 ``sum(out**2)``), ``table`` (``ShardedEmbeddingTable`` lookups and a
 sparse update).
+
+Tensor and expert parallelism (``tests/test_torch_{tp,ep}.py``):
+``dt`` (``DistributedTrainer`` under ``rules`` on a model zip: rank ``(d,
+m)`` feeds the ``d``-th rows of each global batch; scores, ``output`` of
+the first batch's rows, the whole params after ``sync_to_model``, the
+global updater state, the state, the shapes each rank holds and the
+trainer's stats), ``dt_orbax`` (a checkpoint of a trainer under rules
+restored into one under the same rules, one without rules and a
+``Solver``, and back), ``dt_reject`` (a ``DistributedTrainer`` that must
+raise). Rules travel as ``[regex, [entry, ...]]``, an entry ``None``, an
+axis name or a list of them.
 """
 
 from __future__ import annotations
@@ -264,9 +275,126 @@ def _case_table(case, mesh, data):
     return res
 
 
+def _rules(case):
+    from deeplearning4j_tpu_torch.parallel import PartitionSpec
+
+    return [(pat, PartitionSpec(*[tuple(e) if isinstance(e, list) else e for e in spec]))
+            for pat, spec in case.get("rules", [])]
+
+
+def _dt(case, model, mesh, rules=None, **over):
+    from deeplearning4j_tpu_torch.parallel import DistributedTrainer
+    from deeplearning4j_tpu_torch.parallel import strategies as strat
+
+    kw = dict(case.get("kwargs", {}), **over)
+    name = kw.pop("strategy", "SyncAllReduce")
+    strategy = getattr(strat, name)(**kw.pop("strategy_kw", {}))
+    return DistributedTrainer(model, mesh, strategy=strategy,
+                              param_sharding_rules=_rules(case) if rules is None else rules, **kw)
+
+
+def _rows(x, mesh):
+    from deeplearning4j_tpu_torch.parallel import local_batch_slice
+
+    return x[local_batch_slice(x.shape[0], mesh, "data")]
+
+
+def _case_dt(case, mesh, data):
+    from deeplearning4j_tpu_torch.model import restore_model
+
+    model = restore_model(case["zip"], device="cpu")
+    tr = _dt(case, model, mesh)
+    x, y = data["x"], data["y"]
+    res = {}
+    for ln, lp in model.params.items():  # what this rank holds
+        for pn, p in lp.items():
+            res[f"shape/{ln}/{pn}"] = np.asarray(p.shape)
+    scores = [float(tr.fit_batch(_rows(x[s], mesh), _rows(y[s], mesh)))
+              for s in range(case["steps"])]
+    res["out"] = _np(tr.output(_rows(x[0], mesh)))
+    opt = tr.gathered_updater_state()
+    st = tr.stats()
+    tr.sync_to_model()
+    res.update({"scores": np.asarray(scores), "params": model.params_flat(),
+                "ep_shards": np.asarray(tr.ep_shards)})
+    for k in ("updater_state_bytes", "updater_state_bytes_global", "param_bytes",
+              "param_bytes_global", "sharded_params"):
+        res[k] = np.asarray(st[k])
+    for i, leaf in enumerate(_opt_leaves(opt)):
+        res[f"opt/{i}"] = leaf
+    for ln, lst in model.state.items():
+        for k, v in lst.items():
+            res[f"state/{ln}/{k}"] = _np(v)
+    return res
+
+
+def _case_dt_orbax(case, mesh, data):
+    """Three steps under rules and a checkpoint; the trainer goes on two
+    steps (the reference). Restored into a trainer under the same rules
+    (its two steps), into one without rules over every rank and into a
+    ``Solver`` (one step each); then the ``Solver`` checkpoints and a
+    trainer under rules restores it and takes the step after."""
+    import torch
+
+    from deeplearning4j_tpu_torch.model import restore_model
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.train import OrbaxCheckpointer, Solver
+
+    x, y = data["x"], data["y"]
+    d = case["dir"]
+
+    def fresh(rules=None, m=mesh):
+        return _dt(case, restore_model(case["zip"], device="cpu"), m, rules)
+
+    def steps(tr, m, lo, hi):
+        return [float(tr.fit_batch(_rows(x[s], m), _rows(y[s], m))) for s in range(lo, hi)]
+
+    t1 = fresh()
+    first = steps(t1, mesh, 0, 3)
+    ck = OrbaxCheckpointer(os.path.join(d, "tp"), async_save=False)
+    ck.save(3, t1)
+    ck.wait()
+    ref = steps(t1, mesh, 3, 5)
+    t2 = fresh()
+    meta = ck.restore(t2)
+    resumed = steps(t2, mesh, 3, 5)
+    world = torch.distributed.get_world_size()
+    dmesh = make_mesh(data=world)
+    dp = fresh([], dmesh)
+    ck.restore(dp)
+    dp_next = steps(dp, dmesh, 3, 4)
+    solver = Solver(restore_model(case["zip"], device="cpu"))
+    ck.restore(solver)
+    solver_next = float(solver.fit_batch(x[3], y[3])[0])
+    ck2 = OrbaxCheckpointer(os.path.join(d, "solver"), async_save=False)
+    ck2.save(4, solver)  # every rank's Solver holds the same values; rank 0 writes
+    ck2.wait()
+    t3 = fresh()
+    ck2.restore(t3)
+    back = steps(t3, mesh, 4, 5)
+    t2.sync_to_model()
+    return {"first": np.asarray(first), "ref": np.asarray(ref), "resumed": np.asarray(resumed),
+            "dp_next": np.asarray(dp_next), "solver_next": np.asarray(solver_next),
+            "back": np.asarray(back), "iteration": np.asarray(meta["iteration"]),
+            "params_resumed": t2.model.params_flat()}
+
+
+def _case_dt_reject(case, mesh, data):
+    from deeplearning4j_tpu_torch.model import restore_model
+
+    try:
+        tr = _dt(case, restore_model(case["zip"], device="cpu"), mesh)
+        if data is not None:
+            tr.fit_batch(_rows(data["x"], mesh), _rows(data["y"], mesh))
+    except ValueError as e:
+        return {"error": np.asarray("ValueError"), "message": np.asarray(str(e))}
+    return {"error": np.asarray("none"), "message": np.asarray("")}
+
+
 _KINDS = {"apply": _case_apply, "value_and_grad": _case_value_and_grad,
           "trainer": _case_trainer, "orbax": _case_orbax, "reject": _case_reject,
-          "ring": _case_attention, "ulysses": _case_attention, "table": _case_table}
+          "ring": _case_attention, "ulysses": _case_attention, "table": _case_table,
+          "dt": _case_dt, "dt_orbax": _case_dt_orbax, "dt_reject": _case_dt_reject}
 
 
 def _main(argv) -> int:

@@ -301,9 +301,10 @@ def _seq(spec, rank, world, dev, out_dir) -> dict:
 _KINDS = {"pp_lm": _pp_lm, "ppdp": _ppdp, "seq": _seq}
 
 
-def run_rank(backend: str, device: str, spec: dict, out_dir: str) -> dict:
+def run_rank(backend: str, device: str, spec: dict, out_dir: str, kinds=None) -> dict:
     """One rank's legs (the world from the variables ``spawn_ranks``
-    sets); writes ``rank<r>.json`` under ``out_dir``."""
+    sets): ``spec["kind"]`` of ``kinds`` (default this module's); writes
+    ``rank<r>.json`` under ``out_dir``."""
     import torch
 
     from deeplearning4j_tpu_torch.parallel import initialize_distributed
@@ -314,7 +315,7 @@ def run_rank(backend: str, device: str, spec: dict, out_dir: str) -> dict:
     if dev == "cpu":
         torch.set_num_threads(1)
     out = {"rank": rank, "world": world, "backend": backend,
-           "legs": _KINDS[spec["kind"]](spec, rank, world, dev, out_dir)}
+           "legs": (kinds or _KINDS)[spec["kind"]](spec, rank, world, dev, out_dir)}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.barrier()
@@ -323,10 +324,12 @@ def run_rank(backend: str, device: str, spec: dict, out_dir: str) -> dict:
 
 
 def run_world(spec: dict, *, world: int = 2, backend: str = "gloo", device: str = "cuda",
-              out_dir: Optional[str] = None, timeout: float = 900.0) -> List[dict]:
-    """Spawn ``world`` ranks of :func:`run_rank` and return their reports
-    (rank order). Raises with the ranks' output if a rank fails or outlives
-    ``timeout`` (all are killed then)."""
+              out_dir: Optional[str] = None, timeout: float = 900.0,
+              module: str = "deeplearning4j_tpu_torch.tools.pp_legs") -> List[dict]:
+    """Spawn ``world`` ranks of :func:`run_rank` (as ``python -m module
+    --worker``) and return their reports (rank order). Raises with the
+    ranks' output if a rank fails or outlives ``timeout`` (all are killed
+    then)."""
     from deeplearning4j_tpu_torch.parallel.mesh import spawn_ranks, wait_ranks
 
     out_dir = out_dir or tempfile.mkdtemp(prefix="pp_legs_")
@@ -334,7 +337,7 @@ def run_world(spec: dict, *, world: int = 2, backend: str = "gloo", device: str 
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
-    procs = spawn_ranks([sys.executable, "-m", "deeplearning4j_tpu_torch.tools.pp_legs",
+    procs = spawn_ranks([sys.executable, "-m", module,
                          "--worker", "--backend", backend, "--device", device,
                          "--spec", spec_path, "--out", out_dir],
                         world, stdout=logs, stderr=subprocess.STDOUT)
@@ -343,7 +346,7 @@ def run_world(spec: dict, *, world: int = 2, backend: str = "gloo", device: str 
         for r, log in enumerate(logs):
             log.seek(0)
             out.append(f"--- rank {r} (exit {procs[r].returncode}) ---\n{log.read()[-3000:]}")
-        raise RuntimeError("pp_legs ranks failed:\n" + "\n".join(out))
+        raise RuntimeError(f"{module} ranks failed:\n" + "\n".join(out))
     reports = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:

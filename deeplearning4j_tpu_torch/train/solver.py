@@ -48,45 +48,40 @@ from .updaters import (
 Grads = Dict[str, Dict[str, torch.Tensor]]
 
 
-def _sq_norm(gs) -> torch.Tensor:
-    return sum(torch.sum(torch.square(g)) for g in gs)
+_PER_LAYER = (GradientNormalization.RENORMALIZE_L2_PER_LAYER,
+              GradientNormalization.CLIP_L2_PER_LAYER)
+_RENORM = (GradientNormalization.RENORMALIZE_L2_PER_LAYER,
+           GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE)
 
 
 def _normalize_gradients(grads: Grads, mode: GradientNormalization,
-                         threshold: float) -> Grads:
-    """Reference: GradientNormalization applied before the updater."""
+                         threshold: float, sq_reduce=None) -> Grads:
+    """Reference: GradientNormalization applied before the updater. The L2
+    modes read each param's squared sum; ``sq_reduce`` (tensor parallelism)
+    maps ``{(layer, param): this rank's squared sum}`` to the whole
+    params'."""
     eps = 1e-8
     if mode is GradientNormalization.NONE:
         return grads
-    if mode is GradientNormalization.RENORMALIZE_L2_PER_LAYER:
-        out = {}
-        for lname, lg in grads.items():
-            norm = torch.sqrt(_sq_norm(lg.values()) + eps) if lg else None
-            out[lname] = {k: g / norm for k, g in lg.items()}
-        return out
-    if mode is GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE:
-        return {l: {k: g / (torch.linalg.vector_norm(g) + eps) for k, g in lg.items()}
-                for l, lg in grads.items()}
     if mode is GradientNormalization.CLIP_ELEMENT_WISE_ABSOLUTE_VALUE:
         return {l: {k: torch.clamp(g, -threshold, threshold) for k, g in lg.items()}
                 for l, lg in grads.items()}
-    if mode is GradientNormalization.CLIP_L2_PER_LAYER:
-        out = {}
-        for lname, lg in grads.items():
-            if not lg:  # a layer without params
-                out[lname] = {}
-                continue
-            norm = torch.sqrt(_sq_norm(lg.values()) + eps)
-            scale = torch.clamp_max(threshold / norm, 1.0)
-            out[lname] = {k: g * scale for k, g in lg.items()}
-        return out
-    if mode is GradientNormalization.CLIP_L2_PER_PARAM_TYPE:
-        def clip(g):
-            norm = torch.linalg.vector_norm(g) + eps
-            return g * torch.clamp_max(threshold / norm, 1.0)
-
-        return {l: {k: clip(g) for k, g in lg.items()} for l, lg in grads.items()}
-    raise ValueError(f"Unhandled normalization {mode}")
+    if mode not in _RENORM + (GradientNormalization.CLIP_L2_PER_PARAM_TYPE,
+                              GradientNormalization.CLIP_L2_PER_LAYER):
+        raise ValueError(f"Unhandled normalization {mode}")
+    sq = {(l, k): torch.sum(torch.square(g)) for l, lg in grads.items() for k, g in lg.items()}
+    if sq_reduce is not None:
+        sq = sq_reduce(sq)
+    out = {}
+    for l, lg in grads.items():
+        if mode in _PER_LAYER:
+            norms = dict.fromkeys(lg, torch.sqrt(sum(sq[(l, k)] for k in lg) + eps)) if lg else {}
+        else:
+            norms = {k: torch.sqrt(sq[(l, k)]) + eps for k in lg}
+        out[l] = {k: (g / norms[k] if mode in _RENORM
+                      else g * torch.clamp_max(threshold / norms[k], 1.0))
+                  for k, g in lg.items()}
+    return out
 
 
 class LayerOptimizers:
@@ -99,10 +94,13 @@ class LayerOptimizers:
     reduces across elements (the LARS/LAMB norms) then all-reduce their
     slice-local sums, so the sliced update stays the replicated one. The
     state is the same either way. ``elementwise`` records, per layer,
-    whether its chain may be sliced at all."""
+    whether its chain may be sliced at all. ``tp_reductions`` gives, per
+    layer, more ``(group, {param: split})`` pairs: the model groups its
+    tensor-parallel shards are split over, whose norms sum there too."""
 
     def __init__(self, model, *, zero1_axis: Any = None,
-                 zero1_sliced: Optional[Dict[str, Dict[str, bool]]] = None) -> None:
+                 zero1_sliced: Optional[Dict[str, Dict[str, bool]]] = None,
+                 tp_reductions: Optional[Dict[str, list]] = None) -> None:
         conf = model.conf
         self.txs: Dict[str, GradientTransformation] = {}
         self.updaters: Dict[str, Any] = {}  # the updater config of each non-frozen layer
@@ -126,8 +124,13 @@ class LayerOptimizers:
                 weight_names = set(layer.weight_param_names())
                 parts.append(add_decayed_weights(
                     wd, {k: (k in weight_names) for k in layer.trainable_param_names()}))
+            pairs = list((tp_reductions or {}).get(name, ()))
             if zero1_axis is not None and sliced and any(sliced.values()):
-                parts.append(updater.to_transform_zero1(zero1_axis, sliced))
+                pairs.insert(0, (zero1_axis, sliced))
+            if len(pairs) == 1:
+                parts.append(updater.to_transform_zero1(*pairs[0]))
+            elif pairs:
+                parts.append(updater.to_transform_zero1(pairs, None))
             else:
                 parts.append(updater.to_transform())
             self.txs[name] = chain(*parts) if len(parts) > 1 else parts[0]

@@ -332,14 +332,19 @@ def make_norm_fn(axis: Any = None, sliced: Optional[Dict[str, bool]] = None) -> 
     The norms are the only coupling between elements in LARS/LAMB, and
     they reduce, so the sliced update stays the replicated update to
     rounding. Leaves not sliced are whole on every replica, and summing
-    them would count them N times."""
+    them would count them N times.
+
+    With ``sliced=None``, ``axis`` is a list of ``(group, sliced)`` pairs,
+    each summed over in turn (a ZeRO-1 slice of a tensor-parallel shard
+    sums over the data axis, then the model axis)."""
     if axis is None:
         return lambda name, s: s
-    flags = dict(sliced or {})
+    pairs = [(g, dict(f or {})) for g, f in (axis if sliced is None else [(axis, sliced)])]
 
     def fn(name, s):
-        if flags.get(name, False):
-            torch.distributed.all_reduce(s, group=axis)  # s is a fresh sum
+        for group, flags in pairs:
+            if flags.get(name, False):
+                torch.distributed.all_reduce(s, group=group)  # s is a fresh sum
         return s
 
     return fn

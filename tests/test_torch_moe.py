@@ -205,10 +205,12 @@ def test_modes_agree_with_each_other():
 
 
 def test_sliced_expert_params_raise_not_ported():
+    """Expert slabs sliced outside expert parallelism (no ``ep_axis`` in the
+    context) raise; under it, ``tests/test_torch_ep.py``."""
     port, _, params = _layers("sort")
     pp = {n: _t(v) for n, v in params.items()}
     pp["We1"] = pp["We1"][:2]
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="outside expert parallelism"):
         port.apply(pp, port.init_state(torch.float64), torch.zeros(4, 8), LayerContext())
 
 
