@@ -153,17 +153,17 @@ live model's); and 6 steps under ``Solver(profiler=StepProfiler(
 sync_every=2))`` beside 6 without (scores bitwise equal).
 Then data-parallel training (``parallel/trainer.py``'s
 ``DistributedTrainer``): the GPT-2-small-width LM (12 blocks, f32,
-``Adam(1e-4)``) at world size 1 over NCCL for 3 steps on [8, 1024] (params
+``Adam(1e-4)``) at world size 1 over NCCL for 2 steps on [8, 1024] (params
 bit for bit ``Solver.fit_batch``'s from the same weights and batches; 12
 B1, B2 and B3 launches a step); two ranks sharing ``cuda:0`` over gloo
 (NCCL refuses two ranks on one device), [4, 1024] each, one boot running
 ``SyncAllReduce``, ``BucketedAllReduceSync``, ZeRO-1 and
-``ThresholdCompressedSync`` for 3 steps each (ranks bit for bit equal after
+``ThresholdCompressedSync`` for 2 steps each (ranks bit for bit equal after
 every leg, bucketed and ZeRO-1 bit for bit ``SyncAllReduce``, ZeRO-1's
 updater bytes per rank the replicated bytes less half of every sliced
 leaf's, ``SyncAllReduce`` within 6e-4 of world 1; ms a step and the
 collectives' host-timed share); the zoo ResNet-50 on two ranks under
-``ThresholdCompressedSync`` with ``bn_group_size=2``, batch 32 a rank, 3
+``ThresholdCompressedSync`` with ``bn_group_size=2``, batch 32 a rank, 2
 steps (params and running statistics bit for bit equal across the ranks,
 scores finite; ``BASELINE.json``'s gradient-sharing ResNet-50 cut to one
 card); and the port's elastic resize harness
@@ -175,7 +175,7 @@ Then pipeline and sequence parallelism (``parallel/pipeline.py``,
 ``PipelineParallelTrainer``, ``parallel/sequence.py``,
 ``parallel/sharded_embedding.py``), gloo ranks sharing ``cuda:0``
 (``tools/pp_legs.py``): the GPT-2-small-width LM over two stages (6 blocks
-each), [8, 1024] in 4 microbatches, 3 steps under 1F1B and 3 under GPipe,
+each), [8, 1024] in 4 microbatches, 2 steps under 1F1B and 2 under GPipe,
 held against the data-parallel world-1 run (``Solver.fit_batch``'s params)
 within ``TOL_PP``, with three planted faults (a microbatch's loss dropped,
 the last stage's update skipped, the head gradients unsummed over pipe)
@@ -193,7 +193,7 @@ versions, and at the default offset bit for bit against an explicit
 ``tk - tq``. Then tensor and expert parallelism (``DistributedTrainer(
 param_sharding_rules=...)``, ``parallel/tensor_parallel.py``), gloo ranks
 sharing ``cuda:0`` (``tools/tp_legs.py``): the GPT-2-small-width LM
-Megatron-split over two ranks (B1-B3 on 6 heads a rank), 3 steps held
+Megatron-split over two ranks (B1-B3 on 6 heads a rank), 2 steps held
 against the world-1 run within ``TOL_TP``, with one step under each of
 three planted faults (the row-parallel all-reduce skipped, *g*'s backward
 a sum, *f*'s backward skipped) read above it; the MoE network's 8 experts
@@ -204,6 +204,33 @@ planted faults read above; and in float64 over data=2 x model=2 the
 1e-10 of ``Solver``, its checkpoint restored into ``DistributedTrainer``
 and ``Solver``, and the MoE network under ``BucketedAllReduceSync`` with
 the expert rules, plain and ZeRO-1, within 1e-10 of it without them.
+Then the periphery (``bench``, ``nlp``, ``ui``, ``rl``, ``arbiter``): the
+zoo ``BertEncoder()`` at bert-base's widths pretrained by masked LM from
+``BertIterator(task=UNSUPERVISED, max_length=512, batch_size=8,
+mask_prob=0.15)`` over a generated 30522-entry WordPiece vocabulary and
+seeded sentences that fill their rows, 8 ``GraphSolver.fit_batch`` steps
+with the iterator's key and label masks (B1-B3) under ``StatsListener``
+(``FileStatsStorage``, full stats every 4 iterations), ``ProfilingListener``
+and ``NanPanicListener`` with a ``UIServer`` scraped during the run
+(``/train/stats`` equal to the storage, ``/metrics``, 8 iterations in the
+Chrome trace, the score falling), tokens/s and MFU against ``bench``'s
+``chip_peak_flops(device, "float32")``; Word2Vec (negative sampling and
+hierarchical softmax), GloVe and ParagraphVectors with 300-wide tables on
+seeded Zipf corpora (``tools/embedding_reference.py``), each table within
+``TOL_EMBED_REL`` (hierarchical softmax: ``TOL_EMBED_HS_REL``) of the same
+fit on the CPU, run by a process of its own
+started after the build; DQN with the rl4j CartPole example's settings and
+A3C at ``A3CConfiguration()`` on CartPole, one DQN ``train_step`` and one
+A3C update within ``TOL_RL_CARD`` of the CPU's; and an arbiter random
+search over the zoo ``LeNet``'s learning rate from ``MnistDataSetIterator``
+with a candidate whose factory raises.
+Depth cut to keep the script near 1000 s with the periphery's phases
+(every gate, fault leg and kernel launch kept):
+``DP_STEPS`` 3 -> 2 (the world-1, two-rank, ResNet-50, pipelined,
+pipe x data, tensor- and expert-parallel legs); ``/v1/serving`` rows
+[1, 16] -> [1, ``SERVING_T``] (the answers' JSON held the phase); the
+DQN's ``max_step`` 150000 -> ``DQN_MAX_STEP``; the embedding corpora cut in
+tokens (not in table widths).
 It times each kernel at its main path's
 shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
@@ -1630,13 +1657,20 @@ def _hist_mean(h, since=(0.0, 0)) -> tuple:
     return ((h.sum - since[0]) / n if n else float("nan")), n
 
 
+# /v1/serving's rows: each answer is 50257 x SERVING_T probabilities of JSON,
+# whose encoding holds the phase (12.7 s for 8 rows of 16 tokens, H100 80GB
+# HBM3, 700 W); the gate (answers vs output()) does not depend on the length
+SERVING_T = 4
+
+
 def phase_http(model, prompts, want, card: str) -> dict:
     """The port's HTTP serving stack on the GPT-2-small-width LM, every
     server on 127.0.0.1 with port 0, in this process:
 
-    1. ``POST /v1/serving``: 8 concurrent clients send one [1, 16] row of
-       ids each; ``ParallelInference`` batches them (B1 in every block),
-       and each answer must be within ``TOL_HTTP_REL`` of ``output()``.
+    1. ``POST /v1/serving``: 8 concurrent clients send one [1, ``SERVING_T``]
+       row of ids each; ``ParallelInference`` batches them (B1 in every
+       block), and each answer must be within ``TOL_HTTP_REL`` of
+       ``output()``.
     2. ``POST /v1/generate`` over the static ``DecodeEngine``: the 8 ragged
        prompts from 8 client threads for 64 greedy tokens, streams equal to
        ``phase_engine``'s ``want``; the in-process engine's tokens/s and
@@ -1667,7 +1701,7 @@ def phase_http(model, prompts, want, card: str) -> dict:
 
     rs = np.random.RandomState(SEED + 21)
     vocab = model.layers[-1].n_out
-    rows = [rs.randint(0, vocab, (1, 16)) for _ in range(B)]
+    rows = [rs.randint(0, vocab, (1, SERVING_T)) for _ in range(B)]
     refs = [model.output(r)[0].cpu() for r in rows]
     fa.reset_launch_counts()
 
@@ -1685,10 +1719,12 @@ def phase_http(model, prompts, want, card: str) -> dict:
         dt = time.perf_counter() - t0
         err = max(max_err(o, ref) / float(ref.abs().max()) for o, ref in zip(outs, refs))
         s = srv.stats()
-        print(f"http /v1/serving ({card}): {B} clients x [1, 16] ids in {dt * 1e3:.1f} ms "
+        print(f"http /v1/serving ({card}): {B} clients x [1, {SERVING_T}] ids in "
+              f"{dt * 1e3:.1f} ms "
               f"({s['batches']} forwards, mean batch {s['mean_batch_size']:.2f}); answers vs "
               f"output() max_abs over the largest probability {err:.3e} (tol {TOL_HTTP_REL:g})")
-        check(all(tuple(o.shape) == (vocab, 16) for o in outs), "/v1/serving answered a wrong shape")
+        check(all(tuple(o.shape) == (vocab, SERVING_T) for o in outs),
+              "/v1/serving answered a wrong shape")
         check(err <= TOL_HTTP_REL, "/v1/serving disagrees with output()")
     finally:
         srv.stop()
@@ -4478,7 +4514,10 @@ def phase_step_profiler(card: str) -> dict:
     return _all_counts()
 
 
-DP_STEPS = 3  # every data-parallel leg's steps
+# every data-parallel, pipelined, tensor- and expert-parallel leg's steps:
+# 2 keep every gate (the score falls, each fault reads above its limit) and
+# the second step is the first to read the carried updater state
+DP_STEPS = 2
 
 
 def _lm_dp_spec():
@@ -4489,7 +4528,7 @@ def _lm_dp_spec():
 
 def phase_dp_world1(card: str):
     """``DistributedTrainer`` at world size 1 over NCCL on the
-    GPT-2-small-width LM, 3 steps on one seeded [8, 1024] batch, against
+    GPT-2-small-width LM, ``DP_STEPS`` steps on one seeded [8, 1024] batch, against
     ``Solver.fit_batch`` from the same weights on the same batch: params
     bit for bit equal (an all-reduce over one rank is the identity). It also
     reads what the two-rank phase's gate against this run would see under
@@ -4569,7 +4608,7 @@ def phase_dp_two_ranks(card: str, world1) -> dict:
     """Two ranks share ``cuda:0`` over gloo (NCCL takes one device per
     rank), [4, 1024] each (global [8, 1024], the world-1 phase's batch), in
     one boot: ``SyncAllReduce``, ``BucketedAllReduceSync``, ZeRO-1 (under
-    the bucketed exchange) and ``ThresholdCompressedSync``, 3 steps each
+    the bucketed exchange) and ``ThresholdCompressedSync``, ``DP_STEPS`` steps each
     from the same seeded weights. Returns the launch counts of both ranks'
     processes."""
     from deeplearning4j_tpu_torch.tools import dp_legs
@@ -4646,8 +4685,8 @@ def phase_dp_resnet50(card: str) -> dict:
     """``BASELINE.json``'s "SharedTrainingMaster gradient-sharing ResNet-50",
     cut to two ranks sharing the card: the zoo ``ResNet50()`` (224x224x3,
     1000 classes) under ``ThresholdCompressedSync`` with ``bn_group_size=2``
-    (each batch norm's moments over both ranks' rows), batch 32 a rank, 3
-    steps. Returns the launch counts (no B kernel runs here)."""
+    (each batch norm's moments over both ranks' rows), batch 32 a rank,
+    ``DP_STEPS`` steps. Returns the launch counts (no B kernel runs here)."""
     from deeplearning4j_tpu_torch.tools import dp_legs
 
     t0 = time.perf_counter()
@@ -4716,7 +4755,7 @@ def phase_dp_elastic_resize(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 PP_MICRO = 4  # microbatches of the pipelined LM: 2 rows of [8, 1024] each
-# the pipelined LM's params after 3 steps vs the world-1 run's (Solver's),
+# the pipelined LM's params after DP_STEPS steps vs the world-1 run's (Solver's),
 # max |diff|: between the sound gap and what a planted fault reads, both of
 # which the phase reads in every run and the gate checks against this limit
 TOL_PP = 3e-5
@@ -4738,7 +4777,7 @@ def phase_pp_lm(card: str, world1) -> dict:
     """``PipelineParallelTrainer`` on two ranks sharing ``cuda:0`` (one
     stage each: the prelude and 6 blocks, then 6 blocks and the head), the
     GPT-2-small-width LM from the world-1 phase's seed, its [8, 1024] batch
-    in 4 microbatches, 3 steps under 1F1B and 3 under GPipe; each held
+    in 4 microbatches, ``DP_STEPS`` steps under 1F1B and as many under GPipe; each held
     against the world-1 run's params (bit for bit ``Solver.fit_batch``'s)
     within ``TOL_PP``, which each planted fault must exceed. Returns the
     launch counts of both ranks' steps under the two schedules."""
@@ -4803,10 +4842,11 @@ def phase_pp_lm(card: str, world1) -> dict:
 def phase_pp_dp_f64(card: str) -> dict:
     """The 2-block GPT-2-width LM in float64 (the f64 kernels) over
     pipe=2 x data=2, four gloo ranks on ``cuda:0``, [4, 1024] in 2
-    microbatches, 3 steps replicated and 3 under ZeRO-1 (bit for bit equal),
-    within 1e-10 of ``Solver.fit_batch``; the replicated run's checkpoint
-    restored into a ``DistributedTrainer`` over the four ranks and a
-    ``Solver``, each of whose next step is within 1e-10 of Solver's fourth.
+    microbatches, ``DP_STEPS`` steps replicated and as many under ZeRO-1
+    (bit for bit equal), within 1e-10 of ``Solver.fit_batch``; the
+    replicated run's checkpoint restored into a ``DistributedTrainer`` over
+    the four ranks and a ``Solver``, each of whose next step is within 1e-10
+    of Solver's next.
     Returns the launch counts of the trainers' steps."""
     from deeplearning4j_tpu_torch.tools import dp_legs, pp_legs
 
@@ -4830,9 +4870,9 @@ def phase_pp_dp_f64(card: str) -> dict:
     ref = TransformerLM(**lm, seed=SEED, dtype="float64").init()
     solver = Solver(ref)
     want = [float(solver.fit_batch(ids, labels)[0]) for _ in range(DP_STEPS)]
-    ref3 = ref.params_flat().copy()
+    ref_last = ref.params_flat().copy()
     want.append(float(solver.fit_batch(ids, labels)[0]))
-    ref4 = ref.params_flat().copy()
+    ref_next = ref.params_flat().copy()
     del ref, solver
     torch.cuda.empty_cache()
     for r in reps:
@@ -4841,17 +4881,17 @@ def phase_pp_dp_f64(card: str) -> dict:
                   f"pipe x data {leg}: rank {r['rank']}'s scores differ")
     check(legs["zero1"]["scores"] == legs["replicated"]["scores"] and np.array_equal(z_p, rep_p),
           "ZeRO-1 must equal the replicated pipe x data run bit for bit")
-    gap = float(np.abs(rep_p - ref3).max())
+    gap = float(np.abs(rep_p - ref_last).max())
     s_gap = max(abs(a - b) for a, b in zip(legs["replicated"]["scores"], want))
     check(gap <= TOL_PP_F64 and s_gap <= TOL_PP_F64,
           f"pipe x data float64 must be within {TOL_PP_F64} of Solver: params {gap:.3e}, "
           f"scores {s_gap:.3e}")
     check(legs["restored_stages"] == 2, f"the checkpoint must record 2 stages: "
                                         f"{legs['restored_stages']}")
-    next_gaps = {"DistributedTrainer": (abs(legs["dp_next"] - want[3]),
-                                        float(np.abs(dp_p - ref4).max())),
-                 "Solver": (abs(legs["solver_next"] - want[3]),
-                            float(np.abs(sv_p - ref4).max()))}
+    next_gaps = {"DistributedTrainer": (abs(legs["dp_next"] - want[DP_STEPS]),
+                                        float(np.abs(dp_p - ref_next).max())),
+                 "Solver": (abs(legs["solver_next"] - want[DP_STEPS]),
+                            float(np.abs(sv_p - ref_next).max()))}
     for name, (sg, pg) in next_gaps.items():
         check(sg <= TOL_PP_F64 and pg <= TOL_PP_F64,
               f"the pipelined checkpoint restored into {name}: its next step must be within "
@@ -4971,7 +5011,7 @@ def phase_sequence(card: str) -> dict:
 # tensor and expert parallelism: gloo ranks sharing cuda:0
 # ---------------------------------------------------------------------------
 
-# the Megatron-split LM's params after 3 steps vs the world-1 run's
+# the Megatron-split LM's params after DP_STEPS steps vs the world-1 run's
 # (Solver's), max |diff|: between the sound gap and what each planted fault
 # reads, both of which the phase reads in every run
 TOL_TP = 3e-5
@@ -4999,7 +5039,7 @@ def phase_tp_lm(card: str, world1) -> dict:
     """``DistributedTrainer`` under the Megatron rules on two ranks sharing
     ``cuda:0`` (``data=1, model=2``): the GPT-2-small-width LM from the
     world-1 phase's seed on its [8, 1024] batch, each rank holding half of
-    every block's Wq/Wk/Wv/W1/b1 columns and Wo/W2 rows, 3 steps; held
+    every block's Wq/Wk/Wv/W1/b1 columns and Wo/W2 rows, ``DP_STEPS`` steps; held
     against the world-1 run's params (bit for bit ``Solver.fit_batch``'s)
     within ``TOL_TP``, which one step under each planted fault must exceed
     against the sound run's first step; ``output()`` over the shards
@@ -5071,8 +5111,8 @@ def phase_ep_moe(card: str) -> dict:
     experts) and in sort dispatch. From the seeded params, its gradients and
     ``output()`` are held against the replicated network's at the MoE
     phase's float32 gates (``TOL_GRAD_REL``, ``TOL_BWD_REL``), which each
-    planted fault's gradients (grouped) must exceed; then 3 steps, beside
-    the replicated network's 3 ``Solver`` steps. Returns the launch counts
+    planted fault's gradients (grouped) must exceed; then ``DP_STEPS``
+    steps, beside the replicated network's ``Solver`` steps. Returns the launch counts
     of both ranks' training steps."""
     from deeplearning4j_tpu_torch.tools import tp_legs
 
@@ -5128,7 +5168,7 @@ def phase_ep_moe(card: str) -> dict:
     print(f"expert-parallel moe 2 ranks ({card}): vs the replicated network from the seeded "
           f"params, gradients worst rel { {m: r0[m]['grad_rel'] for m in modes} } (gate "
           f"{TOL_GRAD_REL:g}), output rel {out_rel} (gate {tol_out:g}); planted faults' gradients read "
-          f"{ {f: r0[f]['grad_rel'] for f in tp_legs.EP_FAULTS} }; after 3 Adam steps params "
+          f"{ {f: r0[f]['grad_rel'] for f in tp_legs.EP_FAULTS} }; after {DP_STEPS} Adam steps params "
           f"max |diff| from the replicated run { {m: f'{g:.3e}' for m, g in gaps.items()} } "
           f"(no gate: a token whose top-2 or capacity slot flips on a float32 rounding moves "
           f"its experts' update by up to 2 x lr a step); launches {counts}; "
@@ -5206,6 +5246,403 @@ def phase_tpep_f64(card: str) -> dict:
     return counts
 
 
+# ---- the periphery (ROADMAP A10): the NLP, UI, RL and arbiter modules -------
+
+MLM_STEPS, MLM_STATS_EVERY = 8, 4
+# bert-base's published WordPiece vocabulary size; the phase generates one
+# of that size from SEED: the five specials, whole-word pieces, "##" pieces
+MLM_VOCAB, MLM_WORDS = 30522, 20000
+# Word2Vec, GloVe and ParagraphVectors on the card against the port's CPU
+# run of the same fits (tools/embedding_reference.py, a process of its own
+# started at the script's start): both draw the same pairs, negatives and
+# permutations, so they differ by summation order only (index_add_'s
+# atomics on the card); the gate is on the largest gap over the largest
+# |value| of each table. Negative sampling, GloVe and ParagraphVectors read
+# 4e-7-1.1e-5 (H100 80GB HBM3, 700 W). Hierarchical softmax sends every pair
+# of a batch through the root's row, so its sums reorder most: the CPU's own
+# fit with each step's index_add_ rows permuted moves syn0 by 2.8e-4 and
+# syn1 by 5.0e-5 of their largest values (NS: 1.7e-6, 4.9e-6;
+# tools/embedding_order_noise.py), and the card read 2.6e-4 and 4.3e-5;
+# its gate sits above that noise
+TOL_EMBED_REL = 1e-4
+TOL_EMBED_HS_REL = 1e-3
+# one DQN train_step and one A3C update on the card against the port's CPU
+# result from the same params and batch, max abs gap over every param
+# (float32 products in another summation order on a 4 x 16 x 16 x 16 x 2
+# network)
+TOL_RL_CARD = 1e-5
+DQN_MAX_STEP = 2000       # the rl4j CartPole example's max_step 150000, cut
+ARBITER_BATCHES, ARBITER_CANDIDATES = 20, 4
+
+
+def start_embedding_reference(out_dir: str):
+    """Starts the CPU run of the embedding phase's fits (2 threads, so the
+    card's phases keep the host's other cores); :func:`phase_embeddings`
+    waits for it."""
+    out = os.path.join(out_dir, "embedding_reference.npz")
+    log = os.path.join(out_dir, "embedding_reference.log")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.tools.embedding_reference",
+             "--device", "cpu", "--threads", "2", "--seed", str(SEED), "--out", out],
+            env=env, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def _mlm_corpus():
+    """A ``Vocabulary`` of ``MLM_VOCAB`` entries generated from ``SEED`` (the
+    five BERT specials, whole-word pieces and "##" continuations of 2-9
+    lowercase letters) and 64 seeded sentences of Zipf-drawn words, some
+    glued to a continuation, each longer than 512 word pieces."""
+    from deeplearning4j_tpu_torch.nlp import Vocabulary
+
+    rs = np.random.RandomState(SEED + 90)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    seen, words, pieces = set(), [], []
+    while len(words) + len(pieces) < MLM_VOCAB - 5:
+        s = "".join(letters[rs.randint(0, 26, rs.randint(2, 10))])
+        if s in seen:
+            continue
+        seen.add(s)
+        (words if len(words) < MLM_WORDS else pieces).append(s)
+    vocab = Vocabulary(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+                       + ["##" + p for p in pieces])
+    p = 1.0 / np.arange(1, len(words) + 1)
+    p /= p.sum()
+    sentences = []
+    for _ in range(MLM_STEPS * BERT_BATCH):
+        ws = [words[i] for i in rs.choice(len(words), 600, p=p)]
+        glue = rs.rand(len(ws)) < 0.2
+        sentences.append(" ".join(w + pieces[rs.randint(len(pieces))] if g else w
+                                  for w, g in zip(ws, glue)))
+    return vocab, sentences
+
+
+def phase_bert_mlm(card: str) -> dict:
+    """BERT-base masked-LM pretraining from ``BertIterator``, the training UI
+    watching: the zoo ``BertEncoder()`` at bert-base's widths (L 12, H 768,
+    A 12, FFN 3072, vocab 30522, 512 positions), a generated 30522-entry
+    WordPiece vocabulary, ``BertIterator(task=UNSUPERVISED, max_length=512,
+    batch_size=8, mask_prob=0.15)`` over 64 sentences that fill their rows,
+    ``MLM_STEPS`` ``GraphSolver.fit_batch`` steps with the iterator's key and
+    label masks under ``StatsListener(FileStatsStorage, update_frequency=4)``,
+    ``ProfilingListener`` and ``NanPanicListener``, with ``UIServer(port=0)``
+    scraped during the run and after it. MFU against ``bench``'s
+    ``chip_peak_flops(device, "float32")`` (the CUDA cores: TF32 is off).
+    Returns the launch counts of the training run (B1-B3)."""
+    from deeplearning4j_tpu_torch.bench import bert_train_flops_per_token, chip_peak_flops
+    from deeplearning4j_tpu_torch.nlp import BertIterator, BertTask, BertWordPieceTokenizer
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage, NanPanicListener,
+                                             ProfilingListener, StatsListener, UIServer)
+
+    t0 = time.perf_counter()
+    vocab, sentences = _mlm_corpus()
+    it = BertIterator(BertWordPieceTokenizer(vocab), task=BertTask.UNSUPERVISED,
+                      sentences=sentences, max_length=BERT_T, batch_size=BERT_BATCH,
+                      mask_prob=0.15, seed=SEED)
+    batches = list(it)
+    data_s = time.perf_counter() - t0
+    check(len(vocab) == MLM_VOCAB and len(batches) == MLM_STEPS,
+          f"MLM data: vocab {len(vocab)}, {len(batches)} batches")
+    ids0, mask0 = batches[0].features
+    check(ids0.shape == (BERT_BATCH, BERT_T) and bool((mask0 == 1).all()),
+          "every MLM row must fill its 512 positions")
+    picked = float(np.mean([b.labels_masks[0].mean() for b in batches]))
+    zoo = BertEncoder(seed=SEED)
+    model = zoo.init()
+    solver = GraphSolver(model)
+    tmp = tempfile.mkdtemp(prefix="bert_mlm_")
+    storage = FileStatsStorage(os.path.join(tmp, "stats.jsonl"))
+    trace_path = os.path.join(tmp, "trace.json")
+    model.add_listeners(StatsListener(storage, session_id="bert-mlm",
+                                      update_frequency=MLM_STATS_EVERY),
+                        ProfilingListener(trace_path), NanPanicListener())
+    ui = UIServer(port=0).attach(storage).start()
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        scores, step_ms, listen_ms, scraped = [], [], [], None
+        model.listeners.epoch_start(model)
+        for mds in batches:
+            (ids, mask), (labels,), (lmask,) = mds.features, mds.labels, mds.labels_masks
+            t1 = time.perf_counter()
+            score = solver.fit_batch((ids,), (labels,), masks=(mask,), label_masks=(lmask,))
+            model.score_value = float(score)  # waits for the step
+            t2 = time.perf_counter()
+            model.iteration_count += 1
+            model.listeners.iteration_done(model, model.iteration_count, model.epoch_count,
+                                           model.score_value)
+            step_ms.append(1e3 * (t2 - t1))
+            listen_ms.append(1e3 * (time.perf_counter() - t2))
+            scores.append(model.score_value)
+            if model.iteration_count == MLM_STATS_EVERY:  # mid-run scrape
+                scraped = json.loads(_http(ui.port, "/train/stats?sessionId=bert-mlm",
+                                           method="GET")[2])
+        model.listeners.epoch_end(model)
+        counts = _all_counts()
+        status, headers, body = _http(ui.port, "/metrics", method="GET")
+        stats = json.loads(_http(ui.port, "/train/stats?sessionId=bert-mlm", method="GET")[2])
+        sessions = json.loads(_http(ui.port, "/train/sessions", method="GET")[2])
+    finally:
+        ui.stop()
+        storage.close()
+    records = storage.records("bert-mlm")
+    stored = [r["score"] for r in records]
+    full = [r for r in records if "gradients" in r]
+    events = [e for e in json.load(open(trace_path))["traceEvents"] if e["cat"] == "train"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    check(all(counts[k] == 12 * MLM_STEPS for k in ("flash_forward", "flash_bwd_dq",
+                                                     "flash_bwd_dkv")),
+          f"every MLM step must launch B1, B2 and B3 once a block: {counts}")
+    check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+          f"MLM scores must be finite and falling: {scores}")
+    check(stats["scores"] == stored == scores and sessions == ["bert-mlm"],
+          f"/train/stats scores {stats['scores']} vs the storage's {stored}")
+    check(scraped is not None and scraped["scores"] == scores[:MLM_STATS_EVERY],
+          "the mid-run /train/stats scrape must hold the first iterations' scores")
+    check(status == 200 and headers.get("Content-Type", "").startswith("text/plain"),
+          f"/metrics answered {status} {headers.get('Content-Type')}")
+    check(len(events) == MLM_STEPS and len(full) == MLM_STEPS // MLM_STATS_EVERY
+          and len(full[-1]["gradients"]) == sum(len(p) for p in model.params.values()),
+          f"{len(events)} trace iterations, {len(full)} full stat records")
+    ratios = stats["update_ratios"].get("tok_emb/W", [])
+    ms = float(np.median(step_ms))
+    tokens_s = BERT_BATCH * BERT_T / ms * 1e3
+    flops_tok = bert_train_flops_per_token(zoo, BERT_T)
+    peak = chip_peak_flops(torch.device("cuda", 0), "float32")
+    mfu = None if peak is None else flops_tok * tokens_s / peak
+    print(f"bert-base mlm from BertIterator ({card}): vocab {len(vocab)} generated, "
+          f"{len(sentences)} sentences tokenized in {data_s:.2f} s, {picked:.4f} of positions "
+          f"picked for MLM; {MLM_STEPS} GraphSolver.fit_batch steps [{BERT_BATCH},{BERT_T}] "
+          f"with key and label masks: median {ms:.2f} ms/step of "
+          f"{[round(t, 2) for t in step_ms]} = {tokens_s:.0f} tokens/s; "
+          f"{flops_tok / 1e6:.2f} MFLOP/token x tokens/s / chip_peak_flops float32 "
+          f"{None if peak is None else peak / 1e12} TFLOP/s = MFU "
+          f"{'not measured' if mfu is None else f'{mfu:.4f}'}; listeners ms "
+          f"{[round(t, 1) for t in listen_ms]} (full stats every {MLM_STATS_EVERY}); scores "
+          f"{[round(s, 5) for s in scores]}; log10 update:param ratio of tok_emb/W "
+          f"{[round(r, 3) for r in ratios]}; /metrics {len(body)} bytes; Chrome trace "
+          f"{len(events)} iterations; launches {counts}")
+    del model, solver
+    return counts
+
+
+def _max_rel_gap(card: np.ndarray, cpu: np.ndarray) -> float:
+    return float(np.abs(card - cpu).max() / max(float(np.abs(cpu).max()), 1e-30))
+
+
+def phase_embeddings(card: str, reference) -> dict:
+    """Word2Vec (negative sampling, then hierarchical softmax; 300-wide
+    tables over 21,188 words), GloVe and ParagraphVectors (with
+    ``infer_vector`` on an unseen document) at the sizes of
+    ``tools/embedding_reference.py``, on the card; each table held against
+    the same fit on the CPU (the process :func:`start_embedding_reference`
+    started) within ``TOL_EMBED_REL`` (hierarchical softmax's tables within
+    ``TOL_EMBED_HS_REL``). Returns the launch counts of the
+    card's fits (none of B1-B5)."""
+    from deeplearning4j_tpu_torch.tools import embedding_reference as er
+
+    fa.reset_launch_counts()
+    tables, stats = er.run("cuda", SEED)
+    counts = _all_counts()
+    proc, path, log = reference
+    t0 = time.perf_counter()
+    proc.wait(timeout=600)
+    wait_s = time.perf_counter() - t0
+    with open(log) as f:
+        check(proc.returncode == 0, f"the CPU embedding run failed:\n{f.read()[-4000:]}")
+    with np.load(path) as z:
+        ref = {k: z[k] for k in z.files}
+    ref_stats = json.loads(str(ref.pop("stats")))
+    gaps = {k: _max_rel_gap(tables[k], ref[k]) for k in sorted(tables)}
+    check(set(tables) == set(ref) and all(tables[k].shape == ref[k].shape for k in tables),
+          "the card's and the CPU's tables differ in shape")
+    for name in ("w2v_ns", "w2v_hs"):
+        s = stats[name]
+        print(f"word2vec {name[4:]} ({card}): {s['tokens']} Zipf tokens ({er.W2V_TYPES} types),"
+              f" vocab {s['vocab']} x {er.W2V['vector_size']} at min_count "
+              f"{er.W2V['min_count']}, {s['pairs']} pairs in {s['seconds']:.2f} s = "
+              f"{s['pairs'] / s['seconds']:.0f} pairs/s (CPU run {ref_stats[name]['seconds']:.2f}"
+              f" s = {s['pairs'] / ref_stats[name]['seconds']:.0f} pairs/s); gaps to the CPU "
+              f"syn0 {gaps[name + '_syn0']:.3e} syn1 {gaps[name + '_syn1']:.3e} of the largest "
+              f"|value| (tol {TOL_EMBED_HS_REL if name == 'w2v_hs' else TOL_EMBED_REL:g})")
+    g, p = stats["glove"], stats["pv"]
+    print(f"glove ({card}): {g['tokens']} tokens, vocab {g['vocab']} x 300, {g['epochs']} "
+          f"epochs in {g['seconds']:.2f} s (CPU {ref_stats['glove']['seconds']:.2f} s); gap "
+          f"{gaps['glove_syn0']:.3e}; paragraph vectors: {p['docs']} docs, vocab {p['vocab']} "
+          f"x 300, {p['epochs']} epochs in {p['seconds']:.2f} s (CPU "
+          f"{ref_stats['pv']['seconds']:.2f} s); gaps docs {gaps['pv_docs']:.3e} syn1 "
+          f"{gaps['pv_syn1']:.3e} infer_vector {gaps['pv_unseen']:.3e} (tol {TOL_EMBED_REL:g});"
+          f" waited {wait_s:.1f} s for the CPU run; launches {counts}")
+    tol = {k: TOL_EMBED_HS_REL if k.startswith("w2v_hs") else TOL_EMBED_REL for k in gaps}
+    bad = [k for k in gaps if gaps[k] > tol[k]]
+    check(not bad and all(np.isfinite(t).all() for t in tables.values()),
+          f"embedding tables {bad} are {[gaps[k] for k in bad]} from the CPU run")
+    return counts
+
+
+def _params_np(params) -> dict:
+    return {l: {k: p.detach().cpu().numpy() for k, p in lp.items()} for l, lp in params.items()}
+
+
+def _max_param_gap(a, b) -> float:
+    return max(float(np.abs(a[l][k] - b[l][k]).max()) for l in a for k in a[l])
+
+
+def phase_rl(card: str) -> dict:
+    """DQN and A3C on CartPole. DQN with the rl4j CartPole example's QLearning
+    settings as far as ``QLearningConfiguration`` has fields (seed 123,
+    max_epoch_step 200, exp_replay_size 150000, batch 32, target update
+    every 500, update_start 10, gamma 0.99, min_epsilon 0.1 over 1000 steps,
+    double DQN; 3 hidden dense layers of 16, Adam 5e-4), ``max_step`` cut
+    from 150000 to ``DQN_MAX_STEP``; A3C at ``A3CConfiguration()`` (8
+    workers, n_step 16, max_step 20000). One DQN ``train_step`` and one A3C
+    update on the card are held against the port's CPU result from the same
+    params and batch (``TOL_RL_CARD``). Returns the launch counts of the two
+    training runs (none of B1-B5)."""
+    from deeplearning4j_tpu_torch.model import load_jax_params
+    from deeplearning4j_tpu_torch.rl import (A3CConfiguration, A3CDiscreteDense, CartPole,
+                                             QLearningConfiguration, QLearningDiscreteDense,
+                                             Transition)
+
+    conf = QLearningConfiguration(
+        seed=123, max_step=DQN_MAX_STEP, max_epoch_step=200, exp_replay_size=150000,
+        batch_size=32, target_dqn_update_freq=500, update_start=10, gamma=0.99,
+        min_epsilon=0.1, epsilon_nb_step=1000, double_dqn=True, learning_rate=5e-4,
+        hidden=(16, 16, 16))
+    gpu = QLearningDiscreteDense(CartPole(max_steps=200, seed=SEED), conf)
+    cpu = QLearningDiscreteDense(CartPole(max_steps=200, seed=SEED), conf, device="cpu")
+    load_jax_params(cpu.network, _params_np(gpu.network.params))
+    cpu.target_params = {l: {k: p.clone() for k, p in lp.items()}
+                         for l, lp in cpu.network.params.items()}
+    env, rs = CartPole(max_steps=200, seed=SEED + 1), np.random.RandomState(SEED + 2)
+    obs = env.reset()
+    for _ in range(256):
+        action = int(rs.randint(2))
+        reply = env.step(action)
+        for agent in (gpu, cpu):
+            agent.replay.store(Transition(obs, action, reply.reward, reply.observation,
+                                          reply.done))
+        obs = env.reset() if reply.done else reply.observation
+    batch = gpu.replay.sample()
+    cpu.replay.sample()
+    td_gap = float(np.abs(gpu._td_targets(*batch) - cpu._td_targets(*batch)).max())
+    gpu.train_step()
+    cpu.train_step()
+    step_gap = _max_param_gap(_params_np(gpu.network.params), _params_np(cpu.network.params))
+
+    a3c = A3CDiscreteDense(lambda seeds=iter(range(SEED, SEED + 64)): CartPole(
+        seed=next(seeds)), A3CConfiguration())
+    a3c_cpu = A3CDiscreteDense(lambda: CartPole(seed=SEED), A3CConfiguration(), device="cpu")
+    load_jax_params(a3c_cpu, {k: p.detach().cpu().numpy() for k, p in a3c.params.items()})
+    n = a3c.conf.num_threads * a3c.conf.n_step
+    obs_b = rs.randn(n, 4).astype(np.float32)
+    act_b = rs.randint(0, 2, n).astype(np.int32)
+    ret_b = (rs.rand(n) * 20).astype(np.float32)
+    a3c._update(a3c._put(obs_b), a3c._put(act_b), a3c._put(ret_b))
+    a3c_cpu._update(a3c_cpu._put(obs_b), a3c_cpu._put(act_b), a3c_cpu._put(ret_b))
+    a3c_gap = max(float(np.abs(a3c.params[k].detach().cpu().numpy()
+                               - a3c_cpu.params[k].detach().numpy()).max()) for k in a3c.params)
+
+    fa.reset_launch_counts()
+    dqn = QLearningDiscreteDense(CartPole(max_steps=200, seed=SEED), conf)
+    t0 = time.perf_counter()
+    rewards = dqn.train()
+    dqn_s = time.perf_counter() - t0
+    a3c = A3CDiscreteDense(lambda seeds=iter(range(SEED, SEED + 64)): CartPole(
+        seed=next(seeds)), A3CConfiguration())
+    t0 = time.perf_counter()
+    a3c.train()
+    a3c_s = time.perf_counter() - t0
+    counts = _all_counts()
+    finite = all(bool(torch.isfinite(p).all()) for lp in dqn.network.params.values()
+                 for p in lp.values()) and all(bool(torch.isfinite(p).all())
+                                               for p in a3c.params.values())
+    ep = a3c.episode_rewards
+
+    def mean(xs):
+        return round(float(np.mean(xs)), 2) if xs else None
+
+    print(f"dqn cartpole ({card}): rl4j example settings, 3 x 16 hidden, Adam(5e-4), max_step "
+          f"{DQN_MAX_STEP} (rl4j: 150000): {len(rewards)} episodes in {dqn_s:.2f} s = "
+          f"{DQN_MAX_STEP / dqn_s:.0f} steps/s, rewards first 10 mean {mean(rewards[:10])}, "
+          f"last 10 mean {mean(rewards[-10:])}, best {max(rewards)}; card vs CPU TD targets "
+          f"{td_gap:.3e}, params after one train_step {step_gap:.3e} (tol {TOL_RL_CARD:g})")
+    print(f"a3c cartpole ({card}): A3CConfiguration() {a3c.conf.num_threads} workers, n_step "
+          f"{a3c.conf.n_step}, max_step {a3c.conf.max_step}: {len(ep)} episodes in "
+          f"{a3c_s:.2f} s = {a3c.conf.max_step / a3c_s:.0f} steps/s, rewards first 20 mean "
+          f"{mean(ep[:20])}, last 20 mean {mean(ep[-20:])}; card vs CPU params after one "
+          f"update on [{n}, 4] {a3c_gap:.3e} (tol {TOL_RL_CARD:g}); launches {counts}")
+    check(max(td_gap, step_gap, a3c_gap) <= TOL_RL_CARD, "DQN or A3C on the card disagrees "
+          f"with the CPU: {td_gap:.3e}, {step_gap:.3e}, {a3c_gap:.3e}")
+    check(finite and rewards and ep, "DQN/A3C params must stay finite over episodes")
+    return counts
+
+
+class _FailingCandidate:
+    """The random candidates, then one whose model factory raises."""
+
+    def __init__(self, gen) -> None:
+        self.gen = gen
+
+    def __iter__(self):
+        yield from self.gen
+        yield {"learning_rate": 1e-3, "fail": True}
+
+
+def phase_arbiter(card: str) -> dict:
+    """Arbiter random search over the zoo ``LeNet``'s learning rate
+    (log-uniform in [1e-4, 1e-1]), ``ARBITER_CANDIDATES`` candidates plus
+    one whose factory raises; each trains ``ARBITER_BATCHES`` batches from
+    ``MnistDataSetIterator(64)`` and is scored by ``evaluate`` accuracy on
+    1024 test digits. Returns the launch counts of the search (none)."""
+    from deeplearning4j_tpu_torch.arbiter import (ContinuousParameterSpace,
+                                                  LocalOptimizationRunner,
+                                                  OptimizationConfiguration,
+                                                  RandomSearchGenerator)
+    from deeplearning4j_tpu_torch.data.mnist import MnistDataSetIterator
+
+    test = MnistDataSetIterator(256, train=False, num_examples=1024)
+
+    def factory(hp):
+        if hp.get("fail"):
+            raise RuntimeError("planted failure: this candidate's factory raises")
+        net = LeNet(seed=SEED, updater=Adam(hp["learning_rate"])).init()
+        net.fit(MnistDataSetIterator(LENET_BATCH, num_examples=LENET_BATCH * ARBITER_BATCHES))
+        return net
+
+    def score(net, hp):
+        test.reset()
+        return net.evaluate(test).accuracy()
+
+    gen = RandomSearchGenerator({"learning_rate": ContinuousParameterSpace(
+        1e-4, 1e-1, log_scale=True)}, num_candidates=ARBITER_CANDIDATES, seed=SEED)
+    runner = LocalOptimizationRunner(OptimizationConfiguration(
+        candidate_generator=_FailingCandidate(gen), model_factory=factory,
+        score_function=score, minimize=False))
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    best = runner.execute()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    res = runner.results
+    ok = [r for r in res if r.error is None]
+    print(f"arbiter lenet ({card}): {len(res)} candidates in {wall:.2f} s: "
+          + "; ".join(f"lr {r.hyperparameters['learning_rate']:.3e} "
+                      + (f"accuracy {r.score:.4f}" if r.error is None else f"ERROR {r.error}")
+                      + f" in {r.duration_s:.2f} s" for r in res)
+          + f"; best lr {best.hyperparameters['learning_rate']:.3e} accuracy {best.score:.4f};"
+          f" launches {counts}")
+    check(len(res) == ARBITER_CANDIDATES + 1 and len(ok) == ARBITER_CANDIDATES
+          and "planted" in (res[-1].error or ""), "the failing candidate must not end the search")
+    check(best.error is None and best.score == max(r.score for r in ok),
+          f"best_result() {best.score} is not the best score")
+    check(all(r.duration_s > 0 for r in res), "every candidate must be timed")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5214,6 +5651,18 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     phase_build()
     phase_sass()
+    ref_dir = tempfile.mkdtemp(prefix="embedding_reference_")
+    reference = start_embedding_reference(ref_dir)
+    try:
+        return _main(card, name, reference)
+    finally:
+        if reference[0].poll() is None:
+            reference[0].kill()
+            reference[0].wait()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+
+
+def _main(card: str, name: str, reference) -> int:
     gen = torch.Generator().manual_seed(SEED)
     rs = np.random.RandomState(SEED + 1)
     prompt_lens = [100, 500] + rs.randint(100, 501, B - 2).tolist()
@@ -5283,6 +5732,10 @@ def main() -> int:
               timed("tensor and expert parallel x data, 4 ranks, float64", phase_tpep_f64,
                     card)]
     del world1
+    paths += [timed("BERT-base MLM from BertIterator, UI watching", phase_bert_mlm, card),
+              timed("Word2Vec, GloVe and ParagraphVectors", phase_embeddings, card, reference),
+              timed("DQN and A3C on CartPole", phase_rl, card),
+              timed("arbiter random search over LeNet", phase_arbiter, card)]
     # launches over the paths: LM serving, the engines, HTTP serving and
     # training, the MoE network, the head-dim-256, float16, float64 and
     # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
@@ -5303,7 +5756,9 @@ def main() -> int:
     # and Ulysses runs (B1-B3, counted in the ranks' processes); then tensor
     # and expert parallelism: the Megatron-split LM's steps (B1-B3 on 6
     # heads), the expert-parallel MoE network's (B1-B3, B5 over 4 experts)
-    # and the float64 legs' (counted in the ranks' processes)
+    # and the float64 legs' (counted in the ranks' processes); then the
+    # periphery: BERT-base's MLM steps from BertIterator (B1-B3), the
+    # embedding trainers, DQN, A3C and the arbiter's LeNets (none)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

@@ -115,29 +115,40 @@ def _fill_state(template: Any, leaves: Iterator[np.ndarray]) -> Any:
     return template
 
 
-def load_jax_params(model: Model, params_np: Dict[str, Dict[str, np.ndarray]]) -> Model:
-    """Load the JAX package's parameters, given as numpy arrays
-    (``{layer_name: {param_name: array}}``, a graph's keyed by vertex), into
-    a port model built from the same configuration. Returns ``model``."""
-    model._check_init()
+def load_jax_params(model, params_np: Dict[str, Any]):
+    """Load the JAX package's parameters, given as numpy arrays, into a port
+    model built from the same configuration: a network's
+    ``{layer_name: {param_name: array}}`` (a graph's keyed by vertex), or a
+    flat ``{param_name: array}`` where the model's ``params`` is flat (the
+    A3C agent's). Returns ``model``."""
+    if hasattr(model, "_check_init"):
+        model._check_init()
     mine = model.params
     if set(params_np) - set(mine):
         raise KeyError(f"unknown layers {sorted(set(params_np) - set(mine))}")
     with torch.no_grad():
         for lname, lparams in mine.items():
+            if isinstance(lparams, torch.Tensor):
+                if lname not in params_np:
+                    raise KeyError(f"param {lname} is missing")
+                _copy_param(lname, lparams, params_np[lname])
+                continue
             given = params_np.get(lname, {})
             if set(given) != set(lparams):
                 raise KeyError(f"{lname}: params {sorted(given)} do not match "
                                f"the model's {sorted(lparams)}")
             for pname, p in lparams.items():
-                arr = np.asarray(given[pname])
-                if tuple(arr.shape) != tuple(p.shape):
-                    raise ValueError(f"{lname}.{pname}: shape {arr.shape} != "
-                                     f"{tuple(p.shape)}")
-                if arr.dtype not in (np.float16, np.float32, np.float64):
-                    arr = arr.astype(np.float32)  # e.g. ml_dtypes bfloat16
-                p.copy_(torch.tensor(arr).to(device=p.device, dtype=p.dtype))
+                _copy_param(f"{lname}.{pname}", p, given[pname])
     return model
+
+
+def _copy_param(name: str, p: torch.Tensor, arr) -> None:
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != tuple(p.shape):
+        raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+    if arr.dtype not in (np.float16, np.float32, np.float64):
+        arr = arr.astype(np.float32)  # e.g. ml_dtypes bfloat16
+    p.copy_(torch.tensor(arr).to(device=p.device, dtype=p.dtype))
 
 
 def restore_multi_layer_network(path: str, device: Device = None,

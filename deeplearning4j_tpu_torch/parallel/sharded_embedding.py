@@ -50,14 +50,25 @@ class ShardedEmbeddingTable:
 
     def __init__(self, vocab_size: int, dim: int, mesh, axis: str = "model", seed: int = 0,
                  init_scale: Optional[float] = None, device=None) -> None:
-        self.vocab_size = vocab_size
-        self.dim = dim
-        self.mesh = mesh
-        self.axis = axis
-        self.group = mesh.get_group(axis)
         scale = (1.0 / dim) if init_scale is None else init_scale
         rng = np.random.RandomState(seed)
         host = ((rng.rand(vocab_size, dim) - 0.5) * 2 * scale).astype(np.float32)
+        self._place(host, mesh, axis, device)
+
+    @classmethod
+    def from_rows(cls, rows, mesh, axis: str = "model", device=None) -> "ShardedEmbeddingTable":
+        """A table holding the given [vocab, dim] rows (every rank passes the
+        same array and keeps its block), as the JAX package's
+        ``shard_rows`` places a table that a model drew itself."""
+        table = cls.__new__(cls)
+        table._place(np.asarray(rows, np.float32), mesh, axis, device)
+        return table
+
+    def _place(self, host: np.ndarray, mesh, axis: str, device) -> None:
+        self.vocab_size, self.dim = int(host.shape[0]), int(host.shape[1])
+        self.mesh = mesh
+        self.axis = axis
+        self.group = mesh.get_group(axis)
         self.table = shard_rows(host, mesh, axis, device)  # this rank's rows
         self.rows_per_shard = int(self.table.shape[0])
         self.padded_size = self.rows_per_shard * self.shard_count

@@ -22,7 +22,8 @@ differently staged one, ``DistributedTrainer`` and ``Solver``), ``reject``
 hands it a partition for another stage count), ``ring`` and
 ``ulysses`` (whole-sequence attention with the gradients of
 ``sum(out**2)``), ``table`` (``ShardedEmbeddingTable`` lookups and a
-sparse update).
+sparse update), ``w2v`` (``Word2Vec(mesh=)`` over row-sharded tables on a
+corpus given as JSON: the whole tables after ``fit``).
 
 Tensor and expert parallelism (``tests/test_torch_{tp,ep}.py``):
 ``dt`` (``DistributedTrainer`` under ``rules`` on a model zip: rank ``(d,
@@ -275,6 +276,13 @@ def _case_table(case, mesh, data):
     return res
 
 
+def _case_w2v(case, mesh, data):
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    w2v = Word2Vec(mesh=mesh, device="cpu", **case["kwargs"]).fit(case["sentences"])
+    return {"syn0": w2v.syn0, "syn1": w2v.syn1}
+
+
 def _rules(case):
     from deeplearning4j_tpu_torch.parallel import PartitionSpec
 
@@ -394,6 +402,7 @@ def _case_dt_reject(case, mesh, data):
 _KINDS = {"apply": _case_apply, "value_and_grad": _case_value_and_grad,
           "trainer": _case_trainer, "orbax": _case_orbax, "reject": _case_reject,
           "ring": _case_attention, "ulysses": _case_attention, "table": _case_table,
+          "w2v": _case_w2v,
           "dt": _case_dt, "dt_orbax": _case_dt_orbax, "dt_reject": _case_dt_reject}
 
 
