@@ -224,6 +224,18 @@ A3C at ``A3CConfiguration()`` on CartPole, one DQN ``train_step`` and one
 A3C update within ``TOL_RL_CARD`` of the CPU's; and an arbiter random
 search over the zoo ``LeNet``'s learning rate from ``MnistDataSetIterator``
 with a candidate whose factory raises.
+Then, right after the HTTP phase and on its model, the port's eleven
+contract harnesses (``deeplearning4j_tpu_torch/tools/check_*``: serving,
+metrics, trace, pool, generate, registry, fabric, disagg, multiplex, input
+pipeline, rewrite), each holding the JAX harness's gates on the card: the
+seven serving ones behind the GPT-2-small-width LM (B1 on ``/v1/serving``,
+B4 in the graphed decode steps), the registry and multiplexer on 2-block
+models of its widths, the input pipeline on [128, 3, 224, 224] uint8
+batches, the rewrite harness on its own graphs (phase "contract
+harnesses"). The kernels build on a thread of their own while the phases
+that launch none of B1-B5 run (the CNNs, the char-RNN, the iterator-fed
+paths, the imported graphs, the rewrites, the zoo, RL and the arbiter);
+the build's end is waited for before the first kernel phase.
 Depth cut to keep the script near 1000 s with the periphery's phases
 (every gate, fault leg and kernel launch kept):
 ``DP_STEPS`` 3 -> 2 (the world-1, two-rank, ResNet-50, pipelined,
@@ -245,6 +257,7 @@ device it exits with 2 and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import ctypes
@@ -416,6 +429,8 @@ TOL_HTTP_REL = 1e-5
 # published versions of 2 blocks take 2 x 0.37 GB of disk and load in
 # seconds; 12 blocks would take 2 x 0.65 GB.
 SWAP_LAYERS = 2
+# the hot swap's clients pause this long between requests (see phase_http)
+SWAP_CLIENT_PAUSE_S = 0.25
 # The char-RNN (BASELINE.json:9; the JAX package's bench.py:396-433): the zoo
 # TextGenerationLSTM's defaults (vocab 77, hidden 200, 2 GravesLSTM layers,
 # TBPTT 50), batch 32 of 200 characters = 4 windows a batch.
@@ -586,12 +601,40 @@ def _demangle(names: list) -> list:
     return [re.sub(r"\(anonymous namespace\)::", "", n) for n in out]
 
 
-def phase_build() -> None:
-    """Builds every kernel source and prints each instantiation's ptxas
-    registers, spills and static shared memory."""
-    t0 = time.perf_counter()
-    libs = cuda_build.build_all()
-    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+def start_build():
+    """Starts building every kernel source (one ``nvcc`` a source, all at
+    once) and then reading each library's SASS on a thread of its own, so
+    that the phases which launch none of the kernels run meanwhile:
+    (thread, result box)."""
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["libs"] = cuda_build.build_all()
+            box["seconds"] = time.perf_counter() - t0
+            stems = sorted(box["libs"])
+            with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:  # a cuobjdump each
+                box["sass"] = dict(zip(stems, pool.map(_sass_counts, stems)))
+            box["sass_seconds"] = time.perf_counter() - t0 - box["seconds"]
+        except BaseException as e:  # noqa: BLE001 — re-raised by phase_build
+            box["error"] = e
+
+    th = threading.Thread(target=run, name="kernel-build", daemon=True)
+    th.start()
+    return th, box
+
+
+def phase_build(build) -> None:
+    """Waits for the build ``start_build`` began, raises its error if it
+    failed, and prints each instantiation's ptxas registers, spills and
+    static shared memory."""
+    th, box = build
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    print(f"build: {sorted(box['libs'])} in {box['seconds']:.2f} s (the kernel-free "
+          f"phases ran meanwhile)")
     for stem, log in sorted(cuda_build.build_logs.items()):
         names, stats = [], []
         for line in log.splitlines():
@@ -606,25 +649,26 @@ def phase_build() -> None:
 
 def _sass_counts(stem: str) -> dict:
     """HMMA and atomic instructions per function in the SASS of the library
-    built from ``csrc/<stem>.cu``."""
+    built from ``csrc/<stem>.cu`` (``phase_sass`` prints them)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = cuda_build._lib_path(cuda_build.CSRC / f"{stem}.cu")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     counts, fn = {}, None
+    atomic = re.compile(r"\b(ATOMG?|ATOMS|RED)\b")
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = {"HMMA": 0, "atomics": 0}
         elif fn is not None:
             counts[fn]["HMMA"] += "HMMA" in line
-            counts[fn]["atomics"] += bool(re.search(r"\b(ATOMG?|ATOMS|RED)\b", line))
-    for fn, c in counts.items():
-        print(f"  sass {stem} {fn}: {c['HMMA']} HMMA, {c['atomics']} atomics")
+            # the substring test first, the regex only where it can match
+            if ("ATOM" in line or "RED" in line) and atomic.search(line):
+                counts[fn]["atomics"] += 1
     return counts
 
 
-def phase_sass() -> None:
+def phase_sass(build) -> None:
     """The flash forward and backward kernels and B5's tensor-core kernels
     run their products on the tensor cores, and no kernel has
     atomics: counted per function (each instantiation) in the built
@@ -632,20 +676,25 @@ def phase_sass() -> None:
     (DMAX 32 to 256), B4 at 3 x 4 x 2 load paths, the float64 B1-B4 at 4
     widths each; B5's tensor-core kernel in bf16, f16 and float32 (3xTF32,
     timed beside the path's kernel), its float32 CUDA-core kernel (2 load
-    paths) and its float64 one."""
-    bwd = _sass_counts("flash_backward")
+    paths) and its float64 one. The counts come from the build's thread."""
+    sass = build[1]["sass"]
+    print(f"sass: read in {build[1]['sass_seconds']:.2f} s on the build's thread")
+    for stem, counts in sass.items():
+        for fn, c in counts.items():
+            print(f"  sass {stem} {fn}: {c['HMMA']} HMMA, {c['atomics']} atomics")
+    bwd = sass["flash_backward"]
     check(len(bwd) == 24 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in bwd.values()),
           "every backward kernel must run HMMA and no atomics")
-    fwd = _sass_counts("flash_forward")
+    fwd = sass["flash_forward"]
     check(len(fwd) == 12 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in fwd.values()),
           "every forward kernel must run HMMA and no atomics")
-    dec = _sass_counts("flash_decode")
+    dec = sass["flash_decode"]
     check(len(dec) == 24 and all(c["atomics"] == 0 for c in dec.values()),
           "the decode kernels must have no atomics")
-    f64 = _sass_counts("flash_f64")
+    f64 = sass["flash_f64"]
     check(len(f64) == 16 and all(c["atomics"] == 0 for c in f64.values()),
           "the float64 attention kernels must have no atomics")
-    gmm = _sass_counts("grouped_matmul")
+    gmm = sass["grouped_matmul"]
     tc = [c for fn, c in gmm.items() if "grouped_matmul_tc_kernel" in fn]
     check(len(gmm) == 6 and len(tc) == 3 and all(c["HMMA"] > 0 for c in tc)
           and all(c["atomics"] == 0 for c in gmm.values()),
@@ -1828,7 +1877,10 @@ def phase_http(model, prompts, want, card: str) -> dict:
                            batch_limit=4, registry=reg)
         srv = JsonModelServer(managers={"lm": mgr}, registry=reg, name="swap-host").start()
         # one id a row: the answer (50257 floats of JSON) keeps the clients'
-        # encoding from starving the swap's own thread of the interpreter
+        # encoding from starving the swap's own thread of the interpreter;
+        # each client pauses SWAP_CLIENT_PAUSE_S between requests for the same
+        # reason (an answer's encoding holds the interpreter ~0.1 s: two
+        # clients back to back, or 50 ms apart, held deploy() at 10-12 s)
         row = rs.randint(0, vocab, (1, 1)).tolist()
         stop, answers = threading.Event(), []
 
@@ -1836,6 +1888,7 @@ def phase_http(model, prompts, want, card: str) -> dict:
             while not stop.is_set():
                 st, hd, _ = _http(srv.port, "/v1/models/lm", {"data": row})
                 answers.append((st, hd.get("X-Model-Version")))
+                time.sleep(SWAP_CLIENT_PAUSE_S)
 
         def await_answers(k):
             end, n0 = time.monotonic() + 300, len(answers)
@@ -1914,6 +1967,63 @@ def phase_http(model, prompts, want, card: str) -> dict:
     print(f"http serving launches: {got}")
     check(got["flash_forward"] > 0 and got["flash_decode"] > 0,
           "the HTTP paths must launch B1 and B4")
+    return got
+
+
+# the port's contract harnesses (deeplearning4j_tpu_torch/tools/), in the
+# JAX harnesses' order, and the model each runs on here: the 12-block LM the
+# caller hands over, or the harness's own size ("lm": 2-block models for
+# the registry and the multiplexer, [128, 3, 224, 224] uint8 batches for
+# the input pipeline, the rewrite contract's own graphs in float32)
+CONTRACTS = (("serving", "check_serving_contract", True),
+             ("metrics", "check_metrics_contract", True),
+             ("trace", "check_trace_contract", True),
+             ("pool", "check_pool_contract", True),
+             ("generate", "check_generate_contract", True),
+             ("registry", "check_registry_contract", False),
+             ("fabric", "check_fabric_contract", True),
+             ("disagg", "check_disagg_contract", True),
+             ("multiplex", "check_multiplex_contract", False),
+             ("input pipeline", "check_input_pipeline_contract", False),
+             ("rewrite", "check_rewrite_equivalence", False))
+
+
+def phase_contracts(model, card: str) -> dict:
+    """The port's eleven contract harnesses on the card, in this process:
+    the serving, metrics, trace, pool, generate, fabric and disagg
+    harnesses on ``model`` (the GPT-2-small-width LM: ``/v1/serving`` rows
+    reach B1 in every block, every ``/v1/generate`` decode step B4 in the
+    graphed step; the generate harness's speculative pool drafts with a
+    2-block ``TransformerLM.draft_of``), the registry and multiplex
+    harnesses on 2-block models at GPT-2 small's widths (a version or a
+    tenant is a whole ~369 MB zip, published, paged and parked), the input
+    pipeline on [128, 3, 224, 224] uint8 batches through
+    ``device_put_dataset`` with ``device_buffers=2``, and the rewrite
+    harness on its own graphs. Each prints its gates as they pass and
+    raises at the first that fails; its seconds follow. Returns the phase's
+    launch counts (B1 and B4 required)."""
+    fa.reset_launch_counts()
+    t_all = time.perf_counter()
+    for label, module, on_model in CONTRACTS:
+        mod = importlib.import_module(f"deeplearning4j_tpu_torch.tools.{module}")
+        lines = []
+
+        def log(m, label=label, lines=lines):
+            lines.append(m)
+            print(f"contract {label}: {m}", flush=True)
+
+        t0 = time.perf_counter()
+        rc = mod.main(device="cuda", model=model if on_model else "lm", log=log)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(rc == 0, f"the {label} contract returned {rc}")
+        gates = sum(1 for m in lines if not m.startswith("  "))
+        print(f"contract {label} ({card}): {gates} lines of gates passed in {dt:.2f} s")
+    got = dict(fa.LAUNCH_COUNTS)
+    print(f"contract harnesses ({card}): all {len(CONTRACTS)} passed in "
+          f"{time.perf_counter() - t_all:.2f} s; launches {got}")
+    check(got["flash_forward"] > 0 and got["flash_decode"] > 0,
+          "the contract harnesses must launch B1 and B4")
     return got
 
 
@@ -5649,20 +5759,20 @@ def main() -> int:
         return 2
     card = phase_device()
     name = torch.cuda.get_device_name(0)
-    phase_build()
-    phase_sass()
+    build = start_build()
     ref_dir = tempfile.mkdtemp(prefix="embedding_reference_")
-    reference = start_embedding_reference(ref_dir)
+    reference = []  # _main starts it once the kernels are built
     try:
-        return _main(card, name, reference)
+        return _main(card, name, reference, build, ref_dir)
     finally:
-        if reference[0].poll() is None:
-            reference[0].kill()
-            reference[0].wait()
+        for proc, _, _ in reference:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(ref_dir, ignore_errors=True)
 
 
-def _main(card: str, name: str, reference) -> int:
+def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
     gen = torch.Generator().manual_seed(SEED)
     rs = np.random.RandomState(SEED + 1)
     prompt_lens = [100, 500] + rs.randint(100, 501, B - 2).tolist()
@@ -5674,14 +5784,38 @@ def _main(card: str, name: str, reference) -> int:
         print(f"phase {label} done at {time.perf_counter() - t0:.1f} s")
         return out
 
+    # the phases that launch none of B1-B5 run while nvcc builds them (a
+    # phase that did launch one would wait for the build)
+    paths = [timed("LeNet", phase_lenet, card), timed("ResNet-50", phase_resnet50, card),
+             timed("TextGenerationLSTM", phase_char_rnn, card),
+             timed("LeNet from MnistDataSetIterator", phase_lenet_iterator, card),
+             timed("ResNet-50 from files", phase_resnet_files, card)]
+    imported, counts = timed("SameDiff TF-imported BERT-base", phase_samediff_bert, card)
+    paths += [counts, timed("SameDiff BERT-base fine-tune", phase_samediff_finetune, card,
+                            imported)]
+    del imported
+    imported, counts = timed("Keras ResNet-50", phase_keras_resnet50, card)
+    paths += [counts, timed("Keras ResNet-50 fine-tune", phase_keras_finetune, card, imported)]
+    del imported
+    paths += [timed("ONNX BERT-base", phase_onnx_bert, card),
+              timed("ResNet-50 inference rewrite", phase_resnet_rewrite, card),
+              timed("calibrated int8 Dense", phase_calibrated_dense, card),
+              timed("zoo", phase_zoo, card), timed("DQN and A3C on CartPole", phase_rl, card),
+              timed("arbiter random search over LeNet", phase_arbiter, card)]
+    timed("kernel build", phase_build, build)
+    # the embedding phase's CPU reference: after the build, whose nvcc
+    # processes would otherwise share the host's cores with it
+    reference.append(start_embedding_reference(ref_dir))
+    timed("SASS", phase_sass, build)
     fwd = timed("B1", phase_flash_forward, gen)
     dec = timed("B4", phase_flash_decode, gen, [n + MAX_TOKENS // 2 for n in prompt_lens])
     bwd = timed("B2/B3", phase_flash_backward, gen)
     timed("new instantiations", phase_new_instantiations, gen)
     serving, model = timed("LM serving", phase_model, prompts)
     engine, static_streams = timed("LM engine", phase_engine, model, prompts, card)
-    paths = [serving, engine,
+    paths += [serving, engine,
              timed("HTTP serving", phase_http, model, prompts, static_streams, card),
+             timed("contract harnesses", phase_contracts, model, card),
              timed("int8 LM serving", phase_quant_lm, model, prompts, card)]
     del model
     timed("device sampler", phase_sampler)
@@ -5692,28 +5826,13 @@ def _main(card: str, name: str, reference) -> int:
     paths += [timed("head-dim-256 LM", phase_lm_head256),
               timed("float16 LM", phase_lm_f16, prompts),
               timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64),
-              timed("LeNet", phase_lenet, card), timed("ResNet-50", phase_resnet50, card),
               timed("BERT-base encoder", phase_bert, card),
-              timed("TextGenerationLSTM", phase_char_rnn, card),
               timed("LearnedSelfAttention", phase_learned_attention, card),
               timed("gradient checkpointing and bf16 compute_dtype LM", phase_remat_and_bf16,
                     card),
               timed("bf16 compute_dtype generation", phase_bf16_generation, prompts, card),
-              timed("LeNet from MnistDataSetIterator", phase_lenet_iterator, card),
-              timed("ResNet-50 from files", phase_resnet_files, card)]
-    imported, counts = timed("SameDiff TF-imported BERT-base", phase_samediff_bert, card)
-    paths += [counts, timed("SameDiff BERT-base fine-tune", phase_samediff_finetune, card,
-                            imported),
-              timed("SameDiff multi-head attention", phase_samediff_attention, card)]
-    del imported
-    imported, counts = timed("Keras ResNet-50", phase_keras_resnet50, card)
-    paths += [counts, timed("Keras ResNet-50 fine-tune", phase_keras_finetune, card, imported)]
-    del imported
-    paths.append(timed("ONNX BERT-base", phase_onnx_bert, card))
-    paths += [timed("int8 MoE", phase_quant_moe, card),
-              timed("ResNet-50 inference rewrite", phase_resnet_rewrite, card),
-              timed("calibrated int8 Dense", phase_calibrated_dense, card),
-              timed("zoo", phase_zoo, card)]
+              timed("SameDiff multi-head attention", phase_samediff_attention, card),
+              timed("int8 MoE", phase_quant_moe, card)]
     ft, ft_finish = timed("fault-tolerant LM training", phase_fault_tolerant_lm, card)
     paths += [ft, timed("elastic restart", phase_elastic, card)]
     timed("fault-tolerant LM checkpoint writes", ft_finish)
@@ -5733,32 +5852,31 @@ def _main(card: str, name: str, reference) -> int:
                     card)]
     del world1
     paths += [timed("BERT-base MLM from BertIterator, UI watching", phase_bert_mlm, card),
-              timed("Word2Vec, GloVe and ParagraphVectors", phase_embeddings, card, reference),
-              timed("DQN and A3C on CartPole", phase_rl, card),
-              timed("arbiter random search over LeNet", phase_arbiter, card)]
-    # launches over the paths: LM serving, the engines, HTTP serving and
+              timed("Word2Vec, GloVe and ParagraphVectors", phase_embeddings, card, reference[0])]
+    # launches over the paths. First the phases that run while the kernels
+    # build and launch none of the five: LeNet and ResNet-50, the char-RNN,
+    # LeNet and ResNet-50 fed by iterators, the SameDiff TF-imported
+    # BERT-base served and fine-tuned, the Keras ResNet-50 served and
+    # fine-tuned, the ONNX BERT-base, the ResNet-50 rewrites, the calibrated
+    # LeNet, the zoo, DQN, A3C and the arbiter's LeNets. Then LM serving, the
+    # engines, HTTP serving, the contract harnesses (B1 on /v1/serving, B4
+    # in the graphed decode steps) and the int8 and fp8 LM (B1, B4);
     # training, the MoE network, the head-dim-256, float16, float64 and
-    # float64-MoE paths, LeNet, ResNet-50 and BERT-base, the char-RNN, the
-    # LearnedSelfAttention network, the checkpointed and bf16 LMs, the bf16
-    # LM's generation, LeNet and ResNet-50 fed by iterators, the SameDiff
-    # paths (the TF-imported BERT-base served and fine-tuned, the attention op)
-    # and the imported models (the Keras ResNet-50 served and fine-tuned, the
-    # ONNX BERT-base served), which launch none of the five kernels; then the
-    # rewrite slice: the int8 and fp8 LM (B1, B4), the int8 MoE network (B1,
-    # B5), and the ResNet-50 rewrites, the calibrated LeNet and the zoo (none);
-    # then fault-tolerant training: the checkpointed and resumed LM, the
-    # elastic restart's children (counted in their own processes), early
-    # stopping and the profiled steps (B1-B3); then data-parallel training:
-    # the world-1 trainer, the two ranks' legs and the elastic resize's ranks
-    # (B1-B3, counted in their processes) and the ResNet-50 ranks (none);
-    # then pipeline and sequence parallelism: the two stages' steps under
-    # both schedules, the float64 pipe x data trainers' steps, and the ring
-    # and Ulysses runs (B1-B3, counted in the ranks' processes); then tensor
-    # and expert parallelism: the Megatron-split LM's steps (B1-B3 on 6
-    # heads), the expert-parallel MoE network's (B1-B3, B5 over 4 experts)
-    # and the float64 legs' (counted in the ranks' processes); then the
-    # periphery: BERT-base's MLM steps from BertIterator (B1-B3), the
-    # embedding trainers, DQN, A3C and the arbiter's LeNets (none)
+    # float64-MoE paths, BERT-base, the LearnedSelfAttention network, the
+    # checkpointed and bf16 LMs, the bf16 LM's generation, the SameDiff
+    # attention op and the int8 MoE network (B1, B5); then fault-tolerant
+    # training: the checkpointed and resumed LM, the elastic restart's
+    # children (counted in their own processes), early stopping and the
+    # profiled steps (B1-B3); then data-parallel training: the world-1
+    # trainer, the two ranks' legs and the elastic resize's ranks (B1-B3,
+    # counted in their processes) and the ResNet-50 ranks (none); then
+    # pipeline and sequence parallelism: the two stages' steps under both
+    # schedules, the float64 pipe x data trainers' steps, and the ring and
+    # Ulysses runs (B1-B3, counted in the ranks' processes); then tensor and
+    # expert parallelism: the Megatron-split LM's steps (B1-B3 on 6 heads),
+    # the expert-parallel MoE network's (B1-B3, B5 over 4 experts) and the
+    # float64 legs' (counted in the ranks' processes); then BERT-base's MLM
+    # steps from BertIterator (B1-B3) and the embedding trainers (none)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [

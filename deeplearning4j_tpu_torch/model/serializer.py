@@ -48,6 +48,7 @@ from .. import __version__
 from ..core.config import from_json, to_json
 from ..nn.graph import ComputationGraph
 from ..nn.sequential import MultiLayerNetwork
+from ..nn.weights import no_draws
 
 _CONF = "configuration.json"
 _COEFF = "coefficients.npy"
@@ -173,7 +174,8 @@ def _restore(path: str, cls, device: Device, load_updater: bool) -> Model:
         if _META in names:
             _check_meta(json.loads(zf.read(_META)), path)
         conf = from_json(zf.read(_CONF).decode())
-        model = cls(conf, device=device).init()
+        with no_draws():  # the coefficients below overwrite every parameter
+            model = cls(conf, device=device).init()
         flat = np.load(io.BytesIO(zf.read(_COEFF)))
         if int(flat.size) != model.num_params():
             raise ValueError(

@@ -20,7 +20,7 @@ from ...core.config import register_config
 from ...core.dtypes import promoted_matmul
 from ..activations import Activation
 from ..input_type import FeedForwardType, InputType, RecurrentType
-from ..weights import WeightInit, init_weights
+from ..weights import WeightInit, init_weights, randn
 from .base import Layer, LayerContext, Params, State, apply_input_dropout
 
 
@@ -238,7 +238,7 @@ class PositionalEmbeddingLayer(Layer):
 
     def init(self, gen: torch.Generator, dtype: torch.dtype,
              device: Optional[torch.device] = None) -> Params:
-        p = 0.02 * torch.randn((self.max_len, self.n_out), generator=gen)
+        p = 0.02 * randn((self.max_len, self.n_out), gen)
         return {"P": p.to(device=device, dtype=dtype)}
 
     def decode_state(self, batch: int, max_len: int, dtype: torch.dtype,

@@ -35,7 +35,7 @@ from ...core.config import register_config
 from ...ops import helpers
 from ..activations import Activation
 from ..input_type import FeedForwardType, InputType, RecurrentType
-from ..weights import WeightInit, init_weights
+from ..weights import WeightInit, init_weights, randn
 from .base import Layer, LayerContext, Params, State, apply_input_dropout
 
 
@@ -139,7 +139,7 @@ class LSTMLayer(Layer):
         b[n:2 * n] = self.forget_gate_bias_init  # the forget-gate block
         p: Params = {"W": w, "RW": rw, "b": b}
         if self.peephole:
-            p["P"] = (0.01 * torch.randn((3, n), generator=gen)).to(device=device, dtype=dtype)
+            p["P"] = (0.01 * randn((3, n), gen)).to(device=device, dtype=dtype)
         return p
 
     def decode_state(self, batch: int, max_len: int, dtype: torch.dtype,

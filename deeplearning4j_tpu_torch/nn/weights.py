@@ -9,6 +9,8 @@ between the packages through the model zip (``model/serializer.py``).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import enum
 import math
@@ -62,6 +64,31 @@ class Distribution:
     gain: float = 1.0
 
 
+_NO_DRAWS = contextvars.ContextVar("no_draws", default=False)
+
+
+@contextlib.contextmanager
+def no_draws():
+    """Within it (on this thread), a layer's initial parameters are
+    uninitialised memory of their shape instead of draws: for a restore,
+    whose coefficients overwrite every parameter at once. The draws of a
+    2-block GPT-2-width LM took 0.80 of its 1.44 s restore on an H100
+    host's CPU."""
+    token = _NO_DRAWS.set(True)
+    try:
+        yield
+    finally:
+        _NO_DRAWS.reset(token)
+
+
+def randn(shape: Sequence[int], gen: torch.Generator) -> torch.Tensor:
+    """``torch.randn(shape, generator=gen)``, or empty memory of the shape
+    inside :func:`no_draws`."""
+    if _NO_DRAWS.get():
+        return torch.empty(tuple(shape))
+    return torch.randn(tuple(shape), generator=gen)
+
+
 def init_weights(
     gen: torch.Generator,
     shape: Sequence[int],
@@ -76,6 +103,8 @@ def init_weights(
     then cast to ``dtype``) and place it on ``device``."""
     w = WeightInit.from_any(weight_init)
     shape = tuple(int(s) for s in shape)
+    if _NO_DRAWS.get():
+        return torch.empty(shape, dtype=dtype, device=device)
 
     def normal(std: float) -> torch.Tensor:
         return std * torch.randn(shape, generator=gen)

@@ -259,7 +259,11 @@ def train_entry(resume_path, checkpoint_dir):
                 while True:
                     time.sleep(0.1)
 
-    listeners = [ckpt, HeartbeatListener(checkpoint_dir), _ScoreLog()]
+    # the score line first: the checkpoint listener hands iteration i's
+    # snapshot to the writer thread, which can commit it before a later
+    # listener of iteration i runs, and a SIGKILL landing then would leave a
+    # committed iteration without its score line in the log
+    listeners = [_ScoreLog(), ckpt, HeartbeatListener(checkpoint_dir)]
     if cfg["pacer"]:
         listeners.append(_Pacer())
     if cfg["hold_at"]:

@@ -1,6 +1,9 @@
 """The PyTorch port imports neither JAX nor the JAX package, nor TensorFlow,
 protobuf, h5py or the ``onnx`` package (the TF and ONNX importers read the
-protobuf wire format themselves, the Keras importer reads HDF5 itself):
+protobuf wire format themselves, the Keras importer reads HDF5 itself), nor
+the repository's ``tools/`` (the JAX package's contract harnesses and their
+``contract_common``, whether imported as ``tools.<name>`` or by bare name
+through ``sys.path``: the port keeps its own copies):
 every ``.py`` file under
 ``deeplearning4j_tpu_torch/`` and ``chip_smoke.py`` is parsed and its
 imports checked. The check is static because an environment may
@@ -14,7 +17,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "optax", "deeplearning4j_tpu", "tensorflow", "google.protobuf",
-             "h5py", "onnx")
+             "h5py", "onnx", "tools", "contract_common")
+# the repository's tools/ scripts, importable by bare name once tools/ is on sys.path
+TOOLS_SCRIPTS = tuple(p.stem for p in (ROOT / "tools").glob("*.py"))
 
 
 def _files():
@@ -23,7 +28,8 @@ def _files():
 
 
 def _forbidden(module: str) -> bool:
-    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+    return (any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+            or module.split(".")[0] in TOOLS_SCRIPTS)
 
 
 def _imports(path: Path):
@@ -63,3 +69,12 @@ def test_checker_catches_each_forbidden_import():
     assert sorted(m for m in found if _forbidden(m)) == [
         "deeplearning4j_tpu.nn", "google.protobuf", "h5py", "jax", "jaxlib", "onnx", "optax",
         "tensorflow"]
+
+
+def test_checker_catches_the_repository_tools():
+    for mod in ("tools.contract_common", "contract_common", "check_serving_contract",
+                "tools", "check_fabric_contract"):
+        assert _forbidden(mod), mod
+    for mod in ("deeplearning4j_tpu_torch.tools.contract_common",
+                "deeplearning4j_tpu_torch.tools.check_serving_contract", "itertools"):
+        assert not _forbidden(mod), mod
