@@ -235,8 +235,16 @@ batches, the rewrite harness on its own graphs (phase "contract
 harnesses"). The kernels build on a thread of their own while the phases
 that launch none of B1-B5 run (the CNNs, the char-RNN, the iterator-fed
 paths, the imported graphs, the rewrites, the zoo, RL and the arbiter);
-the build's end is waited for before the first kernel phase.
-Depth cut to keep the script near 1000 s with the periphery's phases
+the build's end is waited for before the first kernel phase. The kernel
+timings, the serving phases, the contract harnesses and the elastic
+restart run alone; after them the other multi-process phases (the elastic
+resize, data, pipeline, sequence, tensor and expert parallelism) run on
+two threads beside the rest of the in-process phases, since their ranks
+and children count their own launches and spend most of their time
+booting and in gloo's host copies; the ring and Ulysses, expert- and
+tensor-parallel parts share one boot of two ranks, and the two float64
+parts one boot of four (``phase_ranks``).
+Depth cut to keep the script's time down with the periphery's phases
 (every gate, fault leg and kernel launch kept):
 ``DP_STEPS`` 3 -> 2 (the world-1, two-rank, ResNet-50, pipelined,
 pipe x data, tensor- and expert-parallel legs); ``/v1/serving`` rows
@@ -257,11 +265,13 @@ device it exits with 2 and prints no result.
 
 from __future__ import annotations
 
+import builtins
 import concurrent.futures
 import contextlib
 import copy
 import ctypes
 import dataclasses
+import functools
 import http.client
 import json
 import os
@@ -530,6 +540,15 @@ KERAS_FT_STEPS, KERAS_GRAD_BATCH = 5, 8
 # backward term (an error of order 1).
 TOL_KERAS_SCORE_F64, TOL_KERAS_GRAD_F64 = 1e-5, 0.1
 
+_print_lock = threading.Lock()
+
+
+def print(*args, **kwargs) -> None:  # noqa: A001
+    """``print`` under a lock: the multi-process phases print from threads
+    of their own beside the main thread (see ``_main``), a line at a time."""
+    with _print_lock:
+        builtins.print(*args, **kwargs)
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -648,8 +667,9 @@ def phase_build(build) -> None:
 
 
 def _sass_counts(stem: str) -> dict:
-    """HMMA and atomic instructions per function in the SASS of the library
-    built from ``csrc/<stem>.cu`` (``phase_sass`` prints them)."""
+    """HMMA (mma.sync), HGMMA (wgmma) and atomic instructions per function
+    in the SASS of the library built from ``csrc/<stem>.cu`` (``phase_sass``
+    prints them)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = cuda_build._lib_path(cuda_build.CSRC / f"{stem}.cu")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
@@ -659,9 +679,10 @@ def _sass_counts(stem: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HMMA": 0, "atomics": 0}
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "atomics": 0}
         elif fn is not None:
             counts[fn]["HMMA"] += "HMMA" in line
+            counts[fn]["HGMMA"] += "HGMMA" in line
             # the substring test first, the regex only where it can match
             if ("ATOM" in line or "RED" in line) and atomic.search(line):
                 counts[fn]["atomics"] += 1
@@ -676,18 +697,31 @@ def phase_sass(build) -> None:
     (DMAX 32 to 256), B4 at 3 x 4 x 2 load paths, the float64 B1-B4 at 4
     widths each; B5's tensor-core kernel in bf16, f16 and float32 (3xTF32,
     timed beside the path's kernel), its float32 CUDA-core kernel (2 load
-    paths) and its float64 one. The counts come from the build's thread."""
+    paths) and its float64 one. The bf16 and f16 B1 at every width and B3
+    up to DMAX 128 are the wgmma kernels (HGMMA in SASS); the rest of B1-B3
+    run mma.sync (HMMA). The counts come from the build's thread."""
     sass = build[1]["sass"]
     print(f"sass: read in {build[1]['sass_seconds']:.2f} s on the build's thread")
     for stem, counts in sass.items():
         for fn, c in counts.items():
-            print(f"  sass {stem} {fn}: {c['HMMA']} HMMA, {c['atomics']} atomics")
+            print(f"  sass {stem} {fn}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, "
+                  f"{c['atomics']} atomics")
+
+    def tensor_cores(counts, wgmma_name: str, n_wgmma: int) -> bool:
+        wg = [c for fn, c in counts.items() if wgmma_name in fn]
+        rest = [c for fn, c in counts.items() if wgmma_name not in fn]
+        return (len(wg) == n_wgmma and all(c["HGMMA"] > 0 for c in wg)
+                and all(c["HMMA"] > 0 for c in rest)
+                and all(c["atomics"] == 0 for c in counts.values()))
+
     bwd = sass["flash_backward"]
-    check(len(bwd) == 24 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in bwd.values()),
-          "every backward kernel must run HMMA and no atomics")
+    check(len(bwd) == 24 and tensor_cores(bwd, "flash_bwd_dkv_wgmma_kernel", 6),
+          "the bf16/f16 dk/dv kernels up to DMAX 128 (6) must run HGMMA, every other backward "
+          "kernel HMMA, and none atomics")
     fwd = sass["flash_forward"]
-    check(len(fwd) == 12 and all(c["HMMA"] > 0 and c["atomics"] == 0 for c in fwd.values()),
-          "every forward kernel must run HMMA and no atomics")
+    check(len(fwd) == 12 and tensor_cores(fwd, "flash_forward_wgmma_kernel", 8),
+          "the bf16/f16 forward kernels (8) must run HGMMA, the float32 ones HMMA, and none "
+          "atomics")
     dec = sass["flash_decode"]
     check(len(dec) == 24 and all(c["atomics"] == 0 for c in dec.values()),
           "the decode kernels must have no atomics")
@@ -700,6 +734,26 @@ def phase_sass(build) -> None:
           and all(c["atomics"] == 0 for c in gmm.values()),
           "B5's tensor-core kernels (bf16, f16 and the float32 3xTF32 one) must run HMMA, "
           "and no B5 kernel atomics")
+
+
+def _route(fn, wgmma: str, mma_sync: str) -> tuple:
+    """Launches of the kernels named ``wgmma`` and ``mma_sync`` that
+    ``torch.profiler`` sees over 10 calls of ``fn``. (That no bf16 or f16
+    mma.sync instantiation of B1, or of B3 below DMAX 256, exists at all is
+    ``phase_sass``'s check.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"  profiler kernels: {[(n[:70], c) for n, c in names]}")
+    check(bool(names), "the profiler saw no kernel")
+    return (sum(c for n, c in names if wgmma in n), sum(c for n, c in names if mma_sync in n))
 
 
 def _key_mask(gen, tk: int) -> torch.Tensor:
@@ -778,15 +832,23 @@ def phase_flash_forward(gen) -> dict:
         plain_ms = kv.ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
         nbytes = (4 * B * H * T_FULL * D) * q.element_size() + B * H * T_FULL * 4
         bound_ms, bound_by = roofline(flops, nbytes, dtype)
+        if dtype == torch.bfloat16:  # the route: the wgmma kernel, never the mma.sync one
+            seen, old = _route(lambda: fa.flash_attention(q, k, v, causal=True),
+                               "flash_forward_wgmma_kernel", "flash_forward_kernel<")
+            print(f"flash_forward bfloat16 route: {seen} wgmma kernel launches, {old} mma.sync")
+            check(seen > 0 and old == 0, "a bf16 B1 launch must run the wgmma kernel")
         print(f"flash_forward {str(dtype)[6:]} [8,12,1024,64] causal, 3 paired rounds (ms): "
               + "; ".join(f"{n} {[round(x, 4) for x in r]}" for n, r in rounds.items())
               + f"; medians: kernel {ms:.4f} ms against sdpa {lib_ms:.4f} ms "
               f"({ms / lib_ms:.2f}x); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB"
               f"{cuda_core_note(flops, dtype)})")
+        fig = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         if dtype == torch.float32:
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+            row.update(fig)
+        else:
+            row["bf16"] = fig
     return row
 
 
@@ -977,6 +1039,11 @@ def phase_flash_backward(gen) -> dict:
               + "; ".join(f"{n} {[round(x, 4) for x in r]}" for n, r in rounds.items())
               + f"; medians: B2 + B3 {both:.4f} against sdpa backward {lib_ms:.4f} "
               f"({both / lib_ms:.2f}x)")
+        if dtype == torch.bfloat16:  # the route: B3 on the wgmma kernel
+            seen, old = _route(timed["flash_bwd_dkv"][0], "flash_bwd_dkv_wgmma_kernel",
+                               "flash_bwd_dkv_kernel<")
+            print(f"flash_bwd_dkv bfloat16 route: {seen} wgmma kernel launches, {old} mma.sync")
+            check(seen > 0 and old == 0, "a bf16 B3 launch must run the wgmma kernel")
         for name, (kernel, plain, products, n_out) in timed.items():
             ms = med[name]
             plain_ms = kv.ms(plain, 3)
@@ -987,9 +1054,12 @@ def phase_flash_backward(gen) -> dict:
                   f"plain {plain_ms:.4f} ms, sdpa backward (dq+dk+dv) {lib_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB{cuda_core_note(flops, dtype)})")
+            fig = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
             if dtype == torch.float32:
-                rows[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by)
+                rows[name].update(fig)
+            else:
+                rows[name]["bf16"] = fig
         del o_lib
     return rows
 
@@ -4400,8 +4470,8 @@ def phase_fault_tolerant_lm(card: str) -> dict:
     fresh iterator) and fitted to iteration 8 (bitwise again). Returns the
     launch counts of the three runs and a function that waits for the
     writer to finish the iteration-8 zip and prints the phase's numbers
-    (``main`` runs the elastic phase meanwhile: its children are processes
-    of their own)."""
+    (``_main`` runs the early-stopping and step-profiler phases
+    meanwhile)."""
     from deeplearning4j_tpu_torch.core.listeners import CollectScoresListener
     from deeplearning4j_tpu_torch.model import restore_model
     from deeplearning4j_tpu_torch.train import (CheckpointListener, HeartbeatListener,
@@ -4493,7 +4563,7 @@ def phase_fault_tolerant_lm(card: str) -> dict:
               f"same tensors copied to the host once more (s on the step thread; pinned: "
               f"until queued, then until landed) {v}; writer s per zip "
               f"{[round(t, 2) for t in ckpt.write_seconds]} (the second beside the "
-              f"elastic phase; {drained:.1f} s waited after the resumed run), bytes {sizes}; "
+              f"next phases; {drained:.1f} s waited after the resumed run), bytes {sizes}; "
               f"restore {restore_s:.2f} s; scores {[round(x, 5) for x in ref_scores]} bitwise "
               f"in all three runs; launches {counts} (12 B1, B2, B3 a step, 20 steps)")
 
@@ -4512,7 +4582,6 @@ def phase_elastic(card: str) -> dict:
     from deeplearning4j_tpu_torch.tools import check_training_resilience_contract as harness
 
     torch.cuda.empty_cache()  # the four children share the card with this process
-    fa.reset_launch_counts()
     out = harness.run_legs(device="cuda", model="lm", log=lambda m: print(f"elastic {m}"))
     check(out["sigterm"]["lost_iterations"] == 0, "SIGTERM must lose no iteration")
     counts: dict = {}
@@ -4949,35 +5018,24 @@ def phase_pp_lm(card: str, world1) -> dict:
     return counts
 
 
-def phase_pp_dp_f64(card: str) -> dict:
-    """The 2-block GPT-2-width LM in float64 (the f64 kernels) over
-    pipe=2 x data=2, four gloo ranks on ``cuda:0``, [4, 1024] in 2
-    microbatches, ``DP_STEPS`` steps replicated and as many under ZeRO-1
-    (bit for bit equal), within 1e-10 of ``Solver.fit_batch``; the
-    replicated run's checkpoint restored into a ``DistributedTrainer`` over
-    the four ranks and a ``Solver``, each of whose next step is within 1e-10
-    of Solver's next.
-    Returns the launch counts of the trainers' steps."""
-    from deeplearning4j_tpu_torch.tools import dp_legs, pp_legs
+def _pp_dp_f64_spec() -> dict:
+    from deeplearning4j_tpu_torch.tools import dp_legs
 
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    lm = dict(dp_legs.GPT2_SMALL, n_layers=2)
-    spec = {"kind": "ppdp", "lm": lm, "seed": SEED, "global_batch": PP_F64_BATCH,
-            "seq": T_FULL, "steps": DP_STEPS, "n_micro": 2}
-    out = tempfile.mkdtemp(prefix="pp_dp_")
-    try:
-        reps = pp_legs.run_world(spec, world=4, backend="gloo", device="cuda", out_dir=out,
-                                 timeout=900)
-        legs = reps[0]["legs"]
-        rep_p = np.load(legs["replicated"]["params_path"])
-        z_p = np.load(legs["zero1"]["params_path"])
-        dp_p = np.load(os.path.join(out, "params_dp_next.npy"))
-        sv_p = np.load(os.path.join(out, "params_solver_next.npy"))
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+    return {"kind": "ppdp", "lm": dict(dp_legs.GPT2_SMALL, n_layers=2), "seed": SEED,
+            "global_batch": PP_F64_BATCH, "seq": T_FULL, "steps": DP_STEPS, "n_micro": 2}
+
+
+def pp_dp_f64_reference() -> dict:
+    """``Solver.fit_batch`` on the pipe x data phase's float64 LM and batch in
+    this process, ``DP_STEPS`` steps and one more: the scores, the params
+    after ``DP_STEPS`` and after the next step. Made before the
+    multi-process phases start, so that its launches fall in no other
+    phase's count (``_main``)."""
+    from deeplearning4j_tpu_torch.tools import pp_legs
+
+    spec = _pp_dp_f64_spec()
     ids, labels = (torch.from_numpy(a).cuda() for a in pp_legs._lm_batch(spec))
-    ref = TransformerLM(**lm, seed=SEED, dtype="float64").init()
+    ref = TransformerLM(**spec["lm"], seed=SEED, dtype="float64").init()
     solver = Solver(ref)
     want = [float(solver.fit_batch(ids, labels)[0]) for _ in range(DP_STEPS)]
     ref_last = ref.params_flat().copy()
@@ -4985,6 +5043,25 @@ def phase_pp_dp_f64(card: str) -> dict:
     ref_next = ref.params_flat().copy()
     del ref, solver
     torch.cuda.empty_cache()
+    return {"scores": want, "last": ref_last, "next": ref_next}
+
+
+def _pp_dp_f64_check(card: str, reps: list, out: str, reference: dict) -> dict:
+    """The 2-block GPT-2-width LM in float64 (the f64 kernels) over
+    pipe=2 x data=2, four gloo ranks on ``cuda:0``, [4, 1024] in 2
+    microbatches, ``DP_STEPS`` steps replicated and as many under ZeRO-1
+    (bit for bit equal), within 1e-10 of ``Solver.fit_batch``
+    (``reference``, from :func:`pp_dp_f64_reference`); the replicated run's
+    checkpoint restored into a ``DistributedTrainer`` over the four ranks
+    and a ``Solver``, each of whose next step is within 1e-10 of Solver's
+    next. Checks the ranks' reports (``phase_ranks``) and returns the
+    launch counts of the trainers' steps."""
+    legs = reps[0]["legs"]
+    rep_p = np.load(legs["replicated"]["params_path"])
+    z_p = np.load(legs["zero1"]["params_path"])
+    dp_p = np.load(os.path.join(out, "params_dp_next.npy"))
+    sv_p = np.load(os.path.join(out, "params_solver_next.npy"))
+    want, ref_last, ref_next = reference["scores"], reference["last"], reference["next"]
     for r in reps:
         for leg in ("replicated", "zero1"):
             check(r["legs"][leg]["scores"] == legs[leg]["scores"],
@@ -5023,7 +5100,7 @@ def phase_pp_dp_f64(card: str) -> dict:
           f"{[round(x, 8) for x in rec['scores']]}; ZeRO-1 bit for bit replicated; vs Solver "
           f"params {gap:.3e}, scores {s_gap:.3e} (gate {TOL_PP_F64:g}); the checkpoint's next "
           f"step (score, params) { {k: (f'{a:.3e}', f'{b:.3e}') for k, (a, b) in next_gaps.items()} }; "
-          f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+          f"launches {counts}")
     return counts
 
 
@@ -5043,18 +5120,13 @@ TOL_SEQ_GRAD = TOL_BWD_REL[torch.float32]
 TOL_TABLE = 1e-6
 
 
-def phase_sequence(card: str) -> dict:
+def _seq_spec(out: str) -> dict:
     """Ring and Ulysses attention on two gloo ranks sharing ``cuda:0`` at
     [8, 12, 1024, 64] and [1, 12, 16384, 64] in float32, causal and not,
     and a causal ring across lengths (q 512, k 1024), against
     ``flash_attention`` on the whole sequence in one process (forward and
     q/k/v gradients); then a 50257 x 768 ``ShardedEmbeddingTable`` over the
-    two ranks against a dense table. Returns the launch counts of the ring
-    and Ulysses runs."""
-    from deeplearning4j_tpu_torch.tools import pp_legs
-
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
+    two ranks against a dense table (:func:`_seq_check` holds them)."""
     cases = []
     for kind in ("ring", "ulysses"):
         for shape in ([B, H, T_FULL, T_FULL, D], [1, H, 16384, 16384, D]):
@@ -5064,14 +5136,13 @@ def phase_sequence(card: str) -> dict:
     cases.append(dict(label=f"ring cross-length q [{B},{H},512,{D}] k [{B},{H},{T_FULL},{D}] "
                             "causal", kind="ring", shape=[B, H, 512, T_FULL, D], causal=True,
                       seed=SEED + 99))
-    spec = {"kind": "seq", "cases": cases,
+    return {"kind": "seq", "cases": cases,
             "table": {"vocab": 50257, "dim": 768, "seed": SEED, "lookups": 8 * T_FULL}}
-    out = tempfile.mkdtemp(prefix="seq_")
-    try:
-        reps = pp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
-                                 timeout=900)
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+
+
+def _seq_check(card: str, reps: list, out: str) -> dict:
+    """Checks the ring and Ulysses ranks' reports (``phase_ranks``) and
+    returns the launch counts of their runs."""
     r0, r1 = (r["legs"] for r in reps)
     for rec, other in zip(r0["cases"], r1["cases"]):
         b, h, tq, tk, d = rec["shape"]
@@ -5112,8 +5183,7 @@ def phase_sequence(card: str) -> dict:
     print(f"sharded embedding table 50257x768 over 2 ranks ({card}): {tab['local_rows']} rows a "
           f"rank; {tab['lookups']} lookups (repeated ids) {tab['lookup_ms']:.2f} ms, exact; "
           f"sparse update {tab['add_ms']:.2f} ms, max |diff| vs np.add.at "
-          f"{tab['update_err']:.3e}; sequence-parallel launches {counts}; "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{tab['update_err']:.3e}; sequence-parallel launches {counts}")
     return counts
 
 
@@ -5145,7 +5215,7 @@ def _shares(rec) -> tuple:
             [round(c / t, 3) for c, t in zip(rec["activation_ms"], rec["step_ms"])])
 
 
-def phase_tp_lm(card: str, world1) -> dict:
+def _tp_lm_spec(out: str, world1) -> dict:
     """``DistributedTrainer`` under the Megatron rules on two ranks sharing
     ``cuda:0`` (``data=1, model=2``): the GPT-2-small-width LM from the
     world-1 phase's seed on its [8, 1024] batch, each rank holding half of
@@ -5153,23 +5223,23 @@ def phase_tp_lm(card: str, world1) -> dict:
     against the world-1 run's params (bit for bit ``Solver.fit_batch``'s)
     within ``TOL_TP``, which one step under each planted fault must exceed
     against the sound run's first step; ``output()`` over the shards
-    against the model's own after ``sync_to_model``.
-    Returns the launch counts of both ranks' sound steps."""
+    against the model's own after ``sync_to_model`` (:func:`_tp_lm_check`
+    holds them). Saves the world-1 params into ``out`` for the ranks."""
     from deeplearning4j_tpu_torch.tools import dp_legs, tp_legs
 
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    out = tempfile.mkdtemp(prefix="tp_lm_")
     spec = {"kind": "tp_lm", "lm": dict(dp_legs.GPT2_SMALL), "seed": SEED, "global_batch": B,
             "seq": T_FULL, "steps": DP_STEPS, "faults": list(tp_legs.TP_FAULTS),
             "probe_len": 256, "reference": os.path.join(out, "world1.npy")}
+    np.save(spec["reference"], world1["params"])
+    return spec
+
+
+def _tp_lm_check(card: str, reps: list, out: str) -> dict:
+    """Checks the Megatron-split ranks' reports (``phase_ranks``) and
+    returns the launch counts of both ranks' sound steps."""
+    from deeplearning4j_tpu_torch.tools import tp_legs
+
     legs = ("sound", *tp_legs.TP_FAULTS)
-    try:
-        np.save(spec["reference"], world1["params"])
-        reps = tp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
-                                 timeout=900)
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
     _legs_check_ranks(reps, ("sound",), "tensor-parallel")
     gaps = {leg: reps[0]["legs"][leg]["fault_gap" if leg in tp_legs.TP_FAULTS else "params_gap"]
             for leg in legs}
@@ -5208,12 +5278,11 @@ def phase_tp_lm(card: str, world1) -> dict:
           f"|diff| {gaps['sound']:.3e} (gate {TOL_TP:g}); one step under each planted fault "
           f"against the sound run's first reads "
           f"{ {f: f'{gaps[f]:.3e}' for f in tp_legs.TP_FAULTS} }; launches {counts}; the two "
-          f"ranks time-slice one card, so no speed-up from tensor parallelism is claimed; "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"ranks time-slice one card, so no speed-up from tensor parallelism is claimed")
     return counts
 
 
-def phase_ep_moe(card: str) -> dict:
+def _ep_moe_spec(out: str) -> dict:
     """``DistributedTrainer`` under ``moe_expert_parallel_rules`` on two
     ranks sharing ``cuda:0`` (``data=1, model=2``): the MoE network of
     phase "MoE network" on its [8, 1024] batch, each rank holding and
@@ -5222,22 +5291,21 @@ def phase_ep_moe(card: str) -> dict:
     ``output()`` are held against the replicated network's at the MoE
     phase's float32 gates (``TOL_GRAD_REL``, ``TOL_BWD_REL``), which each
     planted fault's gradients (grouped) must exceed; then ``DP_STEPS``
-    steps, beside the replicated network's ``Solver`` steps. Returns the launch counts
-    of both ranks' training steps."""
+    steps, beside the replicated network's ``Solver`` steps
+    (:func:`_ep_moe_check` holds them)."""
     from deeplearning4j_tpu_torch.tools import tp_legs
 
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    modes = ["grouped", "sort"]
-    spec = {"kind": "ep_moe", "seed": SEED, "global_batch": B, "seq": T_FULL,
-            "steps": DP_STEPS, "modes": modes, "faults": list(tp_legs.EP_FAULTS),
+    return {"kind": "ep_moe", "seed": SEED, "global_batch": B, "seq": T_FULL,
+            "steps": DP_STEPS, "modes": ["grouped", "sort"], "faults": list(tp_legs.EP_FAULTS),
             "probe_len": 256}
-    out = tempfile.mkdtemp(prefix="ep_moe_")
-    try:
-        reps = tp_legs.run_world(spec, world=2, backend="gloo", device="cuda", out_dir=out,
-                                 timeout=900)
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+
+
+def _ep_moe_check(card: str, reps: list, out: str) -> dict:
+    """Checks the expert-parallel ranks' reports (``phase_ranks``) and
+    returns the launch counts of both ranks' training steps."""
+    from deeplearning4j_tpu_torch.tools import tp_legs
+
+    modes = ["grouped", "sort"]
     _legs_check_ranks(reps, modes, "expert-parallel")
     r0 = reps[0]["legs"]
     gaps = {m: r0[m]["params_gap"] for m in modes}
@@ -5281,12 +5349,11 @@ def phase_ep_moe(card: str) -> dict:
           f"{ {f: r0[f]['grad_rel'] for f in tp_legs.EP_FAULTS} }; after {DP_STEPS} Adam steps params "
           f"max |diff| from the replicated run { {m: f'{g:.3e}' for m, g in gaps.items()} } "
           f"(no gate: a token whose top-2 or capacity slot flips on a float32 rounding moves "
-          f"its experts' update by up to 2 x lr a step); launches {counts}; "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"its experts' update by up to 2 x lr a step); launches {counts}")
     return counts
 
 
-def phase_tpep_f64(card: str) -> dict:
+def _tpep_f64_spec(out: str) -> dict:
     """Tensor and expert parallelism x data in float64 (the f64 kernels) on
     four gloo ranks sharing ``cuda:0`` at ``data=2, model=2``: the 2-block
     GPT-2-width LM under the Megatron rules with ``CLIP_L2_PER_LAYER`` and
@@ -5295,22 +5362,19 @@ def phase_tpep_f64(card: str) -> dict:
     into ``DistributedTrainer`` without rules and ``Solver``, each of whose
     next step is within 1e-10 of Solver's third; then the MoE network under
     ``BucketedAllReduceSync`` with the expert rules, plain and ZeRO-1,
-    within 1e-10 of the trainer without rules. Returns the launch counts of
-    the trainers' steps."""
-    from deeplearning4j_tpu_torch.tools import dp_legs, tp_legs
+    within 1e-10 of the trainer without rules (:func:`_tpep_f64_check`
+    holds them)."""
+    from deeplearning4j_tpu_torch.tools import dp_legs
 
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    lm = dict(dp_legs.GPT2_SMALL, n_layers=2)
-    spec = {"kind": "tpep_f64", "lm": lm, "seed": SEED, "global_batch": PP_F64_BATCH,
-            "seq": T_FULL, "steps": TPEP_F64_STEPS, "lamb_lr": 1e-4}
-    out = tempfile.mkdtemp(prefix="tpep_")
+    return {"kind": "tpep_f64", "lm": dict(dp_legs.GPT2_SMALL, n_layers=2), "seed": SEED,
+            "global_batch": PP_F64_BATCH, "seq": T_FULL, "steps": TPEP_F64_STEPS,
+            "lamb_lr": 1e-4}
+
+
+def _tpep_f64_check(card: str, reps: list, out: str) -> dict:
+    """Checks the float64 ranks' reports (``phase_ranks``) and returns the
+    launch counts of the trainers' steps."""
     lm_legs, moe_legs = ("lm_replicated", "lm_zero1"), ("moe_ep", "moe_ep_zero1", "moe_replicated")
-    try:
-        reps = tp_legs.run_world(spec, world=4, backend="gloo", device="cuda", out_dir=out,
-                                 timeout=900)
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
     _legs_check_ranks(reps, lm_legs + moe_legs, "float64")
     legs = reps[0]["legs"]
     pg, want = legs["gaps"], legs["solver"]
@@ -5352,7 +5416,38 @@ def phase_tpep_f64(card: str) -> dict:
           f"{ {k: (f'{a:.3e}', f'{b:.3e}') for k, (a, b) in next_gaps.items()} }; MoE under "
           f"BucketedAllReduceSync with expert rules vs without, max |diff| "
           f"{ {k: f'{v:.3e}' for k, v in moe_gaps.items()} }, bit for bit {moe_bitwise}; "
-          f"ms/step {ms}; launches {counts}; {time.perf_counter() - t0:.1f} s")
+          f"ms/step {ms}; launches {counts}")
+    return counts
+
+
+def phase_ranks(card: str, world: int, parts) -> dict:
+    """Runs the specs of ``parts`` (pairs of a function of the output
+    directory that returns a spec, and a check of the ranks' reports) in
+    one boot of ``world`` gloo ranks sharing ``cuda:0``
+    (``tools/tp_legs.py``'s ``many`` kind: a rank boot takes 10-40 s), then
+    each part's check on its own legs and directory. Returns the launch
+    counts summed over the parts."""
+    from deeplearning4j_tpu_torch.tools import tp_legs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="ranks_")
+    counts: dict = {}
+    try:
+        dirs = [os.path.join(out, str(i)) for i in range(len(parts))]
+        for d in dirs:
+            os.makedirs(d)
+        spec = {"kind": "many", "specs": [make(d) for (make, _), d in zip(parts, dirs)]}
+        reps = tp_legs.run_world(spec, world=world, backend="gloo", device="cuda",
+                                 out_dir=out, timeout=900)
+        for i, ((_, held), d) in enumerate(zip(parts, dirs)):
+            got = held(card, [{**r, "legs": r["legs"][i]} for r in reps], d)
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"{world} gloo ranks ({card}): one boot for {len(parts)} parts; launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -5781,6 +5876,7 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
 
     def timed(label, fn, *args):
         out = fn(*args)
+        torch.cuda.empty_cache()  # the card's memory is shared with the lanes' ranks
         print(f"phase {label} done at {time.perf_counter() - t0:.1f} s")
         return out
 
@@ -5823,36 +5919,56 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
     moe, routed = timed("MoE network", phase_moe, card)
     paths.append(moe)
     gmm = timed("B5", phase_grouped_matmul, gen, routed)
-    paths += [timed("head-dim-256 LM", phase_lm_head256),
-              timed("float16 LM", phase_lm_f16, prompts),
-              timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64),
-              timed("BERT-base encoder", phase_bert, card),
-              timed("LearnedSelfAttention", phase_learned_attention, card),
-              timed("gradient checkpointing and bf16 compute_dtype LM", phase_remat_and_bf16,
-                    card),
-              timed("bf16 compute_dtype generation", phase_bf16_generation, prompts, card),
-              timed("SameDiff multi-head attention", phase_samediff_attention, card),
-              timed("int8 MoE", phase_quant_moe, card)]
-    ft, ft_finish = timed("fault-tolerant LM training", phase_fault_tolerant_lm, card)
-    paths += [ft, timed("elastic restart", phase_elastic, card)]
-    timed("fault-tolerant LM checkpoint writes", ft_finish)
-    paths += [timed("early stopping LM", phase_early_stopping_lm, card),
-              timed("step profiler", phase_step_profiler, card)]
+    # what the multi-process phases are held against, made in this process
     dp1, world1 = timed("data-parallel LM, world 1", phase_dp_world1, card)
-    paths += [dp1, timed("data-parallel LM, 2 ranks on one card", phase_dp_two_ranks, card,
-                         world1)]
-    paths += [timed("ResNet-50 gradient sharing, 2 ranks", phase_dp_resnet50, card),
-              timed("elastic resize", phase_dp_elastic_resize, card),
-              timed("pipeline-parallel LM, 2 stages", phase_pp_lm, card, world1)]
-    paths += [timed("pipeline x data, 4 ranks", phase_pp_dp_f64, card),
-              timed("ring and Ulysses attention, 2 ranks", phase_sequence, card),
-              timed("tensor-parallel LM, 2 ranks", phase_tp_lm, card, world1),
-              timed("expert-parallel MoE, 2 ranks", phase_ep_moe, card),
-              timed("tensor and expert parallel x data, 4 ranks, float64", phase_tpep_f64,
-                    card)]
-    del world1
-    paths += [timed("BERT-base MLM from BertIterator, UI watching", phase_bert_mlm, card),
-              timed("Word2Vec, GloVe and ParagraphVectors", phase_embeddings, card, reference[0])]
+    paths.append(dp1)
+    pp_f64 = timed("float64 Solver for pipe x data", pp_dp_f64_reference)
+    # alone: its four children at [8, 1024] at once take more of the card's
+    # memory than any other phase (beside the lanes below, two of them ran
+    # out of it)
+    paths.append(timed("elastic restart", phase_elastic, card))
+    # The other multi-process phases run on two threads beside this
+    # process's phases from here on. Their ranks and children count their
+    # own launches, so this process's counts stay its phases' own; the
+    # kernel timings, the serving phases and the contract harnesses (whose
+    # gates hold latencies) ran above, alone on the card and the host.
+    lanes = [[("data-parallel LM, 2 ranks on one card", phase_dp_two_ranks, card, world1),
+              ("elastic resize", phase_dp_elastic_resize, card),
+              ("ring and Ulysses attention, expert-parallel MoE and tensor-parallel LM, "
+               "2 ranks", phase_ranks, card, 2,
+               [(_seq_spec, _seq_check), (_ep_moe_spec, _ep_moe_check),
+                (functools.partial(_tp_lm_spec, world1=world1), _tp_lm_check)])],
+             [("ResNet-50 gradient sharing, 2 ranks", phase_dp_resnet50, card),
+              ("pipeline-parallel LM, 2 stages", phase_pp_lm, card, world1),
+              ("pipeline x data and tensor and expert parallel x data, 4 ranks, float64",
+               phase_ranks, card, 4,
+               [(lambda _: _pp_dp_f64_spec(),
+                 functools.partial(_pp_dp_f64_check, reference=pp_f64)),
+                (_tpep_f64_spec, _tpep_f64_check)])]]
+    with concurrent.futures.ThreadPoolExecutor(len(lanes)) as pool:
+        # on an error here, leaving the block waits for the lanes, whose
+        # ranks and children then have ended
+        running = [pool.submit(lambda lane=lane: [timed(*ph) for ph in lane]) for lane in lanes]
+        paths += [timed("head-dim-256 LM", phase_lm_head256),
+                  timed("float16 LM", phase_lm_f16, prompts),
+                  timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64),
+                  timed("BERT-base encoder", phase_bert, card),
+                  timed("LearnedSelfAttention", phase_learned_attention, card),
+                  timed("gradient checkpointing and bf16 compute_dtype LM",
+                        phase_remat_and_bf16, card),
+                  timed("bf16 compute_dtype generation", phase_bf16_generation, prompts, card),
+                  timed("SameDiff multi-head attention", phase_samediff_attention, card),
+                  timed("int8 MoE", phase_quant_moe, card)]
+        ft, ft_finish = timed("fault-tolerant LM training", phase_fault_tolerant_lm, card)
+        paths += [ft, timed("early stopping LM", phase_early_stopping_lm, card),
+                  timed("step profiler", phase_step_profiler, card)]
+        timed("fault-tolerant LM checkpoint writes", ft_finish)
+        paths += [timed("BERT-base MLM from BertIterator, UI watching", phase_bert_mlm, card),
+                  timed("Word2Vec, GloVe and ParagraphVectors", phase_embeddings, card,
+                        reference[0])]
+        for lane in running:
+            paths += lane.result()
+    del world1, pp_f64
     # launches over the paths. First the phases that run while the kernels
     # build and launch none of the five: LeNet and ResNet-50, the char-RNN,
     # LeNet and ResNet-50 fed by iterators, the SameDiff TF-imported
@@ -5861,22 +5977,21 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
     # LeNet, the zoo, DQN, A3C and the arbiter's LeNets. Then LM serving, the
     # engines, HTTP serving, the contract harnesses (B1 on /v1/serving, B4
     # in the graphed decode steps) and the int8 and fp8 LM (B1, B4);
-    # training, the MoE network, the head-dim-256, float16, float64 and
-    # float64-MoE paths, BERT-base, the LearnedSelfAttention network, the
-    # checkpointed and bf16 LMs, the bf16 LM's generation, the SameDiff
-    # attention op and the int8 MoE network (B1, B5); then fault-tolerant
-    # training: the checkpointed and resumed LM, the elastic restart's
-    # children (counted in their own processes), early stopping and the
-    # profiled steps (B1-B3); then data-parallel training: the world-1
-    # trainer, the two ranks' legs and the elastic resize's ranks (B1-B3,
-    # counted in their processes) and the ResNet-50 ranks (none); then
-    # pipeline and sequence parallelism: the two stages' steps under both
-    # schedules, the float64 pipe x data trainers' steps, and the ring and
-    # Ulysses runs (B1-B3, counted in the ranks' processes); then tensor and
-    # expert parallelism: the Megatron-split LM's steps (B1-B3 on 6 heads),
-    # the expert-parallel MoE network's (B1-B3, B5 over 4 experts) and the
-    # float64 legs' (counted in the ranks' processes); then BERT-base's MLM
-    # steps from BertIterator (B1-B3) and the embedding trainers (none)
+    # training and the MoE network (B1-B3, B5); the data-parallel world-1
+    # trainer (B1-B3); the elastic restart's children (B1-B3, counted in
+    # their own processes). Then in this process the head-dim-256, float16,
+    # float64 and float64-MoE paths, BERT-base, the LearnedSelfAttention
+    # network, the checkpointed and bf16 LMs, the bf16 LM's generation, the
+    # SameDiff attention op and the int8 MoE network (B1, B5), the
+    # checkpointed and resumed LM, early stopping and the profiled steps,
+    # BERT-base's MLM steps from BertIterator (B1-B3) and the embedding
+    # trainers (none); beside them, counted in their own processes, the
+    # elastic resize's ranks, the ring and
+    # Ulysses runs, the expert-parallel MoE network's steps (B1-B3, B5 over
+    # 4 experts), the Megatron-split LM's (B1-B3 on 6 heads), the two
+    # data-parallel ranks' legs, the ResNet-50 ranks (none), the two stages'
+    # steps under both schedules, and the float64 pipe x data and tensor and
+    # expert x data trainers' steps (B1-B3, B5)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in moe}
     src = "deeplearning4j_tpu_torch/csrc/"
     kernels = [
@@ -5894,9 +6009,11 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         check(kern["launches"] > 0, f"{kern['name']} was not launched on the main path")
+    # float32 figures in the contract's keys; B1-B3 add their bf16 figures
+    # (ms, plain, bound and SDPA in the same paired rounds) under "bf16"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern} for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

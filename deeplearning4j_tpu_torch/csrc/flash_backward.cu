@@ -27,8 +27,9 @@
 // product (below), so the float32 limit is 3 x flops at the dense TF32 rate
 // (495 TFLOP/s), not the CUDA cores' 67 TFLOP/s.
 //
-// Design (the products, fragments and copies are mma_tf32.cuh's, shared
-// with the forward kernel).
+// Design of the float32 kernels, of the dq kernel in every type and of the
+// bf16/f16 dk/dv kernel at DMAX 256 (the products, fragments and copies are
+// mma_tf32.cuh's, shared with the forward kernel).
 // * Ownership, as the TPU kernels' sequential grid axis becomes a loop: a dq
 //   block owns a 64-row q tile of one (b,h), keeps its q and g tiles, lse and
 //   delta in shared memory, and walks the 64-key k/v tiles up to its causal
@@ -75,10 +76,41 @@
 // keep its sums in registers. At d = 256 both kernels walk 16-row (16-key)
 // tiles, 196 KB of shared memory in float32 and one block an SM; the dk/dv
 // kernel's two 16 x 256 sums a warp then outgrow the registers.
+//
+// Design of the bf16 and f16 dk/dv kernel up to DMAX 128,
+// flash_bwd_dkv_wgmma_kernel (the warpgroup products, TMA copies and
+// swizzled layout are wgmma.cuh's):
+// * Ownership as above: one warpgroup owns a 64-key k/v tile (the M of
+//   wgmma) and walks 32-row q tiles from the tile's causal frontier, in the
+//   transposed orientation: sᵀ = k·qᵀ and dpᵀ = v·gᵀ are one
+//   wgmma.m64n32k16 chain each, A (k or v) and B (q or g) K-major in shared
+//   memory.
+// * pᵀ = 2^(sᵀ·scale·log2 e - lse·log2 e) and dsᵀ = pᵀ ∘ (dpᵀ - delta) in
+//   registers; tiles wholly inside the causal frontier with no key mask
+//   skip the mask test.
+// * dv += pᵀ·g and dk += dsᵀ·q take A from registers (the accumulator of
+//   sᵀ or dpᵀ is the A fragment of the next product, in order), split hi +
+//   lo in two 16-bit terms, two wgmmas each; B is the g or q tile MN-major.
+//   The scale multiplies dk's sum.
+// * Round qt issues the scores of tile qt and the sums of tile qt - 1
+//   together, and the sums run on under this tile's probabilities
+//   (kWgOverlap; within 1% of waiting for them). q, g come by TMA (the
+//   unaligned rows by the threads, as in the forward kernel), lse and delta
+//   by cp.async, into a ring of three stages: the tile being scored, the
+//   tile being summed, and the next.
+// * Registers: at DMAX <= 64 ptxas is held to 168 a thread (kWgMinBlocks),
+//   three blocks an SM, 14% faster than two; walking 64 q rows instead of
+//   32 was 4% slower (tools/flash_backward_variants.py).
+// * Every wgmma between a fence and its wait is issued unconditionally (a
+//   wgmma under a branch makes ptxas wait after each one); blocks wholly
+//   past d or dv are zeroed once instead.
+// * At DMAX 256 its two 64 x 256 float32 sums would take 256 registers a
+//   thread, so that width keeps the mma.sync kernel.
 
 #include <type_traits>
 
 #include "mma_tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -375,6 +407,285 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ---- bf16 and f16 dk/dv: warpgroup products (wgmma.cuh) --------------------
+
+// The bf16 and f16 dk/dv instantiations at DMAX <= kWgmmaMaxD run this
+// kernel; float32, DMAX 256 (dk and dv sums of 64 x 256 would take 256
+// registers a thread) and the dq kernel run the mma.sync kernels above.
+constexpr bool kWgmma = true;
+constexpr int kWgmmaMaxD = 128;
+constexpr int kWgWalk = 32;    // q rows a block walks at a time
+constexpr int kWgStages = 3;   // q/g tiles: this round's, the last round's, the next
+constexpr int kWgRows = 64;    // keys a block: one warpgroup
+constexpr int kWgMinBlocks = 3;    // blocks an SM that ptxas must fit at DMAX <= 64
+constexpr bool kWgOverlap = true;  // the last tile's sums run on under these probabilities
+constexpr int kWgThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T, int DMAX>
+__host__ __device__ constexpr bool use_wgmma() {
+  return kWgmma && sizeof(T) == 2 && DMAX <= kWgmmaMaxD;
+}
+
+// columns of the tiles: DMAX, at least one 64-column swizzled block
+template <int DMAX>
+__host__ __device__ constexpr int wg_width() { return DMAX < kSwzCols ? kSwzCols : DMAX; }
+
+// q rows a dk/dv block walks at a time (the N of sᵀ = k·qᵀ): 32 at DMAX
+// 128, where the dk and dv sums take 128 registers a thread
+template <int DMAX>
+__host__ __device__ constexpr int wg_walk() { return DMAX > 64 ? 32 : kWgWalk; }
+
+template <int DMAX>
+constexpr size_t wg_dkv_smem_bytes() {
+  // k, v: [NB][64][64]; q, g: kWgStages stages of [NB][BM][64]; key
+  // validity: [64]; lse, delta: kWgStages stages of [BM]; the mbarriers;
+  // 1024 bytes of alignment slack
+  constexpr int W = wg_width<DMAX>(), BM = wg_walk<DMAX>(), ST = kWgStages;
+  return 2 * (2 * kWgRows + 2 * ST * BM) * W + sizeof(float) * (kWgRows + 2 * ST * BM) +
+         8 * (1 + ST) + 1024;
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kWgThreads, DMAX <= 64 ? kWgMinBlocks : 1)
+flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
+                           __grid_constant__ const CUtensorMap kmap,
+                           __grid_constant__ const CUtensorMap vmap,
+                           __grid_constant__ const CUtensorMap gmap, const T* __restrict__ q,
+                           const T* __restrict__ k, const T* __restrict__ v,
+                           const T* __restrict__ g, const float* __restrict__ lse,
+                           const float* __restrict__ delta, const float* __restrict__ mask,
+                           T* __restrict__ dk, T* __restrict__ dvo, int h, int tq, int tk, int d,
+                           int dv, float scale, int causal, int tk_off, int vec_d, int vec_dv) {
+  constexpr int W = wg_width<DMAX>();
+  constexpr int NB = W / kSwzCols;  // swizzled blocks a row
+  constexpr int BM = wg_walk<DMAX>();
+  constexpr int NS = BM / 2;        // accumulator registers of sᵀ and dpᵀ
+  constexpr int NO = W / 2;         // accumulator registers of dk and dv
+  constexpr int QT = BM * NB * kSwzCols;  // elements of a q or g stage
+  constexpr int ST = kWgStages;
+  extern __shared__ unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(align_1024(smem_raw));
+  T* Vs = Ks + kWgRows * NB * kSwzCols;
+  T* Qs = Vs + kWgRows * NB * kSwzCols;  // [ST][NB][BM][64]
+  T* Gs = Qs + ST * QT;
+  float* Kvalid = reinterpret_cast<float*>(Gs + ST * QT);  // [64]
+  float* Lrow = Kvalid + kWgRows;                          // [ST][BM]
+  float* Drow = Lrow + ST * BM;                            // [ST][BM]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Drow + ST * BM);  // k and v, then one a stage
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int w0 = (tid >> 5) * 16;  // this warp's first key of the tile
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int k0 = blockIdx.y * kWgRows;  // the first k tiles see the most q rows: they go first
+  const bool tma_qk = vec_d == 16, tma_vg = vec_dv == 16;  // else copies by the threads
+  const float s_mul = scale * kLog2e;  // sᵀ in base-2 units: p = 2^(s - lse·log2 e)
+
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* gb = g + (size_t)bh * tq * dv;
+  const float* lb = lse + (size_t)bh * tq;
+  const float* db = delta + (size_t)bh * tq;
+  const int n_tiles = (tq + BM - 1) / BM;
+  int first = 0;
+  if (causal) {
+    const int q_first = k0 - tk_off;  // the first q row that sees key k0
+    first = q_first <= 0 ? 0 : min(q_first / BM, n_tiles);
+  }
+  // q tiles [f0, f1) need no mask: no key mask, k and q rows inside tk and
+  // tq, and every key of the block at or below the causal frontier of the
+  // tile's first row
+  const int f1 = mask != nullptr || k0 + kWgRows > tk ? 0 : tq / BM;
+  const int f0 = causal ? (max(k0 + kWgRows - 1 - tk_off, 0) + BM - 1) / BM : 0;
+  if (tid == 0) {
+    for (int i = 0; i <= ST; ++i) mbar_init(bars + i);
+    mbar_init_fence();
+  }
+  // blocks wholly past d (k, q) or dv (v, g), which TMA leaves unwritten,
+  // are read as zeros by the products (every product runs all DMAX / 16
+  // steps and all W columns): zero them once
+  if (tma_qk && live_blocks<NB>(d) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(Ks, live_blocks<NB>(d));
+    for (int st = 0; st < ST; ++st)
+      zero_blocks<kWgThreads, BM, NB>(Qs + st * QT, live_blocks<NB>(d));
+  }
+  if (tma_vg && live_blocks<NB>(dv) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(Vs, live_blocks<NB>(dv));
+    for (int st = 0; st < ST; ++st)
+      zero_blocks<kWgThreads, BM, NB>(Gs + st * QT, live_blocks<NB>(dv));
+  }
+  if (tid < kWgRows) {
+    const int kj = k0 + tid;
+    Kvalid[tid] = (kj < tk && (mask == nullptr || mask[(size_t)b * tk + kj] > 0.f)) ? 1.f : 0.f;
+  }
+  __syncthreads();  // the barriers are initialised before anyone uses them
+
+  // q tile qt sits in stage (qt - first) % ST, complete on barrier 1 + that
+  const CUtensorMap *qmap_p = &qmap, *gmap_p = &gmap;
+  auto load_qg = [&](int qt) {
+    const int q0 = qt * BM, st = (qt - first) % ST;
+    uint64_t* bar = bars + 1 + st;
+    if (tid == 0) {
+      mbar_expect(bar, (tma_qk ? tile_bytes<BM, NB, T>(d) : 0) +
+                           (tma_vg ? tile_bytes<BM, NB, T>(dv) : 0));
+      if (tma_qk) tma_tile<BM, NB>(Qs + st * QT, qmap_p, bar, q0, d, bh);
+      if (tma_vg) tma_tile<BM, NB>(Gs + st * QT, gmap_p, bar, q0, dv, bh);
+    }
+    if (!tma_qk) copy_tile<kWgThreads, BM, NB>(Qs + st * QT, qb, q0, tq, d, vec_d);
+    if (!tma_vg) copy_tile<kWgThreads, BM, NB>(Gs + st * QT, gb, q0, tq, dv, vec_dv);
+    copy_vec_async<kWgThreads>(Lrow + st * BM, lb, q0, tq, BM);  // rows past tq: see `l` below
+    copy_vec_async<kWgThreads>(Drow + st * BM, db, q0, tq, BM);
+  };
+
+  if (first < n_tiles) {  // no copy may outlive the block
+    if (tid == 0) {
+      mbar_expect(bars, (tma_qk ? tile_bytes<kWgRows, NB, T>(d) : 0) +
+                            (tma_vg ? tile_bytes<kWgRows, NB, T>(dv) : 0));
+      if (tma_qk) tma_tile<kWgRows, NB>(Ks, &kmap, bars, k0, d, bh);
+      if (tma_vg) tma_tile<kWgRows, NB>(Vs, &vmap, bars, k0, dv, bh);
+    }
+    if (!tma_qk)
+      copy_tile<kWgThreads, kWgRows, NB>(Ks, k + (size_t)bh * tk * d, k0, tk, d, vec_d);
+    if (!tma_vg)
+      copy_tile<kWgThreads, kWgRows, NB>(Vs, v + (size_t)bh * tk * dv, k0, tk, dv, vec_dv);
+    load_qg(first);
+  }
+  cp_commit();
+
+  float dk_acc[NO], dv_acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  // pᵀ and dsᵀ of the last round's tile, hi + lo in two 16-bit terms
+  uint32_t p_hi[BM / 16][4], p_lo[BM / 16][4], ds_hi[BM / 16][4], ds_lo[BM / 16][4];
+  float s[NS], dp[NS];  // the first steps of sᵀ and dpᵀ overwrite them (scale_d = 0)
+
+  // Round qt takes sᵀ and dpᵀ of q tile qt and the dv and dk sums of tile
+  // qt - 1; it loads tile qt + 1 into the stage that round qt - 1 freed.
+  auto begin_round = [&](int qt) {
+    cp_wait<0>();        // tile qt's copies by the threads
+    fence_async_smem();  // ... and zeros, visible to the products
+    __syncthreads();     // round qt - 1 is done with its stages
+    if (qt + 1 < n_tiles) load_qg(qt + 1);
+    cp_commit();
+    if (qt == first) mbar_wait(bars, 0);
+    mbar_wait(bars + 1 + (qt - first) % ST, ((qt - first) / ST) & 1);
+  };
+  // every product below is issued unconditionally between its fence and
+  // its wait: a wgmma under a branch makes ptxas serialize them all
+  // q and g are read K-major by the scores and MN-major by the sums
+  const uint64_t dk0 = smem_desc(Ks, 16, 1024), dv0 = smem_desc(Vs, 16, 1024);
+  const uint64_t dq0 = smem_desc(Qs, 16, 1024), dg0 = smem_desc(Gs, 16, 1024);
+  const uint64_t dqm0 = smem_desc(Qs, BM * kSwzCols * 2, 1024);
+  const uint64_t dgm0 = smem_desc(Gs, BM * kSwzCols * 2, 1024);
+  // sᵀ = k·qᵀ, dpᵀ = v·gᵀ: one m64nBMk16 product a 16-column step
+  auto scores = [&](int qt) {
+    const uint32_t at = (qt - first) % ST * QT * 2;  // the tile's stage
+    const uint64_t dq = desc_at(dq0, at), dg = desc_at(dg0, at);
+#pragma unroll
+    for (int kd = 0; kd < DMAX / 16; ++kd)
+      wgmma_ss<0>(s, desc_at(dk0, k_step<kWgRows>(kd)), desc_at(dq, k_step<BM>(kd)), kd > 0,
+                  T());
+#pragma unroll
+    for (int kd = 0; kd < DMAX / 16; ++kd)
+      wgmma_ss<0>(dp, desc_at(dv0, k_step<kWgRows>(kd)), desc_at(dg, k_step<BM>(kd)), kd > 0,
+                  T());
+  };
+  auto sums = [&](int qt) {  // dv += pᵀ·g, dk += dsᵀ·q of tile qt (rows past tq: p = ds = 0)
+    const uint32_t at = (qt - first) % ST * QT * 2;
+    const uint64_t dqm = desc_at(dqm0, at), dgm = desc_at(dgm0, at);
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      const uint64_t bg = desc_at(dgm, mn_step(kk)), bq = desc_at(dqm, mn_step(kk));
+      wgmma_rs<1>(dv_acc, p_hi[kk], bg, 1, T());
+      wgmma_rs<1>(dv_acc, p_lo[kk], bg, 1, T());
+      wgmma_rs<1>(dk_acc, ds_hi[kk], bq, 1, T());
+      wgmma_rs<1>(dk_acc, ds_lo[kk], bq, 1, T());
+    }
+  };
+  // pᵀ into s, dsᵀ into dp, then their A fragments; element i is key gr + 8
+  // ((i / 2) % 2), query 8 (i / 4) + 2tc + i % 2
+  auto probabilities = [&](int qt) {
+    const int st = (qt - first) % ST, q0 = qt * BM;
+    const float* Lt = Lrow + st * BM;
+    const float* Dt = Drow + st * BM;
+    if (qt >= f0 && qt < f1) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int ql = 8 * (i >> 2) + 2 * tc + (i & 1);
+        const float p = ex2(fmaf(s[i], s_mul, -Lt[ql] * kLog2e));
+        s[i] = p;
+        dp[i] = p * (dp[i] - Dt[ql]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int kl = w0 + gr + 8 * ((i >> 1) & 1);
+        const int ql = 8 * (i >> 2) + 2 * tc + (i & 1);
+        const int qi = q0 + ql;
+        const bool keep = Kvalid[kl] > 0.f && (!causal || qi + tk_off >= k0 + kl);
+        const float sv = keep ? s[i] * s_mul : kNeg;
+        // rows past tq: lse +1e30 makes p = 0, as the TPU kernel's padding does
+        const float l = qi < tq ? Lt[ql] * kLog2e : -kNeg;
+        const float p = sv > kNeg * 0.5f ? ex2(sv - l) : 0.f;
+        s[i] = p;
+        dp[i] = p * (dp[i] - Dt[ql]);
+      }
+    }
+  };
+  auto to_a = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      acc_to_a<T>(s, kk, p_hi[kk], p_lo[kk]);
+      acc_to_a<T>(dp, kk, ds_hi[kk], ds_lo[kk]);
+    }
+  };
+
+  if (first < n_tiles) {
+    begin_round(first);  // the scores of the first tile alone
+    wg_fence();
+    scores(first);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(s);
+    wg_hold(dp);
+    probabilities(first);
+    to_a();
+    for (int qt = first + 1; qt < n_tiles; ++qt) {  // scores of tile qt, sums of qt - 1
+      begin_round(qt);
+      wg_fence();
+      scores(qt);
+      wg_commit();
+      sums(qt - 1);
+      wg_commit();
+      wg_wait<kWgOverlap ? 1 : 0>();  // sᵀ and dpᵀ (and the sums unless they run on)
+      wg_hold(s);
+      wg_hold(dp);
+      probabilities(qt);
+      wg_wait<0>();
+      wg_hold(dv_acc);
+      wg_hold(dk_acc);
+      to_a();
+    }
+    wg_fence();  // the sums of the last tile
+    sums(n_tiles - 1);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(dv_acc);
+    wg_hold(dk_acc);
+  }
+  cp_wait<0>();
+
+  const size_t base = (size_t)bh * tk;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) {
+    const int r = k0 + w0 + gr + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + 2 * tc + (i & 1);
+    if (r >= tk) continue;
+    if (c < d) store(dk + (base + r) * d + c, dk_acc[i] * scale);
+    if (c < dv) store(dvo + (base + r) * dv + c, dv_acc[i]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta, *mask;
@@ -429,13 +740,50 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename T, int DMAX>
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  constexpr int BM = wg_walk<DMAX>();
+  constexpr size_t bytes = wg_dkv_smem_bytes<DMAX>();
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(flash_bwd_dkv_wgmma_kernel<T, DMAX>, (int)bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const int vec_d = copy_bytes(a.d, sizeof(T), a.q, a.k);
+  const int vec_dv = copy_bytes(a.dv, sizeof(T), a.v, a.g);
+  const int n = a.b * a.h;
+  CUtensorMap qm{}, km{}, vm{}, gm{};  // encoded where TMA copies the operand
+  if (vec_d == 16 && ((err = tile_map<T>(&qm, a.q, n, a.tq, a.d, BM)) != cudaSuccess ||
+                      (err = tile_map<T>(&km, a.k, n, a.tk, a.d, kWgRows)) != cudaSuccess))
+    return err;
+  if (vec_dv == 16 && ((err = tile_map<T>(&gm, a.g, n, a.tq, a.dv, BM)) != cudaSuccess ||
+                       (err = tile_map<T>(&vm, a.v, n, a.tk, a.dv, kWgRows)) != cudaSuccess))
+    return err;
+  const dim3 grid(n, (a.tk + kWgRows - 1) / kWgRows);
+  flash_bwd_dkv_wgmma_kernel<T, DMAX><<<grid, kWgThreads, bytes, a.stream>>>(
+      qm, km, vm, gm, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta, a.mask,
+      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.h, a.tq, a.tk, a.d, a.dv, a.scale,
+      a.causal, a.causal_offset, vec_d, vec_dv);
+  return cudaGetLastError();
+}
+
+// the wgmma dk/dv kernel for bf16 and f16 up to kWgmmaMaxD, else the
+// mma.sync one
+template <typename T, int DMAX>
+cudaError_t pick_dkv(const Args& a) {
+  if constexpr (use_wgmma<T, DMAX>()) {
+    return launch_dkv_wgmma<T, DMAX>(a);
+  } else {
+    return launch_dkv<T, DMAX>(a);
+  }
+}
+
 template <bool DQ, typename T>
 cudaError_t dispatch(const Args& a) {
   const int dmax = a.d > a.dv ? a.d : a.dv;
-  if (dmax <= 32) return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-  if (dmax <= 64) return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-  if (dmax <= 128) return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-  if (dmax <= 256) return DQ ? launch_dq<T, 256>(a) : launch_dkv<T, 256>(a);
+  if (dmax <= 32) return DQ ? launch_dq<T, 32>(a) : pick_dkv<T, 32>(a);
+  if (dmax <= 64) return DQ ? launch_dq<T, 64>(a) : pick_dkv<T, 64>(a);
+  if (dmax <= 128) return DQ ? launch_dq<T, 128>(a) : pick_dkv<T, 128>(a);
+  if (dmax <= 256) return DQ ? launch_dq<T, 256>(a) : pick_dkv<T, 256>(a);
   return cudaErrorInvalidValue;
 }
 

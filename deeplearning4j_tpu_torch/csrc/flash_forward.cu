@@ -22,8 +22,8 @@
 // products per product, so the float32 limit is 3 x flops at the dense TF32
 // rate (495 TFLOP/s), not the CUDA cores' 67 TFLOP/s.
 //
-// Design (the products, fragments and copies are mma_tf32.cuh's, shared
-// with the backward kernels).
+// Design of the float32 kernel, flash_forward_kernel (the products, fragments
+// and copies are mma_tf32.cuh's, shared with the backward kernels).
 // * Ownership: the TPU kernel carries its running max, denominator and
 //   accumulator in VMEM scratch across a sequential k grid axis. Blocks on
 //   Hopper run in parallel and in no order, so here one block owns a
@@ -35,9 +35,8 @@
 // * Products: mma.sync m16n8k8 TF32. Each warp owns 16 rows of s and of the
 //   output accumulator, both in registers. In float32, s = q·kᵀ and p·v take
 //   three terms each (3xTF32), and the scale is folded into q as it lands in
-//   shared memory. In bf16 and f16, q·kᵀ takes one term (a bf16 or f16 value
-//   is exact in TF32) and the scale multiplies s, so that q stays exact; p·v
-//   takes two (p_hi·v + p_lo·v), because p is float32 as in the JAX kernel.
+//   shared memory. (Fed bf16 or f16, as it was before the wgmma kernel, q·kᵀ
+//   takes one term and p·v two; kWgmma = false brings that back for timing.)
 // * The online softmax: lane (g, t) holds rows g and g + 8 of its warp's 16,
 //   two keys of every 8; the row max and row sum take two shuffles across
 //   the lane quad (xor 1, 2). p then feeds p·v as the A operand straight
@@ -50,16 +49,51 @@
 //   instantiation's width DMAX (32, 64, 128 or 256): every loop has a
 //   compile-time trip count.
 // * Tile shape: 64 q rows and 4 warps a block, walking 32-key tiles in
-//   float32 (52 KB of shared memory at d = 64, four blocks an SM) and
-//   64-key tiles in bf16 and f16; tools/flash_forward_variants.py times the
-//   alternatives (128 rows and 8 warps was slower in both types). At DMAX
-//   256 every type walks 32-key tiles: 195 KB of shared memory in float32,
-//   one block an SM, and the 16 x 256 output rows of a warp take 128
+//   float32 (52 KB of shared memory at d = 64, four blocks an SM);
+//   tools/flash_forward_variants.py times the alternatives (128 rows and 8
+//   warps was slower). At DMAX 256 it walks 32-key tiles: 195 KB of shared
+//   memory, one block an SM, and the 16 x 256 output rows of a warp take 128
 //   accumulator registers a thread.
+//
+// Design of the bf16 and f16 kernel, flash_forward_wgmma_kernel (the
+// warpgroup products, TMA copies and swizzled layout are wgmma.cuh's):
+// * Ownership as above: one warpgroup (4 warps) owns a 64-row q tile, the M
+//   of wgmma, and walks 64-key k/v tiles up to its causal frontier.
+// * s = q·kᵀ: one wgmma.m64n64k16 a 16-column step of d, A (q) and B (k)
+//   K-major in shared memory; a bf16 or f16 product is exact in the float32
+//   accumulator. The scale multiplies s (in base-2 units, for ex2).
+// * The online softmax runs on the accumulator: each warp holds its 16 rows
+//   in mma.sync's m16n8 layout, so the row max takes the same two quad
+//   shuffles; each lane keeps its share of the row sum, added across the
+//   quad once at the end. Tiles wholly inside the causal frontier with no
+//   key mask skip the mask test and fold the scale into one FFMA.
+// * acc += p·v: A is p from registers, split hi = 16-bit(p) and lo =
+//   16-bit(p - hi), two wgmmas (16 + 16 significant bits of the float32 p
+//   of the JAX kernel, far below the output's rounding); B is the v tile,
+//   MN-major (the transpose bit). One 16-bit term was 14% faster with twice
+//   the output error (tools/flash_forward_variants.py prints both).
+// * Round kt issues s of tile kt and p·v of tile kt - 1 together, then waits
+//   once: one wait a tile instead of two. p·v running on under the softmax
+//   (kWgOverlap) was 3% slower at d = 64, where it spills at the fourth
+//   block's 128 registers, and 11% faster at d = 256.
+// * Copies: TMA, one thread arming an mbarrier, q once and then group kt =
+//   k tile kt, its key validity (cp.async) and v tile kt - 1, into a ring of
+//   two stages, one round ahead. Rows that TMA cannot take (not a multiple
+//   of 16 bytes: d % 8 != 0, or an unaligned base) are copied by the threads
+//   into the same swizzled layout (cp.async of 8 or 4 bytes, or plain loads).
+// * Every wgmma between a fence and its wait is issued unconditionally, and
+//   the kernel makes no call (fast reciprocal and log in the epilogue): a
+//   wgmma under a branch, or a call anywhere, makes ptxas wait after each
+//   wgmma. Blocks wholly past d or dv are zeroed once instead.
+// * Registers: at DMAX <= 64 ptxas is held to 128 a thread (kWgMinBlocks),
+//   four blocks an SM, 7% faster than three; DMAX 128 and 256 run one or two
+//   blocks an SM without spills. Two warpgroups a block sharing the k/v
+//   tiles (kWgGroups) were 8% slower.
 
 #include <type_traits>
 
 #include "mma_tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -234,6 +268,307 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ---- bf16 and f16: warpgroup products (wgmma.cuh) ---------------------------
+
+// The bf16 and f16 instantiations at DMAX <= kWgmmaMaxD run this kernel;
+// float32 and the rest run flash_forward_kernel above.
+constexpr bool kWgmma = true;
+constexpr int kWgmmaMaxD = 256;
+constexpr int kWgKeys = 64;  // keys a tile (the N of s = q·kᵀ); 64 at DMAX 256
+constexpr int kWgGroups = 1;  // warpgroups a block, 64 q rows each, sharing the k/v tiles
+constexpr int kWgRows = 64 * kWgGroups;  // q rows a block
+constexpr int kWgThreads = 128 * kWgGroups;
+constexpr int kWgMinBlocks = 4 / kWgGroups;  // blocks an SM that ptxas must fit at DMAX <= 64
+constexpr bool kWgOverlap = false;  // p·v of the last tile runs on under this tile's softmax
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <typename T, int DMAX>
+__host__ __device__ constexpr bool use_wgmma() {
+  return kWgmma && sizeof(T) == 2 && DMAX <= kWgmmaMaxD;
+}
+
+// columns of the tiles: DMAX, at least one 64-column swizzled block
+template <int DMAX>
+__host__ __device__ constexpr int wg_width() { return DMAX < kSwzCols ? kSwzCols : DMAX; }
+
+template <int DMAX>
+__host__ __device__ constexpr int wg_tile_keys() { return DMAX > 128 ? 64 : kWgKeys; }
+
+template <int DMAX>
+constexpr size_t wg_smem_bytes() {
+  // q: [NB][kWgRows][64]; k, v: two stages of [NB][BN][64]; key validity:
+  // two stages of [BN]; three mbarriers; 1024 bytes of alignment slack
+  constexpr int W = wg_width<DMAX>(), BN = wg_tile_keys<DMAX>();
+  return 2 * (kWgRows + 4 * BN) * W + sizeof(float) * 2 * BN + 3 * 8 + 1024;
+}
+
+// The online softmax of one tile, on s in registers (m16n8 layout repeated,
+// element i: row gr + 8 ((i / 2) % 2) of the warp's 16, key 8 (i / 4) + 2tc
+// + i % 2): s becomes p, and the running max m (base 2) and this lane's
+// share of the sum l move on (the lane quad's shares are added at the end);
+// alpha is the factor of the output sums, applied by the caller. FULL:
+// every key of the tile is valid for every row (no mask, inside tk, at or
+// below the causal frontier) and s_mul > 0.
+template <bool FULL, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2], const float* kvalid,
+                                             float s_mul, int qi0, int k0, int causal, int tc) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qi = qi0 + 8 * hf;
+    float mx = kNeg;
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = 4 * j + 2 * hf + c, kl = 8 * j + 2 * tc + c;
+        if (!FULL)  // FULL keeps s unscaled: s_mul > 0 commutes with the max
+          s[i] = kvalid[kl] > 0.f && (!causal || qi >= k0 + kl) ? s[i] * s_mul : kNeg;
+        mx = fmaxf(mx, s[i]);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_r[hf], FULL ? mx * s_mul : mx);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = 4 * j + 2 * hf + c;
+        float p;
+        if (FULL) {
+          p = ex2(fmaf(s[i], s_mul, -m_new));
+        } else {
+          p = s[i] > kNeg * 0.5f ? ex2(s[i] - m_new) : 0.f;
+        }
+        s[i] = p;
+        rs += p;
+      }
+    }
+    alpha[hf] = ex2(m_r[hf] - m_new);
+    l_r[hf] = l_r[hf] * alpha[hf] + rs;
+    m_r[hf] = m_new;
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kWgThreads, DMAX <= 64 ? kWgMinBlocks : 1)
+flash_forward_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
+                           __grid_constant__ const CUtensorMap kmap,
+                           __grid_constant__ const CUtensorMap vmap, const T* __restrict__ q,
+                           const T* __restrict__ k, const T* __restrict__ v,
+                           const float* __restrict__ mask, T* __restrict__ out,
+                           float* __restrict__ lse, int h, int tq, int tk, int d, int dv,
+                           float scale, int causal, int tk_off, int vec_d, int vec_dv) {
+  constexpr int W = wg_width<DMAX>();
+  constexpr int NB = W / kSwzCols;  // swizzled blocks a row
+  constexpr int BN = wg_tile_keys<DMAX>();
+  constexpr int NS = BN / 2;  // accumulator registers of s
+  constexpr int NO = W / 2;   // accumulator registers of the output
+  constexpr int KT = BN * NB * kSwzCols;  // elements of a k or v stage
+  extern __shared__ unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(align_1024(smem_raw));
+  T* Ks = Qs + kWgRows * NB * kSwzCols;  // [2][NB][BN][64]
+  T* Vs = Ks + 2 * KT;
+  float* Kvalid = reinterpret_cast<float*>(Vs + 2 * KT);          // [2][BN]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Kvalid + 2 * BN);  // q, stage 0, stage 1
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // accumulator row and column of this lane
+  const int w0 = (tid >> 5) * 16;           // this warp's first row of the tile
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  // the last q tiles see the most keys under the causal mask: start them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;
+  const bool tma_qk = vec_d == 16, tma_v = vec_dv == 16;  // else copies by the threads
+  const float s_mul = scale * kLog2e;  // s in base-2 units: p = 2^(s - m)
+
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * dv;
+  int n_tiles = (tk + BN - 1) / BN;
+  if (causal) {
+    const int last = q0 + kWgRows - 1 + tk_off;  // the last key any row of this tile sees
+    n_tiles = last < 0 ? 0 : min(n_tiles, last / BN + 1);
+  }
+  // tiles [0, n_full) need no mask: no key mask, inside tk, and every key at
+  // or below the causal frontier of the tile's first row
+  int n_full = mask != nullptr || !(s_mul > 0.f) ? 0 : tk / BN;
+  if (causal) n_full = min(n_full, q0 + tk_off < 0 ? 0 : (q0 + tk_off + 1) / BN);
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    mbar_init_fence();
+  }
+  // blocks wholly past d (q, k) or dv (v), which TMA leaves unwritten, are
+  // read as zeros by the products (every product runs all DMAX / 16 steps
+  // of d and all W columns of dv): zero them once
+  if (tma_qk && live_blocks<NB>(d) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(Qs, live_blocks<NB>(d));
+    zero_blocks<kWgThreads, BN, NB>(Ks, live_blocks<NB>(d));
+    zero_blocks<kWgThreads, BN, NB>(Ks + KT, live_blocks<NB>(d));
+  }
+  if (tma_v && live_blocks<NB>(dv) < NB) {
+    zero_blocks<kWgThreads, BN, NB>(Vs, live_blocks<NB>(dv));
+    zero_blocks<kWgThreads, BN, NB>(Vs + KT, live_blocks<NB>(dv));
+  }
+  __syncthreads();  // the barriers are initialised before anyone uses them
+
+  // Round j takes s of tile j and p·v of tile j - 1, so its copies, group j
+  // (stage j % 2, barrier 1 + j % 2), are the k tile and key validity of
+  // tile j and the v tile of tile j - 1. Group j + 1 is issued at the start
+  // of round j, into the stages that rounds j - 1 (k) and j - 2 (v) freed.
+  const CUtensorMap *kmap_p = &kmap, *vmap_p = &vmap;
+  auto load = [&](int j) {
+    const int st = j & 1, sv = st ^ 1;  // stages of tile j's k and tile j - 1's v
+    const bool has_k = j < n_tiles, has_v = j > 0;
+    uint64_t* bar = bars + 1 + st;
+    if (tid == 0) {
+      mbar_expect(bar, (has_k && tma_qk ? tile_bytes<BN, NB, T>(d) : 0) +
+                           (has_v && tma_v ? tile_bytes<BN, NB, T>(dv) : 0));
+      if (has_k && tma_qk) tma_tile<BN, NB>(Ks + st * KT, kmap_p, bar, j * BN, d, bh);
+      if (has_v && tma_v) tma_tile<BN, NB>(Vs + sv * KT, vmap_p, bar, (j - 1) * BN, dv, bh);
+    }
+    if (has_k && !tma_qk) copy_tile<kWgThreads, BN, NB>(Ks + st * KT, kb, j * BN, tk, d, vec_d);
+    if (has_v && !tma_v)
+      copy_tile<kWgThreads, BN, NB>(Vs + sv * KT, vb, (j - 1) * BN, tk, dv, vec_dv);
+    if (has_k) {
+      float* kv = Kvalid + st * BN;
+      if (mask != nullptr) {
+        copy_vec_async<kWgThreads>(kv, mask + (size_t)b * tk, j * BN, tk, BN);
+      } else if (tid < BN) {
+        kv[tid] = j * BN + tid < tk ? 1.f : 0.f;
+      }
+    }
+  };
+  // the start of round j: group j has landed, group j + 1 is on its way
+  auto begin_round = [&](int j) {
+    cp_wait<0>();        // group j's copies by the threads
+    fence_async_smem();  // ... and zeros, visible to the products
+    __syncthreads();     // round j - 1 is done with its stages
+    if (j < n_tiles) load(j + 1);
+    cp_commit();
+    if (j == 0) mbar_wait(bars, 0);
+    mbar_wait(bars + 1 + (j & 1), (j >> 1) & 1);  // group j's TMA copies
+  };
+
+  if (n_tiles > 0) {  // no copy may outlive the block
+    if (tid == 0) {
+      mbar_expect(bars, tma_qk ? tile_bytes<kWgRows, NB, T>(d) : 0);
+      if (tma_qk) tma_tile<kWgRows, NB>(Qs, &qmap, bars, q0, d, bh);
+    }
+    if (!tma_qk)
+      copy_tile<kWgThreads, kWgRows, NB>(Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
+    load(0);
+  }
+  cp_commit();
+
+  // running max (base 2) and sum of rows gr (index 0) and gr + 8 (index 1)
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  // p of the last round's tile, hi + lo in two 16-bit terms
+  uint32_t a_hi[BN / 16][4], a_lo[BN / 16][4];
+  float s[NS];  // the first step of q·kᵀ overwrites it (scale_d = 0)
+
+  // every product below is issued unconditionally between its fence and
+  // its wait: a wgmma under a branch makes ptxas serialize them all
+  // K-major; q from this warpgroup's 64 rows of the block's
+  const uint64_t dq0 = smem_desc(Qs + (tid >> 7) * 64 * kSwzCols, 16, 1024);
+  const uint64_t dk0 = smem_desc(Ks, 16, 1024);
+  const uint64_t dv0 = smem_desc(Vs, BN * kSwzCols * 2, 1024);                   // MN-major
+  auto qk = [&](int kt) {  // s = q·kᵀ of tile kt: one m64nBNk16 product a 16-column step
+    const uint64_t dk = desc_at(dk0, (kt & 1) * KT * 2);
+#pragma unroll
+    for (int kd = 0; kd < DMAX / 16; ++kd)
+      wgmma_ss<0>(s, desc_at(dq0, k_step<kWgRows>(kd)), desc_at(dk, k_step<BN>(kd)), kd > 0,
+                  T());
+  };
+  auto pv = [&](int kt) {  // acc += p·v of tile kt (keys past tk have p = 0 and zero v)
+    const uint64_t dv = desc_at(dv0, (kt & 1) * KT * 2);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t bv = desc_at(dv, mn_step(kk));
+      wgmma_rs<1>(acc, a_hi[kk], bv, 1, T());
+      wgmma_rs<1>(acc, a_lo[kk], bv, 1, T());
+    }
+  };
+  auto softmax = [&](int kt, float (&alpha)[2]) {
+    const int qi0 = q0 + w0 + gr + tk_off;  // row gr's causal frontier
+    if (kt < n_full) {
+      softmax_tile<true>(s, m_r, l_r, alpha, nullptr, s_mul, qi0, kt * BN, causal, tc);
+    } else {
+      softmax_tile<false>(s, m_r, l_r, alpha, Kvalid + (kt & 1) * BN, s_mul, qi0, kt * BN,
+                          causal, tc);
+    }
+  };
+  auto to_a = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<T>(s, kk, a_hi[kk], a_lo[kk]);
+  };
+
+  if (n_tiles > 0) {
+    float alpha[2];
+    begin_round(0);  // s of tile 0 alone
+    wg_fence();
+    qk(0);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(s);
+    softmax(0, alpha);  // acc is still 0: no rescale
+    to_a();
+    for (int kt = 1; kt < n_tiles; ++kt) {  // s of tile kt, p·v of tile kt - 1
+      begin_round(kt);
+      wg_fence();
+      qk(kt);
+      wg_commit();
+      pv(kt - 1);
+      wg_commit();
+      wg_wait<kWgOverlap ? 1 : 0>();  // q·kᵀ (and p·v unless it runs on under the softmax)
+      wg_hold(s);
+      softmax(kt, alpha);
+      wg_wait<0>();
+      wg_hold(acc);
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      to_a();
+    }
+    begin_round(n_tiles);  // p·v of the last tile
+    wg_fence();
+    pv(n_tiles - 1);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(acc);
+  }
+  cp_wait<0>();
+
+  T* ob = out + (size_t)bh * tq * dv;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {  // the row sums from the lane quad's shares
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 1);
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 2);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + w0 + gr + 8 * hf;
+    if (r >= tq) continue;
+    // fast reciprocal and logarithm: a division's or logf's slow path is a
+    // call, and a call anywhere in the kernel makes ptxas serialize the wgmmas
+    const float denom = fmaxf(l_r[hf], 1e-30f), inv = __fdividef(1.f, denom);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * tc + c;
+        if (col < dv) store(ob + (size_t)r * dv + col, acc[4 * j + 2 * hf + c] * inv);
+      }
+    }
+    if (tc == 0)
+      lse[(size_t)bh * tq + r] = l_r[hf] > 0.f ? m_r[hf] * kLn2 + __logf(denom) : -kNeg;
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   const float* mask;
@@ -259,13 +594,48 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename T, int DMAX>
+cudaError_t launch_wgmma(const Args& a) {
+  constexpr size_t bytes = wg_smem_bytes<DMAX>();
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(flash_forward_wgmma_kernel<T, DMAX>, (int)bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const int vec_d = copy_bytes(a.d, sizeof(T), a.q, a.k);
+  const int vec_dv = copy_bytes(a.dv, sizeof(T), a.v, a.v);
+  CUtensorMap qm{}, km{}, vm{};  // encoded where TMA copies the operand
+  if (vec_d == 16) {
+    if ((err = tile_map<T>(&qm, a.q, a.b * a.h, a.tq, a.d, kWgRows)) != cudaSuccess) return err;
+    if ((err = tile_map<T>(&km, a.k, a.b * a.h, a.tk, a.d, wg_tile_keys<DMAX>())) != cudaSuccess)
+      return err;
+  }
+  if (vec_dv == 16 &&
+      (err = tile_map<T>(&vm, a.v, a.b * a.h, a.tk, a.dv, wg_tile_keys<DMAX>())) != cudaSuccess)
+    return err;
+  const dim3 grid(a.b * a.h, (a.tq + kWgRows - 1) / kWgRows);
+  flash_forward_wgmma_kernel<T, DMAX><<<grid, kWgThreads, bytes, a.stream>>>(
+      qm, km, vm, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out), a.lse, a.h, a.tq, a.tk, a.d,
+      a.dv, a.scale, a.causal, a.causal_offset, vec_d, vec_dv);
+  return cudaGetLastError();
+}
+
+// the wgmma kernel for bf16 and f16 up to kWgmmaMaxD, else the mma.sync one
+template <typename T, int DMAX>
+cudaError_t pick(const Args& a) {
+  if constexpr (use_wgmma<T, DMAX>()) {
+    return launch_wgmma<T, DMAX>(a);
+  } else {
+    return launch<T, DMAX>(a);
+  }
+}
+
 template <typename T>
 cudaError_t dispatch(const Args& a) {
   const int dmax = a.d > a.dv ? a.d : a.dv;
-  if (dmax <= 32) return launch<T, 32>(a);
-  if (dmax <= 64) return launch<T, 64>(a);
-  if (dmax <= 128) return launch<T, 128>(a);
-  if (dmax <= 256) return launch<T, 256>(a);
+  if (dmax <= 32) return pick<T, 32>(a);
+  if (dmax <= 64) return pick<T, 64>(a);
+  if (dmax <= 128) return pick<T, 128>(a);
+  if (dmax <= 256) return pick<T, 256>(a);
   return cudaErrorInvalidValue;
 }
 

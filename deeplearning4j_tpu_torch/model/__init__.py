@@ -1,3 +1,4 @@
+from . import zoo
 from .serializer import (
     load_jax_params,
     read_normalizer,
@@ -8,4 +9,4 @@ from .serializer import (
 )
 
 __all__ = ["load_jax_params", "read_normalizer", "restore_computation_graph",
-           "restore_model", "restore_multi_layer_network", "write_model"]
+           "restore_model", "restore_multi_layer_network", "write_model", "zoo"]

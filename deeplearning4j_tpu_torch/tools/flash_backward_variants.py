@@ -9,9 +9,10 @@ Builds ``csrc/flash_backward.cu`` as it is and with each variant in
 :data:`VARIANTS` (a text substitution of the source and its headers, see
 :mod:`.kernel_variants`), all at once; then, at the training
 path's shape ([8, 12, 1024, 64], causal), times each build's two kernels in
-float32 and bfloat16 in turn, three rounds, and prints the median of each
-with the relative error against the plain versions and the registers
-ptxas reports.
+float32, bfloat16 and float16 in turn, three rounds, and prints the median
+of each with the relative error against the plain versions and the
+registers ptxas reports. The variants of the float32 kernels act on the
+mma.sync kernels; the "wgmma" ones on the bf16/f16 dk/dv kernel.
 """
 
 from __future__ import annotations
@@ -39,6 +40,18 @@ VARIANTS = {
     "dq walks 32 keys": [("constexpr int kDqWalk = 64;", "constexpr int kDqWalk = 32;")],
     "dk/dv walks 16 q rows": [("constexpr int kDkvWalk = 32;", "constexpr int kDkvWalk = 16;")],
     "dk/dv walks 64 q rows": [("constexpr int kDkvWalk = 32;", "constexpr int kDkvWalk = 64;")],
+    "16-bit dk/dv on mma.sync": [("constexpr bool kWgmma = true;",
+                                         "constexpr bool kWgmma = false;")],
+    "dk/dv walks 64 q rows, no floor": [
+        ("constexpr int kWgWalk = 32;", "constexpr int kWgWalk = 64;"),
+        ("constexpr int kWgMinBlocks = 3;", "constexpr int kWgMinBlocks = 1;")],
+    "sums after the probabilities": [("constexpr bool kWgOverlap = true;",
+                                      "constexpr bool kWgOverlap = false;")],
+    "no occupancy floor": [("constexpr int kWgMinBlocks = 3;", "constexpr int kWgMinBlocks = 1;")],
+    # pᵀ and dsᵀ in one bf16/f16 term: error printed beside the time; not shipped
+    "one-term p, ds (not shipped)": [
+        ("      wgmma_rs<1>(dv_acc, p_lo[kk], bg, 1, T());\n", ""),
+        ("      wgmma_rs<1>(dk_acc, ds_lo[kk], bq, 1, T());\n", "")],
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -58,7 +71,7 @@ def main() -> None:
     libs = kv.build("bwd", kv.variant_sources("flash_backward", VARIANTS), SYMBOLS)
     gen = torch.Generator().manual_seed(1)
     scale = D ** -0.5
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v, g = (torch.randn(B, H, T, D, generator=gen).to("cuda", dtype) for _ in range(4))
         out, lse = fa.flash_attention_plain(q, k, v, None, True)
         delta = torch.sum(g.float() * out.float(), dim=-1).contiguous()
@@ -66,17 +79,17 @@ def main() -> None:
         ref = (fa.flash_attention_bwd_dq_plain(*args), *fa.flash_attention_bwd_dkv_plain(*args))
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
-        bf16 = int(dtype == torch.bfloat16)
+        code = fa._KERNEL_DTYPES[dtype]
         stream = torch.cuda.current_stream().cuda_stream
         calls = {}
         for name, lib in libs.items():
             def run_dq(lib=lib):
                 return lib.dl4j_flash_bwd_dq(*ptrs, None, dq.data_ptr(), B, H, T, T, D, D,
-                                             scale, 1, 0, bf16, stream)
+                                             scale, 1, 0, code, stream)
 
             def run_dkv(lib=lib):
                 return lib.dl4j_flash_bwd_dkv(*ptrs, None, dk.data_ptr(), dv.data_ptr(), B, H, T,
-                                              T, D, D, scale, 1, 0, bf16, stream)
+                                              T, D, D, scale, 1, 0, code, stream)
             if run_dq() or run_dkv():
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()
@@ -89,7 +102,7 @@ def main() -> None:
                 times[name][1].append(kv.ms(run_dkv))
         for name, (_, _, errs) in calls.items():
             t_dq, t_dkv = (sorted(t)[ROUNDS // 2] for t in times[name])
-            print(f"{str(dtype)[6:]:8s} {name:26s} dq {t_dq:.4f} ms, dk/dv {t_dkv:.4f} ms "
+            print(f"{str(dtype)[6:]:8s} {name:32s} dq {t_dq:.4f} ms, dk/dv {t_dkv:.4f} ms "
                   f"(rounds dq {[round(x, 4) for x in times[name][0]]}, dk/dv "
                   f"{[round(x, 4) for x in times[name][1]]}); rel error dq/dk/dv "
                   f"{['%.1e' % e for e in errs]}")

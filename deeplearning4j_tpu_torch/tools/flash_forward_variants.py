@@ -9,10 +9,12 @@ Builds ``csrc/flash_forward.cu`` and ``csrc/flash_decode.cu`` as they are
 and with each variant in :data:`FORWARD_VARIANTS` and
 :data:`DECODE_VARIANTS` (text substitutions, see :mod:`.kernel_variants`),
 all at once. Then B1's builds are timed at the serving and training shape
-([8, 12, 1024, 64], causal) in float32 and bfloat16 in turn, three rounds,
-by CUDA events; and B4's builds at the serving shape (q [8, 12, 1, 64]
-against a [8, 12, 1024, 64] cache at positions 132-532, four caches in
-turn) and at one (b, h) pair of rows against a 4096-long cache, in float32,
+([8, 12, 1024, 64], causal) in float32, bfloat16 and float16, and at head
+dim 256 ([1, 8, 2048, 256], causal) in bfloat16, in turn, three rounds, by
+CUDA events (the float32 variants change the mma.sync kernel, the others
+the bf16/f16 wgmma kernel); and B4's builds at the serving
+shape (q [8, 12, 1, 64] against a [8, 12, 1024, 64] cache at positions
+132-532, four caches in turn) and at one (b, h) pair of rows against a 4096-long cache, in float32,
 three rounds, by device time (200 calls replayed from one CUDA graph).
 Each prints its medians with its error against the plain version.
 """
@@ -31,14 +33,29 @@ from deeplearning4j_tpu_torch.tools import kernel_variants as kv
 fa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
 
 B, H, T, D, ROUNDS = 8, 12, 1024, 64, 3
+WIDE = (1, 8, 2048, 256)  # chip_smoke.py's head-dim-256 shape, timed in bf16
 DECODE_POS = [132, 532, 230, 410, 378, 310, 299, 450]  # mid-generation, as chip_smoke.py's
 LONG_L = 4096
 
 #: name: [(text in the source, its replacement), ...]
 FORWARD_VARIANTS = {
-    "128 q rows, 8 warps": [("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")],
-    "64-key tiles in f32": [("sizeof(T) == 4 ? 32 : 64", "sizeof(T) == 4 ? 64 : 64")],
-    "32-key tiles in bf16": [("sizeof(T) == 4 ? 32 : 64", "sizeof(T) == 4 ? 32 : 32")],
+    "128 q rows, 8 warps (f32)": [("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")],
+    "64-key tiles in f32": [("sizeof(T) == 4 || DMAX > 128 ? 32 : 64", "DMAX > 128 ? 32 : 64")],
+    "16-bit on mma.sync": [("constexpr bool kWgmma = true;",
+                                   "constexpr bool kWgmma = false;")],
+    "d 256 on mma.sync": [("constexpr int kWgmmaMaxD = 256;", "constexpr int kWgmmaMaxD = 128;")],
+    "p·v under the softmax": [("constexpr bool kWgOverlap = false;",
+                               "constexpr bool kWgOverlap = true;")],
+    "no occupancy floor": [("constexpr int kWgMinBlocks = 4 / kWgGroups;",
+                            "constexpr int kWgMinBlocks = 1;")],
+    "128-key tiles, no floor": [("constexpr int kWgKeys = 64;", "constexpr int kWgKeys = 128;"),
+                                ("constexpr int kWgMinBlocks = 4 / kWgGroups;",
+                                 "constexpr int kWgMinBlocks = 1;")],
+    "128 q rows, 2 warpgroups": [("constexpr int kWgGroups = 1;", "constexpr int kWgGroups = 2;")],
+    "mask test on every tile": [("int n_full = mask != nullptr || !(s_mul > 0.f) ? 0 : tk / BN;",
+                                 "int n_full = 0;")],
+    # p in one bf16/f16 term: its error is printed beside its time; not shipped
+    "one-term p (not shipped)": [("      wgmma_rs<1>(acc, a_lo[kk], bv, 1, T());\n", "")],
 }
 DECODE_VARIANTS = {
     "1 block an SM": [("constexpr int kBlocksPerSM = 2;", "constexpr int kBlocksPerSM = 1;")],
@@ -64,18 +81,21 @@ def _median(xs) -> float:
 def forward(libs) -> None:
     gen = torch.Generator().manual_seed(1)
     stream = torch.cuda.current_stream().cuda_stream
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(B, H, T, D, generator=gen).to("cuda", dtype) for _ in range(3))
+    shapes = [((B, H, T, D), dtype) for dtype in (torch.float32, torch.bfloat16, torch.float16)]
+    shapes.append((WIDE, torch.bfloat16))
+    for (B_, H_, T_, D_), dtype in shapes:
+        q, k, v = (torch.randn(B_, H_, T_, D_, generator=gen).to("cuda", dtype)
+                   for _ in range(3))
         ref, ref_lse = fa.flash_attention_plain(q, k, v, None, True)
         out = torch.empty_like(q)
-        lse = torch.empty((B, H, T), device="cuda")
-        bf16 = int(dtype == torch.bfloat16)
+        lse = torch.empty((B_, H_, T_), device="cuda")
+        code = fa._KERNEL_DTYPES[dtype]
         calls = {}
         for name, lib in libs.items():
             def run(lib=lib):
                 return lib.dl4j_flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                                              out.data_ptr(), lse.data_ptr(), B, H, T, T, D, D,
-                                              D ** -0.5, 1, 0, bf16, stream)
+                                              out.data_ptr(), lse.data_ptr(), B_, H_, T_, T_, D_,
+                                              D_, D_ ** -0.5, 1, 0, code, stream)
             if run():
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()
@@ -85,9 +105,9 @@ def forward(libs) -> None:
             for name, (run, _, _) in calls.items():
                 times[name].append(kv.ms(run))
         for name, (_, e_out, e_lse) in calls.items():
-            print(f"B1 {str(dtype)[6:]:8s} {name:22s} {_median(times[name]):.4f} ms (rounds "
-                  f"{[round(x, 4) for x in times[name]]}); max abs error out {e_out:.2e}, "
-                  f"lse {e_lse:.2e}")
+            print(f"B1 {str(dtype)[6:]:8s} [{B_},{H_},{T_},{D_}] {name:28s} "
+                  f"{_median(times[name]):.4f} ms (rounds {[round(x, 4) for x in times[name]]}); "
+                  f"max abs error out {e_out:.2e}, lse {e_lse:.2e}")
 
 
 def decode(libs) -> None:

@@ -21,6 +21,9 @@ card: what ``chip_smoke.py``'s three phases of them drive.
   whole sequence on rank 0 (forward and q/k/v gradients of
   ``sum(out * w)``), timed; and a ``ShardedEmbeddingTable`` over
   ``model=world`` against a dense table.
+* ``many`` — the specs of ``specs`` in turn in one boot of the world, each
+  with an output directory of its own (``<out>/<index>``); the report's
+  ``legs`` is then the list of their legs.
 
 Run a world from Python (:func:`run_world`); each rank is a process
 (``python -m deeplearning4j_tpu_torch.tools.pp_legs --worker ...``)
@@ -314,8 +317,16 @@ def run_rank(backend: str, device: str, spec: dict, out_dir: str, kinds=None) ->
     rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     if dev == "cpu":
         torch.set_num_threads(1)
-    out = {"rank": rank, "world": world, "backend": backend,
-           "legs": (kinds or _KINDS)[spec["kind"]](spec, rank, world, dev, out_dir)}
+    kinds = kinds or _KINDS
+    if spec["kind"] == "many":
+        legs = []
+        for i, part in enumerate(spec["specs"]):
+            part_dir = os.path.join(out_dir, str(i))
+            os.makedirs(part_dir, exist_ok=True)
+            legs.append(kinds[part["kind"]](part, rank, world, dev, part_dir))
+    else:
+        legs = kinds[spec["kind"]](spec, rank, world, dev, out_dir)
+    out = {"rank": rank, "world": world, "backend": backend, "legs": legs}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.barrier()

@@ -37,6 +37,9 @@ what ``chip_smoke.py``'s three phases of them drive.
   without rules. Rank 0 trains the reference ``Solver`` and reports each
   leg's params max |diff| from its reference (``gaps``).
 
+Its worker also runs ``tools/pp_legs.py``'s kinds, and ``many`` (a list of
+specs of any of the six kinds in one boot of the world).
+
 Run a world from Python (:func:`run_world`); each rank is a process
 (``python -m deeplearning4j_tpu_torch.tools.tp_legs --worker ...``) started
 by :func:`~deeplearning4j_tpu_torch.parallel.mesh.spawn_ranks`. On a
@@ -443,7 +446,8 @@ def main(argv=None) -> int:
     if args.worker:
         with open(args.spec) as f:
             spec = json.load(f)
-        pp_legs.run_rank(args.backend, args.device, spec, args.out, kinds=_KINDS)
+        pp_legs.run_rank(args.backend, args.device, spec, args.out,
+                         kinds={**pp_legs._KINDS, **_KINDS})
         return 0
     for rep in run_world(small_lm_spec(), world=args.world, backend=args.backend,
                          device=args.device):

@@ -2,7 +2,9 @@
 small ragged shapes the serving path does not reach (odd lengths, head
 dims that are not a multiple of the tile, dv != d, rows that are not
 16-byte aligned, one (b, h) pair of rows against a long cache that the
-decode kernel splits over a cluster of blocks; for the grouped matmul B5
+decode kernel splits over a cluster of blocks; the bf16/f16 wgmma forward
+and dk/dv kernels at head dims that take TMA, cp.async and plain loads;
+for the grouped matmul B5
 empty groups, groups over ``m_pad``, rows past the frontier and widths
 that are not whole tiles or whole 16-byte vectors), the attention kernels'
 determinism, and the wrappers' input checks.
@@ -111,16 +113,34 @@ def _fwd_case(gen, dtype, device, b, h, tq, tk, d, dv, masked):
     (torch.float32, 130, 200, 256, 256, True, True),
     (torch.bfloat16, 77, 77, 250, 250, True, True),
     (torch.float16, 200, 77, 256, 256, True, False),
+    # the bf16/f16 wgmma kernel: lengths off its 64-row and 64-key tiles, d
+    # 31 (rows copied by the threads, plain loads), 100 (200-byte rows:
+    # cp.async, not TMA), 64, 128, 200 and 256 (TMA)
+    (torch.bfloat16, 77, 150, 31, 31, True, True),
+    (torch.float16, 77, 150, 31, 31, False, True),
+    (torch.bfloat16, 130, 333, 64, 64, True, True),
+    (torch.float16, 150, 99, 64, 64, True, False),   # tq > tk: the first rows see no key
+    (torch.bfloat16, 95, 161, 100, 100, True, True),
+    (torch.float16, 95, 161, 100, 100, False, True),
+    (torch.bfloat16, 129, 200, 128, 128, True, False),
+    (torch.float16, 129, 200, 128, 128, True, True),
+    (torch.bfloat16, 70, 190, 200, 200, True, True),
+    (torch.float16, 70, 190, 200, 136, False, True),  # dv's last 64-column block wholly past dv
+    (torch.bfloat16, 150, 99, 256, 256, True, True),
+    (torch.float16, 99, 150, 256, 64, False, True),   # d 256 with dv 64
 ])
 def test_flash_forward_tensor_core_shapes(cuda, dtype, tq, tk, d, dv, causal, masked):
     """The tensor-core forward at widths and lengths off its tiles: every
     output within the tolerance, a fully masked batch row 0 with lse
-    +1e30, rows that see no key 0."""
+    +1e30, rows that see no key 0, and a second launch bit for bit the
+    first."""
     gen = torch.Generator().manual_seed(tq + 3 * tk + d)
     q, k, v, mask = _fwd_case(gen, dtype, cuda, 2, 3, tq, tk, d, dv, masked)
     out, lse = ops.flash_attention(q, k, v, mask, causal, return_lse=True)
+    again = ops.flash_attention(q, k, v, mask, causal, return_lse=True)
     ref, ref_lse = ops.flash_attention_plain(q, k, v, mask, causal)
     torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
     assert float((lse - ref_lse).abs().max()) <= LSE_TOL[dtype]
     if masked:
@@ -244,6 +264,13 @@ def _rel_err(a, b):
     (129, 129, 36, 36, True, True),   # bf16 rows of 72 bytes: 8-byte copies, not 16
     (100, 130, 256, 256, True, True),  # head dim 256
     (70, 70, 200, 160, False, True),   # 128 < d, dv <= 256, off the tiles
+    # lengths off the dk/dv kernel's 64-key and 32-row tiles; d 31 (plain
+    # loads in bf16/f16), 100 (cp.async), 128 and 200
+    (77, 150, 31, 31, True, True),
+    (150, 99, 64, 64, True, False),   # tq > tk
+    (95, 161, 100, 100, True, True),
+    (130, 190, 128, 128, False, True),
+    (70, 190, 200, 200, True, True),
 ])
 def test_flash_backward_matches_plain(cuda, dtype, tq, tk, d, dv, causal, masked):
     gen = torch.Generator().manual_seed(tq + 7 * tk + d)
@@ -254,9 +281,11 @@ def test_flash_backward_matches_plain(cuda, dtype, tq, tk, d, dv, causal, masked
     dk, dv_ = pfa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, d ** -0.5)
     assert ops.LAUNCH_COUNTS["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert ops.LAUNCH_COUNTS["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    dk2, dv2 = pfa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, d ** -0.5)
     r_dq = ops.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, mask, causal)
     r_dk, r_dv = ops.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask, causal)
     torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv_, dv2)  # deterministic
     assert dq.dtype == dk.dtype == dv_.dtype == dtype
     for got, ref in ((dq, r_dq), (dk, r_dk), (dv_, r_dv)):
         assert _rel_err(got, ref) <= BWD_REL_TOL[dtype]
@@ -291,6 +320,8 @@ def test_flash_backward_is_deterministic(cuda, dtype, causal, masked):
     (64, 64, 0),
     (64, 128, 500),  # every key visible
     (33, 129, 17),
+    (130, 333, 203),  # the frontier off the 64-row and 64-key tiles
+    (150, 99, -51),
 ])
 def test_flash_kernels_take_an_explicit_causal_offset(cuda, dtype, tq, tk, off):
     """B1-B3 with query i seeing keys <= i + off (a ring-attention block's

@@ -1,5 +1,5 @@
 """The spine of the port against the JAX package: the public names of
-``core``, ``ops``, ``nn``, ``obs`` and ``train``; ``Environment`` and its
+every JAX subpackage that has an ``__all__``; ``Environment`` and its
 variables; the op registry (register/get, helper gating, ``abstract_eval``
 shapes on meta tensors against ``jax.eval_shape``); ``DataType`` and the
 config dict round trip; and the ``MultiLayerNetwork`` methods ``summary``
@@ -42,7 +42,13 @@ TOL = 1e-10
 LEFT_FOR_LATER = set()
 
 
-@pytest.mark.parametrize("pkg", ["core", "ops", "nn", "obs", "train"])
+# every JAX subpackage with an ``__all__``
+_EXPORTING = ["arbiter", "bench", "core", "data", "generate", "model", "modelimport", "nlp",
+              "nn", "obs", "ops", "parallel", "remote", "rl", "samediff", "serving", "train",
+              "ui", "utils"]
+
+
+@pytest.mark.parametrize("pkg", _EXPORTING)
 def test_port_exports_every_jax_name(pkg):
     jmod = importlib.import_module(f"deeplearning4j_tpu.{pkg}")
     pmod = importlib.import_module(f"deeplearning4j_tpu_torch.{pkg}")
