@@ -27,13 +27,15 @@ and a softmax, trains one with
 ``Solver.fit_batch`` (Adam 1e-4) on 8 x 1024 tokens, and runs ``output()``
 and ``Solver.fit_batch`` on the MoE network of
 ``tools/moe_profile.py::moe_lm_conf`` (one such block, then 8 experts of
-hidden 1536, top-2, capacity factor 1.25, through B5). Each path runs with
+hidden 1536, top-2, capacity factor 1.25, through B5), in float32 and with
+``compute_dtype="bfloat16"`` (B5's bf16 wgmma kernel, against the grouped
+matmul's reference seam). Each path runs with
 the launch counts set to 0 just before it and read just after. It checks
 those counts, the cached decode's log-probs against a full forward, the
 training scores, the kernel-path gradients against the materialised-scores
 reference, and the MoE network's outputs and gradients against its sort
-dispatch (``torch.bmm`` over capacity slots); it counts HMMA and atomic
-instructions in every kernel's SASS. The kernels take float32, bf16, f16
+dispatch (``torch.bmm`` over capacity slots); it counts HMMA, HGMMA and
+atomic instructions in every kernel's SASS. The kernels take float32, bf16, f16
 and f64 with head dims up to 256, and so it also holds every such
 instantiation against its plain version, and drives the entry points
 through them against the materialised-scores seam: a head-dim-256
@@ -474,6 +476,16 @@ LSA_VOCAB, LSA_CLASSES, LSA_QUERIES = 30522, 10, 8
 TOL_BF16_REL = 0.16
 TOL_BF16_GRAD_REL = 0.16
 BF16_STEPS = 3
+# The bf16 compute_dtype MoE network through B5 against the same network
+# with the grouped matmul's seam on "reference", output probabilities, max
+# abs error over the largest. The routing is the same; both sides sum exact
+# products of the same bf16 values in float32 and round once, so they differ
+# only where the two orders of the sums round to neighbouring bf16 values
+# (one ulp, 2^-8 relative) in a few elements of the expert products. A logit
+# moved by one bf16 ulp of its magnitude (|logit| < 4: up to 2^-6) moves its
+# probability by that factor: 2e-2 of the largest probability.
+TOL_MOE_BF16_REL = 2e-2
+MOE_BF16_STEPS = 2
 # Gradient checkpointing: first loss equal to 1e-6 relative (the same float32
 # forward, recomputed); gradients within 1e-4 of each parameter's largest.
 # B2/B3 own their output tiles (no atomics), but the embeddings' backward
@@ -667,9 +679,9 @@ def phase_build(build) -> None:
 
 
 def _sass_counts(stem: str) -> dict:
-    """HMMA (mma.sync), HGMMA (wgmma) and atomic instructions per function
-    in the SASS of the library built from ``csrc/<stem>.cu`` (``phase_sass``
-    prints them)."""
+    """HMMA (mma.sync), HGMMA (wgmma), WARPGROUP.DEPBAR (a wait for
+    warpgroup products) and atomic instructions per function in the SASS of
+    the library built from ``csrc/<stem>.cu`` (``phase_sass`` prints them)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = cuda_build._lib_path(cuda_build.CSRC / f"{stem}.cu")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
@@ -679,10 +691,11 @@ def _sass_counts(stem: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HMMA": 0, "HGMMA": 0, "atomics": 0}
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "DEPBAR": 0, "atomics": 0}
         elif fn is not None:
             counts[fn]["HMMA"] += "HMMA" in line
             counts[fn]["HGMMA"] += "HGMMA" in line
+            counts[fn]["DEPBAR"] += "WARPGROUP.DEPBAR" in line
             # the substring test first, the regex only where it can match
             if ("ATOM" in line or "RED" in line) and atomic.search(line):
                 counts[fn]["atomics"] += 1
@@ -695,31 +708,39 @@ def phase_sass(build) -> None:
     atomics: counted per function (each instantiation) in the built
     libraries' SASS. Instantiations: B2/B3 and B1 at 3 dtypes x 4 widths
     (DMAX 32 to 256), B4 at 3 x 4 x 2 load paths, the float64 B1-B4 at 4
-    widths each; B5's tensor-core kernel in bf16, f16 and float32 (3xTF32,
-    timed beside the path's kernel), its float32 CUDA-core kernel (2 load
-    paths) and its float64 one. The bf16 and f16 B1 at every width and B3
-    up to DMAX 128 are the wgmma kernels (HGMMA in SASS); the rest of B1-B3
-    run mma.sync (HMMA). The counts come from the build's thread."""
+    widths each; B5's wgmma kernel in bf16 and f16, its mma.sync kernel in
+    float32 (3xTF32, timed beside the path's kernel), its float32 CUDA-core
+    kernel (2 load paths) and its float64 one. The bf16 and f16 B1 at every
+    width, B2 and B3 up to DMAX 128 and B5 are the wgmma kernels (HGMMA in
+    SASS); the rest of B1-B3 and B5's 3xTF32 kernel run mma.sync (HMMA).
+    Each function's waits for warpgroup products (WARPGROUP.DEPBAR) are
+    printed beside: a wgmma under a runtime branch, or a call in the kernel,
+    makes ptxas wait after every one. The counts come from the build's
+    thread."""
     sass = build[1]["sass"]
     print(f"sass: read in {build[1]['sass_seconds']:.2f} s on the build's thread")
     for stem, counts in sass.items():
         for fn, c in counts.items():
             print(f"  sass {stem} {fn}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, "
-                  f"{c['atomics']} atomics")
+                  f"{c['DEPBAR']} WARPGROUP.DEPBAR, {c['atomics']} atomics")
 
-    def tensor_cores(counts, wgmma_name: str, n_wgmma: int) -> bool:
-        wg = [c for fn, c in counts.items() if wgmma_name in fn]
-        rest = [c for fn, c in counts.items() if wgmma_name not in fn]
-        return (len(wg) == n_wgmma and all(c["HGMMA"] > 0 for c in wg)
-                and all(c["HMMA"] > 0 for c in rest)
+    def tensor_cores(counts, wgmma: dict, mma_sync: str) -> bool:
+        """``wgmma``: {name: instantiations}, each with HGMMA; the functions
+        named ``mma_sync``, or every other one if it is empty, with HMMA."""
+        wg = [c for fn, c in counts.items() if any(n in fn for n in wgmma)]
+        rest = [c for fn, c in counts.items() if not any(n in fn for n in wgmma)
+                and mma_sync in fn]
+        return (all(sum(n in fn for fn in counts) == k for n, k in wgmma.items())
+                and all(c["HGMMA"] > 0 for c in wg) and all(c["HMMA"] > 0 for c in rest)
                 and all(c["atomics"] == 0 for c in counts.values()))
 
     bwd = sass["flash_backward"]
-    check(len(bwd) == 24 and tensor_cores(bwd, "flash_bwd_dkv_wgmma_kernel", 6),
-          "the bf16/f16 dk/dv kernels up to DMAX 128 (6) must run HGMMA, every other backward "
-          "kernel HMMA, and none atomics")
+    check(len(bwd) == 24 and tensor_cores(bwd, {"flash_bwd_dkv_wgmma_kernel": 6,
+                                                "flash_bwd_dq_wgmma_kernel": 6}, ""),
+          "the bf16/f16 dq and dk/dv kernels up to DMAX 128 (6 each) must run HGMMA, every "
+          "other backward kernel HMMA, and none atomics")
     fwd = sass["flash_forward"]
-    check(len(fwd) == 12 and tensor_cores(fwd, "flash_forward_wgmma_kernel", 8),
+    check(len(fwd) == 12 and tensor_cores(fwd, {"flash_forward_wgmma_kernel": 8}, ""),
           "the bf16/f16 forward kernels (8) must run HGMMA, the float32 ones HMMA, and none "
           "atomics")
     dec = sass["flash_decode"]
@@ -729,30 +750,36 @@ def phase_sass(build) -> None:
     check(len(f64) == 16 and all(c["atomics"] == 0 for c in f64.values()),
           "the float64 attention kernels must have no atomics")
     gmm = sass["grouped_matmul"]
-    tc = [c for fn, c in gmm.items() if "grouped_matmul_tc_kernel" in fn]
-    check(len(gmm) == 6 and len(tc) == 3 and all(c["HMMA"] > 0 for c in tc)
-          and all(c["atomics"] == 0 for c in gmm.values()),
-          "B5's tensor-core kernels (bf16, f16 and the float32 3xTF32 one) must run HMMA, "
-          "and no B5 kernel atomics")
+    check(len(gmm) == 6 and sum("grouped_matmul_tc_kernel" in fn for fn in gmm) == 1
+          and tensor_cores(gmm, {"grouped_matmul_wgmma_kernel": 2}, "grouped_matmul_tc_kernel"),
+          "B5's wgmma kernels (bf16, f16) must run HGMMA, its one mma.sync kernel (the float32 "
+          "3xTF32 one) HMMA, and no B5 kernel atomics")
 
 
 def _route(fn, wgmma: str, mma_sync: str) -> tuple:
     """Launches of the kernels named ``wgmma`` and ``mma_sync`` that
     ``torch.profiler`` sees over 10 calls of ``fn``. (That no bf16 or f16
-    mma.sync instantiation of B1, or of B3 below DMAX 256, exists at all is
-    ``phase_sass``'s check.)"""
+    mma.sync instantiation of B1 or B5, or of B2 and B3 below DMAX 256,
+    exists at all is ``phase_sass``'s check.) The profiler may drop some
+    or all of a short window's kernel records (a whole run of this script
+    saw 3, 2 and 0 of 10 launches in three windows), so the counts are a
+    lower bound, and a window that records no kernel at all is taken again,
+    up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-    names = [(e.key, e.count) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"  profiler kernels: {[(n[:70], c) for n, c in names]}")
-    check(bool(names), "the profiler saw no kernel")
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        names = [(e.key, e.count) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        print(f"  profiler kernels (window {window + 1}): {[(n[:70], c) for n, c in names]}")
+        if names:
+            break
+    check(bool(names), "the profiler saw no kernel in three windows")
     return (sum(c for n, c in names if wgmma in n), sum(c for n, c in names if mma_sync in n))
 
 
@@ -928,9 +955,12 @@ def phase_flash_decode(gen, decode_pos) -> dict:
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
               f"{nbytes / 1e6:.2f} MB); host {issue_us:.1f} us to issue a call; CUDA events "
               f"around back-to-back calls {events_ms:.5f} ms a call")
+        fig = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         if dtype == torch.float32:
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+            row.update(fig)
+        else:
+            row["bf16"] = fig
         del caches
     # the long cache, every position live
     q1 = torch.randn(1, 2, 1, D, generator=gen).cuda()
@@ -1039,11 +1069,11 @@ def phase_flash_backward(gen) -> dict:
               + "; ".join(f"{n} {[round(x, 4) for x in r]}" for n, r in rounds.items())
               + f"; medians: B2 + B3 {both:.4f} against sdpa backward {lib_ms:.4f} "
               f"({both / lib_ms:.2f}x)")
-        if dtype == torch.bfloat16:  # the route: B3 on the wgmma kernel
-            seen, old = _route(timed["flash_bwd_dkv"][0], "flash_bwd_dkv_wgmma_kernel",
-                               "flash_bwd_dkv_kernel<")
-            print(f"flash_bwd_dkv bfloat16 route: {seen} wgmma kernel launches, {old} mma.sync")
-            check(seen > 0 and old == 0, "a bf16 B3 launch must run the wgmma kernel")
+        if dtype == torch.bfloat16:  # the route: B2 and B3 on the wgmma kernels
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                seen, old = _route(timed[name][0], f"{name}_wgmma_kernel", f"{name}_kernel<")
+                print(f"{name} bfloat16 route: {seen} wgmma kernel launches, {old} mma.sync")
+                check(seen > 0 and old == 0, f"a bf16 {name} launch must run the wgmma kernel")
         for name, (kernel, plain, products, n_out) in timed.items():
             ms = med[name]
             plain_ms = kv.ms(plain, 3)
@@ -2156,8 +2186,9 @@ def phase_moe(card: str):
     """The MoE network's paths: ``output()`` on [8, 1024] ids without and
     with a ragged mask, then ``TRAIN_STEPS`` ``Solver.fit_batch`` steps;
     then its grouped dispatch (B5) against sort dispatch on the same
-    params. Returns the launch counts over both paths and the per-expert
-    row counts the last training step routed."""
+    params. Returns the launch counts over both paths, the per-expert row
+    counts the last training step routed, and the median ms of a training
+    step with its peak memory."""
     t0 = time.perf_counter()
     model = MultiLayerNetwork(moe_lm_conf()).init()  # on the current CUDA device
     torch.cuda.synchronize()
@@ -2252,7 +2283,85 @@ def phase_moe(card: str):
     check(e_out <= TOL_BWD_REL[torch.float32], "grouped-dispatch outputs disagree with sort")
     check(worst[0] <= TOL_GRAD_REL, "grouped-dispatch gradients disagree with sort")
     del sort_model, grads, ref
-    return {n: serve[n] + train[n] for n in serve}, routed
+    return {n: serve[n] + train[n] for n in serve}, routed, {"ms": ms, "peak": peak}
+
+
+def phase_moe_bf16(card: str, f32: dict) -> dict:
+    """The MoE network of "MoE network" with ``compute_dtype="bfloat16"``
+    over float32 master weights: ``output()`` on its [8, 1024] ids, its
+    grouped matmuls on B5's bf16 wgmma kernel (the profiler sees no other
+    B5 kernel), held against the same network and ids with the grouped
+    matmul's seam on ``"reference"`` (the same routing, B5's plain version
+    on the card); then ``MOE_BF16_STEPS`` ``Solver.fit_batch`` steps after
+    one untimed step, the score falling, ms a step and peak memory beside
+    the float32 step's (``f32``, from "MoE network"). Returns the launch
+    counts."""
+    model = MultiLayerNetwork(moe_lm_conf(compute_dtype="bfloat16")).init()
+    rs = np.random.RandomState(SEED + 3)  # the float32 phase's batch
+    ids_np = rs.randint(0, 50257, (B, T_FULL + 1))
+    ids = torch.from_numpy(ids_np[:, :-1]).cuda()
+    labels = torch.from_numpy(ids_np[:, 1:]).cuda()
+    raw, _, _ = model.forward_pure(model.params, model.state, model._input(ids[:1, :16]))
+    check(raw.dtype == torch.bfloat16, "the layers must compute in bfloat16")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    probs = model.output(ids)
+    torch.cuda.synchronize()
+    out_ms = 1e3 * (time.perf_counter() - t0)
+    serve = _all_counts()
+    check(serve == {"flash_forward": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "flash_decode": 0, "grouped_matmul": 2},
+          f"bf16 MoE output() must launch B1 once and B5 twice: {serve}")
+    check(probs.dtype == torch.float32 and tuple(probs.shape) == (B, 50257, T_FULL)
+          and bool(torch.isfinite(probs).all()), "bf16 MoE output() must be finite float32")
+    fa.set_grouped_matmul_impl("reference")
+    try:
+        ref = model.output(ids)
+    finally:
+        fa.set_grouped_matmul_impl("auto")
+    e_out = rel_err(probs, ref)
+    del probs, ref
+    # the launch count above is exact (2 a call); the profiler names them
+    seen, old = _route(lambda: model.output(ids), "grouped_matmul_wgmma_kernel",
+                       "grouped_matmul_tc_kernel")
+    print(f"moe bf16 output() route: {seen} B5 wgmma kernel launches seen in 10 calls, {old} "
+          f"mma.sync")
+    check(seen > 0 and old == 0, "bf16 MoE output() must run B5's wgmma kernel, never mma.sync")
+
+    solver = Solver(model)
+    fa.reset_launch_counts()
+    scores, step_ms = [], []
+    for i in range(1 + MOE_BF16_STEPS):
+        if i == 1:  # after the untimed step: library handles, allocator pools
+            torch.cuda.reset_peak_memory_stats()
+        before = _all_counts()
+        t0 = time.perf_counter()
+        score, _ = solver.fit_batch(ids, labels)
+        torch.cuda.synchronize()
+        if i > 0:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        scores.append(float(score))
+        per_step = {n: c - before[n] for n, c in _all_counts().items()}
+        check(per_step == {"flash_forward": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                           "flash_decode": 0, "grouped_matmul": 4},
+              f"a bf16 MoE step must launch B1, B2, B3 once and B5 4 times: {per_step}")
+    train = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+          f"the bf16 MoE score must fall over the steps: {scores}")
+    check({p.dtype for p in model.parameters()} == {torch.float32}, "master weights stay float32")
+    ms = float(np.median(step_ms))
+    tok = B * T_FULL
+    print(f"moe bf16 compute_dtype ({card}): output() [8,1024] {out_ms:.2f} ms, vs the "
+          f"grouped matmul's reference seam rel error {e_out:.3e} (tol {TOL_MOE_BF16_REL:g}); "
+          f"Solver.fit_batch Adam(1e-4), {MOE_BF16_STEPS} steps after one untimed step "
+          f"{[round(t, 2) for t in step_ms]} ms, median {ms:.2f} ms/step = "
+          f"{tok / ms * 1e3:.0f} tokens/s beside f32 {f32['ms']:.2f} ms/step = "
+          f"{tok / f32['ms'] * 1e3:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB beside "
+          f"f32 {f32['peak'] / 2**30:.2f} GiB; scores {[round(v, 5) for v in scores]}; launches "
+          f"output() {serve}, steps {train}")
+    check(e_out <= TOL_MOE_BF16_REL, "bf16 MoE output() through B5 disagrees with the seam")
+    return {n: serve[n] + train[n] for n in serve}
 
 
 def phase_lm_head256() -> dict:
@@ -3862,15 +3971,22 @@ def phase_grouped_matmul(gen, routed) -> dict:
             # kept lhs rows read, rhs read, every output row written, group sizes
             nbytes = (kept * d + E_MOE * d * h + n * h) * lhs.element_size() + 4 * E_MOE
             bound_ms, bound_by = roofline(flops, nbytes, dtype)
-            extra = ""
+            extra, gmm_ms, gmm_why = "", None, "torch has no _grouped_mm"
             if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
                 offs = torch.cumsum(gs, 0, dtype=torch.int32)
                 try:
                     gmm_ms = kv.ms(lambda: torch._grouped_mm(lhs, rhs, offs=offs), 20)
+                    gmm_why = "ran"
                     extra = f", torch._grouped_mm {gmm_ms:.4f} ms"
                 except Exception as exc:  # a yardstick only: report why it did not run
-                    extra = (f", torch._grouped_mm not run ({type(exc).__name__}: "
-                             f"{str(exc)[:120]})")
+                    gmm_why = f"{type(exc).__name__}: {str(exc)[:120]}"
+                    extra = f", torch._grouped_mm not run ({gmm_why})"
+            if dtype == torch.bfloat16 and load == "routed":  # the route: the wgmma kernel
+                seen, old = _route(timed["kernel"], "grouped_matmul_wgmma_kernel",
+                                   "grouped_matmul_tc_kernel")
+                print(f"grouped_matmul bfloat16 route: {seen} wgmma kernel launches, {old} "
+                      f"mma.sync")
+                check(seen > 0 and old == 0, "a bf16 B5 launch must run the wgmma kernel")
             print(f"grouped_matmul {str(dtype)[6:]} [{n},{d}]x[{E_MOE},{d},{h}] "
                   f"m_pad={CAPACITY}, {load} load, {kept} kept rows {sizes}, 3 paired rounds "
                   f"(ms): kernel {[round(x, 4) for x in rounds['kernel']]}, padded torch.bmm "
@@ -3879,9 +3995,13 @@ def phase_grouped_matmul(gen, routed) -> dict:
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
                   f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB"
                   f"{cuda_core_note(flops, dtype)}; {bound_ms / ms:.0%} of it){alt}")
+            fig = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
             if dtype == torch.float32 and load == "routed":
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+                row.update(fig)
+            elif dtype == torch.bfloat16 and load == "routed":
+                # torch._grouped_mm beside the padded bmm: a second library figure
+                row["bf16"] = dict(fig, grouped_mm_ms=gmm_ms, grouped_mm=gmm_why)
             del buf
     return row
 
@@ -5916,8 +6036,8 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
     del model
     timed("device sampler", phase_sampler)
     paths.append(timed("LM training", phase_train, card))
-    moe, routed = timed("MoE network", phase_moe, card)
-    paths.append(moe)
+    moe, routed, moe_f32 = timed("MoE network", phase_moe, card)
+    paths += [moe, timed("bf16 compute_dtype MoE network", phase_moe_bf16, card, moe_f32)]
     gmm = timed("B5", phase_grouped_matmul, gen, routed)
     # what the multi-process phases are held against, made in this process
     dp1, world1 = timed("data-parallel LM, world 1", phase_dp_world1, card)
@@ -5977,7 +6097,8 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
     # LeNet, the zoo, DQN, A3C and the arbiter's LeNets. Then LM serving, the
     # engines, HTTP serving, the contract harnesses (B1 on /v1/serving, B4
     # in the graphed decode steps) and the int8 and fp8 LM (B1, B4);
-    # training and the MoE network (B1-B3, B5); the data-parallel world-1
+    # training and the MoE network in float32 and bf16 (B1-B3, B5); the
+    # data-parallel world-1
     # trainer (B1-B3); the elastic restart's children (B1-B3, counted in
     # their own processes). Then in this process the head-dim-256, float16,
     # float64 and float64-MoE paths, BERT-base, the LearnedSelfAttention

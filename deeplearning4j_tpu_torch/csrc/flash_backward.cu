@@ -27,9 +27,9 @@
 // product (below), so the float32 limit is 3 x flops at the dense TF32 rate
 // (495 TFLOP/s), not the CUDA cores' 67 TFLOP/s.
 //
-// Design of the float32 kernels, of the dq kernel in every type and of the
-// bf16/f16 dk/dv kernel at DMAX 256 (the products, fragments and copies are
-// mma_tf32.cuh's, shared with the forward kernel).
+// Design of the float32 kernels and of the bf16/f16 kernels at DMAX 256
+// (the products, fragments and copies are mma_tf32.cuh's, shared with the
+// forward kernel).
 // * Ownership, as the TPU kernels' sequential grid axis becomes a loop: a dq
 //   block owns a 64-row q tile of one (b,h), keeps its q and g tiles, lse and
 //   delta in shared memory, and walks the 64-key k/v tiles up to its causal
@@ -106,6 +106,33 @@
 //   past d or dv are zeroed once instead.
 // * At DMAX 256 its two 64 x 256 float32 sums would take 256 registers a
 //   thread, so that width keeps the mma.sync kernel.
+//
+// Design of the bf16 and f16 dq kernel up to DMAX 128,
+// flash_bwd_dq_wgmma_kernel (wgmma.cuh's products, TMA and layout):
+// * Ownership as the mma.sync dq kernel's, in the orientation that needs no
+//   transpose: one warpgroup owns a 64-row q tile (the M of wgmma), keeps
+//   its q and g tiles (by TMA) and its rows' lse and delta (in registers),
+//   and walks 64-key k/v tiles (32 keys above DMAX 64) up to its causal
+//   frontier, the heaviest q tiles first. s = q·kᵀ and dp = g·vᵀ are one
+//   wgmma chain each, A (q or g) and B (k or v) K-major, as they lie.
+// * p = 2^(s·scale·log2 e - lse·log2 e) and ds = p ∘ (dp - delta) on the
+//   accumulators, the masked-to--1e30 rule and lse +1e30 of a fully masked
+//   row kept; tiles wholly inside the causal frontier with no key mask
+//   skip the mask test.
+// * dq += ds·k takes A from registers (the accumulator of ds is the A
+//   fragment of the next product, in order), ds split hi + lo in two
+//   16-bit terms as B3 splits dsᵀ, so that the kernel computes what its
+//   plain version does (ds in float32); B is the k tile read MN-major. The
+//   scale multiplies the sum at the store.
+// * Round kt issues the scores of tile kt and the dq sums of tile kt - 1
+//   together, the sums running on under tile kt's probabilities (as fast
+//   as waiting for them, tools/flash_backward_variants.py); k and v come by
+//   TMA (the unaligned rows by the threads) and the key validity by
+//   cp.async into a ring of three stages.
+// * Every wgmma between a fence and its wait is issued unconditionally;
+//   blocks wholly past d or dv are zeroed once instead.
+// * At DMAX 256 ptxas spills 152 bytes a thread (its 64 x 256 sum is 128
+//   registers), so that width keeps the mma.sync kernel.
 
 #include <type_traits>
 
@@ -410,13 +437,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // ---- bf16 and f16 dk/dv: warpgroup products (wgmma.cuh) --------------------
 
 // The bf16 and f16 dk/dv instantiations at DMAX <= kWgmmaMaxD run this
-// kernel; float32, DMAX 256 (dk and dv sums of 64 x 256 would take 256
-// registers a thread) and the dq kernel run the mma.sync kernels above.
+// kernel; float32 and DMAX 256 (dk and dv sums of 64 x 256 would take 256
+// registers a thread) run the mma.sync kernel above.
 constexpr bool kWgmma = true;
 constexpr int kWgmmaMaxD = 128;
 constexpr int kWgWalk = 32;    // q rows a block walks at a time
 constexpr int kWgStages = 3;   // q/g tiles: this round's, the last round's, the next
-constexpr int kWgRows = 64;    // keys a block: one warpgroup
+constexpr int kWgRows = 64;    // keys (dk/dv) or q rows (dq) a block: one warpgroup
 constexpr int kWgMinBlocks = 3;    // blocks an SM that ptxas must fit at DMAX <= 64
 constexpr bool kWgOverlap = true;  // the last tile's sums run on under these probabilities
 constexpr int kWgThreads = 128;
@@ -686,6 +713,261 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   }
 }
 
+// ---- bf16 and f16 dq: warpgroup products (wgmma.cuh) ------------------------
+
+// The bf16 and f16 dq instantiations at DMAX <= kWgDqMaxD run this kernel;
+// float32 and DMAX 256 (the 64 x 256 dq sum with the scores beside it
+// outgrows the registers) run flash_bwd_dq_kernel above.
+constexpr int kWgDqMaxD = 128;  // at 256 ptxas spills 152 bytes a thread (255 registers)
+constexpr int kWgDqKeys = 64;      // keys a k/v tile (the N of s = q·kᵀ) at DMAX <= 64
+constexpr int kWgDqStages = 3;     // k/v tiles: this round's, the last round's, the next
+
+template <typename T, int DMAX>
+__host__ __device__ constexpr bool use_wgmma_dq() {
+  return sizeof(T) == 2 && DMAX <= kWgDqMaxD;
+}
+
+// keys a dq block walks at a time: 32 above DMAX 64, where q and g take 32
+// KB of shared memory and the dq sum 64 registers a thread
+template <int DMAX>
+__host__ __device__ constexpr int wg_dq_keys() { return DMAX > 64 ? 32 : kWgDqKeys; }
+
+template <int DMAX>
+constexpr size_t wg_dq_smem_bytes() {
+  // q, g: [NB][64][64]; k, v: kWgDqStages stages of [NB][BN][64]; key
+  // validity: kWgDqStages stages of [BN]; the mbarriers; 1024 bytes of
+  // alignment slack
+  constexpr int W = wg_width<DMAX>(), BN = wg_dq_keys<DMAX>(), ST = kWgDqStages;
+  return 2 * (2 * kWgRows + 2 * ST * BN) * W + sizeof(float) * ST * BN + 8 * (1 + ST) + 1024;
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kWgThreads, DMAX <= 64 ? kWgMinBlocks : 1)
+flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
+                          __grid_constant__ const CUtensorMap kmap,
+                          __grid_constant__ const CUtensorMap vmap,
+                          __grid_constant__ const CUtensorMap gmap, const T* __restrict__ q,
+                          const T* __restrict__ k, const T* __restrict__ v,
+                          const T* __restrict__ g, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const float* __restrict__ mask,
+                          T* __restrict__ dq, int h, int tq, int tk, int d, int dv, float scale,
+                          int causal, int tk_off, int vec_d, int vec_dv) {
+  constexpr int W = wg_width<DMAX>();
+  constexpr int NB = W / kSwzCols;  // swizzled blocks a row
+  constexpr int BN = wg_dq_keys<DMAX>();
+  constexpr int NS = BN / 2;  // accumulator registers of s and dp
+  constexpr int NO = W / 2;   // accumulator registers of dq
+  constexpr int KT = BN * NB * kSwzCols;  // elements of a k or v stage
+  constexpr int ST = kWgDqStages;
+  extern __shared__ unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(align_1024(smem_raw));
+  T* Gs = Qs + kWgRows * NB * kSwzCols;
+  T* Ks = Gs + kWgRows * NB * kSwzCols;  // [ST][NB][BN][64]
+  T* Vs = Ks + ST * KT;
+  float* Kvalid = reinterpret_cast<float*>(Vs + ST * KT);          // [ST][BN]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Kvalid + ST * BN);  // q and g, then one a stage
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // accumulator row and column of this lane
+  const int w0 = (tid >> 5) * 16;           // this warp's first row of the tile
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  // the last q tiles see the most keys under the causal mask: start them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;
+  const bool tma_qk = vec_d == 16, tma_vg = vec_dv == 16;  // else copies by the threads
+  const float s_mul = scale * kLog2e;  // s in base-2 units: p = 2^(s - lse·log2 e)
+
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * dv;
+  int n_tiles = (tk + BN - 1) / BN;
+  if (causal) {
+    const int last = q0 + kWgRows - 1 + tk_off;  // the last key any row of this tile sees
+    n_tiles = last < 0 ? 0 : min(n_tiles, last / BN + 1);
+  }
+  // tiles [0, n_full) need no mask: no key mask, inside tk, and every key at
+  // or below the causal frontier of the tile's first row
+  int n_full = mask != nullptr ? 0 : tk / BN;
+  if (causal) n_full = min(n_full, q0 + tk_off < 0 ? 0 : (q0 + tk_off + 1) / BN);
+  // rows gr and gr + 8 of this warp: lse (base 2) and delta; rows past tq
+  // take lse +1e30, so p = 0, as the TPU kernel's padding does
+  float l2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + w0 + gr + 8 * hf;
+    l2[hf] = r < tq ? lse[(size_t)bh * tq + r] * kLog2e : -kNeg;
+    dl[hf] = r < tq ? delta[(size_t)bh * tq + r] : 0.f;
+  }
+  if (tid == 0) {
+    for (int i = 0; i <= ST; ++i) mbar_init(bars + i);
+    mbar_init_fence();
+  }
+  // blocks wholly past d (q, k) or dv (g, v), which TMA leaves unwritten,
+  // are read as zeros by the products (every product runs all DMAX / 16
+  // steps and all W columns): zero them once
+  if (tma_qk && live_blocks<NB>(d) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(Qs, live_blocks<NB>(d));
+    for (int st = 0; st < ST; ++st)
+      zero_blocks<kWgThreads, BN, NB>(Ks + st * KT, live_blocks<NB>(d));
+  }
+  if (tma_vg && live_blocks<NB>(dv) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(Gs, live_blocks<NB>(dv));
+    for (int st = 0; st < ST; ++st)
+      zero_blocks<kWgThreads, BN, NB>(Vs + st * KT, live_blocks<NB>(dv));
+  }
+  __syncthreads();  // the barriers are initialised before anyone uses them
+
+  // k/v tile kt sits in stage kt % ST, complete on barrier 1 + that
+  const CUtensorMap *kmap_p = &kmap, *vmap_p = &vmap;
+  auto load_kv = [&](int kt) {
+    const int st = kt % ST, k0 = kt * BN;
+    uint64_t* bar = bars + 1 + st;
+    if (tid == 0) {
+      mbar_expect(bar, (tma_qk ? tile_bytes<BN, NB, T>(d) : 0) +
+                           (tma_vg ? tile_bytes<BN, NB, T>(dv) : 0));
+      if (tma_qk) tma_tile<BN, NB>(Ks + st * KT, kmap_p, bar, k0, d, bh);
+      if (tma_vg) tma_tile<BN, NB>(Vs + st * KT, vmap_p, bar, k0, dv, bh);
+    }
+    if (!tma_qk) copy_tile<kWgThreads, BN, NB>(Ks + st * KT, kb, k0, tk, d, vec_d);
+    if (!tma_vg) copy_tile<kWgThreads, BN, NB>(Vs + st * KT, vb, k0, tk, dv, vec_dv);
+    float* kv = Kvalid + st * BN;
+    if (mask != nullptr) {
+      copy_vec_async<kWgThreads>(kv, mask + (size_t)b * tk, k0, tk, BN);
+    } else if (tid < BN) {
+      kv[tid] = k0 + tid < tk ? 1.f : 0.f;
+    }
+  };
+
+  if (n_tiles > 0) {  // no copy may outlive the block
+    if (tid == 0) {
+      mbar_expect(bars, (tma_qk ? tile_bytes<kWgRows, NB, T>(d) : 0) +
+                            (tma_vg ? tile_bytes<kWgRows, NB, T>(dv) : 0));
+      if (tma_qk) tma_tile<kWgRows, NB>(Qs, &qmap, bars, q0, d, bh);
+      if (tma_vg) tma_tile<kWgRows, NB>(Gs, &gmap, bars, q0, dv, bh);
+    }
+    if (!tma_qk)
+      copy_tile<kWgThreads, kWgRows, NB>(Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
+    if (!tma_vg)
+      copy_tile<kWgThreads, kWgRows, NB>(Gs, g + (size_t)bh * tq * dv, q0, tq, dv, vec_dv);
+    load_kv(0);
+  }
+  cp_commit();
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  // ds of the last round's tile, hi + lo in two 16-bit terms
+  uint32_t ds_hi[BN / 16][4], ds_lo[BN / 16][4];
+  float s[NS], dp[NS];  // the first steps of q·kᵀ and g·vᵀ overwrite them (scale_d = 0)
+
+  // Round kt takes s and dp of k/v tile kt and the dq sums of tile kt - 1;
+  // it loads tile kt + 1 into the stage that round kt - 1 freed.
+  auto begin_round = [&](int kt) {
+    cp_wait<0>();        // tile kt's copies by the threads
+    fence_async_smem();  // ... and zeros, visible to the products
+    __syncthreads();     // round kt - 1 is done with its stages
+    if (kt + 1 < n_tiles) load_kv(kt + 1);
+    cp_commit();
+    if (kt == 0) mbar_wait(bars, 0);
+    mbar_wait(bars + 1 + kt % ST, (kt / ST) & 1);
+  };
+  // every product below is issued unconditionally between its fence and
+  // its wait: a wgmma under a branch makes ptxas serialize them all
+  // k is read K-major by the scores and MN-major by the sums
+  const uint64_t dq0 = smem_desc(Qs, 16, 1024), dg0 = smem_desc(Gs, 16, 1024);
+  const uint64_t dk0 = smem_desc(Ks, 16, 1024), dv0 = smem_desc(Vs, 16, 1024);
+  const uint64_t dkm0 = smem_desc(Ks, BN * kSwzCols * 2, 1024);
+  // s = q·kᵀ, dp = g·vᵀ: one m64nBNk16 product a 16-column step
+  auto scores = [&](int kt) {
+    const uint32_t at = kt % ST * KT * 2;  // the tile's stage
+    const uint64_t dk = desc_at(dk0, at), dv = desc_at(dv0, at);
+#pragma unroll
+    for (int kd = 0; kd < DMAX / 16; ++kd)
+      wgmma_ss<0>(s, desc_at(dq0, k_step<kWgRows>(kd)), desc_at(dk, k_step<BN>(kd)), kd > 0,
+                  T());
+#pragma unroll
+    for (int kd = 0; kd < DMAX / 16; ++kd)
+      wgmma_ss<0>(dp, desc_at(dg0, k_step<kWgRows>(kd)), desc_at(dv, k_step<BN>(kd)), kd > 0,
+                  T());
+  };
+  auto sums = [&](int kt) {  // dq += ds·k of tile kt (keys past tk: ds = 0, zero rows of k)
+    const uint64_t dkm = desc_at(dkm0, kt % ST * KT * 2);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t bk = desc_at(dkm, mn_step(kk));
+      wgmma_rs<1>(acc, ds_hi[kk], bk, 1, T());
+      wgmma_rs<1>(acc, ds_lo[kk], bk, 1, T());
+    }
+  };
+  // ds into s; element i is row gr + 8 ((i / 2) % 2), key 8 (i / 4) + 2tc + i % 2
+  auto probabilities = [&](int kt) {
+    if (kt < n_full) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int hf = (i >> 1) & 1;
+        const float p = ex2(fmaf(s[i], s_mul, -l2[hf]));
+        s[i] = p * (dp[i] - dl[hf]);
+      }
+    } else {
+      const int k0 = kt * BN;
+      const float* kv = Kvalid + kt % ST * BN;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int hf = (i >> 1) & 1;
+        const int kl = 8 * (i >> 2) + 2 * tc + (i & 1);
+        const int qi = q0 + w0 + gr + 8 * hf;
+        const bool keep = kv[kl] > 0.f && (!causal || qi + tk_off >= k0 + kl);
+        const float sv = keep ? s[i] * s_mul : kNeg;
+        const float p = sv > kNeg * 0.5f ? ex2(sv - l2[hf]) : 0.f;
+        s[i] = p * (dp[i] - dl[hf]);
+      }
+    }
+  };
+  auto to_a = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<T>(s, kk, ds_hi[kk], ds_lo[kk]);
+  };
+
+  if (n_tiles > 0) {
+    begin_round(0);  // the scores of the first tile alone
+    wg_fence();
+    scores(0);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(s);
+    wg_hold(dp);
+    probabilities(0);
+    to_a();
+    for (int kt = 1; kt < n_tiles; ++kt) {  // scores of tile kt, dq sums of kt - 1
+      begin_round(kt);
+      wg_fence();
+      scores(kt);
+      wg_commit();
+      sums(kt - 1);
+      wg_commit();
+      wg_wait<1>();  // s and dp; the sums run on under the probabilities
+      wg_hold(s);
+      wg_hold(dp);
+      probabilities(kt);
+      wg_wait<0>();
+      wg_hold(acc);
+      to_a();
+    }
+    wg_fence();  // the sums of the last tile
+    sums(n_tiles - 1);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(acc);
+  }
+  cp_wait<0>();
+
+  T* out = dq + (size_t)bh * tq * d;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) {
+    const int r = q0 + w0 + gr + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + 2 * tc + (i & 1);
+    if (r < tq && c < d) store(out + (size_t)r * d + c, acc[i] * scale);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta, *mask;
@@ -722,6 +1004,42 @@ cudaError_t launch_dq(const Args& a) {
       a.tk, a.d, a.dv, a.scale, a.causal, a.causal_offset, copy_bytes(a.d, sizeof(T), a.q, a.k),
       copy_bytes(a.dv, sizeof(T), a.v, a.g));
   return cudaGetLastError();
+}
+
+template <typename T, int DMAX>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  constexpr int BN = wg_dq_keys<DMAX>();
+  constexpr size_t bytes = wg_dq_smem_bytes<DMAX>();
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(flash_bwd_dq_wgmma_kernel<T, DMAX>, (int)bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const int vec_d = copy_bytes(a.d, sizeof(T), a.q, a.k);
+  const int vec_dv = copy_bytes(a.dv, sizeof(T), a.v, a.g);
+  const int n = a.b * a.h;
+  CUtensorMap qm{}, km{}, vm{}, gm{};  // encoded where TMA copies the operand
+  if (vec_d == 16 && ((err = tile_map<T>(&qm, a.q, n, a.tq, a.d, kWgRows)) != cudaSuccess ||
+                      (err = tile_map<T>(&km, a.k, n, a.tk, a.d, BN)) != cudaSuccess))
+    return err;
+  if (vec_dv == 16 && ((err = tile_map<T>(&gm, a.g, n, a.tq, a.dv, kWgRows)) != cudaSuccess ||
+                       (err = tile_map<T>(&vm, a.v, n, a.tk, a.dv, BN)) != cudaSuccess))
+    return err;
+  const dim3 grid(n, (a.tq + kWgRows - 1) / kWgRows);
+  flash_bwd_dq_wgmma_kernel<T, DMAX><<<grid, kWgThreads, bytes, a.stream>>>(
+      qm, km, vm, gm, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta, a.mask,
+      static_cast<T*>(a.out0), a.h, a.tq, a.tk, a.d, a.dv, a.scale, a.causal, a.causal_offset,
+      vec_d, vec_dv);
+  return cudaGetLastError();
+}
+
+// the wgmma dq kernel for bf16 and f16 up to kWgDqMaxD, else the mma.sync one
+template <typename T, int DMAX>
+cudaError_t pick_dq(const Args& a) {
+  if constexpr (use_wgmma_dq<T, DMAX>()) {
+    return launch_dq_wgmma<T, DMAX>(a);
+  } else {
+    return launch_dq<T, DMAX>(a);
+  }
 }
 
 template <typename T, int DMAX>
@@ -780,10 +1098,10 @@ cudaError_t pick_dkv(const Args& a) {
 template <bool DQ, typename T>
 cudaError_t dispatch(const Args& a) {
   const int dmax = a.d > a.dv ? a.d : a.dv;
-  if (dmax <= 32) return DQ ? launch_dq<T, 32>(a) : pick_dkv<T, 32>(a);
-  if (dmax <= 64) return DQ ? launch_dq<T, 64>(a) : pick_dkv<T, 64>(a);
-  if (dmax <= 128) return DQ ? launch_dq<T, 128>(a) : pick_dkv<T, 128>(a);
-  if (dmax <= 256) return DQ ? launch_dq<T, 256>(a) : pick_dkv<T, 256>(a);
+  if (dmax <= 32) return DQ ? pick_dq<T, 32>(a) : pick_dkv<T, 32>(a);
+  if (dmax <= 64) return DQ ? pick_dq<T, 64>(a) : pick_dkv<T, 64>(a);
+  if (dmax <= 128) return DQ ? pick_dq<T, 128>(a) : pick_dkv<T, 128>(a);
+  if (dmax <= 256) return DQ ? pick_dq<T, 256>(a) : pick_dkv<T, 256>(a);
   return cudaErrorInvalidValue;
 }
 

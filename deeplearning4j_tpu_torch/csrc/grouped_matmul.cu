@@ -1,14 +1,16 @@
 // Grouped (ragged) expert matmul for Hopper (sm_90a): bfloat16 and float16 on
-// the tensor cores, float32 and float64 on the CUDA cores.
+// the tensor cores through warpgroup products, float32 and float64 on the
+// CUDA cores.
 //
 // Replaces: deeplearning4j_tpu/ops/grouped_matmul.py::_gmm_kernel (the Pallas
 // TPU kernel launched by _gmm_pallas).
 //
 // Computes out[N, h] = grouped(lhs [N, d], sizes [E], rhs [E, d, h]). Rows are
 // sorted by group: group e owns rows [off_e, off_e + sizes[e]), off the
-// exclusive cumsum of sizes. A group's rows at local index >= m_pad, rows past
-// sum(sizes), and global rows >= N are never written (the wrapper zero-fills
-// `out`, so they read 0) and rows >= N are never read. Operands share one
+// exclusive cumsum of sizes. A group's rows at local index >= m_pad and rows
+// past sum(sizes) read 0 (the float32 and float64 kernels never write them
+// and the wrapper zero-fills `out`; the bf16/f16 kernel writes their zeros),
+// and rows >= N are never read or written. Operands share one
 // dtype; products accumulate in float32 (float64 for float64) with one
 // rounding at the store.
 //
@@ -21,25 +23,53 @@
 //
 // Design. The TPU kernel reads zero-padded [E, m_pad, d] group tiles that its
 // wrapper gathers through device memory, and skips m-tiles past a group's
-// frontier. Here no padded buffer exists: the grid is (h tiles, m tiles up to
-// m_pad, E), each block sums the sizes before its group to find the group's
-// first row (E is small), returns at once when its tile starts at or past
-// min(sizes[e], m_pad), and zero-fills the ragged edges on load. Each block
-// owns an output tile, so every output row is written by one block: no
-// atomics, a deterministic result.
-// * bf16, f16: the tensor-core kernel, mma.sync m16n8k16 with float32
-//   accumulators, one mma a 16-deep step, on a 128x128 tile of 8 warps (2 x
-//   4, each 64x32: 4 x 4 m16n8 accumulators). The operands stay 16-bit in
-//   shared memory; ldmatrix reads A's fragment from the row-major [m][k] tile
-//   and, transposed (.trans), B's column-major fragment from rhs's [k][n]
-//   rows as they lie. cp.async of 16-byte pieces where rows and bases allow
-//   it (else 8 or 4 bytes, or plain loads for rows of odd length),
-//   zero-filled past the group's rows, past d and past h; three 32-deep
-//   slabs in flight, one barrier a slab. Rows are padded to 4 words mod 32
-//   banks, distinct 16-byte rows for each 8-lane ldmatrix phase. Measured on
-//   the H100 (tools/grouped_matmul_variants.py): without its products the
-//   loop takes 86% of its time, so it is bound by moving the tiles from L2,
-//   not by the tensor cores.
+// frontier. Here no padded buffer exists: every output tile of (h tiles, m
+// tiles up to m_pad, E) finds its group's first row by summing the sizes
+// before it (E is small), is passed over when it starts at or past
+// min(sizes[e], m_pad), and zero-fills the ragged edges on load (the
+// float32 and float64 kernels launch one block a tile). Each tile is
+// written by one block: no atomics, a deterministic result.
+// * bf16, f16: grouped_matmul_wgmma_kernel, Hopper's warpgroup products fed
+//   by TMA (the products, tensor maps and swizzled layout are wgmma.cuh's).
+//   A block of three warpgroups stays on its SM (one block an SM, the grid
+//   the SM count) and walks output tiles of 128 rows x 192 columns in the
+//   order (group, m tile, h tile), h fastest, each block taking every
+//   gridDim-th tile and passing over those past a group's frontier.
+//   Warpgroup 0 is the producer: one thread keeps a ring of four stages in
+//   flight, each a 128 x 64 box of lhs (K-major, at row off_e + m0; rows
+//   past the group's end belong to the next group and are multiplied, never
+//   stored; rows past N come as TMA's zeros) and the 64 x 192 box of rhs[e]
+//   (MN-major: its rows are the reduction axis) by cp.async.bulk.tensor on a
+//   "full" mbarrier, once the consumers have released the stage on its
+//   "empty" mbarrier. Warpgroups 1 and 2 own 64 rows each: per stage four
+//   wgmma.m64n192k16 (B read transposed, as it lies) into float32
+//   accumulators, the stage released as soon as its products are done
+//   (keeping them in flight under the next stage's, or moving the
+//   producer's registers to the consumers by setmaxnreg, was within 1.3%).
+//   Then each consumer rounds its 64 rows to T into a swizzled tile of its
+//   own in shared memory, which TMA stores (clipped at h) while the next
+//   tile's products run; a group's last tile, whose rows end inside it, is
+//   stored by the threads up to the group's end (min(sizes[e], m_pad)).
+//   The rows no group keeps are zeroed by the producer warpgroup's other
+//   three warps meanwhile, so that the caller need not fill the whole
+//   output with zeros first (a memset of every row, a fifth of the
+//   kernel's time at the MoE shape).
+//   Rows TMA cannot take (d or h not a multiple of 8, bases not 16-byte
+//   aligned) are copied by the producer warpgroup's 128 threads into the
+//   same layout (copy_box: cp.async, or plain loads), which then arrive on
+//   the full barrier themselves. Every wgmma between a fence and its wait
+//   is issued unconditionally.
+//   Measured on the H100 at the MoE shape (tools/grouped_matmul_variants.py):
+//   the ring of copies alone takes ~90% of the kernel's time and the stores
+//   another part, the products little of it, so it is bound by moving tiles
+//   from L2: 192-column tiles move a sixth less than 128-column ones and
+//   leave almost no partial last wave (1536 = 8 x 192); 256 columns fit
+//   only three stages beside their output tile. Storing from the
+//   accumulators instead of through shared memory by TMA was 1.5x slower.
+//   The mma.sync kernel of PR 6 (grouped_matmul_tc_kernel: 128 x 128 tiles
+//   of 8 warps, ldmatrix and cp.async, 86% of its time moving tiles) stays
+//   instantiated for float32 only (3xTF32, below); the variants tool
+//   instantiates it for bf16 again to time the two designs side by side.
 // * float32: a CUDA-core kernel (below). The same tensor-core kernel in
 //   3xTF32 (each element split once a block into its TF32 hi and lo parts,
 //   a_lo·b_hi + a_hi·b_lo + a_hi·b_hi on mma.sync m16n8k8, each slab's sum
@@ -52,7 +82,10 @@
 // * float64: a plain SIMT kernel, 64x64 tiles, 256 threads each owning 4x4
 //   outputs, float64 sums.
 
+#include <climits>
+
 #include "mma_tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -113,7 +146,7 @@ __device__ __forceinline__ void copy_async(T* dst, const T* __restrict__ src, in
 }
 
 template <int R, int C, int S, typename T>
-__device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src, int rows, int ld,
+__device__ __forceinline__ void copy_slab(T* dst, const T* __restrict__ src, int rows, int ld,
                                           int c0, int vec) {
   if (vec == 16) {
     copy_async<R, C, S, 16>(dst, src, rows, ld, c0);
@@ -130,7 +163,7 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src, int
 }
 
 // The float32 elements this thread copied of an [R][S] raw tile (vec as for
-// copy_tile), each as its (hi, lo) TF32 pair into an [R][HS] word tile.
+// copy_slab), each as its (hi, lo) TF32 pair into an [R][HS] word tile.
 template <int R, int C, int S, int HS, int E>
 __device__ __forceinline__ void split_pieces(uint32_t* dst, const float* src) {
   own_pieces<R, C, E>([&](int r, int c) {
@@ -165,16 +198,16 @@ __device__ __forceinline__ void store2(__half* p, float x, float y) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
-// this block's group: its first row (off), its rows in this tile, or false
-// when the tile lies past the group's frontier (the TPU kernel's skip)
+// group e's tile at local row m0: its first row (off_e + m0) and its rows
+// (at most BM), or false when the tile lies past the group's frontier (the
+// TPU kernel's skip) or outside [0, n)
 struct Rows {
   long long row0;
   int rows;
 };
 template <int BM>
-__device__ __forceinline__ bool block_rows(const int* __restrict__ sizes, int n, int m_pad,
-                                           Rows& out) {
-  const int e = blockIdx.z, m0 = blockIdx.y * BM;
+__device__ __forceinline__ bool group_rows(const int* __restrict__ sizes, int n, int m_pad, int e,
+                                           int m0, Rows& out) {
   long long off = 0;
   for (int i = 0; i < e; ++i) off += sizes[i];
   const int limit = min(max(sizes[e], 0), m_pad);
@@ -183,6 +216,12 @@ __device__ __forceinline__ bool block_rows(const int* __restrict__ sizes, int n,
   if (out.row0 < 0 || out.row0 >= n) return false;
   out.rows = (int)min((long long)min(BM, limit - m0), (long long)n - out.row0);
   return true;
+}
+// this block's tile of the grid (h tiles, m tiles, groups)
+template <int BM>
+__device__ __forceinline__ bool block_rows(const int* __restrict__ sizes, int n, int m_pad,
+                                           Rows& out) {
+  return group_rows<BM>(sizes, n, m_pad, blockIdx.z, blockIdx.y * BM, out);
 }
 
 template <typename T>
@@ -213,8 +252,8 @@ grouped_matmul_tc_kernel(const T* __restrict__ lhs, const int* __restrict__ size
   // slab s into raw stage st: A rows of the tile x k [s BK, s BK + BK), B k
   // rows x this block's columns
   auto load = [&](int s, int st) {
-    copy_tile<BM, BK, AS>(As + st * BM * AS, a_base, blk.rows, d, s * BK, vec_a);
-    copy_tile<BK, BN, BS>(Bs + st * BK * BS, b_base + (size_t)s * BK * h,
+    copy_slab<BM, BK, AS>(As + st * BM * AS, a_base, blk.rows, d, s * BK, vec_a);
+    copy_slab<BK, BN, BS>(Bs + st * BK * BS, b_base + (size_t)s * BK * h,
                           min(BK, d - s * BK), h, n0, vec_b);
   };
 
@@ -364,6 +403,232 @@ grouped_matmul_tc_kernel(const T* __restrict__ lhs, const int* __restrict__ size
       }
     }
   }
+}
+
+// ---- bf16 and f16: warpgroup products fed by TMA (wgmma.cuh) -----------------
+
+constexpr int kGmBM = 128;        // rows a tile: two consumer warpgroups of 64
+constexpr int kGmBN = 192;        // columns a tile (the N of wgmma: 128, 192 or 256)
+constexpr int kGmBK = 64;         // the reduction axis a stage: one swizzled block row
+constexpr int kGmStages = 4;      // stages of the ring
+constexpr int kGmThreads = 384;   // the producer warpgroup, then two consumer warpgroups
+constexpr int kGmConsumerWarps = 8;  // arrivals that release a stage
+
+template <int BN>
+constexpr size_t gm_smem_bytes() {
+  // A: [ST][128][64], B: [ST][BN / 64][64][64], the consumers' output
+  // tiles [2][BN / 64][64][64], full and empty mbarriers, 1024 bytes of
+  // alignment slack
+  return 2 * (kGmStages * (kGmBM * kGmBK + kGmBK * BN) + kGmBM * BN) + 2 * 8 * kGmStages + 1024;
+}
+
+// a named barrier of the 128 threads of consumer warpgroup c
+__device__ __forceinline__ void consumer_sync(int c) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");
+}
+
+// Tile a of the order (group, m tile, h tile), h tiles fastest
+struct GmTile {
+  Rows r;
+  int e, n0;
+};
+template <int BN>
+__device__ __forceinline__ bool gm_tile(int a, const int* __restrict__ sizes, int n, int m_pad,
+                                        int m_tiles, int h_tiles, GmTile& t) {
+  const int rest = a / h_tiles;
+  t.n0 = (a - rest * h_tiles) * BN;
+  t.e = rest / m_tiles;
+  return group_rows<kGmBM>(sizes, n, m_pad, t.e, (rest - t.e * m_tiles) * kGmBM, t.r);
+}
+
+// Zeros the rows of `out` that no group keeps: past min(sizes[e], m_pad)
+// inside group e, and past sum(sizes) (group sizes are counts, >= 0); worker
+// w of nw, in 16-byte stores where rows are whole 16-byte vectors
+template <typename T>
+__device__ __forceinline__ void zero_dropped(T* __restrict__ out, const int* __restrict__ sizes,
+                                             int e, int n, int h, int m_pad, int w, int nw,
+                                             int vec16) {
+  long long off = 0;
+  for (int g = 0; g <= e; ++g) {
+    long long r0 = off, r1 = n;
+    if (g < e) {
+      const int s = max(sizes[g], 0);
+      r0 = off + min(s, m_pad);
+      r1 = off + s;
+      off += s;
+    }
+    r1 = min(r1, (long long)n);
+    if (r0 >= r1) continue;
+    T* p = out + r0 * h;
+    const long long count = (r1 - r0) * h;  // elements
+    if (vec16) {
+      uint4* q = reinterpret_cast<uint4*>(p);
+      for (long long i = w; i < count * (long long)sizeof(T) / 16; i += nw) q[i] = make_uint4(0, 0, 0, 0);
+    } else {
+      for (long long i = w; i < count; i += nw) store(p + i, 0.f);
+    }
+  }
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(kGmThreads, 1)
+grouped_matmul_wgmma_kernel(__grid_constant__ const CUtensorMap amap,
+                            __grid_constant__ const CUtensorMap bmap,
+                            __grid_constant__ const CUtensorMap omap, const T* __restrict__ lhs,
+                            const int* __restrict__ sizes, const T* __restrict__ rhs,
+                            T* __restrict__ out, int n, int d, int h, int e, int m_pad,
+                            int m_tiles, int h_tiles, int n_tiles, int tma, int tma_out,
+                            int vec_a, int vec_b, int pair_out) {
+  constexpr int BM = kGmBM, BK = kGmBK, ST = kGmStages;
+  constexpr int NB = BN / kSwzCols;         // 64-column blocks of a B stage
+  constexpr int AT = BM * BK, BT = BK * BN;  // elements of an A stage and a B stage
+  constexpr int NO = BN / 2;                 // accumulator registers a consumer thread
+  extern __shared__ unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(align_1024(smem_raw));  // [ST][BM][64]
+  T* Bs = As + ST * AT;                                 // [ST][NB][BK][64]
+  T* Os = Bs + ST * BT;                                 // [2][NB][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Os + BM * BN);
+  uint64_t* empty = full + ST;
+  const int n_slabs = (d + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, tma ? 1 : 128);  // the producer's expect_tx, or its 128 copiers
+      mbar_init(empty + i, kGmConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // ---- the producer warpgroup ----
+    int st = 0;
+    uint32_t ph = 0;
+    if (tma) {
+      if (threadIdx.x >= 32)  // the producer's other three warps
+        zero_dropped(out, sizes, e, n, h, m_pad, blockIdx.x * 96 + threadIdx.x - 32,
+                     gridDim.x * 96, tma_out);
+      if (threadIdx.x != 0) return;
+      for (int a = blockIdx.x; a < n_tiles; a += gridDim.x) {
+        GmTile t;
+        if (!gm_tile<BN>(a, sizes, n, m_pad, m_tiles, h_tiles, t)) continue;
+        const int live = live_blocks<NB>(h - t.n0);
+        for (int s = 0; s < n_slabs; ++s) {
+          mbar_wait(empty + st, ph ^ 1);  // the stage's last use is released
+          mbar_expect(full + st, 2 * (AT + live * BK * kSwzCols));
+          tma_load(As + st * AT, &amap, full + st, s * BK, (int)t.r.row0, 0);
+          for (int j = 0; j < live; ++j)
+            tma_load(Bs + st * BT + j * BK * kSwzCols, &bmap, full + st, t.n0 + j * kSwzCols,
+                     s * BK, t.e);
+          if (++st == ST) st = 0, ph ^= 1;
+        }
+      }
+      return;
+    }
+    // the rows TMA cannot take: every thread of the warpgroup copies, and
+    // arrives on a stage's full barrier once its copies of it have landed
+    // (one stage behind, so that two stages' copies are in flight)
+    int prev = -1;
+    for (int a = blockIdx.x; a < n_tiles; a += gridDim.x) {
+      GmTile t;
+      if (!gm_tile<BN>(a, sizes, n, m_pad, m_tiles, h_tiles, t)) continue;
+      const T* b = rhs + (size_t)t.e * d * h;
+      for (int s = 0; s < n_slabs; ++s) {
+        mbar_wait(empty + st, ph ^ 1);
+        copy_box<128, BM, 1>(As + st * AT, lhs, t.r.row0, n, d, s * BK, vec_a);
+        copy_box<128, BK, NB>(Bs + st * BT, b, (long long)s * BK, d, h, t.n0, vec_b);
+        cp_commit();
+        if (prev >= 0) {
+          cp_wait<1>();
+          fence_async_smem();
+          mbar_arrive(full + prev);
+        }
+        prev = st;
+        if (++st == ST) st = 0, ph ^= 1;
+      }
+    }
+    cp_wait<0>();
+    if (prev >= 0) {
+      fence_async_smem();
+      mbar_arrive(full + prev);
+    }
+    zero_dropped(out, sizes, e, n, h, m_pad, blockIdx.x * 128 + threadIdx.x, gridDim.x * 128,
+                 tma_out);
+    return;
+  }
+
+  // ---- the consumer warpgroups: rows [64 c, 64 c + 64) of each tile ----
+  const int tid = threadIdx.x - 128, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int c = tid >> 7;
+  const int r_w = 64 * c + 16 * ((tid >> 5) & 3);  // this warp's first row of the tile
+  const uint64_t da0 = smem_desc(As + c * 64 * kSwzCols, 16, 1024);  // K-major
+  const uint64_t db0 = smem_desc(Bs, BK * kSwzCols * 2, 1024);       // MN-major
+  float acc[NO];
+  int st = 0;
+  uint32_t ph = 0;
+  for (int a = blockIdx.x; a < n_tiles; a += gridDim.x) {
+    GmTile t;
+    if (!gm_tile<BN>(a, sizes, n, m_pad, m_tiles, h_tiles, t)) continue;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    for (int s = 0; s < n_slabs; ++s) {
+      mbar_wait(full + st, ph);
+      const uint64_t da = desc_at(da0, st * AT * 2), db = desc_at(db0, st * BT * 2);
+      wg_fence();
+#pragma unroll
+      for (int kd = 0; kd < BK / 16; ++kd)
+        wgmma_ss<1>(acc, desc_at(da, k_step<BM>(kd)), desc_at(db, mn_step(kd)), 1, T());
+      wg_commit();
+      wg_wait<0>();  // the stage's products are done: release it
+      if (lane == 0) mbar_arrive(empty + st);
+      if (++st == ST) st = 0, ph ^= 1;
+    }
+    wg_hold(acc);
+
+    // accumulator element i: row r_w + gr + 8 ((i / 2) % 2), column
+    // n0 + 8 (i / 4) + 2 tc + i % 2. A warpgroup whose 64 rows all belong to
+    // the tile rounds them into its swizzled output tile, which TMA stores
+    // (clipped at h) while the next tile's products run; the rows of a
+    // group's last tile are stored by the threads, up to the group's end.
+    if (tma_out && t.r.rows >= 64 * (c + 1)) {
+      T* o = Os + c * 64 * BN;
+      if (tid % 128 == 0) bulk_wait_read();  // the last tile's store has read o
+      consumer_sync(c);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = r_w - 64 * c + gr + 8 * hf;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          store2(o + (j >> 3) * 64 * kSwzCols + swz(r, 8 * (j & 7) + 2 * tc),
+                 acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+      }
+      fence_async_smem();
+      consumer_sync(c);
+      if (tid % 128 == 0) {
+        for (int j = 0; j < NB && t.n0 + j * kSwzCols < h; ++j)
+          tma_store(&omap, o + j * 64 * kSwzCols, t.n0 + j * kSwzCols, (int)t.r.row0 + 64 * c, 0);
+        bulk_commit();
+      }
+      continue;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r_w + gr + 8 * hf;
+      if (r >= t.r.rows) continue;
+      T* orow = out + (t.r.row0 + r) * (long long)h;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = t.n0 + 8 * j + 2 * tc;
+        const float x = acc[4 * j + 2 * hf], y = acc[4 * j + 2 * hf + 1];
+        if (pair_out && col + 1 < h) {
+          store2(orow + col, x, y);
+        } else {
+          if (col < h) store(orow + col, x);
+          if (col + 1 < h) store(orow + col + 1, y);
+        }
+      }
+    }
+  }
+  if (tid % 128 == 0) bulk_wait();  // no store outlives the block's shared memory
 }
 
 // ---- float32 on the CUDA cores ------------------------------------------------
@@ -573,6 +838,39 @@ cudaError_t launch_tc(const void* lhs, const int* sizes, const void* rhs, void* 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_wgmma(const void* lhs, const int* sizes, const void* rhs, void* out, int n,
+                         int d, int h, int e, int m_pad, cudaStream_t stream) {
+  constexpr int BN = kGmBN;
+  constexpr size_t bytes = gm_smem_bytes<BN>();
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(grouped_matmul_wgmma_kernel<T, BN>, (int)bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long m_tiles = (m_pad + kGmBM - 1) / kGmBM, h_tiles = (h + BN - 1) / BN;
+  const long long tiles = m_tiles * h_tiles * e;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int vec_a = copy_bytes(d, sizeof(T), lhs, lhs);
+  const int vec_b = copy_bytes(h, sizeof(T), rhs, rhs);
+  const int tma = d > 0 && vec_a == 16 && vec_b == 16;
+  const int tma_out = copy_bytes(h, sizeof(T), out, out) == 16;
+  CUtensorMap am{}, bm{}, om{};  // encoded where TMA copies the operands and stores
+  if (tma && ((err = tile_map<T>(&am, lhs, 1, n, d, kGmBM)) != cudaSuccess ||
+              (err = tile_map<T>(&bm, rhs, e, d, h, kGmBK)) != cudaSuccess))
+    return err;
+  if (tma_out && (err = tile_map<T>(&om, out, 1, n, h, 64)) != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int pair_out = h % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  grouped_matmul_wgmma_kernel<T, BN><<<grid, kGmThreads, bytes, stream>>>(
+      am, bm, om, static_cast<const T*>(lhs), sizes, static_cast<const T*>(rhs),
+      static_cast<T*>(out), n, d, h, e, m_pad, (int)m_tiles, (int)h_tiles, (int)tiles, tma,
+      tma_out, vec_a, vec_b, pair_out);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_simt(const void* lhs, const int* sizes, const void* rhs, void* out, int n,
                         int d, int h, int e, int m_pad, cudaStream_t stream) {
   if ((m_pad + kSBM - 1) / kSBM > 65535) return cudaErrorInvalidValue;
@@ -608,9 +906,11 @@ bool valid(int n, int d, int h, int e, int m_pad) {
 
 // Returns cudaGetLastError() after the launch (0 on success). Allocates
 // nothing; launches on `stream`. dtype: 0 float32 (CUDA cores, fmaf chains),
-// 1 bfloat16 and 2 float16 (tensor cores), 3 float64 (CUDA cores);
+// 1 bfloat16 and 2 float16 (warpgroup products), 3 float64 (CUDA cores);
 // mma_tf32.cuh's DType; any other code is cudaErrorInvalidValue. lhs and rhs
-// are contiguous; `out` must be zero-filled by the caller.
+// are contiguous and the group sizes counts (>= 0). In float32 and float64
+// `out` must be zero-filled by the caller; the bf16/f16 kernel writes every
+// row of it, zeros where no group keeps the row.
 extern "C" int dl4j_grouped_matmul(const void* lhs, const void* sizes, const void* rhs,
                                    void* out, int n, int d, int h, int e, int m_pad,
                                    int dtype, void* stream) {
@@ -619,8 +919,8 @@ extern "C" int dl4j_grouped_matmul(const void* lhs, const void* sizes, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return (int)launch_simt(lhs, s, rhs, out, n, d, h, e, m_pad, st);
-    case kBF16: return (int)launch_tc<__nv_bfloat16>(lhs, s, rhs, out, n, d, h, e, m_pad, st);
-    case kF16: return (int)launch_tc<__half>(lhs, s, rhs, out, n, d, h, e, m_pad, st);
+    case kBF16: return (int)launch_wgmma<__nv_bfloat16>(lhs, s, rhs, out, n, d, h, e, m_pad, st);
+    case kF16: return (int)launch_wgmma<__half>(lhs, s, rhs, out, n, d, h, e, m_pad, st);
     case kF64: return (int)launch_f64(lhs, s, rhs, out, n, d, h, e, m_pad, st);
     default: return (int)cudaErrorInvalidValue;
   }

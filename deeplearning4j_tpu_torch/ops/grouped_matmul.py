@@ -186,9 +186,10 @@ grouped_matmul_reference = grouped_matmul_plain
 
 def _gmm_cuda(lhs, rhs, group_sizes, m_pad: int) -> torch.Tensor:
     """Launch B5 on ``lhs``'s stream. Both operands are cast to the output
-    dtype (float32, bfloat16, float16 or float64) and made contiguous; the
-    output is zero-filled here, so dropped rows and rows past the frontier
-    stay 0."""
+    dtype (float32, bfloat16, float16 or float64) and made contiguous.
+    Dropped rows and rows past the frontier read 0: in float32 and float64
+    the output is zero-filled here; the bf16/f16 kernel writes those zeros
+    itself, so its output is allocated uninitialised."""
     out_dtype = torch.promote_types(lhs.dtype, rhs.dtype)
     if out_dtype not in _KERNEL_DTYPES:
         raise TypeError(f"grouped_matmul: dtype {out_dtype} not supported by the "
@@ -202,9 +203,10 @@ def _gmm_cuda(lhs, rhs, group_sizes, m_pad: int) -> torch.Tensor:
     sizes = group_sizes.to(torch.int32).contiguous()
     n, d = lhs.shape
     e, _, h = rhs.shape
-    out = torch.zeros((n, h), dtype=out_dtype, device=dev)
     if n == 0 or h == 0 or e == 0:
-        return out
+        return torch.zeros((n, h), dtype=out_dtype, device=dev)
+    alloc = torch.empty if out_dtype in _HALF else torch.zeros
+    out = alloc((n, h), dtype=out_dtype, device=dev)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _fn("grouped_matmul", "dl4j_grouped_matmul", [P, P, P, P] + [I] * 6 + [P])
     with torch.cuda.device(dev):

@@ -3,22 +3,24 @@ against the kernels as they are.
 
 Run from the repository root on a machine with a CUDA device::
 
-    python3 -m deeplearning4j_tpu_torch.tools.flash_backward_variants
+    python3 -m deeplearning4j_tpu_torch.tools.flash_backward_variants [variant ...]
 
 Builds ``csrc/flash_backward.cu`` as it is and with each variant in
 :data:`VARIANTS` (a text substitution of the source and its headers, see
-:mod:`.kernel_variants`), all at once; then, at the training
+:mod:`.kernel_variants`; those named on the command line, or all), all at once; then, at the training
 path's shape ([8, 12, 1024, 64], causal), times each build's two kernels in
 float32, bfloat16 and float16 in turn, three rounds, and prints the median
 of each with the relative error against the plain versions and the
 registers ptxas reports. The variants of the float32 kernels act on the
-mma.sync kernels; the "wgmma" ones on the bf16/f16 dk/dv kernel.
+mma.sync kernels; the others on the bf16/f16 wgmma dq and dk/dv kernels
+(among them the mma.sync dq design they replaced).
 """
 
 from __future__ import annotations
 
 import ctypes
 import importlib
+import sys
 
 import torch
 
@@ -48,6 +50,16 @@ VARIANTS = {
     "sums after the probabilities": [("constexpr bool kWgOverlap = true;",
                                       "constexpr bool kWgOverlap = false;")],
     "no occupancy floor": [("constexpr int kWgMinBlocks = 3;", "constexpr int kWgMinBlocks = 1;")],
+    # the bf16/f16 dq kernel: the mma.sync design it replaced, without the
+    # overlap of the sums, at 32 keys a tile; ds in one 16-bit term (error
+    # printed beside the time; not shipped)
+    "16-bit dq on mma.sync": [("  return sizeof(T) == 2 && DMAX <= kWgDqMaxD;", "  return false;")],
+    "dq sums after the probabilities": [
+        ("      wg_wait<1>();  // s and dp; the sums run on under the probabilities",
+         "      wg_wait<0>();")],
+    "wgmma dq walks 32 keys": [("constexpr int kWgDqKeys = 64;", "constexpr int kWgDqKeys = 32;")],
+    "one-term ds in dq (not shipped)": [
+        ("      wgmma_rs<1>(acc, ds_lo[kk], bk, 1, T());\n", "")],
     # pᵀ and dsᵀ in one bf16/f16 term: error printed beside the time; not shipped
     "one-term p, ds (not shipped)": [
         ("      wgmma_rs<1>(dv_acc, p_lo[kk], bg, 1, T());\n", ""),
@@ -68,7 +80,7 @@ def main() -> None:
         raise SystemExit("flash_backward_variants needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(kv.card())
-    libs = kv.build("bwd", kv.variant_sources("flash_backward", VARIANTS), SYMBOLS)
+    libs = kv.build("bwd", kv.variant_sources("flash_backward", VARIANTS, sys.argv[1:]), SYMBOLS)
     gen = torch.Generator().manual_seed(1)
     scale = D ** -0.5
     for dtype in (torch.float32, torch.bfloat16, torch.float16):

@@ -3,23 +3,27 @@ kernel as it is.
 
 Run from the repository root on a machine with a CUDA device::
 
-    python3 -m deeplearning4j_tpu_torch.tools.grouped_matmul_variants
+    python3 -m deeplearning4j_tpu_torch.tools.grouped_matmul_variants [variant ...]
 
 Builds ``csrc/grouped_matmul.cu`` as it is and with each variant in
-:data:`VARIANTS` (text substitutions, see :mod:`.kernel_variants`), all at
-once, printing each build's registers and spills. Then times every build
-at the MoE layer's first product, ``[16384, 768] x [8, 768, 1536]`` with
-``m_pad`` 2560, in float32 (the CUDA-core kernel on the port's path, and
-the 3xTF32 tensor-core kernel beside it) and bfloat16, at a balanced load
-(2048 rows an expert) and at a skewed one like the MoE network's routing
-(four experts at capacity, one empty), three rounds in turn by CUDA events,
-and prints the medians with each build's error against the plain version.
+:data:`VARIANTS` (text substitutions, see :mod:`.kernel_variants`; those named on
+the command line, or all), all at once, printing each build's registers and spills: the mma.sync design that
+bf16 and f16 ran before the wgmma kernel, the wgmma kernel's tile width,
+ring depth and register split, and timing-only brackets. Then times every
+build at the MoE layer's first product, ``[16384, 768] x [8, 768, 1536]``
+with ``m_pad`` 2560, in float32 (the CUDA-core kernel on the port's path,
+and the 3xTF32 tensor-core kernel beside it) and bfloat16, at a balanced
+load (2048 rows an expert) and at a skewed one like the MoE network's
+routing (four experts at capacity, one empty), three rounds in turn by CUDA
+events, and prints the medians with each build's error against the plain
+version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import importlib
+import sys
 
 import numpy as np
 import torch
@@ -33,42 +37,41 @@ LOADS = {"balanced": [2048] * 8, "skewed": [2560, 2560, 2560, 2560, 1900, 1300, 
 
 #: name: [(text in the source, its replacement), ...]
 VARIANTS = {
-    # the tensor-core kernel's tile shape and pipeline
-    "BK 16": [("static constexpr int BK = 32;", "static constexpr int BK = 16;")],
-    "BK 64 in bf16/f16": [("static constexpr int BK = 32;",
-                           "static constexpr int BK = kF32 ? 32 : 64;")],
-    "4 x 2 warps (32 x 64 a warp)": [("constexpr int kWarpsM = 2, kWarpsN = 4;",
-                                      "constexpr int kWarpsM = 4, kWarpsN = 2;")],
-    "BK 16, 2 blocks an SM": [
-        ("static constexpr int BK = 32;", "static constexpr int BK = 16;"),
-        ("static constexpr int kMinBlocks = 1;", "static constexpr int kMinBlocks = 2;")],
-    "bf16/f16: 2 blocks an SM": [("static constexpr int kMinBlocks = 1;",
-                                  "static constexpr int kMinBlocks = kF32 ? 1 : 2;")],
-    "bf16/f16: 4 stages": [("static constexpr int kStages = kF32 ? 2 : 3;",
-                            "static constexpr int kStages = kF32 ? 2 : 4;")],
-    "bf16/f16: 128 x 256 tiles (8 warps of 64 x 64)": [
-        ("static constexpr int BN = 128;", "static constexpr int BN = kF32 ? 128 : 256;")],
-    "bf16/f16: 256 x 128 tiles (8 warps of 64 x 64)": [
-        ("static constexpr int BM = 128;", "static constexpr int BM = kF32 ? 128 : 256;"),
-        ("static constexpr int kWarpsM = 2, kWarpsN = 4;",
-         "static constexpr int kWarpsM = kF32 ? 2 : 4, kWarpsN = kF32 ? 4 : 2;")],
+    # the design before the wgmma kernel: mma.sync m16n8k16 on 128 x 128
+    # tiles of 8 warps, ldmatrix and cp.async (PR 6)
+    "mma.sync design (PR 6)": [
+        ("case kBF16: return (int)launch_wgmma<__nv_bfloat16>(",
+         "case kBF16: return (int)launch_tc<__nv_bfloat16>("),
+        ("case kF16: return (int)launch_wgmma<__half>(", "case kF16: return (int)launch_tc<__half>(")],
+    # the wgmma kernel's tile, ring, register split and epilogue
+    "N 128 (128 x 128 tiles), 6 stages": [
+        ("constexpr int kGmBN = 192;", "constexpr int kGmBN = 128;"),
+        ("constexpr int kGmStages = 4;", "constexpr int kGmStages = 6;")],
+    "N 256 (128 x 256 tiles), 3 stages": [
+        ("constexpr int kGmBN = 192;", "constexpr int kGmBN = 256;"),
+        ("constexpr int kGmStages = 4;", "constexpr int kGmStages = 3;")],
+    "3 stages": [("constexpr int kGmStages = 4;", "constexpr int kGmStages = 3;")],
+    "setmaxnreg 40/232": [
+        ("  if (threadIdx.x < 128) {  // ---- the producer warpgroup ----\n",
+         "  if (threadIdx.x < 128) {  // ---- the producer warpgroup ----\n"
+         "    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 40;\");\n"),
+        ("  // ---- the consumer warpgroups: rows [64 c, 64 c + 64) of each tile ----\n",
+         "  // ---- the consumer warpgroups: rows [64 c, 64 c + 64) of each tile ----\n"
+         "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 232;\");\n")],
+    "stores from the accumulators": [("    if (tma_out && t.r.rows >= 64 * (c + 1)) {",
+                                      "    if (false) {")],
     # 3xTF32: every mma into one float32 sum, which the mma truncates
     "3xTF32: no per-slab flush": [
         ("mma_tf32(part[i][j], af,", "mma_tf32(acc[i][j], af,"),
         ("for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];",
          "for (int e = 0; e < 4; ++e) (void)part[i][j][e];")],
-    # timing only (wrong results): what the tensor-core loop costs without
-    # its copies of the next slabs, and without its products
-    "no copies in the loop (timing only)": [
-        ("if (s + 2 < n_slabs) load(s + 2, st);", ";"),
-        ("split_slab(st ^ 1);  //", ";  //"),
-        ("if (s + ST - 1 < n_slabs) load(s + ST - 1, (s + ST - 1) % ST);", ";")],
-    "no mma (timing only)": [
-        ("mma_tf32(part[i][j], af, blo ? b[j][0].y : b[j][0].x,\n"
-         "                       blo ? b[j][1].y : b[j][1].x);",
-         "part[i][j][0] += __uint_as_float(af[0] ^ b[j][0].x);"),
-        ("for (int j = 0; j < NT; ++j) mma_16bit<T>(acc[i][j], a[i], b[j]);",
-         "for (int j = 0; j < NT; ++j) acc[i][j][0] += __uint_as_float(a[i][0] ^ b[j][0]);")],
+    # timing only (wrong results): the wgmma kernel without its products (the
+    # ring of copies alone), and without its stores
+    "wgmma: no products (timing only)": [
+        ("        wgmma_ss<1>(acc, desc_at(da, k_step<BM>(kd)), desc_at(db, mn_step(kd)), 1, T());",
+         "        acc[kd] += (float)(da >> 62);")],
+    "wgmma: no stores (timing only)": [
+        ("    if (tma_out && t.r.rows >= 64 * (c + 1)) {", "    continue;\n    if (tma_out) {")],
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -84,7 +87,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("grouped_matmul_variants needs a CUDA device")
     print(kv.card())
-    libs = kv.build("gmm", kv.variant_sources("grouped_matmul", VARIANTS), SYMBOLS)
+    libs = kv.build("gmm", kv.variant_sources("grouped_matmul", VARIANTS, sys.argv[1:]), SYMBOLS)
     gen = torch.Generator().manual_seed(3)
     lhs32 = torch.randn(N, D, generator=gen).cuda()
     rhs32 = (torch.randn(E, D, H, generator=gen) * D ** -0.5).cuda()

@@ -10,19 +10,26 @@ from __future__ import annotations
 import ctypes
 import re
 import subprocess
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.ops import cuda_build
 
 
-def variant_sources(stem: str, variants: Dict[str, List[Tuple[str, str]]]) -> Dict[str, str]:
-    """``{"as it is": text, name: substituted text, ...}``; raises if a
-    variant's text is no longer in the source."""
+def variant_sources(stem: str, variants: Dict[str, List[Tuple[str, str]]],
+                    only: Sequence[str] = ()) -> Dict[str, str]:
+    """``{"as it is": text, name: substituted text, ...}``, of the variants
+    named in ``only`` if it names any; raises if a variant's text is no
+    longer in the source, or ``only`` names no variant."""
+    unknown = set(only) - set(variants)
+    if unknown:
+        raise SystemExit(f"no such variant: {sorted(unknown)}; known: {sorted(variants)}")
     base = cuda_build.source_text(cuda_build.CSRC / f"{stem}.cu")
     sources = {"as it is": base}
     for name, subs in variants.items():
+        if only and name not in only:
+            continue
         text = base
         for old, new in subs:
             if old not in text:

@@ -2,12 +2,14 @@
 
 Run from the repository root on a machine with a CUDA device::
 
-    python3 -m deeplearning4j_tpu_torch.tools.moe_profile
+    python3 -m deeplearning4j_tpu_torch.tools.moe_profile [--compute-dtype bfloat16]
 
 Builds the network that ``chip_smoke.py`` runs (:func:`moe_lm_conf`:
 GPT-2 small's trunk widths cut to one decoder block, then a
 ``MixtureOfExpertsLayer`` at the widths of the JAX package's MoE
-dispatch benchmark; seeded random weights, float32, Adam 1e-4) and one
+dispatch benchmark; seeded random weights, float32, Adam 1e-4; with
+``--compute-dtype`` the layers compute in that dtype over float32 master
+weights) and one
 fixed batch of 8 x 1024 tokens. For ``output()`` and for one
 ``Solver.fit_batch`` step it prints the host wall time of unprofiled runs,
 the device busy time that ``torch.profiler`` attributes to CUDA kernels,
@@ -18,7 +20,9 @@ port's kernels (B1-B3 and the grouped matmul B5).
 
 from __future__ import annotations
 
+import argparse
 import subprocess
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,20 +42,24 @@ from deeplearning4j_tpu_torch.train.updaters import Adam
 B, T_FULL, SEED = 8, 1024, 1234
 VOCAB, D_MODEL = 50257, 768
 MOE_LAYER = "layer_3"
-# the kernels' names, or what every instantiation of one holds (B5's float32,
-# tensor-core and float64 kernels all begin with "grouped_matmul_")
-_KERNELS = ("flash_forward_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-            "grouped_matmul_")
+# what every instantiation of a kernel holds in its name: the mma.sync and
+# wgmma kernels of B1-B3 (flash_forward_kernel, flash_forward_wgmma_kernel,
+# ...), and B5's float32, wgmma and float64 kernels ("grouped_matmul_")
+_KERNELS = ("flash_forward_", "flash_bwd_dq_", "flash_bwd_dkv_", "grouped_matmul_")
 
 
-def moe_lm_conf(dispatch_mode: str = "grouped", seed: int = SEED) -> MultiLayerConfiguration:
+def moe_lm_conf(dispatch_mode: str = "grouped", seed: int = SEED,
+                compute_dtype: Optional[str] = None) -> MultiLayerConfiguration:
     """Token and position embeddings, one pre-LN decoder block at GPT-2
     small's widths (Radford et al. 2019: 768 wide, 12 heads, FFN 3072,
     1024 positions, vocab 50257), then an MoE FFN with 8 experts of hidden
     1536, top-2 routing (GShard, Mixtral), capacity factor 1.25 and an
     aux weight of 0.01 (Switch Transformer), a LayerNorm and the softmax
-    head. About 104 M parameters; float32; Adam(1e-4)."""
+    head. About 104 M parameters; float32; Adam(1e-4). ``compute_dtype``
+    (e.g. ``"bfloat16"``): the layers compute in it over the float32
+    master weights."""
     return (NeuralNetConfiguration.builder().seed(seed).data_type("float32")
+            .compute_dtype(compute_dtype)
             .updater(Adam(1e-4)).weight_init(WeightInit.XAVIER).list()
             .layer(EmbeddingSequenceLayer(n_in=VOCAB, n_out=D_MODEL))
             .layer(PositionalEmbeddingLayer(n_out=D_MODEL, max_len=T_FULL))
@@ -68,13 +76,18 @@ def moe_lm_conf(dispatch_mode: str = "grouped", seed: int = SEED) -> MultiLayerC
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float16"],
+                        help="the layers' compute dtype (default: float32)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("moe_profile needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
-    model = MultiLayerNetwork(moe_lm_conf()).init()
+    print(f"compute dtype {args.compute_dtype or 'float32'}")
+    model = MultiLayerNetwork(moe_lm_conf(compute_dtype=args.compute_dtype)).init()
     solver = Solver(model)
     rs = np.random.RandomState(SEED + 2)
     ids = torch.from_numpy(rs.randint(0, VOCAB, (B, T_FULL + 1))).cuda()
@@ -92,7 +105,8 @@ def main() -> None:
         for kname in _KERNELS:
             ms = sum(r[1] for r in rows if kname in r[0])
             n = sum(r[2] for r in rows if kname in r[0])
-            print(f"  {kname}: {ms:.4f} ms in {n:.0f} launches")
+            print(f"  {kname}*: {ms:.4f} ms in {n:.0f} launches, {ms / busy:.3f} of the busy "
+                  f"time")
 
 
 if __name__ == "__main__":

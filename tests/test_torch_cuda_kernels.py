@@ -2,8 +2,9 @@
 small ragged shapes the serving path does not reach (odd lengths, head
 dims that are not a multiple of the tile, dv != d, rows that are not
 16-byte aligned, one (b, h) pair of rows against a long cache that the
-decode kernel splits over a cluster of blocks; the bf16/f16 wgmma forward
-and dk/dv kernels at head dims that take TMA, cp.async and plain loads;
+decode kernel splits over a cluster of blocks; the bf16/f16 wgmma forward,
+dq and dk/dv kernels at head dims that take TMA, cp.async and plain loads,
+and the profiler's names of the 16-bit dq and grouped matmul kernels;
 for the grouped matmul B5
 empty groups, groups over ``m_pad``, rows past the frontier and widths
 that are not whole tiles or whole 16-byte vectors), the attention kernels'
@@ -271,6 +272,12 @@ def _rel_err(a, b):
     (95, 161, 100, 100, True, True),
     (130, 190, 128, 128, False, True),
     (70, 190, 200, 200, True, True),
+    # the bf16/f16 wgmma dq kernel: tk off its 64-key tiles; d != dv with
+    # dv's second 64-column block wholly past dv; tq off its 64-row tiles
+    # at DMAX 128 (32-key tiles)
+    (130, 333, 64, 64, True, True),
+    (33, 300, 100, 64, True, True),
+    (200, 77, 128, 128, False, True),
 ])
 def test_flash_backward_matches_plain(cuda, dtype, tq, tk, d, dv, causal, masked):
     gen = torch.Generator().manual_seed(tq + 7 * tk + d)
@@ -282,10 +289,12 @@ def test_flash_backward_matches_plain(cuda, dtype, tq, tk, d, dv, causal, masked
     assert ops.LAUNCH_COUNTS["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert ops.LAUNCH_COUNTS["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
     dk2, dv2 = pfa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, causal, d ** -0.5)
+    dq2 = pfa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, causal, d ** -0.5)
     r_dq = ops.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, mask, causal)
     r_dk, r_dv = ops.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, mask, causal)
     torch.cuda.synchronize()
     assert torch.equal(dk, dk2) and torch.equal(dv_, dv2)  # deterministic
+    assert torch.equal(dq, dq2)
     assert dq.dtype == dk.dtype == dv_.dtype == dtype
     for got, ref in ((dq, r_dq), (dk, r_dk), (dv_, r_dv)):
         assert _rel_err(got, ref) <= BWD_REL_TOL[dtype]
@@ -344,6 +353,52 @@ def test_flash_kernels_take_an_explicit_causal_offset(cuda, dtype, tq, tk, off):
     assert float((lse - ref_lse).abs().max()) <= LSE_TOL[dtype]
     for got, want in ((dq, r_dq), (dk, r_dk), (dv_, r_dv)):
         assert _rel_err(got, want) <= BWD_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [31, 64, 100, 128, 200, 256])
+@pytest.mark.parametrize("tq,tk,off", [(77, 150, 23), (130, 333, -40), (150, 99, 300)])
+def test_flash_bwd_dq_16bit_widths_and_offsets(cuda, dtype, d, tq, tk, off):
+    """The 16-bit dq kernels (the wgmma kernel up to d 128: d 31 by plain
+    loads, 100 by cp.async, 64 and 128 by TMA; mma.sync at 200 and 256) at
+    lengths off their tiles, a masked and a fully masked batch row and an
+    explicit causal offset, against the plain version; a second launch
+    equals the first bit for bit."""
+    gen = torch.Generator().manual_seed(tq + tk + d + off)
+    q, k, v, mask = _fwd_case(gen, dtype, cuda, 2, 3, tq, tk, d, d, True)
+    ref, ref_lse = ops.flash_attention_plain(q, k, v, mask, True, causal_offset=off)
+    g = _rand(gen, (2, 3, tq, d), dtype, cuda)
+    delta = torch.sum(g.float() * ref.float(), dim=-1).contiguous()
+    args = (q, k, v, g, ref_lse, delta, mask, True, d ** -0.5, off)
+    dq = pfa._flash_bwd_dq_cuda(*args)
+    again = pfa._flash_bwd_dq_cuda(*args)
+    r_dq = ops.flash_attention_bwd_dq_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, again)
+    assert _rel_err(dq, r_dq) <= BWD_REL_TOL[dtype]
+    assert bool((dq[-1] == 0).all())  # the fully masked row has no gradient
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_b2_and_b5_run_the_wgmma_kernels(cuda, dtype):
+    """A bf16 or f16 dq launch (d 64) and grouped matmul run the warpgroup
+    kernels, as the profiler names them, and never the mma.sync ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(9)
+    q, k, v, g, mask, lse, delta = _bwd_inputs(gen, dtype, cuda, 2, 3, 130, 130, 64, 64,
+                                               True, True)
+    lhs, gs, rhs = _gmm_case(gen, 600, 128, 192, (250, 0, 300), dtype, cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pfa._flash_bwd_dq_cuda(q, k, v, g, lse, delta, mask, True, 0.125)
+        ops.grouped_matmul(lhs, gs, rhs)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("flash_bwd_dq_wgmma_kernel" in n for n in names), names
+    assert any("grouped_matmul_wgmma_kernel" in n for n in names), names
+    assert not any("flash_bwd_dq_kernel<" in n or "grouped_matmul_tc_kernel" in n
+                   for n in names), names
 
 
 @pytest.mark.parametrize("dtype", ALL)
@@ -461,6 +516,8 @@ def _group_rows_kept(sizes, m_pad, n):
     (50, 16, 8, (30, 40), None),            # sum(sizes) > n: rows >= n never touched
     (600, 100, 300, (250, 0, 300), 256),    # d: 3 slabs, the last ragged; 8-byte rows
     (400, 34, 66, (130, 270), None),        # 4-byte f32 pieces, 4-byte 16-bit pieces
+    (333, 100, 90, (100, 0, 150), None),    # 16-bit rows of 200 and 180 bytes: no TMA
+    (2000, 192, 400, (700, 0, 900, 400), 768),  # whole 128 x 192 tiles stored by TMA, tails
 ])
 def test_grouped_matmul_matches_plain(cuda, dtype, n, d, h, sizes, max_group):
     gen = torch.Generator().manual_seed(n + d + h)
@@ -489,6 +546,24 @@ def test_grouped_matmul_unaligned_rows_and_int8_rhs(cuda):
     torch.cuda.synchronize()
     assert y.dtype == torch.float32
     assert _rel_err(y, ref) <= GMM_REL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_grouped_matmul_int8_rhs_16bit(cuda, dtype):
+    """An int8 expert slab beside 16-bit rows is cast to their dtype and
+    multiplied by the wgmma kernel, within one 16-bit ulp of the plain
+    version; dropped rows stay 0."""
+    gen = torch.Generator().manual_seed(14)
+    lhs = (_rand(gen, (512, 128), torch.float32, cuda) * 0.01).to(dtype)
+    gs = torch.tensor([200, 300], dtype=torch.int32, device=cuda)
+    rhs_q = torch.randint(-127, 128, (2, 128, 192), generator=gen, dtype=torch.int8).to(cuda)
+    y = ops.grouped_matmul(lhs, gs, rhs_q, max_group_size=256)
+    ref = ops.grouped_matmul_plain(lhs, gs, rhs_q, max_group_size=256)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype
+    assert _rel_err(y, ref) <= GMM_REL_TOL[dtype]
+    dropped = ~_group_rows_kept((200, 300), 256, 512).to(cuda)  # past m_pad 256, past 500
+    assert bool((y[dropped] == 0).all())
 
 
 def test_grouped_matmul_backward_launches_b5_for_dgrad(cuda):

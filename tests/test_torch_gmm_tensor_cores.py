@@ -17,10 +17,12 @@ tolerance on the card, 1e-4 of the largest output value, of the plain
 version's float32 product. What one TF32 term would give is recorded
 (``record_property``), not asserted: about three decimal digits.
 
-bf16 and f16: one m16n8k16 mma a 16-deep step, whose products of 16-bit
-values are exact; emulated as exact products summed in float64 for each
-16-deep step, added to a float32 accumulator, and the output rounded once
-to the 16-bit type. Both it and the plain version (float32 sums of the
+bf16 and f16 (the warpgroup kernel): the reduction axis in slabs of 64
+(one stage of the kernel's ring, zero-filled past d), each four
+wgmma.m64nNk16 steps of 16 in order, whose products of 16-bit values are
+exact; emulated as exact products summed in float64 for each 16-deep
+step, added to a float32 accumulator in k order, and the output rounded
+once to the 16-bit type. Both it and the plain version (float32 sums of the
 widened values, rounded once) lie within half an ulp of the exact value
 plus float32 rounding, so they differ by at most one ulp at the largest
 value: 2^-7 of it in bf16, 2^-10 in f16 (B5's tolerances on the card).
@@ -52,14 +54,15 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 def kernel_products(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """``a [E, m, d] @ b [E, d, h]`` as B5 forms it: ``"3xtf32"`` and
     ``"1xtf32"`` in 8-deep float32 steps summed by 32-deep slab,
-    ``"16bit"`` in 16-deep steps of exact products (a and b hold 16-bit
-    values, widened)."""
+    ``"16bit"`` in 64-deep slabs of four 16-deep steps of exact products
+    (a and b hold 16-bit values, widened)."""
     d = a.shape[-1]
     acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
     if mode == "16bit":
-        for k0 in range(0, d, 16):
-            step = a[..., k0: k0 + 16].double() @ b[..., k0: k0 + 16, :].double()
-            acc = acc + step.float()
+        for s0 in range(0, d, 64):  # a stage of the ring; past d its steps add 0
+            for k0 in range(s0, min(s0 + 64, d), 16):
+                step = a[..., k0: k0 + 16].double() @ b[..., k0: k0 + 16, :].double()
+                acc = acc + step.float()
         return acc
     ah, bh = tf32(a), tf32(b)
     al, bl = tf32(a - ah), tf32(b - bh)
@@ -103,6 +106,7 @@ CASES = [  # n, d, h, group sizes, max_group_size
     (300, 72, 130, (0, 150, 90, 5), 100),   # an empty group, a group over m_pad, a tail
     (200, 768, 48, (60, 0, 90, 30), None),  # the MoE layer's d: 96 float32 steps
     (120, 100, 40, (50, 70), 64),           # d not a whole step: zero-filled
+    (333, 100, 90, (100, 0, 150), None),    # d, h not whole 16-byte rows: copied by threads
 ]
 
 

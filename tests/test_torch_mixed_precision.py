@@ -2,8 +2,10 @@
 MultiLayerNetwork and ComputationGraph, against the JAX package's.
 
 * bfloat16 compute with float32 master weights, on a CNN + batch norm
-  stack, a GravesLSTM + self-attention stack (with a mask) and a BERT
-  encoder graph, each the JAX model's weights through its zip: the
+  stack, a GravesLSTM + self-attention stack (with a mask), an embedding +
+  mixture-of-experts stack (4 experts, top-2, grouped dispatch through the
+  grouped matmul, with a mask) and a BERT encoder graph, each the JAX
+  model's weights through its zip: the
   parameters and ``output()`` stay float32 while the layers compute in
   bfloat16, and the port agrees with JAX's bfloat16 run within bfloat16
   rounding: outputs within 1e-2 absolute (probabilities; one bfloat16 ulp
@@ -75,6 +77,13 @@ def _bf16_conf(kind, compute_dtype="bfloat16"):
          .layer(jlayers.OutputLayer(n_out=3, loss=jnn.LossFunction.MCXENT,
                                     activation=jnn.Activation.SOFTMAX)))
         return b.set_input_type(jnn.InputType.convolutional(8, 8, 2)).build()
+    if kind == "moe":
+        return (b.layer(jlayers.EmbeddingSequenceLayer(n_in=40, n_out=16))
+                .layer(jlayers.MixtureOfExpertsLayer(n_in=16, n_out=16, num_experts=4, hidden=32,
+                                                     top_k=2, dispatch_mode="grouped"))
+                .layer(jlayers.RnnOutputLayer(n_in=16, n_out=40, loss=jnn.LossFunction.MCXENT,
+                                              activation=jnn.Activation.SOFTMAX))
+                .build())
     (b.layer(jlayers.GravesLSTMLayer(n_out=16))
      .layer(jlayers.SelfAttentionLayer(n_out=16, n_heads=2))
      .layer(jlayers.RnnOutputLayer(n_out=5, loss=jnn.LossFunction.MCXENT,
@@ -87,8 +96,12 @@ def _bf16_data(kind):
     if kind == "cnn":
         return (rs.rand(8, 2, 8, 8).astype(np.float32),
                 np.eye(3, dtype=np.float32)[rs.randint(0, 3, 8)], None)
-    x = rs.randn(4, 6, 10).astype(np.float32)
-    y = np.eye(5, dtype=np.float32)[rs.randint(0, 5, (4, 10))].transpose(0, 2, 1)
+    if kind == "moe":  # token ids [4, 10], one-hot next tokens [4, 40, 10]
+        x = rs.randint(0, 40, (4, 10)).astype(np.int32)
+        y = np.eye(40, dtype=np.float32)[rs.randint(0, 40, (4, 10))].transpose(0, 2, 1)
+    else:
+        x = rs.randn(4, 6, 10).astype(np.float32)
+        y = np.eye(5, dtype=np.float32)[rs.randint(0, 5, (4, 10))].transpose(0, 2, 1)
     mask = (np.arange(10)[None] < np.array([10, 7, 5, 2])[:, None]).astype(np.float32)
     return x, y, mask
 
@@ -100,7 +113,7 @@ def _grad_err(jg, pg):
     return err / gmax
 
 
-@pytest.mark.parametrize("kind", ["cnn", "rnn"])
+@pytest.mark.parametrize("kind", ["cnn", "rnn", "moe"])
 def test_bf16_multilayer_matches_jax(kind):
     jm = JaxMLN(_bf16_conf(kind)).init()
     pm = restore_model(_zip_of(jm), device="cpu")

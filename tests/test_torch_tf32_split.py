@@ -12,13 +12,26 @@ hi)``, and ``a·b`` is summed as ``a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``
 dp take one term, ds·k, dsᵀ·q, pᵀ·g and the forward's p·v two. The forward
 also runs its online softmax over the key tiles the kernel walks.
 
+The bf16 and f16 kernels on Hopper's warpgroup products (the forward, the
+dq kernel and the dk/dv kernel up to head dim 128) take 16-bit operands
+only: s and dp are exact products of the 16-bit inputs summed in float32,
+and the float32 p and ds enter p·v, ds·k, dsᵀ·q and pᵀ·g as two 16-bit
+terms, ``hi = round16(x)`` and ``lo = round16(x - hi)``, each times the
+exact 16-bit operand (``"bf16x2"`` and ``"f16x2"`` below): 16 + 16
+significant bits of x in bf16 (the rest is below 2^-17 of it) and 11 + 11
+in f16, where lo falls below f16's normal range for |x| < 2^-3 and keeps
+fewer bits.
+
 Tolerance: 1e-5 of the largest gradient or output value (and 1e-5
 absolute on the forward's logsumexp), inside the kernels' float32
 tolerances on the card (1e-4 relative for the gradients, 5e-5 absolute on
 outputs of magnitude below 1): 3xTF32 drops only ``a_lo·b_lo`` and the
-bits below ``lo`` (~2^-21 of each product), and the sums differ from the
-plain version's only in order. What a single TF32 term gives is recorded
-(``record_property``), not asserted: about three decimal digits."""
+bits below ``lo`` (~2^-21 of each product), the two 16-bit terms drop less
+than 2^-17 of p or ds in bf16 (and, in f16, what lo loses below f16's
+normal range, on values whose products are far below the largest), and
+the sums differ from the plain version's only in order. What a single
+TF32 or 16-bit term gives is recorded (``record_property``), not asserted:
+about three decimal digits in TF32, two to three in one 16-bit term."""
 
 import importlib
 
@@ -46,6 +59,23 @@ def split(x: torch.Tensor):
     return hi, tf32(x - hi)
 
 
+#: the 16-bit type of each mode whose operands are exact in it
+EXACT = {"bf16": torch.bfloat16, "bf16x2": torch.bfloat16, "f16x2": torch.float16,
+         "bf16x1": torch.bfloat16, "f16x1": torch.float16}
+
+
+def mm16(a, b, dtype, terms: int = 2) -> torch.Tensor:
+    """``a @ b`` as a warpgroup product forms it with A from registers: the
+    float32 ``a`` as ``terms`` 16-bit terms (hi, then lo = round16(a - hi)),
+    each times the exact 16-bit ``b``; the products are exact in float32,
+    the sums float32."""
+    hi = a.to(dtype).float()
+    out = hi @ b
+    if terms == 2:
+        out = out + (a - hi).to(dtype).float() @ b
+    return out
+
+
 def mm(a, b, split_a: bool, split_b: bool) -> torch.Tensor:
     """``a @ b`` as the kernels form it: an operand that is split takes its
     ``lo`` term, and every operand is TF32 (an unsplit one is rounded, which
@@ -62,9 +92,21 @@ def mm(a, b, split_a: bool, split_b: bool) -> torch.Tensor:
 
 def kernel_grads(q, k, v, g, lse, delta, mask, causal, scale, mode):
     """(dq, dk, dv) with the kernels' products. ``mode``: ``"3xtf32"`` (the
-    float32 kernels), ``"bf16"`` (bf16-exact inputs: one term for s and dp,
-    two for the products with p or ds, the scale applied to s and dk's sum)
-    or ``"1xtf32"`` (one rounded term everywhere)."""
+    float32 kernels), ``"bf16"`` (the mma.sync kernels on bf16-exact
+    inputs: one term for s and dp, two TF32 terms for the products with p
+    or ds, the scale applied to s and dk's sum), ``"1xtf32"`` (one rounded
+    term everywhere), ``"bf16x2"`` / ``"f16x2"`` (the warpgroup kernels on
+    16-bit-exact inputs: exact s and dp, p and ds in two 16-bit terms) or
+    ``"bf16x1"`` / ``"f16x1"`` (one 16-bit term)."""
+    if mode[-2:] in ("x1", "x2"):
+        dt, terms = EXACT[mode], int(mode[-1])
+        s = (q @ k.transpose(-1, -2)) * scale
+        kept = pfa._masked_scores(q, k, mask, causal, scale) > -0.5e30
+        s = torch.where(kept, s, torch.full_like(s, -1e30))
+        p = torch.where(s > -0.5e30, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+        ds = p * (g @ v.transpose(-1, -2) - delta[..., None])
+        return (mm16(ds, k, dt, terms) * scale, mm16(ds.transpose(-1, -2), q, dt, terms) * scale,
+                mm16(p.transpose(-1, -2), g, dt, terms))
     full = mode == "3xtf32"
     if mode == "bf16":
         s = mm(q, k.transpose(-1, -2), False, False) * scale
@@ -85,13 +127,16 @@ def kernel_grads(q, k, v, g, lse, delta, mask, causal, scale, mode):
     return dq, dk, dv
 
 
-def _inputs(seed, tq, tk, d, dv, causal, masked, bf16_exact):
+def _inputs(seed, tq, tk, d, dv, causal, masked, exact=None):
+    """Seeded q, k, v, g (values of the 16-bit type ``exact``, if given),
+    an optional key mask with a fully masked batch row, and the plain
+    forward's lse and delta."""
     rs = np.random.RandomState(seed)
     arrs = [rs.randn(2, 2, t, w).astype(np.float32)
             for t, w in ((tq, d), (tk, d), (tk, dv), (tq, dv))]
     q, k, v, g = (torch.from_numpy(a) for a in arrs)
-    if bf16_exact:
-        q, k, v, g = (x.to(torch.bfloat16).float() for x in (q, k, v, g))
+    if exact is not None:
+        q, k, v, g = (x.to(exact).float() for x in (q, k, v, g))
     mask = None
     if masked:
         mask = torch.from_numpy((rs.rand(2, tk) > 0.3).astype(np.float32))
@@ -128,20 +173,22 @@ CASES = [  # tq, tk, d, dv, causal, masked
 ]
 
 
-@pytest.mark.parametrize("mode", ["3xtf32", "bf16"])
+@pytest.mark.parametrize("mode", ["3xtf32", "bf16", "bf16x2", "f16x2"])
 @pytest.mark.parametrize("tq,tk,d,dv,causal,masked", CASES)
 def test_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, masked,
                                                 record_property):
-    """The 3-term split (float32 inputs) and the 2-term split beside an
-    exact operand (bf16 inputs) give dq, dk and dv within 1e-5 of the plain
-    version's largest value; a single TF32 term is recorded beside them."""
+    """The 3-term split (float32 inputs), the 2-term TF32 split beside an
+    exact operand (bf16 inputs) and the two 16-bit terms of p and ds beside
+    exact 16-bit operands (bf16 and f16 inputs) give dq, dk and dv within
+    1e-5 of the plain version's largest value; a single TF32 or 16-bit term
+    is recorded beside them."""
     q, k, v, g, lse, delta, mask = _inputs(tq * 100 + tk + d, tq, tk, d, dv, causal, masked,
-                                           bf16_exact=mode == "bf16")
+                                           exact=EXACT.get(mode))
     scale = d ** -0.5
     args = (q, k, v, g, lse, delta, mask, causal, scale)
     ref = (pfa.flash_attention_bwd_dq_plain(*args), *pfa.flash_attention_bwd_dkv_plain(*args))
     got = kernel_grads(*args, mode)
-    one = kernel_grads(*args, "1xtf32")
+    one = kernel_grads(*args, mode.replace("x2", "x1") if mode.endswith("x2") else "1xtf32")
     errs = {n: _rel(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
     record_property("split_rel_err", errs)
     record_property("one_tf32_term_rel_err",
@@ -151,19 +198,23 @@ def test_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, mas
         assert all(bool((x[1] == 0).all()) for x in got)
 
 
-# keys a tile of the forward kernel (tile_keys in flash_forward.cu): 32 in
-# float32, 64 in bf16
-FWD_TILE = {"3xtf32": 32, "1xtf32": 32, "bf16": 64}
+# keys a tile of the forward kernel (tile_keys and wg_tile_keys in
+# flash_forward.cu): 32 in float32, 64 in bf16 and f16
+FWD_TILE = {"3xtf32": 32, "1xtf32": 32, "bf16": 64, "bf16x2": 64, "f16x2": 64, "bf16x1": 64,
+            "f16x1": 64}
 
 
 def kernel_forward(q, k, v, mask, causal, scale, mode):
     """``(out, lse)`` with the forward kernel's products and its online
     softmax over its key tiles. ``mode``: ``"3xtf32"`` (float32: three terms
     for s and for p·v, the scale folded into q), ``"bf16"`` (bf16-exact
-    inputs: one term for s, scaled after the product, two for p·v) or
-    ``"1xtf32"`` (one rounded term everywhere)."""
+    inputs: one term for s, scaled after the product, two for p·v),
+    ``"1xtf32"`` (one rounded term everywhere), or ``"bf16x2"`` /
+    ``"f16x2"`` (the warpgroup kernel: s exact, p·v with p in two 16-bit
+    terms; ``x1``: one)."""
     full = mode == "3xtf32"
-    if mode == "bf16":
+    x16 = mode[-2:] in ("x1", "x2")
+    if mode == "bf16" or x16:
         s = mm(q, k.transpose(-1, -2), False, False) * scale
     else:
         s = mm(q * scale, k.transpose(-1, -2), full, full)
@@ -179,7 +230,11 @@ def kernel_forward(q, k, v, mask, causal, scale, mode):
         p = torch.where(st > -0.5e30, torch.exp(st - m_new), torch.zeros_like(st))
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + mm(p, v[..., k0: k0 + tile, :], mode != "1xtf32", full)
+        if x16:
+            pv = mm16(p, v[..., k0: k0 + tile, :], EXACT[mode], int(mode[-1]))
+        else:
+            pv = mm(p, v[..., k0: k0 + tile, :], mode != "1xtf32", full)
+        acc = acc * alpha + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
     lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), torch.full_like(l, 1e30))
@@ -189,19 +244,21 @@ def kernel_forward(q, k, v, mask, causal, scale, mode):
 FWD_CASES = CASES + [(100, 150, 32, 48, True, True)]  # 3 or 5 key tiles, the last ragged
 
 
-@pytest.mark.parametrize("mode", ["3xtf32", "bf16"])
+@pytest.mark.parametrize("mode", ["3xtf32", "bf16", "bf16x2", "f16x2"])
 @pytest.mark.parametrize("tq,tk,d,dv,causal,masked", FWD_CASES)
 def test_forward_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, masked,
                                                         record_property):
     """The forward's split products and tiled online softmax give the
     output within 1e-5 of the plain version's largest value and the
-    logsumexp within 1e-5; a single TF32 term is recorded beside them."""
+    logsumexp within 1e-5; a single TF32 or 16-bit term is recorded beside
+    them."""
     q, k, v, _, _, _, mask = _inputs(tq * 10 + tk + 3 * d, tq, tk, d, dv, causal, masked,
-                                     bf16_exact=mode == "bf16")
+                                     exact=EXACT.get(mode))
     scale = d ** -0.5
     ref, ref_lse = pfa.flash_attention_plain(q, k, v, mask, causal, scale)
     out, lse = kernel_forward(q, k, v, mask, causal, scale, mode)
-    one, one_lse = kernel_forward(q, k, v, mask, causal, scale, "1xtf32")
+    one, one_lse = kernel_forward(q, k, v, mask, causal, scale,
+                                  mode.replace("x2", "x1") if mode.endswith("x2") else "1xtf32")
     err, lse_err = _rel(out, ref), float((lse - ref_lse).abs().max())
     record_property("split_rel_err", {"out": err, "lse_abs": lse_err})
     record_property("one_tf32_term_rel_err",
