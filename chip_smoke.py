@@ -340,10 +340,12 @@ LONG_L = 4096                 # the decode kernel's long-cache case: one (b, h) 
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
 CUDA_CORE_F32_FLOPS = 67e12
-# float64 on the CUDA cores: 67 TFLOP/s with the tensor cores' DMMA, which
-# the float64 kernels do not use, 34 TFLOP/s without (data sheet).
+# float64: 67 TFLOP/s on the tensor cores' DMMA, the card's float64 peak and
+# bound (cuBLAS reaches it); 34 TFLOP/s on the CUDA cores, where the float64
+# kernels run, printed beside it (data sheet).
+CUDA_CORE_F64_FLOPS = 34e12
 PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3, torch.bfloat16: 989e12, torch.float16: 989e12,
-              torch.float64: 34e12}
+              torch.float64: 67e12}
 # Kernel vs plain version, max abs error allowed. float32: both sides
 # compute in float32 and differ only in summation order. bfloat16 and
 # float16: both widen the same 16-bit inputs to float32, so they differ by
@@ -588,10 +590,11 @@ def roofline(flops: float, nbytes: float, dtype) -> tuple:
 
 
 def cuda_core_note(flops: float, dtype) -> str:
-    """The float32 CUDA-core bound, printed beside a float32 row's bound."""
-    if dtype != torch.float32:
+    """The CUDA-core bound, printed beside a float32 or float64 row's bound."""
+    rate = {torch.float32: CUDA_CORE_F32_FLOPS, torch.float64: CUDA_CORE_F64_FLOPS}.get(dtype)
+    if rate is None:
         return ""
-    return f"; CUDA-core f32 bound {1e3 * flops / CUDA_CORE_F32_FLOPS:.4f} ms"
+    return f"; CUDA-core {str(dtype)[6:]} bound {1e3 * flops / rate:.4f} ms"
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -711,8 +714,10 @@ def phase_sass(build) -> None:
     widths each; B5's wgmma kernel in bf16 and f16, its mma.sync kernel in
     float32 (3xTF32, timed beside the path's kernel), its float32 CUDA-core
     kernel (2 load paths) and its float64 one. The bf16 and f16 B1 at every
-    width, B2 and B3 up to DMAX 128 and B5 are the wgmma kernels (HGMMA in
-    SASS); the rest of B1-B3 and B5's 3xTF32 kernel run mma.sync (HMMA).
+    width, B2 and B3 up to DMAX 128, the float32 B1 up to DMAX 128 and B3 up
+    to DMAX 64 (3xTF32) and B5 are the wgmma kernels (HGMMA in SASS); the
+    rest of B1-B3 (float32 B2 at every width, float32 B1 at DMAX 256 and B3
+    at DMAX 128 and 256) and B5's 3xTF32 kernel run mma.sync (HMMA).
     Each function's waits for warpgroup products (WARPGROUP.DEPBAR) are
     printed beside: a wgmma under a runtime branch, or a call in the kernel,
     makes ptxas wait after every one. The counts come from the build's
@@ -736,13 +741,21 @@ def phase_sass(build) -> None:
 
     bwd = sass["flash_backward"]
     check(len(bwd) == 24 and tensor_cores(bwd, {"flash_bwd_dkv_wgmma_kernel": 6,
-                                                "flash_bwd_dq_wgmma_kernel": 6}, ""),
-          "the bf16/f16 dq and dk/dv kernels up to DMAX 128 (6 each) must run HGMMA, every "
-          "other backward kernel HMMA, and none atomics")
-    fwd = sass["flash_forward"]
-    check(len(fwd) == 12 and tensor_cores(fwd, {"flash_forward_wgmma_kernel": 8}, ""),
-          "the bf16/f16 forward kernels (8) must run HGMMA, the float32 ones HMMA, and none "
+                                                "flash_bwd_dq_wgmma_kernel": 6,
+                                                "flash_bwd_dkv_tf32_kernel": 2}, ""),
+          "the bf16/f16 dq and dk/dv kernels up to DMAX 128 (6 each) and the float32 dk/dv "
+          "kernels up to DMAX 64 (2) must run HGMMA, every other backward kernel (the float32 "
+          "dq kernels, float32 dk/dv at DMAX 128 and 256, bf16/f16 at 256) HMMA, and none "
           "atomics")
+    check(sum("flash_bwd_dkv_kernelIf" in fn for fn in bwd) == 2,  # mangled <float, ...>
+          "the float32 dk/dv kernel on mma.sync must be left at DMAX 128 and 256 only")
+    fwd = sass["flash_forward"]
+    check(len(fwd) == 12 and tensor_cores(fwd, {"flash_forward_wgmma_kernel": 8,
+                                                "flash_forward_tf32_kernel": 3}, ""),
+          "the bf16/f16 forward kernels (8) and the float32 ones up to DMAX 128 (3) must run "
+          "HGMMA, the float32 one at DMAX 256 HMMA, and none atomics")
+    check(sum("flash_forward_kernelIf" in fn for fn in fwd) == 1,
+          "the float32 forward kernel on mma.sync must be left at DMAX 256 only")
     dec = sass["flash_decode"]
     check(len(dec) == 24 and all(c["atomics"] == 0 for c in dec.values()),
           "the decode kernels must have no atomics")
@@ -789,6 +802,64 @@ def _key_mask(gen, tk: int) -> torch.Tensor:
     mask = (torch.arange(tk)[None, :] < lens[:, None]).float()
     mask[3] = 0.0
     return mask
+
+
+# float32 B1 and B3 at ragged shapes: d 31 (124-byte rows, copied by the
+# threads), 64, 100 and 128 (TMA; B1 takes up to DMAX 128 on wgmma, B3 up
+# to 64, the rest on mma.sync), tq != tk both ways, a fully masked batch row,
+# and two causal offsets off the 64-row and 32-key tiles
+F32_RAGGED = [(77, 150, d, off) for d in (31, 64, 100, 128) for off in (23, -40)]
+F32_RAGGED += [(150, 99, d, 300) for d in (64, 128)]
+
+
+def _f32_ragged_forward(gen) -> float:
+    """The float32 forward at F32_RAGGED against its plain version; a second
+    launch equal to the first bit for bit. Returns the worst error."""
+    worst = 0.0
+    for tq, tk, d, off in F32_RAGGED:
+        q, k, v, _, mask = _attention_case(gen, torch.float32, 2, 3, tq, tk, d, d, True)
+        out, lse = fa.flash_attention(q, k, v, mask, True, return_lse=True, causal_offset=off)
+        again = fa.flash_attention(q, k, v, mask, True, return_lse=True, causal_offset=off)
+        p_out, p_lse = fa.flash_attention_plain(q, k, v, mask, True, causal_offset=off)
+        torch.cuda.synchronize()
+        e_out, e_lse = max_err(out, p_out), max_err(lse, p_lse)
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        print(f"flash_forward float32 [2,3,{tq}/{tk},{d}] causal offset {off}, masked row: "
+              f"out max_abs={e_out:.3e} (tol {TOL_OUT[torch.float32]:g}), lse max_abs="
+              f"{e_lse:.3e} (tol {TOL_LSE[torch.float32]:g}); second launch bit-equal: {same}")
+        check(e_out <= TOL_OUT[torch.float32] and e_lse <= TOL_LSE[torch.float32],
+              "float32 B1 at a ragged shape disagrees with its plain version")
+        check(same, "float32 B1 launches must repeat bit for bit")
+        check(bool((out[-1] == 0).all()) and bool((lse[-1] == 1e30).all()),
+              "a fully masked row must give 0 and lse +1e30")
+        worst = max(worst, e_out, e_lse)
+    return worst
+
+
+def _f32_ragged_dkv(gen) -> float:
+    """The float32 dk/dv kernel at F32_RAGGED against its plain version,
+    the row's lse and delta from the plain forward; a second launch equal
+    to the first bit for bit. Returns the worst max abs error."""
+    worst = 0.0
+    for tq, tk, d, off in F32_RAGGED:
+        q, k, v, g, mask = _attention_case(gen, torch.float32, 2, 3, tq, tk, d, d, True)
+        out, lse = fa.flash_attention_plain(q, k, v, mask, True, causal_offset=off)
+        delta = torch.sum(g * out, dim=-1).contiguous()
+        args = (q, k, v, g, lse, delta, mask, True, d ** -0.5, off)
+        dk, dv = fa_mod._flash_bwd_dkv_cuda(*args)
+        dk2, dv2 = fa_mod._flash_bwd_dkv_cuda(*args)
+        p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        rel = [rel_err(dk, p_dk), rel_err(dv, p_dv)]
+        same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        print(f"flash_bwd_dkv float32 [2,3,{tq}/{tk},{d}] causal offset {off}, masked row: rel "
+              f"dk/dv {['%.3e' % r for r in rel]} (tol {TOL_BWD_REL[torch.float32]:g}); second "
+              f"launch bit-equal: {same}")
+        check(max(rel) <= TOL_BWD_REL[torch.float32],
+              "float32 B3 at a ragged shape disagrees with its plain version")
+        check(same, "float32 B3 launches must repeat bit for bit")
+        worst = max(worst, max_err(dk, p_dk), max_err(dv, p_dv))
+    return worst
 
 
 def phase_flash_forward(gen) -> dict:
@@ -840,12 +911,14 @@ def phase_flash_forward(gen) -> dict:
                   "flash_forward at an explicit causal offset disagrees with its plain version")
             if dtype == torch.float32:
                 worst = max(worst, e_out, e_lse)
+    worst = max(worst, _f32_ragged_forward(gen))
 
     # timing at the main path's shape: output() on [8, 1024], causal, no mask;
     # B1 and SDPA's forward back to back, three rounds, so the comparison is paired
     row = {"max_abs_err": worst}
     pairs = B * H * T_FULL * (T_FULL + 1) // 2  # (q, k) pairs the causal mask keeps
     flops = 4 * D * pairs
+    routes = []  # checked after every timing: no profiler window runs before a timed call
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(B, H, T_FULL, D, generator=gen).to("cuda", dtype)
                    for _ in range(3))
@@ -859,11 +932,11 @@ def phase_flash_forward(gen) -> dict:
         plain_ms = kv.ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
         nbytes = (4 * B * H * T_FULL * D) * q.element_size() + B * H * T_FULL * 4
         bound_ms, bound_by = roofline(flops, nbytes, dtype)
-        if dtype == torch.bfloat16:  # the route: the wgmma kernel, never the mma.sync one
-            seen, old = _route(lambda: fa.flash_attention(q, k, v, causal=True),
-                               "flash_forward_wgmma_kernel", "flash_forward_kernel<")
-            print(f"flash_forward bfloat16 route: {seen} wgmma kernel launches, {old} mma.sync")
-            check(seen > 0 and old == 0, "a bf16 B1 launch must run the wgmma kernel")
+        # the route: the wgmma kernel (3xTF32 in float32), never the mma.sync one
+        wg_name = ("flash_forward_wgmma_kernel" if dtype == torch.bfloat16
+                   else "flash_forward_tf32_kernel")
+        routes.append((dtype, wg_name,
+                       lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=True)))
         print(f"flash_forward {str(dtype)[6:]} [8,12,1024,64] causal, 3 paired rounds (ms): "
               + "; ".join(f"{n} {[round(x, 4) for x in r]}" for n, r in rounds.items())
               + f"; medians: kernel {ms:.4f} ms against sdpa {lib_ms:.4f} ms "
@@ -876,6 +949,10 @@ def phase_flash_forward(gen) -> dict:
             row.update(fig)
         else:
             row["bf16"] = fig
+    for dtype, wg_name, fn in routes:
+        seen, old = _route(fn, wg_name, "flash_forward_kernel<")
+        print(f"flash_forward {str(dtype)[6:]} route: {seen} {wg_name} launches, {old} mma.sync")
+        check(seen > 0 and old == 0, f"a {str(dtype)[6:]} B1 launch must run {wg_name}")
     return row
 
 
@@ -1033,11 +1110,13 @@ def phase_flash_backward(gen) -> dict:
                   f"{off:5d}: rel dq/dk/dv {['%.3e' % r for r in rel]}")
             check(max(rel) <= TOL_BWD_REL[dtype],
                   "B2/B3 at an explicit causal offset disagree with their plain versions")
+    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], _f32_ragged_dkv(gen))
 
     # timing at the training path's shape: [8, 12, 1024, 64], causal, no mask
     rows = {n: {"max_abs_err": w} for n, w in worst.items()}
     pairs = B * H * T_FULL * (T_FULL + 1) // 2  # (q, k) pairs the causal mask keeps
     n_in = B * H * T_FULL * D  # values in each of q, k, v, g
+    routes = []  # checked after every timing: no profiler window runs before a timed call
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, g = (torch.randn(B, H, T_FULL, D, generator=gen).to("cuda", dtype)
                       for _ in range(4))
@@ -1049,9 +1128,9 @@ def phase_flash_backward(gen) -> dict:
         o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         timed = {
             # name: (kernel, plain version, products, values written)
-            "flash_bwd_dq": (lambda: fa_mod._flash_bwd_dq_cuda(*args, scale),
+            "flash_bwd_dq": (lambda args=args: fa_mod._flash_bwd_dq_cuda(*args, scale),
                              lambda: fa.flash_attention_bwd_dq_plain(*args), 3, 1),
-            "flash_bwd_dkv": (lambda: fa_mod._flash_bwd_dkv_cuda(*args, scale),
+            "flash_bwd_dkv": (lambda args=args: fa_mod._flash_bwd_dkv_cuda(*args, scale),
                               lambda: fa.flash_attention_bwd_dkv_plain(*args), 4, 2),
         }
         # B2, B3 and SDPA's backward back to back, three rounds, so that the
@@ -1070,10 +1149,11 @@ def phase_flash_backward(gen) -> dict:
               + f"; medians: B2 + B3 {both:.4f} against sdpa backward {lib_ms:.4f} "
               f"({both / lib_ms:.2f}x)")
         if dtype == torch.bfloat16:  # the route: B2 and B3 on the wgmma kernels
-            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-                seen, old = _route(timed[name][0], f"{name}_wgmma_kernel", f"{name}_kernel<")
-                print(f"{name} bfloat16 route: {seen} wgmma kernel launches, {old} mma.sync")
-                check(seen > 0 and old == 0, f"a bf16 {name} launch must run the wgmma kernel")
+            routes += [(dtype, name, timed[name][0], f"{name}_wgmma_kernel")
+                       for name in ("flash_bwd_dq", "flash_bwd_dkv")]
+        else:  # float32 B3 on the 3xTF32 wgmma kernel (B2 stays on mma.sync)
+            routes.append((dtype, "flash_bwd_dkv", timed["flash_bwd_dkv"][0],
+                           "flash_bwd_dkv_tf32_kernel"))
         for name, (kernel, plain, products, n_out) in timed.items():
             ms = med[name]
             plain_ms = kv.ms(plain, 3)
@@ -1091,6 +1171,10 @@ def phase_flash_backward(gen) -> dict:
             else:
                 rows[name]["bf16"] = fig
         del o_lib
+    for dtype, name, fn, wg_name in routes:
+        seen, old = _route(fn, wg_name, f"{name}_kernel<")
+        print(f"{name} {str(dtype)[6:]} route: {seen} {wg_name} launches, {old} mma.sync")
+        check(seen > 0 and old == 0, f"a {str(dtype)[6:]} {name} launch must run {wg_name}")
     return rows
 
 
@@ -1195,12 +1279,21 @@ def phase_new_instantiations(gen) -> None:
                 for n, fn in timed.items():
                     rounds[n].append(kv.ms(fn, iters))
             med = {n: float(np.median(r)) for n, r in rounds.items()}
-            bounds = {n: roofline(2 * p * d * pairs, (4 + w) * b * h * t * d * q.element_size(),
-                                  dtype)[0]
-                      for n, p, w in (("B1", 2, 0), ("B2", 3, 1), ("B3", 4, 2))}
+            plain = {"B1 plain": lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                     "B2 plain": lambda: fa.flash_attention_bwd_dq_plain(*args),
+                     "B3 plain": lambda: fa.flash_attention_bwd_dkv_plain(*args)}
+            med.update({n: kv.ms(fn, 2) for n, fn in plain.items()})
+            work = {n: (2 * p * d * pairs, (4 + w) * b * h * t * d * q.element_size())
+                    for n, p, w in (("B1", 2, 0), ("B2", 3, 1), ("B3", 4, 2))}
+            bounds = {n: roofline(f, nb, dtype)[0] for n, (f, nb) in work.items()}
             print(f"new instantiation {str(dtype)[6:]} [{b},{h},{t},{d}] causal, median of 3 "
-                  f"paired rounds (ms): " + ", ".join(f"{n} {m:.4f}" for n, m in med.items())
+                  f"paired rounds (ms; the plain versions one round): "
+                  + ", ".join(f"{n} {m:.4f}" for n, m in med.items())
                   + "; bounds " + ", ".join(f"{n} {x:.4f}" for n, x in bounds.items())
+                  + (" (float64 at 67 TFLOP/s, DMMA; on the CUDA cores: "
+                     + ", ".join(f"{n} {1e3 * f / CUDA_CORE_F64_FLOPS:.4f}"
+                                 for n, (f, _) in work.items()) + ")"
+                     if dtype == torch.float64 else "")
                   + f"; B1 {med['B1'] / med['sdpa']:.2f}x sdpa, B2 + B3 "
                   f"{(med['B2'] + med['B3']) / med['sdpa backward']:.2f}x sdpa backward")
             del o_lib, qs, ks, vs
@@ -1216,11 +1309,13 @@ def phase_new_instantiations(gen) -> None:
         ms = kv.graph_ms(lambda: fa.flash_decode_attention(q, kk, vv, pos), 200)
         lib_ms = kv.graph_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=keep),
                              200)
+        plain_ms = kv.graph_ms(lambda: fa.flash_decode_attention_plain(q, kk, vv, pos), 50)
         keys = int((pos.long() + 1).sum()) * h
         bound, by = roofline(4 * d * keys, 2 * keys * d * q.element_size(), dtype)
         print(f"new instantiation {str(dtype)[6:]} B4 [{b},{h},1,{d}] vs L={T_FULL} at "
               f"start_pos={pos.tolist()}: kernel {ms:.5f} ms of device time, sdpa "
-              f"{lib_ms:.5f} ms, bound {bound:.5f} ms ({by})")
+              f"{lib_ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound:.5f} ms ({by}"
+              f"{cuda_core_note(4 * d * keys, dtype)})")
 
 
 def _with_impl(impl: str, fn):
@@ -3949,7 +4044,9 @@ def phase_grouped_matmul(gen, routed) -> dict:
     for load, sizes in loads.items():
         gs = torch.tensor(sizes, dtype=torch.int32).cuda()
         kept = sum(min(s_, CAPACITY) for s_ in sizes)
-        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for dtype in DTYPES:  # float64 at the routed load only
+            if dtype == torch.float64 and load != "routed":
+                continue
             lhs, rhs = lhs32.to(dtype), rhs32.to(dtype)
             buf = gm_mod._to_groups(lhs, gs, CAPACITY)  # [8, 2560, 768], zero-padded
             timed = {"kernel": lambda: fa.grouped_matmul(lhs, gs, rhs, max_group_size=CAPACITY),
@@ -3959,7 +4056,7 @@ def phase_grouped_matmul(gen, routed) -> dict:
             rounds = {name: [] for name in timed}
             for _ in range(3):  # kernel and padded bmm in turn, so the comparison is paired
                 for name, fn in timed.items():
-                    rounds[name].append(kv.ms(fn, 20))
+                    rounds[name].append(kv.ms(fn, 3 if dtype == torch.float64 else 20))
             ms, lib_ms = (float(np.median(rounds[name])) for name in ("kernel", "bmm"))
             alt = ""
             if "3xTF32" in rounds:

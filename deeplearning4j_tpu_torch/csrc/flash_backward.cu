@@ -27,8 +27,9 @@
 // product (below), so the float32 limit is 3 x flops at the dense TF32 rate
 // (495 TFLOP/s), not the CUDA cores' 67 TFLOP/s.
 //
-// Design of the float32 kernels and of the bf16/f16 kernels at DMAX 256
-// (the products, fragments and copies are mma_tf32.cuh's, shared with the
+// Design of the mma.sync kernels: the float32 dq kernel, the float32 dk/dv
+// kernel at DMAX 128 and 256, and the bf16/f16 kernels at DMAX 256 (the
+// products, fragments and copies are mma_tf32.cuh's, shared with the
 // forward kernel).
 // * Ownership, as the TPU kernels' sequential grid axis becomes a loop: a dq
 //   block owns a 64-row q tile of one (b,h), keeps its q and g tiles, lse and
@@ -70,12 +71,49 @@
 // What bounds it now: the rate at which warps dispatch instructions, not the
 // tensor cores. Around each TF32 mma of the float32 kernels a warp runs
 // shared loads, the four integer and float operations of each split, and
-// the softmax, so they run at about a quarter of the 3xTF32 bound. At d = 64 in float32 a dq block holds 6 tiles of 64 x 68 floats
-// (104 KB, two blocks an SM) and a dk/dv block 2 tiles of 64 rows and 4 of
-// 32 (70 KB, three). At d = 128 the dk/dv kernel walks 16-row q tiles to
+// the softmax, so they run at about a quarter of the 3xTF32 bound. At d =
+// 64 in float32 a dq block holds 6 tiles of 64 x 68 floats (104 KB, two
+// blocks an SM) and a dk/dv block (kTf32Wgmma = false) 2 tiles of 64 rows
+// and 4 of 32 (70 KB, three). At d = 128 the dk/dv kernel walks 16-row q tiles to
 // keep its sums in registers. At d = 256 both kernels walk 16-row (16-key)
 // tiles, 196 KB of shared memory in float32 and one block an SM; the dk/dv
 // kernel's two 16 x 256 sums a warp then outgrow the registers.
+//
+// Design of the float32 dk/dv kernel up to DMAX 64, flash_bwd_dkv_tf32_kernel
+// (warpgroup products in TF32, tile layout and splits: wgmma_tf32.cuh; TMA
+// and mbarriers: wgmma.cuh):
+// * Ownership as above: a block owns a 64-key k/v tile and walks 32-row q
+//   tiles from the tile's causal frontier, the first k tiles first.
+// * 3xTF32 on wgmma.m64nNk8 .tf32, which takes its shared-memory operands
+//   K-major only, so q and g are needed in two orientations: as they lie
+//   (the B of sᵀ = k·qᵀ and dpᵀ = v·gᵀ, K-major over d) and transposed (the
+//   B of dk += dsᵀ·q and dv += pᵀ·g, K-major over the q rows, in the
+//   acc_k_pos order that lets the accumulators of sᵀ and dpᵀ be the A
+//   fragments of the sums). Each element is split into hi + lo once, into
+//   all four tiles; the scale is folded into q before the split.
+// * Two warpgroups (warp specialization): the producer brings the raw q
+//   and g tiles by TMA (or the threads' cp.async where TMA cannot take the
+//   rows) into two raw stages, splits them into two stages of the eight
+//   split tiles, writes the tile's lse and delta beside them, and arrives
+//   on the stage's `full` mbarrier; the consumer holds k's A fragments
+//   (hi, lo) in registers, v's hi and lo tiles in shared memory, and the
+//   dk and dv sums, and arrives on `empty` when a stage is read. The splits
+//   then run beside the products, not between them.
+// * Consumer round qt: the scores of tile qt + 1 (sᵀ: three m64n32k8
+//   products an 8-column step, A = k from registers; dpᵀ: three, A = v
+//   from shared memory) and the sums of tile qt (three m64nWk8 products each
+//   for dv and dk a step, A = pᵀ or dsᵀ from registers) are issued
+//   together; pᵀ = 2^(sᵀ·log2 e - lse·log2 e) and dsᵀ of tile qt + 1 run
+//   while the sums do.
+// * Shared memory at DMAX 64: 195 KB (v 32, two stages of 64, two raw
+//   stages of 16), one block an SM. Two consumer warpgroups sharing the
+//   producer's tiles (128 keys a block) would fit in shared memory but not
+//   in the registers: with setmaxnreg ptxas holds the kernel to 168
+//   registers a thread and spills (tools/flash_backward_variants.py).
+// * What binds it now: shared-memory bandwidth, shared by the products'
+//   operand reads and the producer's splits (tools/flash_backward_variants.py's
+//   diagnostics time it without the q/g splits and with the scores or the
+//   sums in one term).
 //
 // Design of the bf16 and f16 dk/dv kernel up to DMAX 128,
 // flash_bwd_dkv_wgmma_kernel (the warpgroup products, TMA copies and
@@ -138,6 +176,7 @@
 
 #include "mma_tf32.cuh"
 #include "wgmma.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -532,15 +571,15 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   // blocks wholly past d (k, q) or dv (v, g), which TMA leaves unwritten,
   // are read as zeros by the products (every product runs all DMAX / 16
   // steps and all W columns): zero them once
-  if (tma_qk && live_blocks<NB>(d) < NB) {
-    zero_blocks<kWgThreads, kWgRows, NB>(Ks, live_blocks<NB>(d));
+  if (tma_qk && live_blocks<NB, T>(d) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(tid, Ks, live_blocks<NB, T>(d));
     for (int st = 0; st < ST; ++st)
-      zero_blocks<kWgThreads, BM, NB>(Qs + st * QT, live_blocks<NB>(d));
+      zero_blocks<kWgThreads, BM, NB>(tid, Qs + st * QT, live_blocks<NB, T>(d));
   }
-  if (tma_vg && live_blocks<NB>(dv) < NB) {
-    zero_blocks<kWgThreads, kWgRows, NB>(Vs, live_blocks<NB>(dv));
+  if (tma_vg && live_blocks<NB, T>(dv) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(tid, Vs, live_blocks<NB, T>(dv));
     for (int st = 0; st < ST; ++st)
-      zero_blocks<kWgThreads, BM, NB>(Gs + st * QT, live_blocks<NB>(dv));
+      zero_blocks<kWgThreads, BM, NB>(tid, Gs + st * QT, live_blocks<NB, T>(dv));
   }
   if (tid < kWgRows) {
     const int kj = k0 + tid;
@@ -559,8 +598,8 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
       if (tma_qk) tma_tile<BM, NB>(Qs + st * QT, qmap_p, bar, q0, d, bh);
       if (tma_vg) tma_tile<BM, NB>(Gs + st * QT, gmap_p, bar, q0, dv, bh);
     }
-    if (!tma_qk) copy_tile<kWgThreads, BM, NB>(Qs + st * QT, qb, q0, tq, d, vec_d);
-    if (!tma_vg) copy_tile<kWgThreads, BM, NB>(Gs + st * QT, gb, q0, tq, dv, vec_dv);
+    if (!tma_qk) copy_tile<kWgThreads, BM, NB>(tid, Qs + st * QT, qb, q0, tq, d, vec_d);
+    if (!tma_vg) copy_tile<kWgThreads, BM, NB>(tid, Gs + st * QT, gb, q0, tq, dv, vec_dv);
     copy_vec_async<kWgThreads>(Lrow + st * BM, lb, q0, tq, BM);  // rows past tq: see `l` below
     copy_vec_async<kWgThreads>(Drow + st * BM, db, q0, tq, BM);
   };
@@ -573,9 +612,9 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
       if (tma_vg) tma_tile<kWgRows, NB>(Vs, &vmap, bars, k0, dv, bh);
     }
     if (!tma_qk)
-      copy_tile<kWgThreads, kWgRows, NB>(Ks, k + (size_t)bh * tk * d, k0, tk, d, vec_d);
+      copy_tile<kWgThreads, kWgRows, NB>(tid, Ks, k + (size_t)bh * tk * d, k0, tk, d, vec_d);
     if (!tma_vg)
-      copy_tile<kWgThreads, kWgRows, NB>(Vs, v + (size_t)bh * tk * dv, k0, tk, dv, vec_dv);
+      copy_tile<kWgThreads, kWgRows, NB>(tid, Vs, v + (size_t)bh * tk * dv, k0, tk, dv, vec_dv);
     load_qg(first);
   }
   cp_commit();
@@ -713,6 +752,336 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   }
 }
 
+// ---- float32 dk/dv: warpgroup products in 3xTF32 (wgmma_tf32.cuh) -----------
+
+// The float32 dk/dv instantiations at DMAX <= kTf32MaxD run this kernel;
+// DMAX 128 and 256 keep the mma.sync kernel (v hi + lo alone would take 128
+// KB at DMAX 128, two stages of q and g in two orientations 256 KB more, and
+// k's A fragments 128 registers a thread).
+constexpr bool kTf32Wgmma = true;
+constexpr int kTf32MaxD = 64;
+constexpr int kTf32Walk = 32;      // q rows a block walks at a time (the N of sᵀ)
+constexpr int kTf32Stages = 2;     // split q/g tiles in flight between the warpgroups
+constexpr int kTf32Raw = 2;        // raw q/g tiles in flight (TMA)
+// keys a block, the M of sᵀ = k·qᵀ: one consumer warpgroup (two, sharing the
+// producer's tiles, need setmaxnreg to fit the SM's registers, and ptxas
+// then holds every thread to 168 and spills: tools/flash_backward_variants.py)
+constexpr int kTf32Keys = 64;
+constexpr int kTf32Threads = 256;  // the consumer warpgroup, then the producer
+
+template <typename T, int DMAX>
+__host__ __device__ constexpr bool use_wgmma_tf32() {
+  return kTf32Wgmma && std::is_same<T, float>::value && DMAX <= kTf32MaxD;
+}
+
+template <int DMAX>
+constexpr size_t tf32_dkv_smem_bytes() {
+  // v hi and lo: [NB][keys][32] each; kTf32Stages stages of q, g hi and lo
+  // ([NB][BM][32] each) and qᵀ, gᵀ hi and lo ([BM / 32][W][32] each); raw
+  // q, g: kTf32Raw stages of [NB][BM][32] each; lse, delta: kTf32Stages
+  // stages of [BM]; key validity [keys]; the mbarriers; 1024 bytes of slack
+  constexpr int W = f32_width<DMAX>(), BM = kTf32Walk, SS = kTf32Stages, SR = kTf32Raw;
+  return 4 * (2 * kTf32Keys * W + (8 * SS + 2 * SR) * BM * W + 2 * SS * BM + kTf32Keys) +
+         8 * (1 + SR + 2 * SS) + 1024;
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_bwd_dkv_tf32_kernel(__grid_constant__ const CUtensorMap qmap,
+                          __grid_constant__ const CUtensorMap vmap,
+                          __grid_constant__ const CUtensorMap gmap, const float* __restrict__ q,
+                          const float* __restrict__ k, const float* __restrict__ v,
+                          const float* __restrict__ g, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const float* __restrict__ mask,
+                          float* __restrict__ dk, float* __restrict__ dvo, int h, int tq, int tk,
+                          int d, int dv, float scale, int causal, int tk_off, int vec_d,
+                          int vec_dv) {
+  constexpr int W = f32_width<DMAX>();
+  constexpr int NB = W / kF32Cols;  // swizzled blocks a row
+  constexpr int BM = kTf32Walk;
+  constexpr int SS = kTf32Stages, SR = kTf32Raw;
+  constexpr int NK = kTf32Keys;
+  constexpr int NP = 128;                  // threads of the producer warpgroup
+  constexpr int NC = kTf32Threads - NP;    // threads of the consumer
+  constexpr int NS = BM / 2;  // accumulator registers of sᵀ and dpᵀ
+  constexpr int NO = W / 2;   // accumulator registers of dk and dv
+  constexpr int KT = NK * W, QT = BM * W;  // floats of the v tile, of a q or g tile
+  extern __shared__ unsigned char smem_raw[];
+  float* Vh = reinterpret_cast<float*>(align_1024(smem_raw));  // [NB][keys][32]
+  float* Vl = Vh + KT;
+  // stage st: q hi, q lo, g hi, g lo (K-major over d), then qᵀ hi, qᵀ lo,
+  // gᵀ hi, gᵀ lo (K-major over the q rows, acc_k_pos order)
+  float* Stage = Vl + KT;                  // [SS][8][QT]
+  float* Raw = Stage + SS * 8 * QT;        // [SR][q, g][NB][BM][32]
+  float* Lrow = Raw + SR * 2 * QT;         // [SS][BM]
+  float* Drow = Lrow + SS * BM;            // [SS][BM]
+  float* Kvalid = Drow + SS * BM;          // [keys]
+  uint64_t* v_bar = reinterpret_cast<uint64_t*>(Kvalid + NK);  // v (TMA)
+  uint64_t* raw_bar = v_bar + 1;           // [SR]: raw q and g (TMA)
+  uint64_t* full = raw_bar + SR;           // [SS]: a split stage is ready (producer -> consumer)
+  uint64_t* empty = full + SS;             // [SS]: a split stage is read (consumer -> producer)
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int k0 = blockIdx.y * NK;  // the first k tiles see the most q rows: they go first
+  const bool tma_qk = vec_d == 16, tma_vg = vec_dv == 16;  // else copies by the producer's threads
+
+  const int n_tiles = (tq + BM - 1) / BM;
+  int first = 0;  // the first q tile any key of the block sees
+  if (causal) {
+    const int q_first = k0 - tk_off;  // the first q row that sees key k0
+    first = q_first <= 0 ? 0 : min(q_first / BM, n_tiles);
+  }
+  if (tid == 0) {
+    mbar_init(v_bar);
+    for (int i = 0; i < SR; ++i) mbar_init(raw_bar + i);
+    for (int i = 0; i < SS; ++i) {
+      mbar_init(full + i, NP);
+      mbar_init(empty + i, NC);
+    }
+    mbar_init_fence();
+  }
+  if (tid < NK) {
+    const int kj = k0 + tid;
+    Kvalid[tid] = (kj < tk && (mask == nullptr || mask[(size_t)b * tk + kj] > 0.f)) ? 1.f : 0.f;
+  }
+  __syncthreads();  // the barriers are initialised before anyone uses them
+  if (first >= n_tiles) {  // no q row sees these keys: zero gradients
+    const int w = max(d, dv);
+    for (int i = tid; i < NK * w; i += kTf32Threads) {
+      const int r = k0 + i / w, c = i % w;
+      if (r >= tk) continue;
+      if (c < d) dk[((size_t)bh * tk + r) * d + c] = 0.f;
+      if (c < dv) dvo[((size_t)bh * tk + r) * dv + c] = 0.f;
+    }
+    return;
+  }
+
+  if (tid >= NC) {
+    // ---- the producer: copies by TMA (one thread) or cp.async, and splits
+    const int me = tid - NC;
+    const float* qb = q + (size_t)bh * tq * d;
+    const float* gb = g + (size_t)bh * tq * dv;
+    // blocks wholly past d (q) or dv (v, g), which TMA leaves unwritten, are
+    // split as zeros (every product runs all W / 8 steps and W columns)
+    if (tma_qk && live_blocks<NB, float>(d) < NB)
+      for (int r = 0; r < SR; ++r)
+        zero_blocks<NP, BM, NB>(me, Raw + r * 2 * QT, live_blocks<NB, float>(d));
+    if (tma_vg && live_blocks<NB, float>(dv) < NB) {
+      zero_blocks<NP, NK, NB>(me, Vh, live_blocks<NB, float>(dv));
+      for (int r = 0; r < SR; ++r)
+        zero_blocks<NP, BM, NB>(me, Raw + r * 2 * QT + QT, live_blocks<NB, float>(dv));
+    }
+    named_sync(1, NP);  // the zeros are written before TMA may land beside them
+    if (me == 0) {
+      mbar_expect(v_bar, tma_vg ? tile_bytes<NK, NB, float>(dv) : 0);
+      if (tma_vg) tma_tile<NK, NB>(Vh, &vmap, v_bar, k0, dv, bh);
+    }
+    if (!tma_vg)
+      copy_tile<NP, NK, NB>(me, Vh, v + (size_t)bh * tk * dv, k0, tk, dv, vec_dv);
+    // tile qt's raw q and g into raw stage (qt - first) % SR by TMA or
+    // cp.async: one cp.async group (v in the first)
+    const CUtensorMap *qmap_p = &qmap, *gmap_p = &gmap;
+    auto load_qg = [&](int qt) {
+      const int q0 = qt * BM;
+      float* rq = Raw + (qt - first) % SR * 2 * QT;
+      uint64_t* bar = raw_bar + (qt - first) % SR;
+      if (me == 0) {
+        mbar_expect(bar, (tma_qk ? tile_bytes<BM, NB, float>(d) : 0) +
+                             (tma_vg ? tile_bytes<BM, NB, float>(dv) : 0));
+        if (tma_qk) tma_tile<BM, NB>(rq, qmap_p, bar, q0, d, bh);
+        if (tma_vg) tma_tile<BM, NB>(rq + QT, gmap_p, bar, q0, dv, bh);
+      }
+      if (!tma_qk) copy_tile<NP, BM, NB>(me, rq, qb, q0, tq, d, vec_d);
+      if (!tma_vg) copy_tile<NP, BM, NB>(me, rq + QT, gb, q0, tq, dv, vec_dv);
+    };
+#pragma unroll
+    for (int j = 0; j < SR; ++j) {
+      if (first + j < n_tiles) load_qg(first + j);
+      cp_commit();
+    }
+    for (int qt = first; qt < n_tiles; ++qt) {
+      const int j = qt - first, st = j % SS;
+      // this tile's lse and delta, loaded under the waits below (rows past
+      // tq: zero, and `l` in the consumer's probabilities)
+      const int qi = qt * BM + me;
+      const float l_v = me < BM && qi < tq ? lse[(size_t)bh * tq + qi] : 0.f;
+      const float d_v = me < BM && qi < tq ? delta[(size_t)bh * tq + qi] : 0.f;
+      if (j >= SS) mbar_wait(empty + st, ((j - SS) / SS) & 1);  // the consumer read the stage
+      cp_wait<SR - 1>();  // this thread's copies of tile qt (and v)
+      if (j == 0) mbar_wait(v_bar, 0);
+      mbar_wait(raw_bar + j % SR, (j / SR) & 1);
+      if (!(tma_qk && tma_vg)) named_sync(1, NP);  // ... and every producer thread's
+      if (j == 0)  // v, split in place
+        split_tile<NP, NK, W, true, false, false>(me, Vh, 1.f, Vh, Vl, nullptr, nullptr);
+      const float* rq = Raw + j % SR * 2 * QT;
+      float* sp = Stage + st * 8 * QT;
+      split_tile<NP, BM, W, true, true, true>(me, rq, scale, sp, sp + QT, sp + 4 * QT,
+                                              sp + 5 * QT);
+      split_tile<NP, BM, W, true, true, false>(me, rq + QT, 1.f, sp + 2 * QT, sp + 3 * QT,
+                                               sp + 6 * QT, sp + 7 * QT);
+      if (me < BM) {
+        Lrow[st * BM + me] = l_v;
+        Drow[st * BM + me] = d_v;
+      }
+      fence_async_smem();  // the split tiles, visible to the consumer's products
+      mbar_arrive(full + st);
+      named_sync(1, NP);  // every producer thread is done with the raw stage
+      if (qt + SR < n_tiles) load_qg(qt + SR);
+      cp_commit();
+    }
+    cp_wait<0>();  // no copy outlives the block (none is pending)
+    return;
+  }
+
+  // ---- the consumer: the products and the probabilities of the block's keys
+  const int lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int w0 = (tid >> 5) * 16;  // this warp's first key of the block's
+  // q tiles [f0, f1) need no mask: no key mask, the block's keys and q rows
+  // inside tk and tq, and every key at or below the causal frontier of the
+  // tile's first row
+  const int f1 = mask != nullptr || k0 + NK > tk ? 0 : tq / BM;
+  const int f0 = causal ? (max(k0 + NK - 1 - tk_off, 0) + BM - 1) / BM : 0;
+
+  float dk_acc[NO], dv_acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  // pᵀ and dsᵀ of the tile being summed, hi and lo A fragments
+  uint32_t p_hi[BM / 8][4], p_lo[BM / 8][4], ds_hi[BM / 8][4], ds_lo[BM / 8][4];
+  float s[NS], dp[NS];  // the first steps of sᵀ and dpᵀ overwrite them (scale_d = 0)
+  // k's A fragments, hi and lo, held in registers: the scores then read only
+  // q from shared memory
+  uint32_t ka_hi[W / 8][4], ka_lo[W / 8][4];
+  rows_to_a_tf32(k + (size_t)bh * tk * d, k0 + w0, tk, d, 1.f, gr, tc, ka_hi, ka_lo);
+
+  // every product below is issued unconditionally between its fence and
+  // its wait: a wgmma under a branch makes ptxas serialize them all
+  const uint64_t dvh = smem_desc(Vh, 16, 1024);
+  const uint64_t dvl = smem_desc(Vl, 16, 1024);
+  const uint64_t dst0 = smem_desc(Stage, 16, 1024);
+  // sᵀ = k·(q·scale)ᵀ, dpᵀ = v·gᵀ of the tile in stage st: three m64nBMk8
+  // products an 8-column step
+  auto scores = [&](int st) {
+    const uint64_t qh = desc_at(opaque(dst0), st * 8 * QT * 4), ql = desc_at(qh, QT * 4);
+    const uint64_t gh = desc_at(qh, 2 * QT * 4), gl = desc_at(qh, 3 * QT * 4);
+#pragma unroll
+    for (int kd = 0; kd < W / 8; ++kd) {
+      const uint32_t aq = k_step<BM>(kd);
+      wgmma_tf32(s, ka_lo[kd], desc_at(qh, aq), kd > 0);
+      wgmma_tf32(s, ka_hi[kd], desc_at(ql, aq), 1);
+      wgmma_tf32(s, ka_hi[kd], desc_at(qh, aq), 1);
+    }
+    const uint64_t vh = opaque(dvh), vl = opaque(dvl);
+#pragma unroll
+    for (int kd = 0; kd < W / 8; ++kd) {
+      const uint32_t ak = k_step<NK>(kd), aq = k_step<BM>(kd);
+      wgmma_tf32(dp, desc_at(vl, ak), desc_at(gh, aq), kd > 0);
+      wgmma_tf32(dp, desc_at(vh, ak), desc_at(gl, aq), 1);
+      wgmma_tf32(dp, desc_at(vh, ak), desc_at(gh, aq), 1);
+    }
+  };
+  // dv += pᵀ·g, dk += dsᵀ·(q·scale) of the tile in stage st (rows past tq:
+  // p = ds = 0)
+  auto sums = [&](int st) {
+    const uint64_t qth = desc_at(opaque(dst0), (st * 8 + 4) * QT * 4), qtl = desc_at(qth, QT * 4);
+    const uint64_t gth = desc_at(qth, 2 * QT * 4), gtl = desc_at(qth, 3 * QT * 4);
+#pragma unroll
+    for (int kk = 0; kk < BM / 8; ++kk) {
+      const uint32_t at = k_step<W>(kk);
+      wgmma_tf32(dv_acc, p_lo[kk], desc_at(gth, at), 1);
+      wgmma_tf32(dv_acc, p_hi[kk], desc_at(gtl, at), 1);
+      wgmma_tf32(dv_acc, p_hi[kk], desc_at(gth, at), 1);
+      wgmma_tf32(dk_acc, ds_lo[kk], desc_at(qth, at), 1);
+      wgmma_tf32(dk_acc, ds_hi[kk], desc_at(qtl, at), 1);
+      wgmma_tf32(dk_acc, ds_hi[kk], desc_at(qth, at), 1);
+    }
+  };
+  // pᵀ into s, dsᵀ into dp, in base-2 units (the scale is in q); element i
+  // is key gr + 8 ((i / 2) % 2), query 8 (i / 4) + 2tc + i % 2
+  auto probabilities = [&](int qt) {
+    const int st = (qt - first) % SS, q0 = qt * BM;
+    const float* Lt = Lrow + st * BM;
+    const float* Dt = Drow + st * BM;
+    if (qt >= f0 && qt < f1) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int ql = 8 * (i >> 2) + 2 * tc + (i & 1);
+        const float p = ex2(fmaf(s[i], kLog2e, -Lt[ql] * kLog2e));
+        s[i] = p;
+        dp[i] = p * (dp[i] - Dt[ql]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int kl = w0 + gr + 8 * ((i >> 1) & 1);
+        const int ql = 8 * (i >> 2) + 2 * tc + (i & 1);
+        const int qi = q0 + ql;
+        const bool keep = Kvalid[kl] > 0.f && (!causal || qi + tk_off >= k0 + kl);
+        const float sv = keep ? s[i] * kLog2e : kNeg;
+        // rows past tq: lse +1e30 makes p = 0, as the TPU kernel's padding does
+        const float l = qi < tq ? Lt[ql] * kLog2e : -kNeg;
+        const float p = sv > kNeg * 0.5f ? ex2(sv - l) : 0.f;
+        s[i] = p;
+        dp[i] = p * (dp[i] - Dt[ql]);
+      }
+    }
+  };
+  auto to_a = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BM / 8; ++kk) {
+      acc_to_a_tf32(s, kk, p_hi[kk], p_lo[kk]);
+      acc_to_a_tf32(dp, kk, ds_hi[kk], ds_lo[kk]);
+    }
+  };
+
+  mbar_wait(full, 0);  // the first tile (and v) split
+  wg_fence();
+  scores(0);
+  wg_commit();
+  wg_wait<0>();
+  wg_hold(s);
+  wg_hold(dp);
+  probabilities(first);
+  to_a();
+  // Round qt: the scores of tile qt + 1 and the sums of tile qt, issued
+  // together; the probabilities of tile qt + 1 run while the sums do
+  for (int qt = first; qt + 1 < n_tiles; ++qt) {
+    const int j = qt - first, st = j % SS, nst = (j + 1) % SS;
+    mbar_wait(full + nst, ((j + 1) / SS) & 1);
+    wg_fence();
+    scores(nst);
+    wg_commit();
+    sums(st);
+    wg_commit();
+    wg_wait<1>();  // the scores
+    wg_hold(s);
+    wg_hold(dp);
+    probabilities(qt + 1);
+    wg_wait<0>();  // the sums
+    wg_hold(dv_acc);
+    wg_hold(dk_acc);
+    mbar_arrive(empty + st);  // tile qt's stage is read by this warpgroup
+    to_a();
+  }
+  wg_fence();  // the sums of the last tile
+  sums((n_tiles - 1 - first) % SS);
+  wg_commit();
+  wg_wait<0>();
+  wg_hold(dv_acc);
+  wg_hold(dk_acc);
+
+  const size_t base = (size_t)bh * tk;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) {
+    const int r = k0 + w0 + gr + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + 2 * tc + (i & 1);
+    if (r >= tk) continue;
+    if (c < d) dk[(base + r) * d + c] = dk_acc[i];  // the scale is in q
+    if (c < dv) dvo[(base + r) * dv + c] = dv_acc[i];
+  }
+}
+
 // ---- bf16 and f16 dq: warpgroup products (wgmma.cuh) ------------------------
 
 // The bf16 and f16 dq instantiations at DMAX <= kWgDqMaxD run this kernel;
@@ -804,15 +1173,15 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   // blocks wholly past d (q, k) or dv (g, v), which TMA leaves unwritten,
   // are read as zeros by the products (every product runs all DMAX / 16
   // steps and all W columns): zero them once
-  if (tma_qk && live_blocks<NB>(d) < NB) {
-    zero_blocks<kWgThreads, kWgRows, NB>(Qs, live_blocks<NB>(d));
+  if (tma_qk && live_blocks<NB, T>(d) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(tid, Qs, live_blocks<NB, T>(d));
     for (int st = 0; st < ST; ++st)
-      zero_blocks<kWgThreads, BN, NB>(Ks + st * KT, live_blocks<NB>(d));
+      zero_blocks<kWgThreads, BN, NB>(tid, Ks + st * KT, live_blocks<NB, T>(d));
   }
-  if (tma_vg && live_blocks<NB>(dv) < NB) {
-    zero_blocks<kWgThreads, kWgRows, NB>(Gs, live_blocks<NB>(dv));
+  if (tma_vg && live_blocks<NB, T>(dv) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(tid, Gs, live_blocks<NB, T>(dv));
     for (int st = 0; st < ST; ++st)
-      zero_blocks<kWgThreads, BN, NB>(Vs + st * KT, live_blocks<NB>(dv));
+      zero_blocks<kWgThreads, BN, NB>(tid, Vs + st * KT, live_blocks<NB, T>(dv));
   }
   __syncthreads();  // the barriers are initialised before anyone uses them
 
@@ -827,8 +1196,8 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
       if (tma_qk) tma_tile<BN, NB>(Ks + st * KT, kmap_p, bar, k0, d, bh);
       if (tma_vg) tma_tile<BN, NB>(Vs + st * KT, vmap_p, bar, k0, dv, bh);
     }
-    if (!tma_qk) copy_tile<kWgThreads, BN, NB>(Ks + st * KT, kb, k0, tk, d, vec_d);
-    if (!tma_vg) copy_tile<kWgThreads, BN, NB>(Vs + st * KT, vb, k0, tk, dv, vec_dv);
+    if (!tma_qk) copy_tile<kWgThreads, BN, NB>(tid, Ks + st * KT, kb, k0, tk, d, vec_d);
+    if (!tma_vg) copy_tile<kWgThreads, BN, NB>(tid, Vs + st * KT, vb, k0, tk, dv, vec_dv);
     float* kv = Kvalid + st * BN;
     if (mask != nullptr) {
       copy_vec_async<kWgThreads>(kv, mask + (size_t)b * tk, k0, tk, BN);
@@ -845,9 +1214,9 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
       if (tma_vg) tma_tile<kWgRows, NB>(Gs, &gmap, bars, q0, dv, bh);
     }
     if (!tma_qk)
-      copy_tile<kWgThreads, kWgRows, NB>(Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
+      copy_tile<kWgThreads, kWgRows, NB>(tid, Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
     if (!tma_vg)
-      copy_tile<kWgThreads, kWgRows, NB>(Gs, g + (size_t)bh * tq * dv, q0, tq, dv, vec_dv);
+      copy_tile<kWgThreads, kWgRows, NB>(tid, Gs, g + (size_t)bh * tq * dv, q0, tq, dv, vec_dv);
     load_kv(0);
   }
   cp_commit();
@@ -1084,12 +1453,38 @@ cudaError_t launch_dkv_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-// the wgmma dk/dv kernel for bf16 and f16 up to kWgmmaMaxD, else the
-// mma.sync one
+template <int DMAX>
+cudaError_t launch_dkv_tf32(const Args& a) {
+  constexpr size_t bytes = tf32_dkv_smem_bytes<DMAX>();
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(flash_bwd_dkv_tf32_kernel<DMAX>, (int)bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const int vec_d = copy_bytes(a.d, 4, a.q, a.k);
+  const int vec_dv = copy_bytes(a.dv, 4, a.v, a.g);
+  const int n = a.b * a.h;
+  CUtensorMap qm{}, vm{}, gm{};  // encoded where TMA copies the operand (k goes to registers)
+  if (vec_d == 16 && (err = tile_map<float>(&qm, a.q, n, a.tq, a.d, kTf32Walk)) != cudaSuccess)
+    return err;
+  if (vec_dv == 16 && ((err = tile_map<float>(&gm, a.g, n, a.tq, a.dv, kTf32Walk)) != cudaSuccess ||
+                       (err = tile_map<float>(&vm, a.v, n, a.tk, a.dv, kTf32Keys)) != cudaSuccess))
+    return err;
+  const dim3 grid(n, (a.tk + kTf32Keys - 1) / kTf32Keys);
+  flash_bwd_dkv_tf32_kernel<DMAX><<<grid, kTf32Threads, bytes, a.stream>>>(
+      qm, vm, gm, static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.lse, a.delta, a.mask,
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.h, a.tq, a.tk, a.d, a.dv,
+      a.scale, a.causal, a.causal_offset, vec_d, vec_dv);
+  return cudaGetLastError();
+}
+
+// the wgmma dk/dv kernel for bf16 and f16 up to kWgmmaMaxD, the 3xTF32
+// wgmma kernel for float32 up to kTf32MaxD, else the mma.sync one
 template <typename T, int DMAX>
 cudaError_t pick_dkv(const Args& a) {
   if constexpr (use_wgmma<T, DMAX>()) {
     return launch_dkv_wgmma<T, DMAX>(a);
+  } else if constexpr (use_wgmma_tf32<T, DMAX>()) {
+    return launch_dkv_tf32<DMAX>(a);
   } else {
     return launch_dkv<T, DMAX>(a);
   }

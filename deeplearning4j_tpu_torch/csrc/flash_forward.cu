@@ -22,8 +22,9 @@
 // products per product, so the float32 limit is 3 x flops at the dense TF32
 // rate (495 TFLOP/s), not the CUDA cores' 67 TFLOP/s.
 //
-// Design of the float32 kernel, flash_forward_kernel (the products, fragments
-// and copies are mma_tf32.cuh's, shared with the backward kernels).
+// Design of the mma.sync kernel, flash_forward_kernel: float32 at DMAX 256
+// (the products, fragments and copies are mma_tf32.cuh's, shared with the
+// backward kernels).
 // * Ownership: the TPU kernel carries its running max, denominator and
 //   accumulator in VMEM scratch across a sequential k grid axis. Blocks on
 //   Hopper run in parallel and in no order, so here one block owns a
@@ -36,7 +37,8 @@
 //   output accumulator, both in registers. In float32, s = q·kᵀ and p·v take
 //   three terms each (3xTF32), and the scale is folded into q as it lands in
 //   shared memory. (Fed bf16 or f16, as it was before the wgmma kernel, q·kᵀ
-//   takes one term and p·v two; kWgmma = false brings that back for timing.)
+//   takes one term and p·v two; kWgmma = false brings that back for timing,
+//   as kTf32Wgmma = false brings back float32 below DMAX 256.)
 // * The online softmax: lane (g, t) holds rows g and g + 8 of its warp's 16,
 //   two keys of every 8; the row max and row sum take two shuffles across
 //   the lane quad (xor 1, 2). p then feeds p·v as the A operand straight
@@ -49,11 +51,48 @@
 //   instantiation's width DMAX (32, 64, 128 or 256): every loop has a
 //   compile-time trip count.
 // * Tile shape: 64 q rows and 4 warps a block, walking 32-key tiles in
-//   float32 (52 KB of shared memory at d = 64, four blocks an SM);
-//   tools/flash_forward_variants.py times the alternatives (128 rows and 8
-//   warps was slower). At DMAX 256 it walks 32-key tiles: 195 KB of shared
-//   memory, one block an SM, and the 16 x 256 output rows of a warp take 128
-//   accumulator registers a thread.
+//   float32. At DMAX 256: 195 KB of shared memory, one block an SM, and the
+//   16 x 256 output rows of a warp take 128 accumulator registers a thread.
+//   It is bound by instruction issue: around each TF32 mma a warp runs
+//   shared loads, the split of every fragment it loads, and the softmax.
+//
+// Design of the float32 kernel up to DMAX 128, flash_forward_tf32_kernel
+// (warpgroup products in TF32, tile layout and splits: wgmma_tf32.cuh; TMA
+// and mbarriers: wgmma.cuh):
+// * Ownership as above: one warpgroup owns a 64-row q tile (the M of
+//   wgmma) and walks 32-key tiles up to its causal frontier, the heaviest
+//   q tiles first.
+// * 3xTF32 on wgmma.m64nNk8 .tf32, which takes its shared-memory operands
+//   K-major only. Each element is split into hi + lo once a block, where
+//   the mma.sync kernel split every fragment it loaded: q·scale's A
+//   fragments once, in registers (64 a thread at DMAX 64; at DMAX 128 they
+//   are hi and lo tiles in shared memory instead); each k tile into hi and
+//   lo tiles as it lies (K-major over d: the B of s = q·kᵀ); each v tile
+//   into hi and lo tiles of vᵀ (K-major over the keys: the B of p·v), its
+//   keys in the order that lets p's accumulator registers be p·v's A
+//   fragments (acc_k_pos).
+// * s = q·kᵀ: three m64n32k8 products an 8-column step (q_lo·k_hi,
+//   q_hi·k_lo, q_hi·k_hi), A from registers. The online softmax runs on the
+//   accumulator in base 2 (s·log2 e, ex2), with the bf16 kernel's
+//   softmax_tile (mask test skipped on tiles wholly inside the frontier).
+//   acc += p·v: p split hi + lo in registers, three m64nWk8 products a
+//   step.
+// * Copies: TMA brings each raw k and v tile (and q at DMAX 128) in 32-float
+//   128B-swizzled boxes into two raw stages, completing on mbarriers; rows
+//   TMA cannot take (not a multiple of 16 bytes, or an unaligned base) are
+//   copied by the threads (cp.async of 8 or 4 bytes) into the same layout.
+//   The threads then split them into two k buffers and two vᵀ buffers.
+// * Round kt (kTf32Overlap, at DMAX <= 64): s of tile kt + 1 and p·v of tile kt are issued
+//   together; after s, the softmax of tile kt + 1 and the splits of k of
+//   tile kt + 2 and v of tile kt + 1 run under p·v. Splitting before s has
+//   landed, with both products in flight, crashes ptxas 12.9. Every wgmma
+//   between a fence and its wait is issued unconditionally, and the kernel
+//   makes no call; descriptors are recomputed from an opaque base each
+//   round (opaque()) instead of being held, one register pair a step.
+// * Shared memory at DMAX 64: 96 KB, two blocks an SM. What binds it now:
+//   the TF32 products at 3 x the flops and the splits' shared-memory
+//   traffic beside them (tools/flash_forward_variants.py's diagnostics time
+//   it without the k/v splits and with s in one term).
 //
 // Design of the bf16 and f16 kernel, flash_forward_wgmma_kernel (the
 // warpgroup products, TMA copies and swizzled layout are wgmma.cuh's):
@@ -94,6 +133,7 @@
 
 #include "mma_tf32.cuh"
 #include "wgmma.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -403,14 +443,14 @@ flash_forward_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   // blocks wholly past d (q, k) or dv (v), which TMA leaves unwritten, are
   // read as zeros by the products (every product runs all DMAX / 16 steps
   // of d and all W columns of dv): zero them once
-  if (tma_qk && live_blocks<NB>(d) < NB) {
-    zero_blocks<kWgThreads, kWgRows, NB>(Qs, live_blocks<NB>(d));
-    zero_blocks<kWgThreads, BN, NB>(Ks, live_blocks<NB>(d));
-    zero_blocks<kWgThreads, BN, NB>(Ks + KT, live_blocks<NB>(d));
+  if (tma_qk && live_blocks<NB, T>(d) < NB) {
+    zero_blocks<kWgThreads, kWgRows, NB>(tid, Qs, live_blocks<NB, T>(d));
+    zero_blocks<kWgThreads, BN, NB>(tid, Ks, live_blocks<NB, T>(d));
+    zero_blocks<kWgThreads, BN, NB>(tid, Ks + KT, live_blocks<NB, T>(d));
   }
-  if (tma_v && live_blocks<NB>(dv) < NB) {
-    zero_blocks<kWgThreads, BN, NB>(Vs, live_blocks<NB>(dv));
-    zero_blocks<kWgThreads, BN, NB>(Vs + KT, live_blocks<NB>(dv));
+  if (tma_v && live_blocks<NB, T>(dv) < NB) {
+    zero_blocks<kWgThreads, BN, NB>(tid, Vs, live_blocks<NB, T>(dv));
+    zero_blocks<kWgThreads, BN, NB>(tid, Vs + KT, live_blocks<NB, T>(dv));
   }
   __syncthreads();  // the barriers are initialised before anyone uses them
 
@@ -429,9 +469,10 @@ flash_forward_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
       if (has_k && tma_qk) tma_tile<BN, NB>(Ks + st * KT, kmap_p, bar, j * BN, d, bh);
       if (has_v && tma_v) tma_tile<BN, NB>(Vs + sv * KT, vmap_p, bar, (j - 1) * BN, dv, bh);
     }
-    if (has_k && !tma_qk) copy_tile<kWgThreads, BN, NB>(Ks + st * KT, kb, j * BN, tk, d, vec_d);
+    if (has_k && !tma_qk)
+      copy_tile<kWgThreads, BN, NB>(tid, Ks + st * KT, kb, j * BN, tk, d, vec_d);
     if (has_v && !tma_v)
-      copy_tile<kWgThreads, BN, NB>(Vs + sv * KT, vb, (j - 1) * BN, tk, dv, vec_dv);
+      copy_tile<kWgThreads, BN, NB>(tid, Vs + sv * KT, vb, (j - 1) * BN, tk, dv, vec_dv);
     if (has_k) {
       float* kv = Kvalid + st * BN;
       if (mask != nullptr) {
@@ -458,7 +499,7 @@ flash_forward_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
       if (tma_qk) tma_tile<kWgRows, NB>(Qs, &qmap, bars, q0, d, bh);
     }
     if (!tma_qk)
-      copy_tile<kWgThreads, kWgRows, NB>(Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
+      copy_tile<kWgThreads, kWgRows, NB>(tid, Qs, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
     load(0);
   }
   cp_commit();
@@ -569,6 +610,354 @@ flash_forward_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   }
 }
 
+// ---- float32: warpgroup products in 3xTF32 (wgmma_tf32.cuh) -----------------
+
+// The float32 instantiations at DMAX <= kTf32MaxD run this kernel; DMAX 256
+// keeps the mma.sync kernel (its q tile alone would take 128 KB hi + lo).
+constexpr bool kTf32Wgmma = true;
+constexpr int kTf32MaxD = 128;
+constexpr int kTf32Keys = 32;    // keys a tile at DMAX <= 64 (the N of s = q·kᵀ)
+constexpr int kTf32Stages = 1;   // raw k/v tiles in flight (without kTf32Overlap)
+// s of tile kt + 1 and p·v of tile kt issued together, the softmax of tile
+// kt + 1 running under p·v; k split two tiles ahead and v one, into two
+// buffers each, from two raw stages
+constexpr bool kTf32Overlap = true;
+constexpr bool kTf32QRegs = true;  // q's A fragments in registers at DMAX <= 64 (else shared memory)
+constexpr int kTf32MinBlocks = 2;  // blocks an SM that ptxas must fit at DMAX <= 64
+constexpr int kTf32Rows = 64;    // q rows a block: one warpgroup
+constexpr int kTf32Threads = 128;
+
+template <typename T, int DMAX>
+__host__ __device__ constexpr bool use_wgmma_tf32() {
+  return kTf32Wgmma && std::is_same<T, float>::value && DMAX <= kTf32MaxD;
+}
+
+template <int DMAX>
+__host__ __device__ constexpr int tf32_keys() { return DMAX > 64 ? 32 : kTf32Keys; }
+
+// q's A fragments, hi and lo, in registers (64 a thread at DMAX 64): the
+// products then read only k from shared memory
+template <int DMAX>
+__host__ __device__ constexpr bool tf32_q_regs() { return kTf32QRegs && DMAX <= 64; }
+
+// the overlapped round at DMAX <= 64 (at 128 its buffers would take 257 KB);
+// raw k/v stages, and k buffers
+template <int DMAX>
+__host__ __device__ constexpr bool tf32_overlap() { return kTf32Overlap && DMAX <= 64; }
+template <int DMAX>
+__host__ __device__ constexpr int tf32_stages() { return tf32_overlap<DMAX>() ? 2 : kTf32Stages; }
+template <int DMAX>
+__host__ __device__ constexpr int tf32_k_bufs() { return tf32_overlap<DMAX>() ? 2 : 1; }
+
+template <int DMAX>
+constexpr size_t tf32_smem_bytes() {
+  // q hi, lo: [NB][64][32] each (unless in registers); k hi, lo: KB buffers
+  // of [NB][BN][32] each; vᵀ hi, lo: two buffers of [BN / 32][W][32] each;
+  // raw k, v: ST stages of [NB][BN][32] each; key validity: ST + 1 stages of
+  // [BN]; the mbarriers; 1024 bytes of alignment slack
+  constexpr int W = f32_width<DMAX>(), BN = tf32_keys<DMAX>(), ST = tf32_stages<DMAX>();
+  constexpr int KB = tf32_k_bufs<DMAX>();
+  constexpr int QT = tf32_q_regs<DMAX>() ? 0 : kTf32Rows * W;
+  return 4 * (2 * QT + (2 * KB + 4 + 2 * ST) * BN * W + (ST + 1) * BN) + 8 * (1 + ST) + 1024;
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kTf32Threads, DMAX <= 64 ? kTf32MinBlocks : 1)
+flash_forward_tf32_kernel(__grid_constant__ const CUtensorMap qmap,
+                          __grid_constant__ const CUtensorMap kmap,
+                          __grid_constant__ const CUtensorMap vmap, const float* __restrict__ q,
+                          const float* __restrict__ k, const float* __restrict__ v,
+                          const float* __restrict__ mask, float* __restrict__ out,
+                          float* __restrict__ lse, int h, int tq, int tk, int d, int dv,
+                          float scale, int causal, int tk_off, int vec_d, int vec_dv) {
+  constexpr int W = f32_width<DMAX>();
+  constexpr int NB = W / kF32Cols;  // swizzled blocks a row
+  constexpr int BN = tf32_keys<DMAX>();
+  constexpr int ST = tf32_stages<DMAX>(), KB = tf32_k_bufs<DMAX>();
+  constexpr bool OV = tf32_overlap<DMAX>();
+  constexpr int NT = kTf32Threads;
+  constexpr int NS = BN / 2;  // accumulator registers of s
+  constexpr int NO = W / 2;   // accumulator registers of the output
+  constexpr bool QR = tf32_q_regs<DMAX>();  // q's A fragments in registers
+  constexpr int QT = QR ? 0 : kTf32Rows * W, KT = BN * W;  // floats of the q tile, of a k or v tile
+  extern __shared__ unsigned char smem_raw[];
+  float* Qh = reinterpret_cast<float*>(align_1024(smem_raw));
+  float* Ql = Qh + QT;
+  float* Kt = Ql + QT;                   // [KB][hi, lo][NB][BN][32]
+  float* Vt = Kt + KB * 2 * KT;          // [2][hi, lo][BN / 32][W][32]: vᵀ
+  float* Raw = Vt + 4 * KT;              // [ST][k, v][NB][BN][32]
+  float* Kvalid = Raw + 2 * ST * KT;     // [ST + 1][BN]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Kvalid + (ST + 1) * BN);  // q, then a raw stage each
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;  // accumulator row and column of this lane
+  const int w0 = (tid >> 5) * 16;           // this warp's first row of the tile
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  // the last q tiles see the most keys under the causal mask: start them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTf32Rows;
+  const bool tma_qk = vec_d == 16, tma_v = vec_dv == 16;  // else copies by the threads
+
+  const float* kb = k + (size_t)bh * tk * d;
+  const float* vb = v + (size_t)bh * tk * dv;
+  int n_tiles = (tk + BN - 1) / BN;
+  if (causal) {
+    const int last = q0 + kTf32Rows - 1 + tk_off;  // the last key any row of this tile sees
+    n_tiles = last < 0 ? 0 : min(n_tiles, last / BN + 1);
+  }
+  // tiles [0, n_full) need no mask: no key mask, inside tk, and every key at
+  // or below the causal frontier of the tile's first row
+  int n_full = mask != nullptr ? 0 : tk / BN;
+  if (causal) n_full = min(n_full, q0 + tk_off < 0 ? 0 : (q0 + tk_off + 1) / BN);
+  if (tid == 0) {
+    for (int i = 0; i <= ST; ++i) mbar_init(bars + i);
+    mbar_init_fence();
+  }
+  // blocks wholly past d (q, k) or dv (v), which TMA leaves unwritten, are
+  // split as zeros (every product runs all W / 8 steps and W columns)
+  if (tma_qk && live_blocks<NB, float>(d) < NB) {
+    if (!QR) zero_blocks<NT, kTf32Rows, NB>(tid, Qh, live_blocks<NB, float>(d));
+    for (int st = 0; st < ST; ++st)
+      zero_blocks<NT, BN, NB>(tid, Raw + st * 2 * KT, live_blocks<NB, float>(d));
+  }
+  if (tma_v && live_blocks<NB, float>(dv) < NB)
+    for (int st = 0; st < ST; ++st)
+      zero_blocks<NT, BN, NB>(tid, Raw + st * 2 * KT + KT, live_blocks<NB, float>(dv));
+  __syncthreads();  // the barriers are initialised before anyone uses them
+
+  // Tile j's raw k and v land in stage j % ST (barrier 1 + j % ST), its key
+  // validity in stage j % (ST + 1), read by its softmax after the next load
+  // has been issued. Each load is one cp.async group (empty past the tiles).
+  const CUtensorMap *kmap_p = &kmap, *vmap_p = &vmap;
+  auto load = [&](int j) {
+    float* rk = Raw + j % ST * 2 * KT;
+    uint64_t* bar = bars + 1 + j % ST;
+    if (tid == 0) {
+      mbar_expect(bar, (tma_qk ? tile_bytes<BN, NB, float>(d) : 0) +
+                           (tma_v ? tile_bytes<BN, NB, float>(dv) : 0));
+      if (tma_qk) tma_tile<BN, NB>(rk, kmap_p, bar, j * BN, d, bh);
+      if (tma_v) tma_tile<BN, NB>(rk + KT, vmap_p, bar, j * BN, dv, bh);
+    }
+    if (!tma_qk) copy_tile<NT, BN, NB>(tid, rk, kb, j * BN, tk, d, vec_d);
+    if (!tma_v) copy_tile<NT, BN, NB>(tid, rk + KT, vb, j * BN, tk, dv, vec_dv);
+    float* kv = Kvalid + j % (ST + 1) * BN;
+    if (mask != nullptr) {
+      copy_vec_async<NT>(kv, mask + (size_t)b * tk, j * BN, tk, BN);
+    } else if (tid < BN) {
+      kv[tid] = j * BN + tid < tk ? 1.f : 0.f;
+    }
+  };
+  // tile j's copies (and q's, with tile 0) have landed, every thread's
+  auto wait_raw = [&](int j) {
+    cp_wait<OV ? 0 : ST - 1>();  // this thread's
+    if (!QR && j == 0) mbar_wait(bars, 0);
+    mbar_wait(bars + 1 + j % ST, (j / ST) & 1);
+    if (!(tma_qk && tma_v)) __syncthreads();  // ... and every thread's
+  };
+  // tile j's k into k buffer j % KB (K-major, as k lies), its v into vᵀ
+  // buffer j % 2 (K-major over the keys)
+  auto split_k = [&](int j) {
+    float* kt = Kt + j % KB * 2 * KT;
+    split_tile<NT, BN, W, true, false, false>(tid, Raw + j % ST * 2 * KT, 1.f, kt, kt + KT,
+                                              nullptr, nullptr);
+  };
+  auto split_v = [&](int j) {
+    float* vt = Vt + (j & 1) * 2 * KT;
+    split_tile<NT, BN, W, false, true, false>(tid, Raw + j % ST * 2 * KT + KT, 1.f, nullptr,
+                                              nullptr, vt, vt + KT);
+  };
+
+  if (!QR && n_tiles > 0) {  // no copy may outlive the block
+    if (tid == 0) {
+      mbar_expect(bars, tma_qk ? tile_bytes<kTf32Rows, NB, float>(d) : 0);
+      if (tma_qk) tma_tile<kTf32Rows, NB>(Qh, &qmap, bars, q0, d, bh);
+    }
+    if (!tma_qk) copy_tile<NT, kTf32Rows, NB>(tid, Qh, q + (size_t)bh * tq * d, q0, tq, d, vec_d);
+  }
+#pragma unroll
+  for (int j = 0; j < ST; ++j) {
+    if (j < n_tiles) load(j);
+    cp_commit();
+  }
+
+  // running max (base 2) and sum of rows gr (index 0) and gr + 8 (index 1)
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  // p of the tile being summed, hi and lo A fragments
+  uint32_t p_hi[BN / 8][4], p_lo[BN / 8][4];
+  float s[NS];  // the first step of q·kᵀ overwrites it (scale_d = 0)
+  // (q·scale)'s A fragments, hi and lo, where they are held in registers
+  uint32_t qa_hi[QR ? W / 8 : 1][4], qa_lo[QR ? W / 8 : 1][4];
+  if (QR && n_tiles > 0)
+    rows_to_a_tf32(q + (size_t)bh * tq * d, q0 + w0, tq, d, scale, gr, tc, qa_hi, qa_lo);
+
+  // every product below is issued unconditionally between its fence and
+  // its wait: a wgmma under a branch makes ptxas serialize them all
+  const uint64_t dqh = smem_desc(Qh, 16, 1024), dql = smem_desc(Ql, 16, 1024);
+  const uint64_t dkt = smem_desc(Kt, 16, 1024), dvt = smem_desc(Vt, 16, 1024);
+  // s = (q·scale)·kᵀ of tile j: three m64nBNk8 products an 8-column step
+  auto qk = [&](int j) {
+    const uint64_t kh = desc_at(opaque(dkt), j % KB * 2 * KT * 4), kl = desc_at(kh, KT * 4);
+    if constexpr (QR) {
+#pragma unroll
+      for (int kd = 0; kd < W / 8; ++kd) {
+        const uint32_t ak = k_step<BN>(kd);
+        wgmma_tf32(s, qa_lo[kd], desc_at(kh, ak), kd > 0);
+        wgmma_tf32(s, qa_hi[kd], desc_at(kl, ak), 1);
+        wgmma_tf32(s, qa_hi[kd], desc_at(kh, ak), 1);
+      }
+    } else {
+      const uint64_t qh = opaque(dqh), ql = opaque(dql);
+#pragma unroll
+      for (int kd = 0; kd < W / 8; ++kd) {
+        const uint32_t aq = k_step<kTf32Rows>(kd), ak = k_step<BN>(kd);
+        wgmma_tf32(s, desc_at(ql, aq), desc_at(kh, ak), kd > 0);
+        wgmma_tf32(s, desc_at(qh, aq), desc_at(kl, ak), 1);
+        wgmma_tf32(s, desc_at(qh, aq), desc_at(kh, ak), 1);
+      }
+    }
+  };
+  auto pv = [&](int kt) {  // acc += p·v of tile kt (keys past tk have p = 0 and zero v)
+    const uint64_t vh = desc_at(opaque(dvt), (kt & 1) * 2 * KT * 4), vl = desc_at(vh, KT * 4);
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      const uint32_t at = k_step<W>(kk);
+      wgmma_tf32(acc, p_lo[kk], desc_at(vh, at), 1);
+      wgmma_tf32(acc, p_hi[kk], desc_at(vl, at), 1);
+      wgmma_tf32(acc, p_hi[kk], desc_at(vh, at), 1);
+    }
+  };
+  // s in base-2 units (the scale is in q): p = 2^(s·log2 e - m)
+  auto softmax = [&](int kt, float (&alpha)[2]) {
+    const int qi0 = q0 + w0 + gr + tk_off;  // row gr's causal frontier
+    if (kt < n_full) {
+      softmax_tile<true>(s, m_r, l_r, alpha, nullptr, kLog2e, qi0, kt * BN, causal, tc);
+    } else {
+      softmax_tile<false>(s, m_r, l_r, alpha, Kvalid + kt % (ST + 1) * BN, kLog2e, qi0, kt * BN,
+                          causal, tc);
+    }
+  };
+  auto to_a = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) acc_to_a_tf32(s, kk, p_hi[kk], p_lo[kk]);
+  };
+
+  if (n_tiles > 0) {
+    float alpha[2];
+    wait_raw(0);
+    if (!QR)  // q · scale, split in place
+      split_tile<NT, kTf32Rows, W, true, false, true>(tid, Qh, scale, Qh, Ql, nullptr, nullptr);
+    split_k(0);
+    split_v(0);
+    if (OV && n_tiles > 1) {
+      wait_raw(1);
+      split_k(1);
+    }
+    fence_async_smem();  // the split tiles, visible to the products
+    __syncthreads();
+    if (ST < n_tiles) load(ST);  // into the stage tile 0 freed
+    cp_commit();
+    wg_fence();
+    qk(0);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(s);
+    softmax(0, alpha);  // acc is still 0: no rescale
+    to_a();
+    for (int kt = 0; kt + 1 < n_tiles; ++kt) {
+      if constexpr (OV) {
+        // Round kt: s of tile kt + 1 and p·v of tile kt issued together;
+        // the softmax of tile kt + 1 and the splits of k of tile kt + 2
+        // (into the buffer s of tile kt has read) and v of tile kt + 1 (into
+        // the vᵀ buffer p·v of tile kt - 1 has read) run under p·v
+        wg_fence();
+        qk(kt + 1);
+        wg_commit();
+        pv(kt);
+        wg_commit();
+        wg_wait<1>();  // s
+        wg_hold(s);
+        softmax(kt + 1, alpha);
+        // (splitting before the wait crashes ptxas 12.9 with both products
+        // in flight)
+        if (kt + 2 < n_tiles) {
+          wait_raw(kt + 2);
+          split_k(kt + 2);
+        }
+        split_v(kt + 1);
+        fence_async_smem();
+        wg_wait<0>();  // p·v
+        wg_hold(acc);
+#pragma unroll
+        for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        to_a();
+        __syncthreads();  // the split tiles visible, tile kt + 1's raw stage read
+        if (kt + 1 + ST < n_tiles) load(kt + 1 + ST);
+        cp_commit();
+      } else {
+        // Round kt: p·v of tile kt runs while the threads split tile kt + 1
+        // (into k's tiles, which s of tile kt has read, and the other vᵀ
+        // buffer); then s of tile kt + 1, one wait for both
+        wg_fence();
+        pv(kt);
+        wg_commit();
+        wait_raw(kt + 1);
+        split_k(kt + 1);
+        split_v(kt + 1);
+        fence_async_smem();
+        __syncthreads();
+        if (kt + 1 + ST < n_tiles) load(kt + 1 + ST);
+        cp_commit();
+#pragma unroll
+        for (int i = 0; i < NS; ++i) s[i] = 0.f;  // dead until q·kᵀ: its registers free for the split
+        wg_fence();
+        qk(kt + 1);
+        wg_commit();
+        wg_wait<0>();
+        wg_hold(s);
+        wg_hold(acc);
+        softmax(kt + 1, alpha);
+#pragma unroll
+        for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        to_a();
+      }
+    }
+    wg_fence();  // p·v of the last tile
+    pv(n_tiles - 1);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(acc);
+  }
+  cp_wait<0>();
+
+  float* ob = out + (size_t)bh * tq * dv;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {  // the row sums from the lane quad's shares
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 1);
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 2);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + w0 + gr + 8 * hf;
+    if (r >= tq) continue;
+    // fast reciprocal and logarithm: a division's or logf's slow path is a
+    // call, and a call anywhere in the kernel makes ptxas serialize the wgmmas
+    const float denom = fmaxf(l_r[hf], 1e-30f), inv = __fdividef(1.f, denom);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * tc + c;
+        if (col < dv) ob[(size_t)r * dv + col] = acc[4 * j + 2 * hf + c] * inv;
+      }
+    }
+    if (tc == 0)
+      lse[(size_t)bh * tq + r] = l_r[hf] > 0.f ? m_r[hf] * kLn2 + __logf(denom) : -kNeg;
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   const float* mask;
@@ -619,11 +1008,39 @@ cudaError_t launch_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-// the wgmma kernel for bf16 and f16 up to kWgmmaMaxD, else the mma.sync one
+template <int DMAX>
+cudaError_t launch_tf32(const Args& a) {
+  constexpr size_t bytes = tf32_smem_bytes<DMAX>();
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(flash_forward_tf32_kernel<DMAX>, (int)bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const int vec_d = copy_bytes(a.d, 4, a.q, a.k);
+  const int vec_dv = copy_bytes(a.dv, 4, a.v, a.v);
+  const int n = a.b * a.h;
+  CUtensorMap qm{}, km{}, vm{};  // encoded where TMA copies the operand
+  if (vec_d == 16 &&
+      ((err = tile_map<float>(&qm, a.q, n, a.tq, a.d, kTf32Rows)) != cudaSuccess ||
+       (err = tile_map<float>(&km, a.k, n, a.tk, a.d, tf32_keys<DMAX>())) != cudaSuccess))
+    return err;
+  if (vec_dv == 16 &&
+      (err = tile_map<float>(&vm, a.v, n, a.tk, a.dv, tf32_keys<DMAX>())) != cudaSuccess)
+    return err;
+  const dim3 grid(n, (a.tq + kTf32Rows - 1) / kTf32Rows);
+  flash_forward_tf32_kernel<DMAX><<<grid, kTf32Threads, bytes, a.stream>>>(
+      qm, km, vm, static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, static_cast<float*>(a.out), a.lse, a.h, a.tq, a.tk,
+      a.d, a.dv, a.scale, a.causal, a.causal_offset, vec_d, vec_dv);
+  return cudaGetLastError();
+}
+
+// the wgmma kernel for bf16 and f16 up to kWgmmaMaxD, the 3xTF32 wgmma
+// kernel for float32 up to kTf32MaxD, else the mma.sync one
 template <typename T, int DMAX>
 cudaError_t pick(const Args& a) {
   if constexpr (use_wgmma<T, DMAX>()) {
     return launch_wgmma<T, DMAX>(a);
+  } else if constexpr (use_wgmma_tf32<T, DMAX>()) {
+    return launch_tf32<DMAX>(a);
   } else {
     return launch<T, DMAX>(a);
   }

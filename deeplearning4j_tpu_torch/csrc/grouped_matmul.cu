@@ -510,7 +510,7 @@ grouped_matmul_wgmma_kernel(__grid_constant__ const CUtensorMap amap,
       for (int a = blockIdx.x; a < n_tiles; a += gridDim.x) {
         GmTile t;
         if (!gm_tile<BN>(a, sizes, n, m_pad, m_tiles, h_tiles, t)) continue;
-        const int live = live_blocks<NB>(h - t.n0);
+        const int live = live_blocks<NB, T>(h - t.n0);
         for (int s = 0; s < n_slabs; ++s) {
           mbar_wait(empty + st, ph ^ 1);  // the stage's last use is released
           mbar_expect(full + st, 2 * (AT + live * BK * kSwzCols));
@@ -598,7 +598,7 @@ grouped_matmul_wgmma_kernel(__grid_constant__ const CUtensorMap amap,
         const int r = r_w - 64 * c + gr + 8 * hf;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
-          store2(o + (j >> 3) * 64 * kSwzCols + swz(r, 8 * (j & 7) + 2 * tc),
+          store2(o + (j >> 3) * 64 * kSwzCols + swz<T>(r, 8 * (j & 7) + 2 * tc),
                  acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
       }
       fence_async_smem();

@@ -1,11 +1,13 @@
 // Hopper's warpgroup products and tensor copies for the 16-bit (bf16, f16)
 // flash attention kernels (flash_forward.cu, flash_backward.cu) and grouped
-// expert matmul (grouped_matmul.cu), sm_90a.
+// expert matmul (grouped_matmul.cu), sm_90a; the swizzled tiles, copies and
+// tensor maps also for the float32 kernels on wgmma_tf32.cuh.
 //
-// * Tiles in shared memory: R rows x 64 16-bit columns a block (128 bytes
-//   a row), 1024-byte aligned, 128B-swizzled: 16-byte chunk c of row r sits
-//   at chunk c ^ (r % 8). A row wider than 64 columns is NB such blocks
-//   side by side, block j holding columns [64j, 64j + 64). This is the
+// * Tiles in shared memory: R rows x 128 bytes a block (swz_cols<T>(): 64
+//   16-bit or 32 float32 columns), 1024-byte aligned, 128B-swizzled:
+//   16-byte chunk c of row r sits at chunk c ^ (r % 8). A row wider than
+//   one block is NB such blocks side by side, block j of 16-bit columns
+//   holding columns [64j, 64j + 64) (tile_at). This is the
 //   layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and the layout both
 //   operand forms of wgmma read: K-major (rows are M or N, columns the
 //   reduction axis) and MN-major (rows are the reduction axis).
@@ -25,7 +27,7 @@
 //   and the 128B swizzle. A K-major operand steps 16 columns (32 bytes)
 //   inside a block and then to the next block (k_step); an MN-major one
 //   steps 16 rows, 2048 bytes (mn_step).
-// * TMA: cp.async.bulk.tensor of a [rows, 64] box of a [n, rows, cols]
+// * TMA: cp.async.bulk.tensor of a [rows, 128 bytes] box of a [n, rows, cols]
 //   tensor, zero-filled outside it, completing on an mbarrier armed with
 //   the box's bytes; and the store of such a box, clipped at the tensor's
 //   edges, in a bulk group of the issuing thread. The CUtensorMap is a __grid_constant__ kernel
@@ -58,9 +60,24 @@ namespace {
 
 constexpr int kSwzCols = 64;  // 16-bit columns a swizzled block row holds
 
-// element offset of (r, c), c < 64, in a swizzled block
+// columns of T a swizzled block row (128 bytes) holds
+template <typename T>
+__host__ __device__ constexpr int swz_cols() { return 128 / static_cast<int>(sizeof(T)); }
+
+__host__ __device__ constexpr int log2_of(int x) { return x > 1 ? 1 + log2_of(x >> 1) : 0; }
+
+// element offset of (r, c), c < swz_cols<T>(), in a swizzled block
+template <typename T>
 __host__ __device__ constexpr int swz(int r, int c) {
-  return r * kSwzCols + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+  constexpr int S = log2_of(16 / static_cast<int>(sizeof(T)));  // elements a 16-byte chunk, log2
+  return r * swz_cols<T>() + ((((c >> S) ^ (r & 7)) << S) | (c & ((1 << S) - 1)));
+}
+
+// element offset of (r, c) in an [NB][R][swz_cols<T>()] tile of swizzled blocks
+template <typename T, int R>
+__host__ __device__ constexpr int tile_at(int r, int c) {
+  constexpr int C = swz_cols<T>(), S = log2_of(C);
+  return (c >> S) * R * C + swz<T>(r, c & (C - 1));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -485,8 +502,8 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// box (columns [c0, c0 + 64), rows [r0, r0 + box rows)) of slice n of a
-// tensor map into a swizzled block
+// box (columns [c0, c0 + box columns), rows [r0, r0 + box rows)) of slice
+// n of a tensor map into a swizzled block
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
                                          int r0, int n) {
   asm volatile(
@@ -517,17 +534,18 @@ __device__ __forceinline__ void bulk_wait_read() {
 // ... and written device memory
 __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;" ::: "memory"); }
 
-// The blocks of an [R][64 NB] tile that hold columns below cols: TMA
-// copies only these
-template <int NB>
+// The blocks of an [R][swz_cols<T>() NB] tile that hold columns below
+// cols: TMA copies only these
+template <int NB, typename T>
 __host__ __device__ constexpr int live_blocks(int cols) {
-  return (cols + kSwzCols - 1) / kSwzCols < NB ? (cols + kSwzCols - 1) / kSwzCols : NB;
+  constexpr int C = swz_cols<T>();
+  return (cols + C - 1) / C < NB ? (cols + C - 1) / C : NB;
 }
 
 // Bytes that tma_tile<R, NB> copies for rows of `cols` columns
 template <int R, int NB, typename T>
 __host__ __device__ constexpr uint32_t tile_bytes(int cols) {
-  return live_blocks<NB>(cols) * R * kSwzCols * sizeof(T);
+  return live_blocks<NB, T>(cols) * R * 128;
 }
 
 // The live blocks of rows [row0, row0 + R) of slice n of a [n, rows, cols]
@@ -535,9 +553,10 @@ __host__ __device__ constexpr uint32_t tile_bytes(int cols) {
 template <int R, int NB, typename T>
 __device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* map, uint64_t* bar, int row0,
                                          int cols, int n) {
+  constexpr int C = swz_cols<T>();
 #pragma unroll
   for (int j = 0; j < NB; ++j)
-    if (j * kSwzCols < cols) tma_load(dst + j * R * kSwzCols, map, bar, j * kSwzCols, row0, n);
+    if (j * C < cols) tma_load(dst + j * R * C, map, bar, j * C, row0, n);
 }
 
 // Rows [row0, row0 + R) x columns [c0, c0 + 64 NB) of a [rows, ld] matrix
@@ -556,7 +575,7 @@ __device__ __forceinline__ void copy_box(T* dst, const T* __restrict__ src, long
       const float x = (row0 + r < rows && c0 + c < ld)
                           ? to_f32(src[(size_t)(row0 + r) * ld + c0 + c])
                           : 0.f;
-      store(dst + (c >> 6) * R * kSwzCols + swz(r, c & 63), x);
+      store(dst + tile_at<T, R>(r, c), x);
     }
     return;
   }
@@ -565,7 +584,7 @@ __device__ __forceinline__ void copy_box(T* dst, const T* __restrict__ src, long
   for (int i = me; i < R * chunks; i += NT) {
     const int r = i / chunks, c = (i % chunks) * e;
     const bool ok = row0 + r < rows && c0 + c < ld;
-    T* d = dst + (c >> 6) * R * kSwzCols + swz(r, c & 63);
+    T* d = dst + tile_at<T, R>(r, c);
     const T* s = ok ? src + (size_t)(row0 + r) * ld + c0 + c : src;
     if (vec == 16) {
       cp_async<16>(d, s, ok);
@@ -577,28 +596,30 @@ __device__ __forceinline__ void copy_box(T* dst, const T* __restrict__ src, long
   }
 }
 
-// Rows [row0, row0 + R) x columns [0, 64 NB) of a [rows, cols] matrix into
-// NB swizzled blocks by the block's NT threads, zeros past the edges: the
+// Rows [row0, row0 + R) x columns [0, swz_cols<T>() NB) of a [rows, cols]
+// matrix into NB swizzled blocks by NT threads, zeros past the edges: the
 // rows TMA cannot take. vec: bytes a copy (8 or 4: cp.async; cols and the
-// base are multiples of it) or 0 (plain loads).
+// base are multiples of it) or 0 (plain loads). me: this thread's index
+// among the NT.
 template <int NT, int R, int NB, typename T>
-__device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src, int row0, int rows,
-                                          int cols, int vec) {
+__device__ __forceinline__ void copy_tile(int me, T* dst, const T* __restrict__ src, int row0,
+                                          int rows, int cols, int vec) {
+  constexpr int C = swz_cols<T>();
   if (vec == 0) {
-    for (int i = threadIdx.x; i < R * NB * kSwzCols; i += NT) {
-      const int r = i / (NB * kSwzCols), c = i % (NB * kSwzCols);
+    for (int i = me; i < R * NB * C; i += NT) {
+      const int r = i / (NB * C), c = i % (NB * C);
       const float x = (row0 + r < rows && c < cols) ? to_f32(src[(size_t)(row0 + r) * cols + c])
                                                     : 0.f;
-      store(dst + (c >> 6) * R * kSwzCols + swz(r, c & 63), x);
+      store(dst + tile_at<T, R>(r, c), x);
     }
     return;
   }
   const int e = vec / static_cast<int>(sizeof(T));  // elements a copy
-  const int chunks = NB * kSwzCols / e;             // copies a row
-  for (int i = threadIdx.x; i < R * chunks; i += NT) {
+  const int chunks = NB * C / e;                    // copies a row
+  for (int i = me; i < R * chunks; i += NT) {
     const int r = i / chunks, c = (i % chunks) * e;
     const bool ok = row0 + r < rows && c < cols;
-    T* d = dst + (c >> 6) * R * kSwzCols + swz(r, c & 63);
+    T* d = dst + tile_at<T, R>(r, c);
     const T* s = ok ? src + (size_t)(row0 + r) * cols + c : src;
     if (vec == 8) {
       cp_async<8>(d, s, ok);
@@ -608,12 +629,19 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src, int
   }
 }
 
-// Zeros blocks [j0, NB) of an [R][64 NB] swizzled tile (the blocks a TMA
-// tile leaves unwritten because they lie wholly past the columns)
+// Zeros blocks [j0, NB) of an [R][swz_cols<T>() NB] swizzled tile (the
+// blocks a TMA tile leaves unwritten because they lie wholly past the
+// columns). me: this thread's index among the NT.
 template <int NT, int R, int NB, typename T>
-__device__ __forceinline__ void zero_blocks(T* dst, int j0) {
-  for (int i = threadIdx.x + j0 * R * kSwzCols; i < NB * R * kSwzCols; i += NT)
+__device__ __forceinline__ void zero_blocks(int me, T* dst, int j0) {
+  for (int i = me + j0 * R * swz_cols<T>(); i < NB * R * swz_cols<T>(); i += NT)
     store(dst + i, 0.f);
+}
+
+// a barrier of the `count` threads (whole warps) that name barrier `id`
+// (0 is __syncthreads's)
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- host: tensor maps --------------------------------------------------------
@@ -641,9 +669,10 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous [n, rows, cols] 16-bit tensor read in boxes of
-// box_rows x 64 columns, 128B-swizzled, zeros outside the tensor. The base
-// and the row (cols · 2 bytes) must be multiples of 16 bytes.
+// The map of a contiguous [n, rows, cols] tensor of T (bf16, f16 or
+// float32) read in boxes of box_rows x 128 bytes, 128B-swizzled, zeros
+// outside the tensor. The base and the row (cols · sizeof(T) bytes) must be
+// multiples of 16 bytes.
 template <typename T>
 cudaError_t tile_map(CUtensorMap* map, const void* base, int n, int rows, int cols,
                      int box_rows) {
@@ -651,11 +680,12 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int n, int rows, int co
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(T), (cuuint64_t)rows * cols * sizeof(T)};
-  const cuuint32_t box[3] = {(cuuint32_t)kSwzCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)swz_cols<T>(), (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = fn(map,
-                        std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                         3, const_cast<void*>(base), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -3,26 +3,32 @@ against the kernels as they are.
 
 Run from the repository root on a machine with a CUDA device::
 
-    python3 -m deeplearning4j_tpu_torch.tools.flash_backward_variants [variant ...]
+    python3 -m deeplearning4j_tpu_torch.tools.flash_backward_variants [variant ...] [--dtypes float32,...]
 
 Builds ``csrc/flash_backward.cu`` as it is and with each variant in
 :data:`VARIANTS` (a text substitution of the source and its headers, see
-:mod:`.kernel_variants`; those named on the command line, or all), all at once; then, at the training
-path's shape ([8, 12, 1024, 64], causal), times each build's two kernels in
-float32, bfloat16 and float16 in turn, three rounds, and prints the median
-of each with the relative error against the plain versions and the
-registers ptxas reports. The variants of the float32 kernels act on the
-mma.sync kernels; the others on the bf16/f16 wgmma dq and dk/dv kernels
-(among them the mma.sync dq design they replaced).
+:mod:`.kernel_variants`; those named on the command line, or all), all at
+once; then, at the training path's shape ([8, 12, 1024, 64], causal), times
+each build's two kernels in float32, bfloat16 and float16 (or the
+``--dtypes`` named) in turn, three rounds, SDPA's backward in the same
+rounds, and prints the median of each with the relative error against the
+plain versions, whether the outputs equal the source's as it is bit for
+bit, and the registers ptxas reports. "f32 dk/dv on mma.sync" brings back
+the mma.sync design the float32 3xTF32 wgmma dk/dv kernel replaced, and
+the variants named "(f32 ...)" act on that wgmma kernel; "dq walks 32
+keys" acts on the float32 mma.sync dq kernel; the others on the bf16/f16
+wgmma dq and dk/dv kernels (among them the mma.sync dq design they
+replaced).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import importlib
-import sys
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.tools import kernel_variants as kv
 
@@ -36,12 +42,54 @@ _INT_SPLIT = """    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 _CVT_SPLIT = """    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
     asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));"""
 
+_LO_SPLIT = "    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;"
+_LO_MASKED = "    lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;"
+
+
+
+def _two_consumers(producer_regs: int, consumer_regs: int) -> list:
+    """The float32 dk/dv kernel with two consumer warpgroups of 64 keys each
+    sharing the producer's tiles (128 keys a block, 384 threads), the
+    registers a thread moved by setmaxnreg to fit the SM's 64K."""
+    return [("constexpr int kTf32Keys = 64;", "constexpr int kTf32Keys = 128;"),
+            ("constexpr int kTf32Threads = 256;", "constexpr int kTf32Threads = 384;"),
+            ("    const int me = tid - NC;\n",
+             f'    asm volatile("setmaxnreg.dec.sync.aligned.u32 {producer_regs};");\n'
+             "    const int me = tid - NC;\n"),
+            ("  const int w0 = (tid >> 5) * 16;  // this warp's first key of the block's\n",
+             f'  asm volatile("setmaxnreg.inc.sync.aligned.u32 {consumer_regs};");\n'
+             "  const int w0 = (tid >> 5) * 16;  // this warp's first key of the block's\n"),
+            # each warpgroup's 64 rows of v
+            ("smem_desc(Vh, 16, 1024)", "smem_desc(Vh + (tid >> 7) * 64 * kF32Cols, 16, 1024)"),
+            ("smem_desc(Vl, 16, 1024)", "smem_desc(Vl + (tid >> 7) * 64 * kF32Cols, 16, 1024)")]
+
+
 #: name: [(text in the source, its replacement), ...]
 VARIANTS = {
     "split by cvt.rna.tf32.f32": [(_INT_SPLIT, _CVT_SPLIT)],
+    "f32 dk/dv on mma.sync": [("constexpr bool kTf32Wgmma = true;",
+                               "constexpr bool kTf32Wgmma = false;")],
+    "(f32 one raw stage)": [("constexpr int kTf32Raw = 2;", "constexpr int kTf32Raw = 1;")],
+    # lo's 13 low bits cleared as well: bit-equal dk and dv show that wgmma
+    # drops them as mma.sync does (dq, on mma.sync, is bit-equal either way)
+    "(f32 lo rounded in full)": [(_LO_SPLIT, _LO_MASKED)],
+    "(f32 two consumer warpgroups)": _two_consumers(40, 232),
+    "(f32 two consumers, producer 56 registers)": _two_consumers(56, 224),
+    # diagnostics (wrong output): what binds the float32 wgmma dk/dv kernel
+    "(f32 diagnostic: no q/g split)": [
+        ("      split_tile<NP, BM, W, true, true, true>(me, rq, scale, sp, sp + QT, sp + 4 * QT,\n                                              sp + 5 * QT);\n", ""),
+        ("      split_tile<NP, BM, W, true, true, false>(me, rq + QT, 1.f, sp + 2 * QT, sp + 3 * QT,\n                                               sp + 6 * QT, sp + 7 * QT);\n", "")],
+    "(f32 diagnostic: scores in one term)": [
+        ("      wgmma_tf32(s, ka_lo[kd], desc_at(qh, aq), kd > 0);\n      wgmma_tf32(s, ka_hi[kd], desc_at(ql, aq), 1);\n", ""),
+        ("      wgmma_tf32(s, ka_hi[kd], desc_at(qh, aq), 1);\n", "      wgmma_tf32(s, ka_hi[kd], desc_at(qh, aq), kd > 0);\n"),
+        ("      wgmma_tf32(dp, desc_at(vl, ak), desc_at(gh, aq), kd > 0);\n      wgmma_tf32(dp, desc_at(vh, ak), desc_at(gl, aq), 1);\n", ""),
+        ("      wgmma_tf32(dp, desc_at(vh, ak), desc_at(gh, aq), 1);\n", "      wgmma_tf32(dp, desc_at(vh, ak), desc_at(gh, aq), kd > 0);\n")],
+    "(f32 diagnostic: sums in one term)": [
+        ("      wgmma_tf32(dv_acc, p_lo[kk], desc_at(gth, at), 1);\n      wgmma_tf32(dv_acc, p_hi[kk], desc_at(gtl, at), 1);\n", ""),
+        ("      wgmma_tf32(dk_acc, ds_lo[kk], desc_at(qth, at), 1);\n      wgmma_tf32(dk_acc, ds_hi[kk], desc_at(qtl, at), 1);\n", "")],
+    "(f32 split unrolled by 2)": [("#pragma unroll\n  for (int it = 0; it < R * W / 4 / NT; ++it) {",
+                                   "#pragma unroll 2\n  for (int it = 0; it < R * W / 4 / NT; ++it) {")],
     "dq walks 32 keys": [("constexpr int kDqWalk = 64;", "constexpr int kDqWalk = 32;")],
-    "dk/dv walks 16 q rows": [("constexpr int kDkvWalk = 32;", "constexpr int kDkvWalk = 16;")],
-    "dk/dv walks 64 q rows": [("constexpr int kDkvWalk = 32;", "constexpr int kDkvWalk = 64;")],
     "16-bit dk/dv on mma.sync": [("constexpr bool kWgmma = true;",
                                          "constexpr bool kWgmma = false;")],
     "dk/dv walks 64 q rows, no floor": [
@@ -78,22 +126,30 @@ def _rel(a, b) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("flash_backward_variants needs a CUDA device")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("variants", nargs="*", help="variants to build (default: all)")
+    ap.add_argument("--dtypes", default="float32,bfloat16,float16")
+    ap.add_argument("--against", action="append", default=[], metavar="TREE",
+                    help="a checkout's root (a parent unpacked by git archive): its source "
+                         "built and timed beside the variants")
+    args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     print(kv.card())
-    libs = kv.build("bwd", kv.variant_sources("flash_backward", VARIANTS, sys.argv[1:]), SYMBOLS)
+    libs = kv.build("bwd", kv.variant_sources("flash_backward", VARIANTS, args.variants,
+                                              args.against), SYMBOLS)
     gen = torch.Generator().manual_seed(1)
     scale = D ** -0.5
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+    for dtype in (getattr(torch, n) for n in args.dtypes.split(",")):
         q, k, v, g = (torch.randn(B, H, T, D, generator=gen).to("cuda", dtype) for _ in range(4))
         out, lse = fa.flash_attention_plain(q, k, v, None, True)
         delta = torch.sum(g.float() * out.float(), dim=-1).contiguous()
-        args = (q, k, v, g, lse, delta, None, True)
-        ref = (fa.flash_attention_bwd_dq_plain(*args), *fa.flash_attention_bwd_dkv_plain(*args))
+        args_ = (q, k, v, g, lse, delta, None, True)
+        ref = (fa.flash_attention_bwd_dq_plain(*args_), *fa.flash_attention_bwd_dkv_plain(*args_))
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
         code = fa._KERNEL_DTYPES[dtype]
         stream = torch.cuda.current_stream().cuda_stream
-        calls = {}
+        calls, first = {}, None
         for name, lib in libs.items():
             def run_dq(lib=lib):
                 return lib.dl4j_flash_bwd_dq(*ptrs, None, dq.data_ptr(), B, H, T, T, D, D,
@@ -106,18 +162,29 @@ def main() -> None:
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()
             errs = [_rel(a, r) for a, r in zip((dq, dk, dv), ref)]
-            calls[name] = (run_dq, run_dkv, errs)
+            if first is None:
+                first = [x.clone() for x in (dq, dk, dv)]
+            same = [torch.equal(a, b) for a, b in zip((dq, dk, dv), first)]
+            calls[name] = (run_dq, run_dkv, errs, same)
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        sdpa = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), g, retain_graph=True)  # noqa: E731
         times = {name: ([], []) for name in calls}
+        t_sdpa = []
         for _ in range(ROUNDS):  # every build in turn, so the comparison is paired
-            for name, (run_dq, run_dkv, _) in calls.items():
+            for name, (run_dq, run_dkv, _, _) in calls.items():
                 times[name][0].append(kv.ms(run_dq))
                 times[name][1].append(kv.ms(run_dkv))
-        for name, (_, _, errs) in calls.items():
+            t_sdpa.append(kv.ms(sdpa))
+        for name, (_, _, errs, same) in calls.items():
             t_dq, t_dkv = (sorted(t)[ROUNDS // 2] for t in times[name])
             print(f"{str(dtype)[6:]:8s} {name:32s} dq {t_dq:.4f} ms, dk/dv {t_dkv:.4f} ms "
                   f"(rounds dq {[round(x, 4) for x in times[name][0]]}, dk/dv "
                   f"{[round(x, 4) for x in times[name][1]]}); rel error dq/dk/dv "
-                  f"{['%.1e' % e for e in errs]}")
+                  f"{['%.1e' % e for e in errs]}; bit-equal to as it is dq/dk/dv {same}")
+        print(f"{str(dtype)[6:]:8s} {'sdpa backward (dq, dk, dv)':32s} "
+              f"{sorted(t_sdpa)[ROUNDS // 2]:.4f} ms (rounds {[round(x, 4) for x in t_sdpa]})")
+        del o_lib
 
 
 if __name__ == "__main__":

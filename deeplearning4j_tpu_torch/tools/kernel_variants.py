@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import re
 import subprocess
+from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -18,10 +19,12 @@ from deeplearning4j_tpu_torch.ops import cuda_build
 
 
 def variant_sources(stem: str, variants: Dict[str, List[Tuple[str, str]]],
-                    only: Sequence[str] = ()) -> Dict[str, str]:
+                    only: Sequence[str] = (), against: Sequence[str] = ()) -> Dict[str, str]:
     """``{"as it is": text, name: substituted text, ...}``, of the variants
-    named in ``only`` if it names any; raises if a variant's text is no
-    longer in the source, or ``only`` names no variant."""
+    named in ``only`` if it names any, then the source of each checkout
+    root in ``against`` under its path (a parent built beside its change);
+    raises if a variant's text is no longer in the source, or ``only``
+    names no variant."""
     unknown = set(only) - set(variants)
     if unknown:
         raise SystemExit(f"no such variant: {sorted(unknown)}; known: {sorted(variants)}")
@@ -36,13 +39,40 @@ def variant_sources(stem: str, variants: Dict[str, List[Tuple[str, str]]],
                 raise SystemExit(f"variant {name!r}: the source no longer has {old!r}")
             text = text.replace(old, new)
         sources[name] = text
+    for tree in against:
+        sources[tree] = cuda_build.source_text(
+            Path(tree) / "deeplearning4j_tpu_torch" / "csrc" / f"{stem}.cu")
     return sources
 
 
-def build(tag: str, sources: Dict[str, str], symbols: Dict[str, list]) -> Dict[str, ctypes.CDLL]:
+def _entry_stats(log: str) -> List[Tuple[str, str]]:
+    """``[(kernel, "N registers, S B spilled"), ...]`` from a ptxas log,
+    each kernel named by its function and template arguments (the element
+    type and the integers)."""
+    out, fn, spill = [], None, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = line.split("'")[1]
+            base = re.search(r"\d((?:flash|grouped)_[a-z0-9_]*?_kernel)I", m)
+            dtype = next((t for k, t in (("If", "float"), ("Id", "double"), ("bfloat16", "bf16"),
+                                         ("__half", "f16")) if k in m), "")
+            args = ",".join(x for x in [dtype] + re.findall(r"Li(\d+)E", m) if x)
+            fn = f"{base.group(1) if base else m}<{args}>"
+        elif fn and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif fn and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((fn, f"{regs} registers, {spill} B spilled"))
+            fn, spill = None, "?"
+    return out
+
+
+def build(tag: str, sources: Dict[str, str], symbols: Dict[str, list],
+          focus: str = "tf32") -> Dict[str, ctypes.CDLL]:
     """``{name: CDLL}``, each source compiled by its own nvcc, all at once;
-    prints the registers and spills ptxas reports. ``symbols`` gives each C
-    function's argument types (every function returns an int)."""
+    prints the registers and spills ptxas reports, and each kernel's whose
+    name holds ``focus``. ``symbols`` gives each C function's argument
+    types (every function returns an int)."""
     out_dir = cuda_build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -60,6 +90,9 @@ def build(tag: str, sources: Dict[str, str], symbols: Dict[str, list]) -> Dict[s
         regs = re.findall(r"Used (\d+) registers", log)
         spills = sorted({int(n) for n in re.findall(r"(\d+) bytes spill stores", log)} - {0})
         print(f"{tag} {name}: registers a thread {regs}, spill stores {spills} B")
+        for fn, stat in _entry_stats(log):
+            if focus in fn:
+                print(f"  {tag} {name}: {fn}: {stat}")
         lib_ = ctypes.CDLL(str(lib))
         for symbol, argtypes in symbols.items():
             fn = getattr(lib_, symbol)

@@ -32,7 +32,8 @@ from deeplearning4j_tpu_torch.train import Solver
 
 B, T_FULL, SEED = 8, 1024, 1234
 # B1, B2, B3: the names' common stem covers the mma.sync kernel
-# (flash_forward_kernel) and the bf16/f16 wgmma one (flash_forward_wgmma_kernel)
+# (flash_forward_kernel), the bf16/f16 wgmma one (flash_forward_wgmma_kernel)
+# and the float32 3xTF32 wgmma one (flash_forward_tf32_kernel)
 _KERNELS = ("flash_forward_", "flash_bwd_dq_", "flash_bwd_dkv_")
 
 

@@ -129,6 +129,16 @@ def _fwd_case(gen, dtype, device, b, h, tq, tk, d, dv, masked):
     (torch.float16, 70, 190, 200, 136, False, True),  # dv's last 64-column block wholly past dv
     (torch.bfloat16, 150, 99, 256, 256, True, True),
     (torch.float16, 99, 150, 256, 64, False, True),   # d 256 with dv 64
+    # the float32 3xTF32 wgmma kernel (DMAX 32 to 128): lengths off its
+    # 64-row and 32-key tiles, d 31 (124-byte rows: 4-byte cp.async), 36
+    # (TMA, the second 32-column block partly past d), 64, 100 and 128
+    (torch.float32, 77, 150, 31, 31, True, True),
+    (torch.float32, 70, 129, 36, 36, False, True),
+    (torch.float32, 130, 333, 64, 64, True, True),
+    (torch.float32, 150, 99, 64, 64, True, False),   # tq > tk: the first rows see no key
+    (torch.float32, 95, 161, 100, 100, True, True),
+    (torch.float32, 129, 200, 128, 128, True, False),
+    (torch.float32, 99, 150, 64, 32, False, True),   # dv's second 32-column block wholly past dv
 ])
 def test_flash_forward_tensor_core_shapes(cuda, dtype, tq, tk, d, dv, causal, masked):
     """The tensor-core forward at widths and lengths off its tiles: every
@@ -278,6 +288,10 @@ def _rel_err(a, b):
     (130, 333, 64, 64, True, True),
     (33, 300, 100, 64, True, True),
     (200, 77, 128, 128, False, True),
+    # the float32 3xTF32 wgmma dk/dv kernel (DMAX 32 and 64): tq off its
+    # 32-row walk, d 32 (one 32-column block), d != dv
+    (100, 64, 32, 32, False, True),
+    (333, 130, 60, 64, True, True),
 ])
 def test_flash_backward_matches_plain(cuda, dtype, tq, tk, d, dv, causal, masked):
     gen = torch.Generator().manual_seed(tq + 7 * tk + d)
@@ -399,6 +413,51 @@ def test_16bit_b2_and_b5_run_the_wgmma_kernels(cuda, dtype):
     assert any("grouped_matmul_wgmma_kernel" in n for n in names), names
     assert not any("flash_bwd_dq_kernel<" in n or "grouped_matmul_tc_kernel" in n
                    for n in names), names
+
+
+def _kernel_names(fn) -> list:
+    """Names of the CUDA kernels ``torch.profiler`` records over ``fn()``;
+    the profiler can drop a short window's kernel records, so a window that
+    records none is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def test_f32_b1_and_b3_run_the_wgmma_kernels(cuda):
+    """A float32 forward and dk/dv launch at d 64 run the 3xTF32 warpgroup
+    kernels, as the profiler names them, and never the mma.sync ones; at d
+    256 both stay on mma.sync."""
+    gen = torch.Generator().manual_seed(10)
+    q, k, v, g, mask, lse, delta = _bwd_inputs(gen, torch.float32, cuda, 2, 3, 130, 130, 64,
+                                               64, True, True)
+    wq, wk, wv, wg, _, wlse, wdelta = _bwd_inputs(gen, torch.float32, cuda, 1, 2, 70, 70, 256,
+                                                  256, True, False)
+
+    def narrow():
+        ops.flash_attention(q, k, v, mask, True)
+        pfa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, True, 0.125)
+
+    def wide():
+        ops.flash_attention(wq, wk, wv, None, True)
+        pfa._flash_bwd_dkv_cuda(wq, wk, wv, wg, wlse, wdelta, None, True, 0.0625)
+
+    names = _kernel_names(narrow)
+    assert any("flash_forward_tf32_kernel" in n for n in names), names
+    assert any("flash_bwd_dkv_tf32_kernel" in n for n in names), names
+    assert not any("flash_forward_kernel<" in n or "flash_bwd_dkv_kernel<" in n
+                   for n in names), names
+    names = _kernel_names(wide)
+    assert any("flash_forward_kernel<" in n for n in names), names
+    assert any("flash_bwd_dkv_kernel<" in n for n in names), names
 
 
 @pytest.mark.parametrize("dtype", ALL)

@@ -22,6 +22,15 @@ significant bits of x in bf16 (the rest is below 2^-17 of it) and 11 + 11
 in f16, where lo falls below f16's normal range for |x| < 2^-3 and keeps
 fewer bits.
 
+The float32 forward up to head dim 128 and the float32 dk/dv kernel up to
+head dim 64 run on Hopper's warpgroup products in TF32 (``"wg3xtf32"``
+below): the same 3xTF32 products, with each element of a tile split once
+into hi and lo in the orientation its product reads (v, and q and g for
+the sums over q rows, transposed; the split of a transposed value is the
+split of the value), and the softmax in base 2 on the float32 scores (s ·
+log2 e, ``2^(s·log2 e - m)``; the backward's ``lse · log2 e``); the forward
+walks 32-key tiles. The float32 dq kernel stays on mma.sync (``"3xtf32"``).
+
 Tolerance: 1e-5 of the largest gradient or output value (and 1e-5
 absolute on the forward's logsumexp), inside the kernels' float32
 tolerances on the card (1e-4 relative for the gradients, 5e-5 absolute on
@@ -64,6 +73,10 @@ EXACT = {"bf16": torch.bfloat16, "bf16x2": torch.bfloat16, "f16x2": torch.float1
          "bf16x1": torch.bfloat16, "f16x1": torch.float16}
 
 
+#: the single-term mode recorded beside each mode (else one TF32 term)
+ONE_TERM = {"bf16x2": "bf16x1", "f16x2": "f16x1"}
+
+
 def mm16(a, b, dtype, terms: int = 2) -> torch.Tensor:
     """``a @ b`` as a warpgroup product forms it with A from registers: the
     float32 ``a`` as ``terms`` 16-bit terms (hi, then lo = round16(a - hi)),
@@ -90,14 +103,42 @@ def mm(a, b, split_a: bool, split_b: bool) -> torch.Tensor:
     return out + ah @ bh
 
 
+LOG2E = float(np.float32(1.4426950408889634))
+LN2 = float(np.float32(0.6931471805599453))
+
+
+def mm_t(a, bt) -> torch.Tensor:
+    """``a @ bt.T`` with ``bt`` given transposed ([n, k]) and split in that
+    orientation, once an element, as the warpgroup kernels write their
+    transposed hi and lo tiles: a_lo·b_hi + a_hi·b_lo + a_hi·b_hi."""
+    ah, al = split(a)
+    bh, bl = split(bt)
+    return al @ bh.transpose(-1, -2) + ah @ bl.transpose(-1, -2) + ah @ bh.transpose(-1, -2)
+
+
 def kernel_grads(q, k, v, g, lse, delta, mask, causal, scale, mode):
     """(dq, dk, dv) with the kernels' products. ``mode``: ``"3xtf32"`` (the
     float32 kernels), ``"bf16"`` (the mma.sync kernels on bf16-exact
     inputs: one term for s and dp, two TF32 terms for the products with p
     or ds, the scale applied to s and dk's sum), ``"1xtf32"`` (one rounded
     term everywhere), ``"bf16x2"`` / ``"f16x2"`` (the warpgroup kernels on
-    16-bit-exact inputs: exact s and dp, p and ds in two 16-bit terms) or
-    ``"bf16x1"`` / ``"f16x1"`` (one 16-bit term)."""
+    16-bit-exact inputs: exact s and dp, p and ds in two 16-bit terms),
+    ``"bf16x1"`` / ``"f16x1"`` (one 16-bit term) or ``"wg3xtf32"`` (the
+    float32 warpgroup dk/dv kernel beside the mma.sync dq kernel)."""
+    if mode == "wg3xtf32":
+        dq = kernel_grads(q, k, v, g, lse, delta, mask, causal, scale, "3xtf32")[0]
+        # sᵀ = k·(q·scale)ᵀ and dpᵀ = v·gᵀ, q and g split as they lie
+        st = mm(k, (q * scale).transpose(-1, -2), True, True)
+        kept = pfa._masked_scores(q, k, mask, causal, scale).transpose(-1, -2) > -0.5e30
+        st2 = torch.where(kept, st * LOG2E, torch.full_like(st, -1e30))
+        pt = torch.where(st2 > -0.5e30, torch.exp2(st2 - lse[..., None, :] * LOG2E),
+                         torch.zeros_like(st2))
+        dst = pt * (mm(v, g.transpose(-1, -2), True, True) - delta[..., None, :])
+        # the sums over q rows read q·scale and g split in the transposed
+        # orientation: [d, q] tiles
+        dk = mm_t(dst, (q * scale).transpose(-1, -2))
+        dv = mm_t(pt, g.transpose(-1, -2))
+        return dq, dk, dv
     if mode[-2:] in ("x1", "x2"):
         dt, terms = EXACT[mode], int(mode[-1])
         s = (q @ k.transpose(-1, -2)) * scale
@@ -173,7 +214,7 @@ CASES = [  # tq, tk, d, dv, causal, masked
 ]
 
 
-@pytest.mark.parametrize("mode", ["3xtf32", "bf16", "bf16x2", "f16x2"])
+@pytest.mark.parametrize("mode", ["3xtf32", "bf16", "bf16x2", "f16x2", "wg3xtf32"])
 @pytest.mark.parametrize("tq,tk,d,dv,causal,masked", CASES)
 def test_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, masked,
                                                 record_property):
@@ -188,7 +229,7 @@ def test_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, mas
     args = (q, k, v, g, lse, delta, mask, causal, scale)
     ref = (pfa.flash_attention_bwd_dq_plain(*args), *pfa.flash_attention_bwd_dkv_plain(*args))
     got = kernel_grads(*args, mode)
-    one = kernel_grads(*args, mode.replace("x2", "x1") if mode.endswith("x2") else "1xtf32")
+    one = kernel_grads(*args, ONE_TERM.get(mode, "1xtf32"))
     errs = {n: _rel(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
     record_property("split_rel_err", errs)
     record_property("one_tf32_term_rel_err",
@@ -198,10 +239,11 @@ def test_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, mas
         assert all(bool((x[1] == 0).all()) for x in got)
 
 
-# keys a tile of the forward kernel (tile_keys and wg_tile_keys in
-# flash_forward.cu): 32 in float32, 64 in bf16 and f16
+# keys a tile of the forward kernel (tile_keys, wg_tile_keys and tf32_keys
+# in flash_forward.cu): 32 in float32 (on mma.sync and on wgmma), 64 in bf16
+# and f16
 FWD_TILE = {"3xtf32": 32, "1xtf32": 32, "bf16": 64, "bf16x2": 64, "f16x2": 64, "bf16x1": 64,
-            "f16x1": 64}
+            "f16x1": 64, "wg3xtf32": 32}
 
 
 def kernel_forward(q, k, v, mask, causal, scale, mode):
@@ -209,9 +251,13 @@ def kernel_forward(q, k, v, mask, causal, scale, mode):
     softmax over its key tiles. ``mode``: ``"3xtf32"`` (float32: three terms
     for s and for p·v, the scale folded into q), ``"bf16"`` (bf16-exact
     inputs: one term for s, scaled after the product, two for p·v),
-    ``"1xtf32"`` (one rounded term everywhere), or ``"bf16x2"`` /
+    ``"1xtf32"`` (one rounded term everywhere), ``"bf16x2"`` /
     ``"f16x2"`` (the warpgroup kernel: s exact, p·v with p in two 16-bit
-    terms; ``x1``: one)."""
+    terms; ``x1``: one), or ``"wg3xtf32"`` (the float32 warpgroup kernel:
+    three terms, v split in the transposed orientation, the softmax in base
+    2)."""
+    if mode == "wg3xtf32":
+        return kernel_forward_wg(q, k, v, mask, causal, scale)
     full = mode == "3xtf32"
     x16 = mode[-2:] in ("x1", "x2")
     if mode == "bf16" or x16:
@@ -241,10 +287,36 @@ def kernel_forward(q, k, v, mask, causal, scale, mode):
     return out, lse[..., 0]
 
 
+def kernel_forward_wg(q, k, v, mask, causal, scale):
+    """``(out, lse)`` of the float32 warpgroup forward: s = (q·scale)·kᵀ in
+    three terms; over 32-key tiles, the running max m of s·log2 e, p =
+    2^(s·log2 e - m), the sum and acc rescaled by 2^(m_old - m_new), acc +=
+    p·v with vᵀ split once an element; lse = m·ln 2 + log(l)."""
+    s = mm(q * scale, k.transpose(-1, -2), True, True)
+    kept = pfa._masked_scores(q, k, mask, causal, scale) > -0.5e30
+    s2 = torch.where(kept, s * LOG2E, torch.full_like(s, -1e30))
+    m = torch.full(s.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + v.shape[-1:])
+    tile = FWD_TILE["wg3xtf32"]
+    for k0 in range(0, s.shape[-1], tile):
+        st = s2[..., k0: k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.where(st > -0.5e30, torch.exp2(st - m_new), torch.zeros_like(st))
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm_t(p, v[..., k0: k0 + tile, :].transpose(-1, -2))
+        m = m_new
+    out = acc * (1.0 / torch.clamp_min(l, 1e-30))
+    lse = torch.where(l > 0, m * LN2 + torch.log(torch.clamp_min(l, 1e-30)),
+                      torch.full_like(l, 1e30))
+    return out, lse[..., 0]
+
+
 FWD_CASES = CASES + [(100, 150, 32, 48, True, True)]  # 3 or 5 key tiles, the last ragged
 
 
-@pytest.mark.parametrize("mode", ["3xtf32", "bf16", "bf16x2", "f16x2"])
+@pytest.mark.parametrize("mode", ["3xtf32", "bf16", "bf16x2", "f16x2", "wg3xtf32"])
 @pytest.mark.parametrize("tq,tk,d,dv,causal,masked", FWD_CASES)
 def test_forward_split_products_match_the_plain_version(mode, tq, tk, d, dv, causal, masked,
                                                         record_property):
@@ -257,8 +329,7 @@ def test_forward_split_products_match_the_plain_version(mode, tq, tk, d, dv, cau
     scale = d ** -0.5
     ref, ref_lse = pfa.flash_attention_plain(q, k, v, mask, causal, scale)
     out, lse = kernel_forward(q, k, v, mask, causal, scale, mode)
-    one, one_lse = kernel_forward(q, k, v, mask, causal, scale,
-                                  mode.replace("x2", "x1") if mode.endswith("x2") else "1xtf32")
+    one, one_lse = kernel_forward(q, k, v, mask, causal, scale, ONE_TERM.get(mode, "1xtf32"))
     err, lse_err = _rel(out, ref), float((lse - ref_lse).abs().max())
     record_property("split_rel_err", {"out": err, "lse_abs": lse_err})
     record_property("one_tf32_term_rel_err",
