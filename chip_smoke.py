@@ -34,9 +34,10 @@ the launch counts set to 0 just before it and read just after. It checks
 those counts, the cached decode's log-probs against a full forward, the
 training scores, the kernel-path gradients against the materialised-scores
 reference, and the MoE network's outputs and gradients against its sort
-dispatch (``torch.bmm`` over capacity slots); it counts HMMA, HGMMA and
-atomic instructions in every kernel's SASS. The kernels take float32, bf16, f16
-and f64 with head dims up to 256, and so it also holds every such
+dispatch (``torch.bmm`` over capacity slots); it counts HMMA, HGMMA, DMMA,
+spilled-register (LDL, STL) and atomic instructions in every kernel's
+SASS. The kernels take float32, bf16, f16 and f64 with head dims up to
+256, and so it also holds every such
 instantiation against its plain version, and drives the entry points
 through them against the materialised-scores seam: a head-dim-256
 ``TransformerLM`` (hidden 2048, 8 heads, 2 blocks) through ``output()``,
@@ -258,8 +259,10 @@ shape: B1, B2 and B3 in three rounds paired with SDPA's forward or
 backward, B4 by device time (200 calls replayed from one CUDA graph), with
 the host's time to issue a call printed apart, and B5 paired with a padded
 ``torch.bmm`` at the routed and a balanced load; and the new
-instantiations at d = 256 and in f16 and f64. Then it prints the timings,
-a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+instantiations at d = 256 and in f16 and f64 (B3 and B5 in f64 on the
+float64 tensor cores, DMMA). Then it prints the timings, each kernel's
+launches by dtype, a ``kernels`` JSON line, and last ``{"ok": true,
+"device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits with 2 and prints no result.
@@ -682,23 +685,29 @@ def phase_build(build) -> None:
 
 
 def _sass_counts(stem: str) -> dict:
-    """HMMA (mma.sync), HGMMA (wgmma), WARPGROUP.DEPBAR (a wait for
-    warpgroup products) and atomic instructions per function in the SASS of
-    the library built from ``csrc/<stem>.cu`` (``phase_sass`` prints them)."""
+    """HMMA (mma.sync), HGMMA (wgmma), DMMA (float64 mma.sync),
+    WARPGROUP.DEPBAR (a wait for warpgroup products), local-memory (LDL,
+    STL: spilled registers) and atomic instructions per function in the
+    SASS of the library built from ``csrc/<stem>.cu`` (``phase_sass``
+    prints them)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = cuda_build._lib_path(cuda_build.CSRC / f"{stem}.cu")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     counts, fn = {}, None
     atomic = re.compile(r"\b(ATOMG?|ATOMS|RED)\b")
+    local = re.compile(r"\b(LDL|STL)\b")
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HMMA": 0, "HGMMA": 0, "DEPBAR": 0, "atomics": 0}
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "DMMA": 0, "DEPBAR": 0, "local": 0,
+                          "atomics": 0}
         elif fn is not None:
             counts[fn]["HMMA"] += "HMMA" in line
             counts[fn]["HGMMA"] += "HGMMA" in line
+            counts[fn]["DMMA"] += "DMMA" in line
             counts[fn]["DEPBAR"] += "WARPGROUP.DEPBAR" in line
+            counts[fn]["local"] += ("LDL" in line or "STL" in line) and bool(local.search(line))
             # the substring test first, the regex only where it can match
             if ("ATOM" in line or "RED" in line) and atomic.search(line):
                 counts[fn]["atomics"] += 1
@@ -712,22 +721,26 @@ def phase_sass(build) -> None:
     libraries' SASS. Instantiations: B2/B3 and B1 at 3 dtypes x 4 widths
     (DMAX 32 to 256), B4 at 3 x 4 x 2 load paths, the float64 B1-B4 at 4
     widths each; B5's wgmma kernel in bf16 and f16, its mma.sync kernel in
-    float32 (3xTF32, timed beside the path's kernel), its float32 CUDA-core
-    kernel (2 load paths) and its float64 one. The bf16 and f16 B1 at every
-    width, B2 and B3 up to DMAX 128, the float32 B1 up to DMAX 128 and B3 up
-    to DMAX 64 (3xTF32) and B5 are the wgmma kernels (HGMMA in SASS); the
-    rest of B1-B3 (float32 B2 at every width, float32 B1 at DMAX 256 and B3
-    at DMAX 128 and 256) and B5's 3xTF32 kernel run mma.sync (HMMA).
-    Each function's waits for warpgroup products (WARPGROUP.DEPBAR) are
-    printed beside: a wgmma under a runtime branch, or a call in the kernel,
-    makes ptxas wait after every one. The counts come from the build's
-    thread."""
+    float32 (3xTF32, timed beside the path's kernel) and float64 (DMMA, for
+    rows TMA cannot take), its float64 TMA-fed DMMA kernel and its float32
+    CUDA-core kernel (2 load paths). The bf16 and f16 B1 at
+    every width, B2 and B3 up to DMAX 128, the float32 B1 up to DMAX 128 and
+    B3 up to DMAX 64 (3xTF32) and B5 are the wgmma kernels (HGMMA in SASS);
+    the rest of B1-B3 (float32 B2 at every width, float32 B1 at DMAX 256 and
+    B3 at DMAX 128 and 256) and B5's 3xTF32 kernel run mma.sync (HMMA); the
+    float64 B3 at DMAX 32 and 64 and B5 run the float64 tensor cores (DMMA),
+    with no spilled register (no LDL or STL). The float64 B3 at DMAX 128
+    and 256, and B1, B2 and B4, stay on the CUDA cores. Each function's
+    waits for warpgroup products (WARPGROUP.DEPBAR) are printed beside: a
+    wgmma under a runtime branch, or a call in the kernel, makes ptxas wait
+    after every one. The counts come from the build's thread."""
     sass = build[1]["sass"]
     print(f"sass: read in {build[1]['sass_seconds']:.2f} s on the build's thread")
     for stem, counts in sass.items():
         for fn, c in counts.items():
-            print(f"  sass {stem} {fn}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, "
-                  f"{c['DEPBAR']} WARPGROUP.DEPBAR, {c['atomics']} atomics")
+            print(f"  sass {stem} {fn}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, {c['DMMA']} DMMA, "
+                  f"{c['DEPBAR']} WARPGROUP.DEPBAR, {c['local']} LDL/STL, "
+                  f"{c['atomics']} atomics")
 
     def tensor_cores(counts, wgmma: dict, mma_sync: str) -> bool:
         """``wgmma``: {name: instantiations}, each with HGMMA; the functions
@@ -762,11 +775,23 @@ def phase_sass(build) -> None:
     f64 = sass["flash_f64"]
     check(len(f64) == 16 and all(c["atomics"] == 0 for c in f64.values()),
           "the float64 attention kernels must have no atomics")
+    dmma = [c for fn, c in f64.items() if "flash_bwd_dkv_dmma_kernel" in fn]
+    simt = [fn for fn in f64 if "flash_bwd_dkv_f64_kernel" in fn]
+    check(len(dmma) == 2 and all(c["DMMA"] > 0 and c["local"] == 0 for c in dmma)
+          and len(simt) == 2 and all("ILi128E" in fn or "ILi256E" in fn for fn in simt),
+          "the float64 dk/dv kernel must run DMMA with no spilled register at DMAX 32 and 64, "
+          "and keep the SIMT kernel at DMAX 128 and 256 only")
     gmm = sass["grouped_matmul"]
-    check(len(gmm) == 6 and sum("grouped_matmul_tc_kernel" in fn for fn in gmm) == 1
-          and tensor_cores(gmm, {"grouped_matmul_wgmma_kernel": 2}, "grouped_matmul_tc_kernel"),
-          "B5's wgmma kernels (bf16, f16) must run HGMMA, its one mma.sync kernel (the float32 "
-          "3xTF32 one) HMMA, and no B5 kernel atomics")
+    tc32 = [c for fn, c in gmm.items() if "grouped_matmul_tc_kernelIf" in fn]  # <float>
+    gm64 = [c for fn, c in gmm.items()  # the TMA kernel and the cp.async one (<double>)
+            if "grouped_matmul_dmma_kernel" in fn or "grouped_matmul_tc_kernelId" in fn]
+    check(len(gmm) == 7 and sum("grouped_matmul_tc_kernel" in fn for fn in gmm) == 2
+          and len(tc32) == 1 and len(gm64) == 2
+          and tensor_cores(gmm, {"grouped_matmul_wgmma_kernel": 2}, "grouped_matmul_tc_kernelIf")
+          and all(c["DMMA"] > 0 and c["local"] == 0 for c in gm64),
+          "B5's wgmma kernels (bf16, f16) must run HGMMA, its mma.sync kernel in float32 (3xTF32) "
+          "HMMA, its two float64 kernels (TMA, cp.async) DMMA with no spilled register, and no "
+          "B5 kernel atomics")
 
 
 def _route(fn, wgmma: str, mma_sync: str) -> tuple:
@@ -810,6 +835,14 @@ def _key_mask(gen, tk: int) -> torch.Tensor:
 # and two causal offsets off the 64-row and 32-key tiles
 F32_RAGGED = [(77, 150, d, off) for d in (31, 64, 100, 128) for off in (23, -40)]
 F32_RAGGED += [(150, 99, d, 300) for d in (64, 128)]
+# float64 B3 at ragged shapes (tq, tk, d, dv, causal offset or None for the
+# default tk - tq): the DMMA kernel's two widths, DMAX 32 (d 32, and d 20 with
+# columns past d inside a TMA block) and 64 (d 64; d 33, 264-byte rows
+# copied by the threads; dv 48, a 16-column block wholly past dv), tq and tk
+# off its 32-row walk and 128-key blocks both ways, offsets across them,
+# a key mask with a fully masked batch row
+F64_RAGGED = [(77, 150, 32, 32, 23), (77, 150, 20, 32, -40), (150, 99, 64, 64, 300),
+              (77, 300, 33, 33, 23), (200, 333, 64, 48, -40), (129, 200, 64, 64, None)]
 
 
 def _f32_ragged_forward(gen) -> float:
@@ -836,13 +869,15 @@ def _f32_ragged_forward(gen) -> float:
     return worst
 
 
-def _f32_ragged_dkv(gen) -> float:
-    """The float32 dk/dv kernel at F32_RAGGED against its plain version,
-    the row's lse and delta from the plain forward; a second launch equal
-    to the first bit for bit. Returns the worst max abs error."""
-    worst = 0.0
-    for tq, tk, d, off in F32_RAGGED:
-        q, k, v, g, mask = _attention_case(gen, torch.float32, 2, 3, tq, tk, d, d, True)
+def _ragged_dkv(gen, dtype, cases) -> float:
+    """The dk/dv kernel in ``dtype`` at ``cases`` ((tq, tk, d, dv, causal
+    offset), see F32_RAGGED and F64_RAGGED) against its plain version, the
+    row's lse and delta from the plain forward; a second launch equal to the
+    first bit for bit; the fully masked batch row's gradients 0. Returns the
+    worst max abs error."""
+    worst, name = 0.0, str(dtype)[6:]
+    for tq, tk, d, dv_, off in cases:
+        q, k, v, g, mask = _attention_case(gen, dtype, 2, 3, tq, tk, d, dv_, True)
         out, lse = fa.flash_attention_plain(q, k, v, mask, True, causal_offset=off)
         delta = torch.sum(g * out, dim=-1).contiguous()
         args = (q, k, v, g, lse, delta, mask, True, d ** -0.5, off)
@@ -852,12 +887,14 @@ def _f32_ragged_dkv(gen) -> float:
         torch.cuda.synchronize()
         rel = [rel_err(dk, p_dk), rel_err(dv, p_dv)]
         same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
-        print(f"flash_bwd_dkv float32 [2,3,{tq}/{tk},{d}] causal offset {off}, masked row: rel "
-              f"dk/dv {['%.3e' % r for r in rel]} (tol {TOL_BWD_REL[torch.float32]:g}); second "
+        print(f"flash_bwd_dkv {name} [2,3,{tq}/{tk},{d}/{dv_}] causal offset {off}, masked row: "
+              f"rel dk/dv {['%.3e' % r for r in rel]} (tol {TOL_BWD_REL[dtype]:g}); second "
               f"launch bit-equal: {same}")
-        check(max(rel) <= TOL_BWD_REL[torch.float32],
-              "float32 B3 at a ragged shape disagrees with its plain version")
-        check(same, "float32 B3 launches must repeat bit for bit")
+        check(max(rel) <= TOL_BWD_REL[dtype],
+              f"{name} B3 at a ragged shape disagrees with its plain version")
+        check(same, f"{name} B3 launches must repeat bit for bit")
+        check(bool((dk[-1] == 0).all()) and bool((dv[-1] == 0).all()),
+              "a fully masked batch row must give zero dk and dv")
         worst = max(worst, max_err(dk, p_dk), max_err(dv, p_dv))
     return worst
 
@@ -1110,7 +1147,8 @@ def phase_flash_backward(gen) -> dict:
                   f"{off:5d}: rel dq/dk/dv {['%.3e' % r for r in rel]}")
             check(max(rel) <= TOL_BWD_REL[dtype],
                   "B2/B3 at an explicit causal offset disagree with their plain versions")
-    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], _f32_ragged_dkv(gen))
+    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], _ragged_dkv(
+        gen, torch.float32, [(tq, tk, d, d, off) for tq, tk, d, off in F32_RAGGED]))
 
     # timing at the training path's shape: [8, 12, 1024, 64], causal, no mask
     rows = {n: {"max_abs_err": w} for n, w in worst.items()}
@@ -1192,14 +1230,15 @@ def _attention_case(gen, dtype, b, h, tq, tk, d, dv, masked):
     return q, k, v, g, mask
 
 
-def phase_new_instantiations(gen) -> None:
+def phase_new_instantiations(gen) -> dict:
     """The instantiations C1 adds, each against its plain version at ragged
-    shapes: float16 and float64 in B1-B4 (float64 in ``csrc/flash_f64.cu``),
-    and head dims above 128 up to 256 in every dtype. Then timed: B1, B2 and
-    B3 at d = 256 ([1, 8, 2048, 256] causal) in float32, bf16 and f16, and at
-    the training shape in f16 and f64, each beside SDPA's forward or
-    backward in the same dtype; B4 at d = 256 and in f16 and f64 by device
-    time."""
+    shapes: float16 and float64 in B1-B4 (float64 in ``csrc/flash_f64.cu``;
+    its DMMA dk/dv kernel also at F64_RAGGED), and head dims above 128 up to
+    256 in every dtype. Then timed: B1, B2 and B3 at d = 256 ([1, 8, 2048,
+    256] causal) in float32, bf16 and f16, and at the training shape in f16
+    and f64, each beside SDPA's forward or backward in the same dtype; B4 at
+    d = 256 and in f16 and f64 by device time. Returns the float64 B3's
+    figures at the training shape (the ``kernels`` line's ``"f64"``)."""
     cases = [  # (b, h, tq, tk, d, dv, causal, masked)
         (2, 3, 129, 200, 64, 64, True, True),
         (2, 3, 200, 333, 256, 256, True, True),
@@ -1254,6 +1293,8 @@ def phase_new_instantiations(gen) -> None:
             check(e <= TOL_OUT[dtype] and bool((out[0] == 0).all()),
                   "a new B4 instantiation disagrees with its plain version")
 
+    f64_row = {"max_abs_err": _ragged_dkv(gen, torch.float64, F64_RAGGED)}
+
     # timings: B1 and B2 + B3 against SDPA's forward and backward, paired
     shapes = [((1, 8, 2048, 256), (torch.float32, torch.bfloat16, torch.float16)),
               ((B, H, T_FULL, D), (torch.float16, torch.float64))]
@@ -1296,6 +1337,10 @@ def phase_new_instantiations(gen) -> None:
                      if dtype == torch.float64 else "")
                   + f"; B1 {med['B1'] / med['sdpa']:.2f}x sdpa, B2 + B3 "
                   f"{(med['B2'] + med['B3']) / med['sdpa backward']:.2f}x sdpa backward")
+            if dtype == torch.float64:
+                bound, by = roofline(*work["B3"], dtype)
+                f64_row.update(ms=med["B3"], plain_ms=med["B3 plain"],
+                               library_ms=med["sdpa backward"], bound_ms=bound, bound_by=by)
             del o_lib, qs, ks, vs
 
     # B4 by device time at the serving positions
@@ -1316,6 +1361,7 @@ def phase_new_instantiations(gen) -> None:
               f"start_pos={pos.tolist()}: kernel {ms:.5f} ms of device time, sdpa "
               f"{lib_ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound:.5f} ms ({by}"
               f"{cuda_core_note(4 * d * keys, dtype)})")
+    return f64_row
 
 
 def _with_impl(impl: str, fn):
@@ -3142,7 +3188,7 @@ def _timed_steps(solver, ids, labels, n: int):
     return scores, ms, torch.cuda.max_memory_allocated() - rest
 
 
-def phase_remat_and_bf16(card: str) -> dict:
+def phase_remat_and_bf16(card: str) -> tuple:
     """The GPT-2-small-width ``TransformerLM`` of the "LM training" phase on
     its 8 x 1024 batch, three ways. ``gradient_checkpointing``: float32, the
     first loss and the gradients with and without it (each block's forward
@@ -3150,7 +3196,7 @@ def phase_remat_and_bf16(card: str) -> dict:
     ``compute_dtype="bfloat16"`` with float32 master weights: ``output()``
     and ``BF16_STEPS`` steps through bf16 B1-B3, held against the bf16
     materialised-scores seam, beside the float32 step. Returns the launch
-    counts of the checkpointed and bf16 paths."""
+    counts of the checkpointed and bf16 paths, and of the bf16 path alone."""
     ids, labels = _lm_batch()
     tok = B * T_FULL
     plain = MultiLayerNetwork(_lm_conf()).init()
@@ -3221,7 +3267,8 @@ def phase_remat_and_bf16(card: str) -> dict:
           f"peak above resting {peak_bf / 2**30:.2f} GiB")
     check(e_out <= TOL_BF16_REL, "bf16 output() through B1 disagrees with the bf16 seam")
     check(worst_bf[0] <= TOL_BF16_GRAD_REL, "bf16 gradients through B1-B3 disagree")
-    return {n: remat_counts[n] + bf_out_counts[n] + c for n, c in bf_counts.items()}
+    return ({n: remat_counts[n] + bf_out_counts[n] + c for n, c in bf_counts.items()},
+            {n: bf_out_counts[n] + c for n, c in bf_counts.items()})
 
 
 def phase_bf16_generation(prompts, card: str) -> dict:
@@ -3999,11 +4046,12 @@ def phase_grouped_matmul(gen, routed) -> dict:
         ("empty groups, groups over m_pad, tail", 1000, 256, 200, (0, 300, 0, 350, 100), 256,
          False),
         ("n, d, h off the tiles and vectors", 333, 100, 90, (100, 0, 150), None, False),
+        ("d, h odd (rows TMA cannot take)", 300, 33, 17, (100, 0, 150), None, False),
         ("int8 rhs", 512, 128, 192, (200, 300), None, True),
         ("MoE first product", n_rows, 768, H_MOE, routed, CAPACITY, False),
         ("MoE second product", n_rows, H_MOE, 768, routed, CAPACITY, False),
     ]
-    worst = 0.0
+    worst = worst_f64 = 0.0
     for dtype in DTYPES:
         for label, n, d, h, sizes, mg, q in cases:
             lhs = torch.randn(n, d, generator=gen).to("cuda", dtype)
@@ -4033,6 +4081,8 @@ def phase_grouped_matmul(gen, routed) -> dict:
             check(bool((y[dropped] == 0).all()), "dropped rows and rows past the frontier must be 0")
             if dtype == torch.float32:
                 worst = max(worst, max_err(y, ref))
+            elif dtype == torch.float64:
+                worst_f64 = max(worst_f64, max_err(y, ref))
             del lhs, rhs, y, ref
 
     # timing at the main path's first product, at the routed and a balanced load
@@ -4099,6 +4149,8 @@ def phase_grouped_matmul(gen, routed) -> dict:
             elif dtype == torch.bfloat16 and load == "routed":
                 # torch._grouped_mm beside the padded bmm: a second library figure
                 row["bf16"] = dict(fig, grouped_mm_ms=gmm_ms, grouped_mm=gmm_why)
+            elif dtype == torch.float64:
+                row["f64"] = dict(fig, max_abs_err=worst_f64)
             del buf
     return row
 
@@ -6123,7 +6175,7 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
     fwd = timed("B1", phase_flash_forward, gen)
     dec = timed("B4", phase_flash_decode, gen, [n + MAX_TOKENS // 2 for n in prompt_lens])
     bwd = timed("B2/B3", phase_flash_backward, gen)
-    timed("new instantiations", phase_new_instantiations, gen)
+    bwd["flash_bwd_dkv"]["f64"] = timed("new instantiations", phase_new_instantiations, gen)
     serving, model = timed("LM serving", phase_model, prompts)
     engine, static_streams = timed("LM engine", phase_engine, model, prompts, card)
     paths += [serving, engine,
@@ -6134,7 +6186,10 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
     timed("device sampler", phase_sampler)
     paths.append(timed("LM training", phase_train, card))
     moe, routed, moe_f32 = timed("MoE network", phase_moe, card)
-    paths += [moe, timed("bf16 compute_dtype MoE network", phase_moe_bf16, card, moe_f32)]
+    # the paths' launches in bf16, f16 and f64 (the rest run in float32)
+    by_dtype = {"bfloat16": [timed("bf16 compute_dtype MoE network", phase_moe_bf16, card,
+                                   moe_f32)], "float16": [], "float64": []}
+    paths += [moe, by_dtype["bfloat16"][0]]
     gmm = timed("B5", phase_grouped_matmul, gen, routed)
     # what the multi-process phases are held against, made in this process
     dp1, world1 = timed("data-parallel LM, world 1", phase_dp_world1, card)
@@ -6166,14 +6221,18 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
         # on an error here, leaving the block waits for the lanes, whose
         # ranks and children then have ended
         running = [pool.submit(lambda lane=lane: [timed(*ph) for ph in lane]) for lane in lanes]
-        paths += [timed("head-dim-256 LM", phase_lm_head256),
-                  timed("float16 LM", phase_lm_f16, prompts),
-                  timed("float64 LM", phase_lm_f64), timed("float64 MoE layer", phase_moe_f64),
-                  timed("BERT-base encoder", phase_bert, card),
-                  timed("LearnedSelfAttention", phase_learned_attention, card),
-                  timed("gradient checkpointing and bf16 compute_dtype LM",
-                        phase_remat_and_bf16, card),
-                  timed("bf16 compute_dtype generation", phase_bf16_generation, prompts, card),
+        paths.append(timed("head-dim-256 LM", phase_lm_head256))
+        by_dtype["float16"].append(timed("float16 LM", phase_lm_f16, prompts))
+        by_dtype["float64"] += [timed("float64 LM", phase_lm_f64),
+                                timed("float64 MoE layer", phase_moe_f64)]
+        paths += by_dtype["float16"] + by_dtype["float64"]
+        paths += [timed("BERT-base encoder", phase_bert, card),
+                  timed("LearnedSelfAttention", phase_learned_attention, card)]
+        remat, remat_bf16 = timed("gradient checkpointing and bf16 compute_dtype LM",
+                                  phase_remat_and_bf16, card)
+        by_dtype["bfloat16"] += [remat_bf16, timed("bf16 compute_dtype generation",
+                                                   phase_bf16_generation, prompts, card)]
+        paths += [remat, by_dtype["bfloat16"][-1],
                   timed("SameDiff multi-head attention", phase_samediff_attention, card),
                   timed("int8 MoE", phase_quant_moe, card)]
         ft, ft_finish = timed("fault-tolerant LM training", phase_fault_tolerant_lm, card)
@@ -6183,8 +6242,9 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
         paths += [timed("BERT-base MLM from BertIterator, UI watching", phase_bert_mlm, card),
                   timed("Word2Vec, GloVe and ParagraphVectors", phase_embeddings, card,
                         reference[0])]
-        for lane in running:
-            paths += lane.result()
+        lane_paths = [lane.result() for lane in running]
+        paths += lane_paths[0] + lane_paths[1]
+        by_dtype["float64"].append(lane_paths[1][2])  # the four float64 ranks
     del world1, pp_f64
     # launches over the paths. First the phases that run while the kernels
     # build and launch none of the five: LeNet and ResNet-50, the char-RNN,
@@ -6224,13 +6284,25 @@ def _main(card: str, name: str, reference: list, build, ref_dir: str) -> int:
         dict(name="grouped_matmul", route="cuda", source=src + "grouped_matmul.cu",
              replaces="deeplearning4j_tpu/ops/grouped_matmul.py:144", **gmm),
     ]
+    # each kernel's launches by dtype: the bf16, f16 and f64 paths' own,
+    # float32 the rest (the int8 and fp8 models' attention among them)
+    by_dtype = {t: {n: sum(p.get(n, 0) for p in ps) for n in moe} for t, ps in by_dtype.items()}
+    by_dtype = {"float32": {n: c - sum(by_dtype[t][n] for t in by_dtype)
+                            for n, c in launches.items()}, **by_dtype}
+    print(f"launches by dtype: {json.dumps(by_dtype)}")
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
+        kern["launches_by_dtype"] = {t: c[kern["name"]] for t, c in by_dtype.items()}
         check(kern["launches"] > 0, f"{kern['name']} was not launched on the main path")
-    # float32 figures in the contract's keys; B1-B3 add their bf16 figures
-    # (ms, plain, bound and SDPA in the same paired rounds) under "bf16"
+    kernels[2]["f64"]["source"] = src + "flash_f64.cu"  # the float64 B3: its DMMA kernel
+    for kern in (kernels[2], kernels[4]):
+        check(kern["launches_by_dtype"]["float64"] > 0,
+              f"the float64 {kern['name']} was not launched on the main path")
+    # float32 figures in the contract's keys; B1-B3 and B5 add their bf16
+    # figures (ms, plain, bound and SDPA in the same paired rounds) under
+    # "bf16", B3 and B5 their float64 ones under "f64"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16", "f64", "launches_by_dtype")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern} for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 // Flash attention in float64 for Hopper (sm_90a): the forward (B1), the dq
-// (B2) and dk/dv (B3) backward, and the single-query decode (B4), on the CUDA
-// cores with float64 sums.
+// (B2) and dk/dv (B3) backward, and the single-query decode (B4), with
+// float64 sums: B3 to head dim 64 on the float64 tensor cores (DMMA), the
+// rest on the CUDA cores.
 //
 // Replaces, for float64 operands: deeplearning4j_tpu/ops/flash_attention.py::
 // _flash_kernel, _dq_kernel, _dkv_kernel and _decode_kernel (the Pallas TPU
@@ -16,13 +17,14 @@
 // key mask is float32 [b,tk] (> 0 keeps), and decode row b reads positions
 // [0, min(start_pos[b] + 1, L)). Head dims up to 256.
 //
-// What bounds it on this card: float64 operations on the CUDA cores (the
-// H100's float64 tensor-core rate needs DMMA fragments; this is the simple
-// kernel that is right first). Its users are the gradient checks and
-// float64 models, which run at test shapes.
+// What bounds it on this card: float64 operations, at 67 TFLOP/s on the
+// tensor cores (DMMA, mma.sync only: Hopper has no float64 wgmma) and 34 on
+// the CUDA cores. Its users are the gradient checks and float64 models.
 //
-// Design: the SIMT kernels that B1-B3 were before their tensor-core redesign,
-// in float64. 256 threads form a 16x16 grid; a block owns a tile of BT = 16 R
+// B3 up to DMAX 64: flash_bwd_dkv_dmma_kernel, below (its design there).
+//
+// The rest: the SIMT kernels that B1-B3 were before their tensor-core
+// redesign, in float64. 256 threads form a 16x16 grid; a block owns a tile of BT = 16 R
 // q rows (B1, B2) or keys (B3) of one (b,h) and walks the other axis in tiles
 // of BT; thread (ty, tx) holds scores of rows ty + 16 i and keys tx + 16 j
 // (i, j < R), so a row's max and sum take shuffles within a half warp, and
@@ -36,6 +38,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"  // mma_f64, the swizzled tiles, TMA and its tensor maps
 
 namespace {
 
@@ -410,6 +414,322 @@ flash_bwd_dkv_f64_kernel(const double* __restrict__ q, const double* __restrict_
   store_tile<R, NJ>(dvo + (size_t)bh * tk * dv, dv_acc, k0, tk, dv, 1.0, ty, tx);
 }
 
+// ---- B3 on the float64 tensor cores (DMMA) -----------------------------------
+//
+// The dk/dv instantiations at DMAX <= kDmmaMaxD. A block owns kDmmaKeys keys
+// of one (b, h), 16 a warp (the m16 of mma_f64), and walks the q rows in
+// tiles of kDmmaWalk. k and v sit in shared memory for the whole walk; the q
+// and g tiles, with their rows' lse and delta, come through a ring of
+// kDmmaStages stages: thread 0 asks TMA for tile qt + 1 (128B-swizzled
+// boxes of 16 doubles, FLOAT64 tensor maps; the threads copy rows TMA cannot
+// take) while the warps multiply tile qt. Each warp, for its 16 keys:
+//   sᵀ = k·qᵀ and dpᵀ = v·gᵀ (16 x 32 accumulators), k and v as A
+//   fragments and q and g as B fragments read K-major; pᵀ and dsᵀ formed in
+//   those registers; then dv += pᵀ·g and dk += dsᵀ·q with those
+//   accumulators as A fragments (c[0], c[2], c[1], c[3]: the reduction index
+//   t is query 2t, t + 4 is 2t + 1) and g and q read MN-major in the same
+//   order (rows 2t and 2t + 1).
+// q is read unscaled: sᵀ is scaled on the way to pᵀ and dk on its store.
+// Conflict-free fragment reads from the swizzled tiles (16 doubles a
+// 128-byte row, chunk c of row r at c ^ (r % 8)): the MN-major reads are, as
+// they lie; the K-major ones take each 16-dim block's reduction index in a
+// permuted order: lane t reads dim (t % 2) + 8 (t / 2) + 2 slot for slot 0-3
+// (the two k8 steps' indices t and t + 4), so that a half warp's rows g
+// (the swizzle's low two chunk bits) and lanes t (the chunk's high bit and
+// the half) land on 16 distinct 8-byte bank pairs.
+// Registers are what bounds the tile: dk and dv take 128 a thread at DMAX
+// 64, sᵀ and dpᵀ 64, so k and v stay in shared memory (their A fragments in
+// registers would take 128 more), and DMAX 128 (256 for dk and dv alone)
+// keeps the SIMT kernel, as DMAX 256 does. A warp passes over a tile whose
+// scores are all causally masked for its keys. Every (b, h, key tile) is
+// written by one block: no atomics. Measured on an H100 80GB HBM3 at 700 W
+// at [8, 12, 1024, 64] causal (tools/flash_backward_variants.py --dtypes
+// float64, one call): 0.7487 ms against 0.3850 at DMMA's rate; the SIMT
+// design 2.1558; walks of 16 q rows 0.7816; 64 keys a block 1.1281.
+
+constexpr int kDmmaMaxD = 64;
+constexpr int kDmmaWarps = 8;
+constexpr int kDmmaKeys = 16 * kDmmaWarps;  // keys a block
+constexpr int kDmmaWalk = 32;               // q rows a block walks at a time (the N of sᵀ)
+constexpr int kDmmaStages = 2;              // q/g tiles: this round's and the next
+constexpr int kDmmaThreads = 32 * kDmmaWarps;
+
+template <int DMAX>
+__host__ __device__ constexpr bool use_dmma() { return DMAX <= kDmmaMaxD; }
+
+template <int DMAX>
+constexpr size_t dmma_dkv_smem_bytes() {
+  // k, v: [DMAX / 16][keys][16]; q, g: stages of [DMAX / 16][BM][16]; lse,
+  // delta: stages of [BM]; key validity: [keys]; the mbarriers (k/v, then
+  // one a stage); 1024 bytes of alignment slack
+  constexpr int BM = kDmmaWalk, ST = kDmmaStages;
+  return sizeof(double) *
+             (2 * kDmmaKeys * DMAX + 2 * ST * BM * DMAX + 2 * ST * BM + kDmmaKeys) +
+         8 * (1 + ST) + 1024;
+}
+
+// rows [row0, row0 + n) of a float64 vector into dst, zeros past `end`
+template <int NT>
+__device__ __forceinline__ void copy_vec_f64(double* dst, const double* __restrict__ src,
+                                             int row0, int end, int n) {
+  for (int i = threadIdx.x; i < n; i += NT) {
+    const bool ok = row0 + i < end;
+    cp_async<8>(dst + i, ok ? src + row0 + i : src, ok);
+  }
+}
+
+// A lane's offsets (doubles) inside a swizzled tile: k[s], of the K-major
+// reads of a row gr (mod 8) at reduction slot s of a 16-column block
+// (column (tc % 2) + 8 (tc / 2) + 2s); mn[h][e], of the MN-major reads of
+// row 2tc + e (mod 8) at column gr of the block's half h (columns 8h to
+// 8h + 7). Every fragment read is a tile base plus one of these plus a
+// constant.
+struct LaneOffsets {
+  int k[4], mn[2][2];
+};
+__device__ __forceinline__ LaneOffsets lane_offsets(int gr, int tc) {
+  LaneOffsets o;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    o.k[s] = gr * 16 + ((((4 * (tc >> 1) + s) ^ gr) << 1) | (tc & 1));
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 2 * tc + e;
+      o.mn[h][e] = r * 16 + ((((4 * h + (gr >> 1)) ^ r) << 1) | (gr & 1));
+    }
+  return o;
+}
+
+// s = k·qᵀ and dp = v·gᵀ for a warp's 16 rows of the [NB][NK][16] swizzled
+// tiles k and v (from the warp's first row) and the BM rows of the
+// [NB][BM][16] tiles q and g, read K-major in the permuted order: NS
+// m16n8 tiles of 8 q rows each, two k8 steps a 16-column block (reduction
+// slots 2 s2 and 2 s2 + 1)
+template <int NB, int NK, int BM, int NS>
+__device__ __forceinline__ void scores(double (&s)[NS][4], double (&dp)[NS][4], const double* k,
+                                       const double* v, const double* q, const double* g,
+                                       const int (&o)[4]) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0;
+#pragma unroll
+  for (int kb = 0; kb < NB; ++kb) {
+#pragma unroll
+    for (int s2 = 0; s2 < 2; ++s2) {
+      const int o0 = o[2 * s2], o1 = o[2 * s2 + 1];
+      const double* pk = k + kb * NK * 16;
+      const double* pv = v + kb * NK * 16;
+      const double fk[4] = {pk[o0], pk[128 + o0], pk[o1], pk[128 + o1]};  // rows gr, gr + 8
+      const double fv[4] = {pv[o0], pv[128 + o0], pv[o1], pv[128 + o1]};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const double* pq = q + kb * BM * 16 + 128 * j;
+        const double* pg = g + kb * BM * 16 + 128 * j;
+        const double fq[2] = {pq[o0], pq[o1]};
+        const double fg[2] = {pg[o0], pg[o1]};
+        mma_f64(s[j], fk, fq);
+        mma_f64(dp[j], fv, fg);
+      }
+    }
+  }
+}
+
+// acc += pᵀ·x for the NS m16n8 tiles p of a warp's scores (their 8
+// columns each the reduction axis, as A fragments p[0], p[2], p[1], p[3])
+// and a [NO / 2][BM][16] swizzled tile x (g or q) read MN-major: k8 step j
+// takes x's rows 8j + 2tc and 8j + 2tc + 1
+template <int NO, int BM, int NS>
+__device__ __forceinline__ void sums(double (&acc)[NO][4], const double (&p)[NS][4],
+                                     const double* x, const int (&o)[2][2]) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const double fa[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const double* px = x + (n >> 1) * BM * 16 + 128 * j;
+      const double fb[2] = {px[o[n & 1][0]], px[o[n & 1][1]]};
+      mma_f64(acc[n], fa, fb);
+    }
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kDmmaThreads, 1)
+flash_bwd_dkv_dmma_kernel(__grid_constant__ const CUtensorMap qmap,
+                          __grid_constant__ const CUtensorMap kmap,
+                          __grid_constant__ const CUtensorMap vmap,
+                          __grid_constant__ const CUtensorMap gmap, const double* __restrict__ q,
+                          const double* __restrict__ k, const double* __restrict__ v,
+                          const double* __restrict__ g, const double* __restrict__ lse,
+                          const double* __restrict__ delta, const float* __restrict__ mask,
+                          double* __restrict__ dk, double* __restrict__ dvo, int h, int tq,
+                          int tk, int d, int dv, double scale, int causal, int tk_off,
+                          int vec_d, int vec_dv) {
+  constexpr int NB = DMAX / 16;  // swizzled 16-column blocks a row
+  constexpr int BM = kDmmaWalk, ST = kDmmaStages, NK = kDmmaKeys;
+  constexpr int NS = BM / 8;     // m16n8 tiles of sᵀ and dpᵀ (8 queries each)
+  constexpr int NO = DMAX / 8;   // m16n8 tiles of dk and dv (8 head columns each)
+  constexpr int QT = BM * DMAX;  // doubles of a q or g stage
+  extern __shared__ unsigned char smem_raw[];
+  double* Ks = reinterpret_cast<double*>(align_1024(smem_raw));  // [NB][NK][16]
+  double* Vs = Ks + NK * DMAX;
+  double* Qs = Vs + NK * DMAX;  // [ST][NB][BM][16]
+  double* Gs = Qs + ST * QT;
+  double* Lrow = Gs + ST * QT;  // [ST][BM]
+  double* Drow = Lrow + ST * BM;
+  double* Kvalid = Drow + ST * BM;  // [NK]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Kvalid + NK);  // k and v, then one a stage
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int w0 = (tid >> 5) * 16;  // this warp's first key of the block's
+  const int bh = blockIdx.x, b = bh / h;
+  const int k0 = blockIdx.y * NK;  // the first key tiles see the most q rows: they go first
+  const int kw = k0 + w0;          // this warp's first key
+  const bool tma_qk = vec_d == 16, tma_vg = vec_dv == 16;  // else copies by the threads
+
+  const double* qb = q + (size_t)bh * tq * d;
+  const double* gb = g + (size_t)bh * tq * dv;
+  const double* lb = lse + (size_t)bh * tq;
+  const double* db = delta + (size_t)bh * tq;
+  const int n_tiles = (tq + BM - 1) / BM;
+  // the first q tile with a row that sees key `key` (causal), or 0
+  auto first_seen = [&](int key) {
+    const int q_first = key - tk_off;
+    return !causal || q_first <= 0 ? 0 : min(q_first / BM, n_tiles);
+  };
+  const int first = first_seen(k0), wfirst = first_seen(kw);
+  // from q tile wf0 on every row of a tile sees every key of this warp, and
+  // with no key mask and the warp's keys inside tk no score needs a mask
+  // (rows past tq aside)
+  const bool wkeys = mask == nullptr && kw + 16 <= tk;
+  const int wf0 = causal ? (max(kw + 15 - tk_off, 0) + BM - 1) / BM : 0;
+
+  if (tid == 0) {
+    for (int i = 0; i <= ST; ++i) mbar_init(bars + i);
+    mbar_init_fence();
+  }
+  // blocks wholly past d (k, q) or dv (v, g), which TMA leaves unwritten,
+  // are read as zeros by the products (every product runs all DMAX columns)
+  if (tma_qk && live_blocks<NB, double>(d) < NB) {
+    zero_blocks<kDmmaThreads, NK, NB>(tid, Ks, live_blocks<NB, double>(d));
+    for (int st = 0; st < ST; ++st)
+      zero_blocks<kDmmaThreads, BM, NB>(tid, Qs + st * QT, live_blocks<NB, double>(d));
+  }
+  if (tma_vg && live_blocks<NB, double>(dv) < NB) {
+    zero_blocks<kDmmaThreads, NK, NB>(tid, Vs, live_blocks<NB, double>(dv));
+    for (int st = 0; st < ST; ++st)
+      zero_blocks<kDmmaThreads, BM, NB>(tid, Gs + st * QT, live_blocks<NB, double>(dv));
+  }
+  if (tid < NK) Kvalid[tid] = key_valid(mask, b, k0 + tid, tk);
+  __syncthreads();  // the barriers are initialised before anyone uses them
+
+  // q tile qt sits in stage (qt - first) % ST, complete on barrier 1 + that
+  const CUtensorMap *qmap_p = &qmap, *gmap_p = &gmap;
+  auto load_qg = [&](int qt) {
+    const int q0 = qt * BM, st = (qt - first) % ST;
+    uint64_t* bar = bars + 1 + st;
+    if (tid == 0) {
+      mbar_expect(bar, (tma_qk ? tile_bytes<BM, NB, double>(d) : 0) +
+                           (tma_vg ? tile_bytes<BM, NB, double>(dv) : 0));
+      if (tma_qk) tma_tile<BM, NB>(Qs + st * QT, qmap_p, bar, q0, d, bh);
+      if (tma_vg) tma_tile<BM, NB>(Gs + st * QT, gmap_p, bar, q0, dv, bh);
+    }
+    if (!tma_qk) copy_tile<kDmmaThreads, BM, NB>(tid, Qs + st * QT, qb, q0, tq, d, vec_d);
+    if (!tma_vg) copy_tile<kDmmaThreads, BM, NB>(tid, Gs + st * QT, gb, q0, tq, dv, vec_dv);
+    copy_vec_f64<kDmmaThreads>(Lrow + st * BM, lb, q0, tq, BM);  // rows past tq: see `l` below
+    copy_vec_f64<kDmmaThreads>(Drow + st * BM, db, q0, tq, BM);
+  };
+
+  if (first < n_tiles) {  // no copy may outlive the block
+    if (tid == 0) {
+      mbar_expect(bars, (tma_qk ? tile_bytes<NK, NB, double>(d) : 0) +
+                            (tma_vg ? tile_bytes<NK, NB, double>(dv) : 0));
+      if (tma_qk) tma_tile<NK, NB>(Ks, &kmap, bars, k0, d, bh);
+      if (tma_vg) tma_tile<NK, NB>(Vs, &vmap, bars, k0, dv, bh);
+    }
+    if (!tma_qk)
+      copy_tile<kDmmaThreads, NK, NB>(tid, Ks, k + (size_t)bh * tk * d, k0, tk, d, vec_d);
+    if (!tma_vg)
+      copy_tile<kDmmaThreads, NK, NB>(tid, Vs, v + (size_t)bh * tk * dv, k0, tk, dv, vec_dv);
+    load_qg(first);
+  }
+  cp_commit();
+
+  double dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0;
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    cp_wait<0>();     // tile qt's copies by the threads
+    __syncthreads();  // round qt - 1 is done with its stage, and the copies are seen
+    if (qt + 1 < n_tiles) load_qg(qt + 1);
+    cp_commit();
+    if (qt == first) mbar_wait(bars, 0);
+    mbar_wait(bars + 1 + (qt - first) % ST, ((qt - first) / ST) & 1);
+    if (qt < wfirst) continue;  // every score of this warp's keys is masked
+
+    const int st = (qt - first) % ST, q0 = qt * BM;
+    const double* Qt = Qs + st * QT;
+    const double* Gt = Gs + st * QT;
+    double s[NS][4], dp[NS][4];
+    const LaneOffsets o = lane_offsets(gr, tc);
+    // sᵀ = k·qᵀ and dpᵀ = v·gᵀ
+    scores<NB, NK, BM, NS>(s, dp, Ks + w0 * 16, Vs + w0 * 16, Qt, Gt, o.k);
+    // pᵀ into s, dsᵀ into dp; element e of tile j is key gr + 8 (e / 2),
+    // query 8j + 2tc + e % 2
+    const double* Lt = Lrow + st * BM;
+    const double* Dt = Drow + st * BM;
+    if (wkeys && qt >= wf0 && q0 + BM <= tq) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * tc + (e & 1);
+          const double p = exp(s[j][e] * scale - Lt[ql]);
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - Dt[ql]);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = w0 + gr + 8 * (e >> 1);
+          const int ql = 8 * j + 2 * tc + (e & 1), qi = q0 + ql;
+          const bool keep = Kvalid[kl] > 0.0 && (!causal || qi + tk_off >= k0 + kl);
+          const double sv = keep ? s[j][e] * scale : kNeg;
+          // rows past tq: lse +1e30 makes p = 0, as the TPU kernel's padding does
+          const double l = qi < tq ? Lt[ql] : -kNeg;
+          const double p = sv > kNeg * 0.5 ? exp(sv - l) : 0.0;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - Dt[ql]);
+        }
+    }
+    // dv += pᵀ·g, then dk += dsᵀ·q
+    sums<NO, BM, NS>(dv_acc, s, Gt, o.mn);
+    sums<NO, BM, NS>(dk_acc, dp, Qt, o.mn);
+  }
+  cp_wait<0>();
+
+  // element e of tile n: key kw + gr + 8 (e / 2), column 8n + 2tc + e % 2
+  const size_t base = (size_t)bh * tk;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = kw + gr + 8 * (e >> 1), c = 8 * n + 2 * tc + (e & 1);
+      if (r >= tk) continue;
+      if (c < d) dk[(base + r) * d + c] = dk_acc[n][e] * scale;
+      if (c < dv) dvo[(base + r) * dv + c] = dv_acc[n][e];
+    }
+}
+
 // ---- B4: decode -------------------------------------------------------------
 
 constexpr int kDecWarps = kThreads / 32;
@@ -493,6 +813,31 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int DMAX>
+cudaError_t launch_dkv_dmma(const Args& a) {
+  constexpr size_t bytes = dmma_dkv_smem_bytes<DMAX>();
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(flash_bwd_dkv_dmma_kernel<DMAX>, (int)bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const int vec_d = copy_bytes(a.d, sizeof(double), a.q, a.k);
+  const int vec_dv = copy_bytes(a.dv, sizeof(double), a.v, a.g);
+  const int n = a.b * a.h;
+  CUtensorMap qm{}, km{}, vm{}, gm{};  // encoded where TMA copies the operand
+  if (vec_d == 16 &&
+      ((err = tile_map<double>(&qm, a.q, n, a.tq, a.d, kDmmaWalk)) != cudaSuccess ||
+       (err = tile_map<double>(&km, a.k, n, a.tk, a.d, kDmmaKeys)) != cudaSuccess))
+    return err;
+  if (vec_dv == 16 &&
+      ((err = tile_map<double>(&gm, a.g, n, a.tq, a.dv, kDmmaWalk)) != cudaSuccess ||
+       (err = tile_map<double>(&vm, a.v, n, a.tk, a.dv, kDmmaKeys)) != cudaSuccess))
+    return err;
+  const dim3 grid(n, (a.tk + kDmmaKeys - 1) / kDmmaKeys);
+  flash_bwd_dkv_dmma_kernel<DMAX><<<grid, kDmmaThreads, bytes, a.stream>>>(
+      qm, km, vm, gm, a.q, a.k, a.v, a.g, a.lse, a.delta, a.mask, a.out0, a.out1, a.h, a.tq,
+      a.tk, a.d, a.dv, a.scale, a.causal, a.causal_offset, vec_d, vec_dv);
+  return cudaGetLastError();
+}
+
 enum Which { kForward, kDq, kDkv };
 
 template <Which W, int DMAX>
@@ -519,6 +864,8 @@ cudaError_t launch(const Args& a) {
     flash_bwd_dq_f64_kernel<DMAX><<<grid, kThreads, bytes, a.stream>>>(
         a.q, a.k, a.v, a.g, a.lse, a.delta, a.mask, a.out0, a.h, a.tq, a.tk, a.d, a.dv,
         a.scale, a.causal, a.causal_offset);
+  } else if constexpr (use_dmma<DMAX>()) {
+    return launch_dkv_dmma<DMAX>(a);
   } else {
     constexpr size_t bytes = dkv_smem_bytes<DMAX>();
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_f64_kernel<DMAX>,

@@ -1,6 +1,6 @@
 // Grouped (ragged) expert matmul for Hopper (sm_90a): bfloat16 and float16 on
-// the tensor cores through warpgroup products, float32 and float64 on the
-// CUDA cores.
+// the tensor cores through warpgroup products, float64 on the float64 tensor
+// cores (DMMA), float32 on the CUDA cores.
 //
 // Replaces: deeplearning4j_tpu/ops/grouped_matmul.py::_gmm_kernel (the Pallas
 // TPU kernel launched by _gmm_pallas).
@@ -19,7 +19,8 @@
 // 2·rows·d·h ~ 33-39 GFLOP against ~90-190 MB of traffic: bf16/f16 at
 // flops / 989 TFLOP/s (~0.04 ms, just above the bytes' 0.03 ms); float32 at
 // 3 x flops / 495 TFLOP/s in 3xTF32 on the tensor cores (~0.23 ms), or
-// flops / 67 TFLOP/s on the CUDA cores (~0.58 ms).
+// flops / 67 TFLOP/s on the CUDA cores (~0.58 ms); float64 at flops / 67
+// TFLOP/s on DMMA (~0.49 ms).
 //
 // Design. The TPU kernel reads zero-padded [E, m_pad, d] group tiles that its
 // wrapper gathers through device memory, and skips m-tiles past a group's
@@ -68,7 +69,7 @@
 //   accumulators instead of through shared memory by TMA was 1.5x slower.
 //   The mma.sync kernel of PR 6 (grouped_matmul_tc_kernel: 128 x 128 tiles
 //   of 8 warps, ldmatrix and cp.async, 86% of its time moving tiles) stays
-//   instantiated for float32 only (3xTF32, below); the variants tool
+//   instantiated for float32 (3xTF32, below) and float64 (DMMA); the variants tool
 //   instantiates it for bf16 again to time the two designs side by side.
 // * float32: a CUDA-core kernel (below). The same tensor-core kernel in
 //   3xTF32 (each element split once a block into its TF32 hi and lo parts,
@@ -79,8 +80,19 @@
 //   (wgmma's) and the splits and copies do not overlap the products; and its
 //   sums, in another order than cuBLAS's, flip the ReLU decisions of the MoE
 //   layer that sort dispatch takes (PERF.md §6).
-// * float64: a plain SIMT kernel, 64x64 tiles, 256 threads each owning 4x4
-//   outputs, float64 sums.
+// * float64: grouped_matmul_dmma_kernel (below), on the float64 tensor
+//   cores. Hopper has no wgmma for float64; its float64 tensor-core rate,
+//   67 TFLOP/s, twice the CUDA cores', comes only from mma.sync (mma_f64:
+//   m16n8k8 DMMA). 128 x 128 tiles of 8 warps, k-slabs fed by TMA into
+//   128B-swizzled stages, read conflict-free through a row and a column
+//   permutation. Rows TMA cannot take run grouped_matmul_tc_kernel<double>:
+//   the same products fed by cp.async into stages padded by 4 doubles (A
+//   [128][20], B [16][132]: a half warp's 16 fragment reads on 16 distinct
+//   8-byte bank pairs). Measured on an H100 80GB HBM3 at 700 W at the MoE
+//   shape, the skewed load (tools/grouped_matmul_variants.py, one call):
+//   0.7263 ms with slabs of 32 in 3 stages, the cp.async feed 0.8748, the
+//   SIMT kernel they replaced (a 4 x 4 register tile a thread on the CUDA
+//   cores) 2.3027.
 
 #include <climits>
 
@@ -97,17 +109,20 @@ constexpr int kThreads = 256;  // 8 warps
 template <typename T>
 struct Slab {
   static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr bool kF64 = sizeof(T) == 8;
+  using Acc = typename std::conditional<kF64, double, float>::type;
   static constexpr int BM = 128;
   static constexpr int BN = 128;
   static constexpr int kWarpsM = 2, kWarpsN = 4;
   static constexpr int WM = BM / kWarpsM, WN = BN / kWarpsN;
   static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int BK = 32;
-  static constexpr int kStages = kF32 ? 2 : 3;
+  static constexpr int BK = kF64 ? 16 : 32;
+  static constexpr int kStages = kF32 ? 2 : kF64 ? 4 : 3;
   static constexpr int kMinBlocks = 1;  // blocks an SM the registers must allow
-  // raw tiles (elements): A [BM][AS], B [BK][BS]
-  static constexpr int AS = BK + (kF32 ? 4 : 8);
-  static constexpr int BS = BN + (kF32 ? 4 : 8);
+  // raw tiles (elements): A [BM][AS], B [BK][BS]; rows padded by 16 bytes
+  // (4 words mod 32 banks), or by 32 (float64: 4 doubles mod 16 bank pairs)
+  static constexpr int AS = BK + (kF32 || kF64 ? 4 : 8);
+  static constexpr int BS = BN + (kF32 || kF64 ? 4 : 8);
   // split float32 tiles (words, a (hi, lo) pair an element): 8 words mod 32
   static constexpr int AHS = 2 * BK + 8;
   static constexpr int BHS = 2 * BN + 8;
@@ -152,13 +167,15 @@ __device__ __forceinline__ void copy_slab(T* dst, const T* __restrict__ src, int
     copy_async<R, C, S, 16>(dst, src, rows, ld, c0);
   } else if (vec == 8) {
     copy_async<R, C, S, 8>(dst, src, rows, ld, c0);
-  } else if (vec == 4) {
-    copy_async<R, C, S, 4>(dst, src, rows, ld, c0);
-  } else {
-    own_pieces<R, C, 1>([&](int r, int c) {
-      const bool ok = r < rows && c0 + c < ld;
-      dst[r * S + c] = ok ? src[(size_t)r * ld + c0 + c] : T(0.f);
-    });
+  } else if constexpr (sizeof(T) <= 4) {  // a double's rows are whole 8-byte copies
+    if (vec == 4) {
+      copy_async<R, C, S, 4>(dst, src, rows, ld, c0);
+    } else {
+      own_pieces<R, C, 1>([&](int r, int c) {
+        const bool ok = r < rows && c0 + c < ld;
+        dst[r * S + c] = ok ? src[(size_t)r * ld + c0 + c] : T(0.f);
+      });
+    }
   }
 }
 
@@ -196,6 +213,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 }
 __device__ __forceinline__ void store2(__half* p, float x, float y) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
+__device__ __forceinline__ void store2(double* p, double x, double y) {
+  *reinterpret_cast<double2*>(p) = make_double2(x, y);
 }
 
 // group e's tile at local row m0: its first row (off_e + m0) and its rows
@@ -257,7 +277,7 @@ grouped_matmul_tc_kernel(const T* __restrict__ lhs, const int* __restrict__ size
                           min(BK, d - s * BK), h, n0, vec_b);
   };
 
-  float acc[MT][NT][4];
+  typename Sl::Acc acc[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -356,26 +376,51 @@ grouped_matmul_tc_kernel(const T* __restrict__ lhs, const int* __restrict__ size
       cp_commit();
       const T* A = As + (s % ST) * BM * AS;
       const T* B = Bs + (s % ST) * BK * BS;
+      if constexpr (Sl::kF64) {
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t a[MT][4], b[NT][2];
+        for (int kk = 0; kk < BK; kk += 8) {
+          double a[MT][4], b[NT][2];  // mma_f64's fragments
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
-          ldmatrix_x4<false>(a[i], A + (wm0 + 16 * i + (lane & 15)) * AS + kk + 8 * (lane >> 4));
+          for (int i = 0; i < MT; ++i) {
+            const T* p = A + (wm0 + 16 * i + g) * AS + kk + t;
+            a[i][0] = p[0];
+            a[i][1] = p[8 * AS];
+            a[i][2] = p[4];
+            a[i][3] = p[8 * AS + 4];
+          }
 #pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t r[4];
-          ldmatrix_x4<true>(r, B + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * BS + wn0 +
-                                   8 * j + 8 * (lane >> 4));
-          b[j][0] = r[0];
-          b[j][1] = r[1];
-          b[j + 1][0] = r[2];
-          b[j + 1][1] = r[3];
+          for (int j = 0; j < NT; ++j) {
+            const T* p = B + (kk + t) * BS + wn0 + 8 * j + g;
+            b[j][0] = p[0];
+            b[j][1] = p[4 * BS];
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma_f64(acc[i][j], a[i], b[j]);
         }
+      } else {
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+        for (int kk = 0; kk < BK; kk += 16) {
+          uint32_t a[MT][4], b[NT][2];
 #pragma unroll
-          for (int j = 0; j < NT; ++j) mma_16bit<T>(acc[i][j], a[i], b[j]);
+          for (int i = 0; i < MT; ++i)
+            ldmatrix_x4<false>(a[i], A + (wm0 + 16 * i + (lane & 15)) * AS + kk + 8 * (lane >> 4));
+#pragma unroll
+          for (int j = 0; j < NT; j += 2) {
+            uint32_t r[4];
+            ldmatrix_x4<true>(r, B + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * BS + wn0 +
+                                     8 * j + 8 * (lane >> 4));
+            b[j][0] = r[0];
+            b[j][1] = r[1];
+            b[j + 1][0] = r[2];
+            b[j + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma_16bit<T>(acc[i][j], a[i], b[j]);
+        }
       }
     }
     cp_wait<0>();
@@ -393,7 +438,7 @@ grouped_matmul_tc_kernel(const T* __restrict__ lhs, const int* __restrict__ size
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int c = n0 + wn0 + 8 * j + 2 * t;
-        const float x = acc[i][j][2 * hf], y = acc[i][j][2 * hf + 1];
+        const auto x = acc[i][j][2 * hf], y = acc[i][j][2 * hf + 1];
         if (pair_out && c + 1 < h) {
           store2(orow + c, x, y);
         } else {
@@ -631,6 +676,173 @@ grouped_matmul_wgmma_kernel(__grid_constant__ const CUtensorMap amap,
   if (tid % 128 == 0) bulk_wait();  // no store outlives the block's shared memory
 }
 
+// ---- float64: DMMA fed by TMA ------------------------------------------------
+//
+// A block owns a 128 x 128 output tile, its 8 warps 64 x 32 each (4 x 4
+// m16n8 accumulators of mma_f64: 128 registers a thread). k-slabs of kDmBK
+// doubles come through a ring of kDmStages stages by TMA (A boxes [128
+// rows][16], 128B-swizzled, and up to 8 B boxes [kDmBK k rows][16 columns]),
+// each on a "full" mbarrier; thread 0 refills a stage once the 8 warps
+// have released it on its "empty" mbarrier, so no barrier of the whole
+// block holds the products. Fragment reads from the swizzled tiles are
+// conflict-free in a layout fixed by two permutations, undone at the store:
+// fragment row g of an m16 tile is tile row 2g, row g + 8 is 2g + 1 (a half
+// warp's A reads then cover 8 swizzle phases); fragment column g of n8 tile
+// 2jj + p is column dm_col(p, g) of the 16-column block jj (a half warp's B
+// reads, rows t and t + 8 of one 128-byte bank line, then spread over it).
+// Rows past the group's end but inside n belong to the next group and are
+// multiplied, never stored; TMA zero-fills rows past n and columns past d.
+// Rows TMA cannot take (d or h odd, bases off 16 bytes) go to
+// grouped_matmul_tc_kernel<double>, the same products fed by cp.async.
+// Measured on an H100 80GB HBM3 at 700 W at the MoE shape, the skewed load
+// (tools/grouped_matmul_variants.py): slabs of 48 in 2 stages 0.6999 ms,
+// of 32 in 3 stages 0.7263, of 16 in 6 stages 0.8367 (thread 0 waits for
+// the slowest warp once a slab before it refills the stage); the products
+// alone, without the ring, 0.6454; the card held its 1980 MHz SM clock at
+// 560-660 W throughout.
+
+constexpr int kDmBM = 128, kDmBN = 128, kDmBK = 48;
+constexpr int kDmStages = 2;
+constexpr int kDmThreads = 256;  // 8 warps, 2 x 4
+
+constexpr size_t dm_smem_bytes() {
+  // A: [ST][128][16]; B: [ST][8][16][16]; full and empty mbarriers; 1024
+  // bytes of alignment slack
+  return sizeof(double) * kDmStages * (kDmBM * kDmBK + kDmBK * kDmBN) + 2 * 8 * kDmStages + 1024;
+}
+
+// column of the 16-column block that holds column g of n8 tile p (0, 1)
+__host__ __device__ constexpr int dm_col(int p, int g) {
+  return (g & 1) + 2 * p + 4 * (g >> 2) + 8 * ((g >> 1) & 1);
+}
+
+__global__ void __launch_bounds__(kDmThreads, 1)
+grouped_matmul_dmma_kernel(__grid_constant__ const CUtensorMap amap,
+                           __grid_constant__ const CUtensorMap bmap,
+                           const int* __restrict__ sizes, double* __restrict__ out, int n, int d,
+                           int h, int m_pad, int pair_out) {
+  constexpr int BM = kDmBM, BN = kDmBN, BK = kDmBK, ST = kDmStages;
+  constexpr int AT = BM * BK, BT = BK * BN;  // doubles of an A and a B stage
+  Rows blk;
+  if (!block_rows<BM>(sizes, n, m_pad, blk)) return;
+  const int n0 = blockIdx.x * BN;
+  extern __shared__ unsigned char smem_raw[];
+  double* As = reinterpret_cast<double*>(align_1024(smem_raw));  // [ST][BK / 16][128][16]
+  double* Bs = As + ST * AT;                                       // [ST][8][BK][16]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + ST * BT);
+  uint64_t* empty = full + ST;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp / 4) * 64, wn0 = (warp % 4) * 32;
+  const int n_slabs = (d + BK - 1) / BK;
+  const int live = min((h - n0 + 15) / 16, BN / 16);  // B blocks with columns below h
+  const uint32_t bytes = sizeof(double) * (AT + live * BK * 16);
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, 1);     // thread 0's expect_tx
+      mbar_init(empty + i, 8);    // one arrival a warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto load = [&](int s) {  // thread 0: slab s into stage s % ST
+    const int st = s % ST;
+    mbar_expect(full + st, bytes);
+    for (int kb = 0; kb < BK / 16; ++kb)
+      tma_load(As + st * AT + kb * BM * 16, &amap, full + st, s * BK + 16 * kb, (int)blk.row0, 0);
+    for (int j = 0; j < live; ++j)
+      tma_load(Bs + st * BT + j * BK * 16, &bmap, full + st, n0 + 16 * j, s * BK, blockIdx.z);
+  };
+  if (tid == 0)
+    for (int s = 0; s < min(ST, n_slabs); ++s) load(s);
+
+  // this lane's offsets in a stage: la[u][rr], A's row 2g + rr of the warp's
+  // m16 tile at columns 2u + (t >> 1) (16-byte chunk) and t & 1; lb[p][q], B's
+  // row t + 4q at column dm_col(p, g)
+  int la[4][2], lb[2][2];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = 2 * g + rr;
+      la[u][rr] = r * 16 + ((((2 * u + (t >> 1)) ^ (r & 7)) << 1) | (t & 1));
+    }
+#pragma unroll
+  for (int pp = 0; pp < 2; ++pp)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = t + 4 * q;
+      lb[pp][q] = r * 16 + ((((dm_col(pp, g) >> 1) ^ r) << 1) | (g & 1));
+    }
+
+  double acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0;
+  for (int s = 0; s < n_slabs; ++s) {
+    const int st = s % ST;
+    const uint32_t ph = (s / ST) & 1;
+    mbar_wait(full + st, ph);
+    const double* A = As + st * AT + wm0 * 16;
+    const double* B = Bs + st * BT + (wn0 >> 4) * BK * 16;
+#pragma unroll
+    for (int k8 = 0; k8 < BK / 8; ++k8) {  // columns 8 k8 to 8 k8 + 7
+      double a[4][4], b[4][2];
+      const int u = 2 * (k8 & 1);  // the 16-byte chunks of the k8 step inside its block
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const double* pa = A + (k8 >> 1) * BM * 16 + i * 16 * 16;
+        a[i][0] = pa[la[u][0]];
+        a[i][1] = pa[la[u][1]];
+        a[i][2] = pa[la[u + 1][0]];
+        a[i][3] = pa[la[u + 1][1]];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const double* pb = B + (j >> 1) * BK * 16 + k8 * 8 * 16;
+        b[j][0] = pb[lb[j & 1][0]];
+        b[j][1] = pb[lb[j & 1][1]];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_f64(acc[i][j], a[i], b[j]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+    if (tid == 0 && s + ST < n_slabs) {
+      mbar_wait(empty + st, ph);  // the 8 warps are done with the stage
+      load(s + ST);
+    }
+  }
+
+  // accumulator element e of (i, j): row wm0 + 16i + 2g + e / 2, column
+  // wn0 + 16 (j / 2) + dm_col(j % 2, 2t + e % 2), the pair e % 2 = 0, 1
+  // adjacent
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = wm0 + 16 * i + 2 * g + hf;
+      if (r >= blk.rows) continue;
+      double* orow = out + (blk.row0 + r) * (long long)h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + wn0 + 16 * (j >> 1) + dm_col(j & 1, 2 * t);
+        const double x = acc[i][j][2 * hf], y = acc[i][j][2 * hf + 1];
+        if (pair_out && c + 1 < h) {
+          store2(orow + c, x, y);
+        } else {
+          if (c < h) orow[c] = x;
+          if (c + 1 < h) orow[c + 1] = y;
+        }
+      }
+    }
+  }
+}
+
 // ---- float32 on the CUDA cores ------------------------------------------------
 //
 // A 128x128 output tile a block, 256 threads (16 x 16) each
@@ -768,57 +980,6 @@ grouped_matmul_simt_kernel(const float* __restrict__ lhs, const int* __restrict_
   }
 }
 
-// ---- float64 ----------------------------------------------------------------
-
-constexpr int kBM64 = 64, kBN64 = 64, kBK64 = 16;
-
-__global__ void __launch_bounds__(kThreads)
-grouped_matmul_f64_kernel(const double* __restrict__ lhs, const int* __restrict__ sizes,
-                          const double* __restrict__ rhs, double* __restrict__ out, int n, int d,
-                          int h, int m_pad) {
-  __shared__ double As[kBK64][kBM64 + 1];  // [k][m]
-  __shared__ double Bs[kBK64][kBN64];      // [k][n]
-  Rows blk;
-  if (!block_rows<kBM64>(sizes, n, m_pad, blk)) return;
-  const int n0 = blockIdx.x * kBN64;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const double* a_base = lhs + blk.row0 * (long long)d;
-  const double* b_base = rhs + (long long)blockIdx.z * d * h;
-  double acc[4][4] = {};
-  for (int k0 = 0; k0 < d; k0 += kBK64) {
-    for (int i = tid; i < kBM64 * kBK64; i += kThreads) {
-      const int r = i / kBK64, kk = i % kBK64;
-      As[kk][r] = (r < blk.rows && k0 + kk < d) ? a_base[(size_t)r * d + k0 + kk] : 0.0;
-      const int kb = i / kBN64, nn = i % kBN64;
-      Bs[kb][nn] = (k0 + kb < d && n0 + nn < h) ? b_base[(size_t)(k0 + kb) * h + n0 + nn] : 0.0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK64; ++kk) {
-      double av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= blk.rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < h) out[(blk.row0 + r) * (long long)h + c] = acc[i][j];
-    }
-  }
-}
-
 template <typename T>
 cudaError_t launch_tc(const void* lhs, const int* sizes, const void* rhs, void* out, int n,
                       int d, int h, int e, int m_pad, cudaStream_t stream) {
@@ -888,13 +1049,25 @@ cudaError_t launch_simt(const void* lhs, const int* sizes, const void* rhs, void
   return cudaGetLastError();
 }
 
+// float64: the TMA-fed kernel where TMA takes the rows, else the same
+// products fed by cp.async (grouped_matmul_tc_kernel<double>)
 cudaError_t launch_f64(const void* lhs, const int* sizes, const void* rhs, void* out, int n,
                        int d, int h, int e, int m_pad, cudaStream_t stream) {
-  if ((m_pad + kBM64 - 1) / kBM64 > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((h + kBN64 - 1) / kBN64, (m_pad + kBM64 - 1) / kBM64, e);
-  grouped_matmul_f64_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const double*>(lhs), sizes, static_cast<const double*>(rhs),
-      static_cast<double*>(out), n, d, h, m_pad);
+  if (d == 0 || copy_bytes(d, 8, lhs, lhs) != 16 || copy_bytes(h, 8, rhs, rhs) != 16)
+    return launch_tc<double>(lhs, sizes, rhs, out, n, d, h, e, m_pad, stream);
+  constexpr size_t bytes = dm_smem_bytes();
+  static unsigned long long smem_set = 0;
+  cudaError_t err = opt_in_smem(grouped_matmul_dmma_kernel, (int)bytes, smem_set);
+  if (err != cudaSuccess) return err;
+  if ((m_pad + kDmBM - 1) / kDmBM > 65535) return cudaErrorInvalidValue;
+  CUtensorMap am{}, bm{};
+  if ((err = tile_map<double>(&am, lhs, 1, n, d, kDmBM)) != cudaSuccess ||
+      (err = tile_map<double>(&bm, rhs, e, d, h, kDmBK)) != cudaSuccess)
+    return err;
+  const int pair_out = h % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid((h + kDmBN - 1) / kDmBN, (m_pad + kDmBM - 1) / kDmBM, e);
+  grouped_matmul_dmma_kernel<<<grid, kDmThreads, bytes, stream>>>(
+      am, bm, sizes, static_cast<double*>(out), n, d, h, m_pad, pair_out);
   return cudaGetLastError();
 }
 
@@ -906,7 +1079,7 @@ bool valid(int n, int d, int h, int e, int m_pad) {
 
 // Returns cudaGetLastError() after the launch (0 on success). Allocates
 // nothing; launches on `stream`. dtype: 0 float32 (CUDA cores, fmaf chains),
-// 1 bfloat16 and 2 float16 (warpgroup products), 3 float64 (CUDA cores);
+// 1 bfloat16 and 2 float16 (warpgroup products), 3 float64 (DMMA);
 // mma_tf32.cuh's DType; any other code is cudaErrorInvalidValue. lhs and rhs
 // are contiguous and the group sizes counts (>= 0). In float32 and float64
 // `out` must be zero-filled by the caller; the bf16/f16 kernel writes every

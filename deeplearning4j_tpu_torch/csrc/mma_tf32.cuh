@@ -1,6 +1,6 @@
 // Tensor-core products and asynchronous tile copies shared by the flash
-// attention kernels (flash_forward.cu, flash_backward.cu) and the grouped
-// expert matmul (grouped_matmul.cu), for sm_90a.
+// attention kernels (flash_forward.cu, flash_backward.cu, flash_f64.cu) and
+// the grouped expert matmul (grouped_matmul.cu), for sm_90a.
 //
 // * mma.sync m16n8k8 TF32 with float32 accumulators. A float32 operand x is
 //   split into hi = tf32(x) and lo = tf32(x - hi), and a·b is summed as
@@ -10,6 +10,8 @@
 //   an f16 exponent inside float32's) and is not split.
 // * mma.sync m16n8k16 on bf16 or f16 operands with float32 accumulators,
 //   fed by ldmatrix (grouped_matmul.cu).
+// * mma.sync m16n8k8 in float64 (DMMA), the layouts of the TF32 product
+//   (flash_f64.cu, grouped_matmul.cu).
 // * Fragment loads from row-major shared-memory tiles, and the A fragment
 //   taken straight from an m16n8 accumulator: the accumulator holds columns
 //   (2t, 2t+1) where the A fragment wants (t, t+4), and the order of the
@@ -40,6 +42,9 @@ __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ void store(__half* p, float x) { *p = __float2half(x); }
+// float64 passes through the same helpers unrounded
+__device__ __forceinline__ double to_f32(double x) { return x; }
+__device__ __forceinline__ void store(double* p, double x) { *p = x; }
 
 // The dtype codes of the C entry points: 0 float32, 1 bfloat16, 2 float16,
 // 3 float64 (flash_f64.cu and the float64 path of grouped_matmul.cu).
@@ -180,6 +185,23 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(a));
   }
+}
+
+// ---- float64 products (DMMA) ------------------------------------------------
+
+// c += a·b on the float64 tensor cores, m16n8k8 (SASS: DMMA). Lane (g, t) =
+// (lane / 4, lane % 4) holds a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] =
+// B[t + 4 i][g] and c[i] = C[g + 8 (i / 2)][2t + i % 2]: the float32 layouts
+// of m16n8k8, one double a register pair. As there, an accumulator whose 8
+// columns are the next product's reduction axis is that product's A
+// fragment (c[0], c[2], c[1], c[3]) when the B rows are read in the order
+// 2t, 2t + 1 (frag_a_acc, frag_b_cols).
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
 // ---- asynchronous copies ----------------------------------------------------

@@ -1,7 +1,8 @@
 // Hopper's warpgroup products and tensor copies for the 16-bit (bf16, f16)
 // flash attention kernels (flash_forward.cu, flash_backward.cu) and grouped
 // expert matmul (grouped_matmul.cu), sm_90a; the swizzled tiles, copies and
-// tensor maps also for the float32 kernels on wgmma_tf32.cuh.
+// tensor maps also for the float32 kernels on wgmma_tf32.cuh and the float64
+// dk/dv kernel of flash_f64.cu (16 doubles a 128-byte block row).
 //
 // * Tiles in shared memory: R rows x 128 bytes a block (swz_cols<T>(): 64
 //   16-bit or 32 float32 columns), 1024-byte aligned, 128B-swizzled:
@@ -572,9 +573,9 @@ __device__ __forceinline__ void copy_box(T* dst, const T* __restrict__ src, long
   if (vec == 0) {
     for (int i = me; i < R * NB * kSwzCols; i += NT) {
       const int r = i / (NB * kSwzCols), c = i % (NB * kSwzCols);
-      const float x = (row0 + r < rows && c0 + c < ld)
-                          ? to_f32(src[(size_t)(row0 + r) * ld + c0 + c])
-                          : 0.f;
+      const auto x = (row0 + r < rows && c0 + c < ld)
+                         ? to_f32(src[(size_t)(row0 + r) * ld + c0 + c])
+                         : 0.f;  // float, or double for float64
       store(dst + tile_at<T, R>(r, c), x);
     }
     return;
@@ -608,8 +609,8 @@ __device__ __forceinline__ void copy_tile(int me, T* dst, const T* __restrict__ 
   if (vec == 0) {
     for (int i = me; i < R * NB * C; i += NT) {
       const int r = i / (NB * C), c = i % (NB * C);
-      const float x = (row0 + r < rows && c < cols) ? to_f32(src[(size_t)(row0 + r) * cols + c])
-                                                    : 0.f;
+      const auto x = (row0 + r < rows && c < cols) ? to_f32(src[(size_t)(row0 + r) * cols + c])
+                                                   : 0.f;  // float, or double for float64
       store(dst + tile_at<T, R>(r, c), x);
     }
     return;
@@ -669,8 +670,8 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous [n, rows, cols] tensor of T (bf16, f16 or
-// float32) read in boxes of box_rows x 128 bytes, 128B-swizzled, zeros
+// The map of a contiguous [n, rows, cols] tensor of T (bf16, f16, float32
+// or float64) read in boxes of box_rows x 128 bytes, 128B-swizzled, zeros
 // outside the tensor. The base and the row (cols · sizeof(T) bytes) must be
 // multiples of 16 bytes.
 template <typename T>
@@ -683,7 +684,8 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int n, int rows, int co
   const cuuint32_t box[3] = {(cuuint32_t)swz_cols<T>(), (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = fn(map,
-                        std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        std::is_same<T, double>::value   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                        : std::is_same<T, float>::value  ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                         : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                         3, const_cast<void*>(base), dims, strides, box, step,

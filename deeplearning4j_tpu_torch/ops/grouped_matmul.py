@@ -32,7 +32,7 @@ for bfloat16/float16 and the output is cast once at the end. The kernel
 takes bfloat16 and float16 (tensor-core products of the 16-bit values,
 float32 sums), float32 (CUDA-core fmaf chains in k order, which agree bit
 for bit with cuBLAS's float32 product, so grouped and sort dispatch agree)
-and float64 (CUDA-core products and sums).
+and float64 (float64 tensor-core products and sums).
 
 The seam (:func:`set_grouped_matmul_impl`) takes ``"auto"`` (the kernel
 wrapper, so the plain version on the CPU), ``"kernel"`` (CUDA tensors only,

@@ -18,7 +18,10 @@ the mma.sync design the float32 3xTF32 wgmma dk/dv kernel replaced, and
 the variants named "(f32 ...)" act on that wgmma kernel; "dq walks 32
 keys" acts on the float32 mma.sync dq kernel; the others on the bf16/f16
 wgmma dq and dk/dv kernels (among them the mma.sync dq design they
-replaced).
+replaced). ``--dtypes float64`` builds ``csrc/flash_f64.cu`` instead, with
+the variants of :data:`VARIANTS_F64` (the SIMT dk/dv design the DMMA kernel
+replaced, and that kernel's walk and block), and holds every build's dq,
+dk and dv to the source's as it is, to 1e-10 of the largest value.
 """
 
 from __future__ import annotations
@@ -114,7 +117,23 @@ VARIANTS = {
         ("      wgmma_rs<1>(dk_acc, ds_lo[kk], bq, 1, T());\n", "")],
 }
 
+#: float64 (csrc/flash_f64.cu): name: [(text in the source, its replacement), ...]
+VARIANTS_F64 = {
+    # the SIMT dk/dv design at every width: 256 threads, a 4 x 4 register
+    # tile each, scalar fma over tiles in shared memory
+    "f64 dk/dv SIMT design": [
+        ("__host__ __device__ constexpr bool use_dmma() { return DMAX <= kDmmaMaxD; }",
+         "__host__ __device__ constexpr bool use_dmma() { return false; }")],
+    "f64 dk/dv walks 16 q rows": [("constexpr int kDmmaWalk = 32;",
+                                   "constexpr int kDmmaWalk = 16;")],
+    "f64 dk/dv 4 warps (64 keys a block)": [("constexpr int kDmmaWarps = 8;",
+                                             "constexpr int kDmmaWarps = 4;")],
+}
+TOL_F64 = 1e-10  # two float64 designs: float64 sums in another order
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
+SYMBOLS_F64 = {"dl4j_flash_bwd_dq_f64": [_P] * 8 + [_I] * 6 + [ctypes.c_double, _I, _I, _I, _P],
+               "dl4j_flash_bwd_dkv_f64": [_P] * 9 + [_I] * 6 + [ctypes.c_double, _I, _I, _I, _P]}
 SYMBOLS = {"dl4j_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P],
            "dl4j_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]}
 
@@ -135,6 +154,8 @@ def main() -> None:
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     print(kv.card())
+    if args.dtypes == "float64":
+        return _float64(args)
     libs = kv.build("bwd", kv.variant_sources("flash_backward", VARIANTS, args.variants,
                                               args.against), SYMBOLS)
     gen = torch.Generator().manual_seed(1)
@@ -185,6 +206,67 @@ def main() -> None:
         print(f"{str(dtype)[6:]:8s} {'sdpa backward (dq, dk, dv)':32s} "
               f"{sorted(t_sdpa)[ROUNDS // 2]:.4f} ms (rounds {[round(x, 4) for x in t_sdpa]})")
         del o_lib
+
+
+def _rel64(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _float64(args) -> None:
+    """The float64 kernels of ``csrc/flash_f64.cu``: each build's dq and
+    dk/dv timed in turn with SDPA's float64 backward, three rounds, and
+    held to the plain versions and to the source's as it is."""
+    libs = kv.build("bwd64", kv.variant_sources("flash_f64", VARIANTS_F64, args.variants,
+                                                args.against), SYMBOLS_F64, focus="dkv")
+    gen = torch.Generator().manual_seed(1)
+    scale = D ** -0.5
+    q, k, v, g = (torch.randn(B, H, T, D, generator=gen).to("cuda", torch.float64)
+                  for _ in range(4))
+    out, lse = fa.flash_attention_plain(q, k, v, None, True)
+    delta = torch.sum(g * out, dim=-1).contiguous()
+    args_ = (q, k, v, g, lse, delta, None, True)
+    ref = (fa.flash_attention_bwd_dq_plain(*args_), *fa.flash_attention_bwd_dkv_plain(*args_))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, first = {}, None
+    for name, lib in libs.items():
+        def run_dq(lib=lib):
+            return lib.dl4j_flash_bwd_dq_f64(*ptrs, None, dq.data_ptr(), B, H, T, T, D, D, scale,
+                                             1, 0, 3, stream)
+
+        def run_dkv(lib=lib):
+            return lib.dl4j_flash_bwd_dkv_f64(*ptrs, None, dk.data_ptr(), dv.data_ptr(), B, H, T,
+                                              T, D, D, scale, 1, 0, 3, stream)
+        if run_dq() or run_dkv():
+            raise RuntimeError(f"{name}: launch failed")
+        torch.cuda.synchronize()
+        errs = [_rel64(a, r) for a, r in zip((dq, dk, dv), ref)]
+        if first is None:
+            first = [x.clone() for x in (dq, dk, dv)]
+        gaps = [_rel64(a, b) for a, b in zip((dq, dk, dv), first)]
+        if max(gaps + errs) > TOL_F64:
+            raise AssertionError(f"{name}: dq/dk/dv off by {errs} from the plain versions, "
+                                 f"{gaps} from the source as it is (tol {TOL_F64:g})")
+        calls[name] = (run_dq, run_dkv, errs, gaps)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), g, retain_graph=True)  # noqa: E731
+    times = {name: ([], []) for name in calls}
+    t_sdpa = []
+    for _ in range(ROUNDS):  # every build in turn, so the comparison is paired
+        for name, (run_dq, run_dkv, _, _) in calls.items():
+            times[name][0].append(kv.ms(run_dq, 3))
+            times[name][1].append(kv.ms(run_dkv, 3))
+        t_sdpa.append(kv.ms(sdpa, 3))
+    for name, (_, _, errs, gaps) in calls.items():
+        t_dq, t_dkv = (sorted(t)[ROUNDS // 2] for t in times[name])
+        print(f"float64  {name:36s} dq {t_dq:.4f} ms, dk/dv {t_dkv:.4f} ms "
+              f"(rounds dq {[round(x, 4) for x in times[name][0]]}, dk/dv "
+              f"{[round(x, 4) for x in times[name][1]]}); rel error dq/dk/dv "
+              f"{['%.1e' % e for e in errs]}; against as it is {['%.1e' % e for e in gaps]}")
+    print(f"float64  {'sdpa backward (dq, dk, dv)':36s} "
+          f"{sorted(t_sdpa)[ROUNDS // 2]:.4f} ms (rounds {[round(x, 4) for x in t_sdpa]})")
 
 
 if __name__ == "__main__":

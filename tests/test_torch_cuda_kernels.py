@@ -5,6 +5,8 @@ dims that are not a multiple of the tile, dv != d, rows that are not
 decode kernel splits over a cluster of blocks; the bf16/f16 wgmma forward,
 dq and dk/dv kernels at head dims that take TMA, cp.async and plain loads,
 and the profiler's names of the 16-bit dq and grouped matmul kernels;
+the float64 dk/dv kernel on the float64 tensor cores at ragged shapes and
+causal offsets, and the profiler's names of the float64 DMMA kernels;
 for the grouped matmul B5
 empty groups, groups over ``m_pad``, rows past the frontier and widths
 that are not whole tiles or whole 16-byte vectors), the attention kernels'
@@ -458,6 +460,64 @@ def test_f32_b1_and_b3_run_the_wgmma_kernels(cuda):
     names = _kernel_names(wide)
     assert any("flash_forward_kernel<" in n for n in names), names
     assert any("flash_bwd_dkv_kernel<" in n for n in names), names
+
+
+def test_f64_b3_and_b5_run_the_dmma_kernels(cuda):
+    """A float64 dk/dv launch at d 64 and a float64 grouped matmul run the
+    float64 tensor-core (DMMA) kernels, as the profiler names them: B5 the
+    TMA-fed one where d and h are even, the cp.async one where they are
+    odd; at d 128 dk/dv stays on the SIMT kernel."""
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, g, mask, lse, delta = _bwd_inputs(gen, torch.float64, cuda, 2, 3, 130, 130, 64,
+                                               64, True, True)
+    wq, wk, wv, wg, _, wlse, wdelta = _bwd_inputs(gen, torch.float64, cuda, 1, 2, 70, 70, 128,
+                                                  128, True, False)
+    lhs, gs, rhs = _gmm_case(gen, 600, 128, 192, (250, 0, 300), torch.float64, cuda)
+
+    def narrow():
+        pfa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, mask, True, 0.125)
+        ops.grouped_matmul(lhs, gs, rhs)
+
+    names = _kernel_names(narrow)
+    assert any("flash_bwd_dkv_dmma_kernel" in n for n in names), names
+    assert any("grouped_matmul_dmma_kernel" in n for n in names), names
+    assert not any("flash_bwd_dkv_f64_kernel" in n or "grouped_matmul_tc_kernel" in n
+                   for n in names), names
+    olhs, ogs, orhs = _gmm_case(gen, 77, 33, 17, (20, 0, 40), torch.float64, cuda)
+    names = _kernel_names(lambda: ops.grouped_matmul(olhs, ogs, orhs))
+    assert any("grouped_matmul_tc_kernel<double>" in n for n in names), names
+    names = _kernel_names(
+        lambda: pfa._flash_bwd_dkv_cuda(wq, wk, wv, wg, wlse, wdelta, None, True, 0.09))
+    assert any("flash_bwd_dkv_f64_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("tq,tk,d,dv,off", [
+    (77, 150, 32, 32, 23),      # DMAX 32
+    (77, 150, 20, 32, -40),     # DMAX 32, columns past d inside a TMA block
+    (150, 99, 64, 64, 300),     # tq > tk, offset past the last key
+    (77, 300, 33, 33, 23),      # 264-byte rows: copied by the threads, not TMA
+    (200, 333, 64, 48, -40),    # dv 48: a 16-column block wholly past dv
+    (129, 260, 64, 64, None),   # tk off the 128-key blocks, the default offset
+    (300, 129, 64, 64, None),   # tq off the 32-row walk, tq > tk
+])
+def test_f64_dkv_dmma_kernel_at_ragged_shapes(cuda, tq, tk, d, dv, off):
+    """The float64 DMMA dk/dv kernel against its plain version to 1e-10 of
+    the largest gradient, causal at explicit offsets, with a key mask and a
+    fully masked batch row (zero gradients), twice bit for bit."""
+    gen = torch.Generator().manual_seed(tq + tk + d + dv)
+    q, k, v, g, mask, _, _ = _bwd_inputs(gen, torch.float64, cuda, 2, 3, tq, tk, d, dv, True,
+                                         True)
+    out, lse = ops.flash_attention_plain(q, k, v, mask, True, causal_offset=off)
+    delta = torch.sum(g * out, dim=-1).contiguous()
+    args = (q, k, v, g, lse, delta, mask, True, d ** -0.5, off)
+    dk, dv_ = pfa._flash_bwd_dkv_cuda(*args)
+    dk2, dv2 = pfa._flash_bwd_dkv_cuda(*args)
+    r_dk, r_dv = ops.flash_attention_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv_, dv2)
+    assert _rel_err(dk, r_dk) <= BWD_REL_TOL[torch.float64]
+    assert _rel_err(dv_, r_dv) <= BWD_REL_TOL[torch.float64]
+    assert bool((dk[-1] == 0).all()) and bool((dv_[-1] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", ALL)
